@@ -1,0 +1,38 @@
+"""Family-dispatching model construction for the apps (port of
+``models/factory.py``).
+
+An espnet-schema config carries a ``model.mask`` block; that family is
+ported in a later slice, so it raises here.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from transformer_transducer_tpu_torch.models.transducer import build_transducer
+
+
+def build_family(cfg, d_in: int, device=None, flash: bool = False):
+    """The model of a full config; ``d_in`` is the stacked feature
+    dimension, which the native family takes as ``d_model``."""
+    if cfg.model.mask is not None:
+        raise NotImplementedError(
+            "the espnet family (models/espnet_variant.py) is ported in a later "
+            "slice of the PyTorch port")
+    if d_in != cfg.model.enc.d_model:
+        raise ValueError(f"stacked features ({d_in}) must equal enc.d_model "
+                         f"({cfg.model.enc.d_model}): the encoder has no input "
+                         "projection")
+    return build_transducer(cfg.model, flash=flash, device=device)
+
+
+def load_family(cfg, d_in: int, checkpoint=None, device=None,
+                flash: bool = False):
+    """``build_family`` + an optional port ``state_dict`` file written with
+    ``torch.save(model.state_dict(), path)``."""
+    model = build_family(cfg, d_in, device=device, flash=flash)
+    if checkpoint is not None:
+        state = torch.load(checkpoint, map_location=next(model.parameters()).device,
+                           weights_only=True)
+        model.load_state_dict(state)
+    return model
