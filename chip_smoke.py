@@ -21,7 +21,31 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 5. timings (medians after warm-up; CUDA events for device work, the host
    clock around synchronised calls): each kernel, its plain version, its
    bound, the end-to-end ``recognize``, and that split into the encoder and
-   the greedy loop, with the device's idle share from ``torch.profiler``.
+   the greedy loop, with the device's idle share from ``torch.profiler``;
+6. training at full width: the same config with dropout 0, a batch of 4
+   utterances (60-410 frames, 5-42 targets), 3 SGD steps (momentum 0.9,
+   clip 200) with ``flash=True`` and then ``banded=True``, each with the
+   launch counts read around every step (18 attention forward and 18
+   backward launches, 1 alpha and 1 beta sweep), then the same steps through
+   the plain versions: losses within 1e-4 and step 1's gradient norm within
+   1e-3, relative;
+7. the training entry point: ``apps/train.py --flash`` on a synthetic corpus
+   (16 train, 8 dev utterances, a 6485-symbol vocabulary) for one epoch,
+   then ``-mode continue`` for a second: two checkpoints, decode dumps and a
+   finite CER;
+8. training timings: the new kernels against their plain versions and
+   bounds, and the flagship train step (config dropout 0.5) for
+   ``--flash``, ``--banded`` and dense attention, end to end and split into
+   encoder forward, loss forward, backward and optimizer, with the device's
+   idle share and peak memory.
+
+Kernel checks in phase 3: each forward against its plain version (atol
+1e-4, rtol 1e-4); the attention backward against autograd through the
+plain version (atol 1e-4 * max|ref| + 1e-5, rtol 1e-4: the shared sums are
+fp32 atomics in a varying order, and where a gradient is 0 in exact
+arithmetic, as every softmax gradient at T = 1, only rounding is left); the
+lattice sweeps against the eager scans (rtol 1e-5, atol 1e-3: log-alphas
+reach thousands).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -29,11 +53,14 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -49,6 +76,11 @@ T_MAIN, BAND = 410, (10, 2)
 KERNEL_TOL = dict(atol=1e-4, rtol=1e-4)
 ENC_TOL = 1e-3
 GAP_TOL = 1e-3
+LATTICE_TOL = dict(rtol=1e-5, atol=1e-3)
+GRAD_TOL = 1e-4          # atol GRAD_TOL * max|ref| + GRAD_FLOOR, rtol GRAD_TOL
+GRAD_FLOOR = 1e-5        # for gradients that are 0 in exact arithmetic (T = 1)
+B_TRAIN = 4              # configs/joint_streaming.yaml data.batch_size
+LOSS_RTOL, NORM_RTOL = 1e-4, 1e-3
 
 
 def log(*args):
@@ -132,13 +164,13 @@ def split_ms(encode, decode, samples: int = 10):
     return statistics.median(enc_ms), statistics.median(dec_ms)
 
 
-def attention_inputs(tlen, k_len, gen):
+def attention_inputs(tlen, k_len, gen, b=B):
     """q, k, v as strided views of one fused projection (as the model hands
     them over), and tables of ``k_len`` rows sliced/front-padded to T."""
     import torch
     from transformer_transducer_tpu_torch.models.attention import slice_pos_table
     mk = lambda *s: torch.randn(*s, generator=gen, device="cuda") * 0.5
-    q, k, v = mk(B, tlen, 3, H, DH).unbind(2)
+    q, k, v = mk(b, tlen, 3, H, DH).unbind(2)
     re = slice_pos_table(mk(k_len, H, DH), tlen)
     rb = slice_pos_table(mk(k_len, H), tlen)
     return q, k, v, re, mk(H, DH), rb
@@ -165,13 +197,232 @@ def device_busy_ms(fn):
                if e.device_type == DeviceType.CUDA) / 1e3
 
 
+def roofline(n_bytes, n_ops):
+    """(least ms, "bytes" or "operations") at the card's published peaks."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / FP32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def bound(tlen, cells):
     """Least time for the work: each input read once, the output written
     once; 2*Dh FLOP each for AC, BD and AV per live cell."""
     elems = 4 * B * tlen * H * DH + tlen * H * DH + H * DH + tlen * H
-    t_bytes = 4 * elems / HBM_BYTES_PER_S
-    t_ops = B * H * cells * 6 * DH / FP32_FLOP_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    return roofline(4 * elems, B * H * cells * 6 * DH)
+
+
+def backward_bound(b, tlen, cells):
+    """Least time for the attention backward: q, k, v, dO and the tables
+    read once, dq, dk, dv and the table gradients written once; about 16*Dh
+    FLOP per live cell (scores again, dp, dv, dk, dq from AC and BD, and the
+    table gradient)."""
+    elems = 7 * b * tlen * H * DH + 2 * (tlen * H * DH + H * DH + tlen * H)
+    return roofline(4 * elems, b * H * cells * 16 * DH)
+
+
+def lattice_bound(b, d_total, u1, n_grids):
+    """Least time for a lattice sweep: ``n_grids`` (B, D, U1) fp32 arrays
+    read or written once; about 10 operations per cell (two adds and the
+    log-add-exp), far below the bytes."""
+    return roofline(4 * n_grids * b * d_total * u1, 10 * b * d_total * u1)
+
+
+def lattice_inputs(b, tlen, u, gen, with_empty=True):
+    """Skewed blank/label grids and the terminal inject as the loss builds
+    them (``ops/rnnt_loss.lattice_grids``, ``terminal_inject``): log-probs of
+    random logits over 64 classes; row 0 at full length, row 1 with no
+    frames (when ``with_empty``), the rest of random lengths."""
+    import torch
+    from transformer_transducer_tpu_torch.ops import rnnt_loss
+    logp = torch.log_softmax(torch.randn(b, tlen, u + 1, 64, generator=gen,
+                                         device="cuda") * 2, dim=-1)
+    lp_b, lp_l = logp[..., 0], logp[..., 1]
+    t_len = torch.randint(1, tlen + 1, (b,), generator=gen, device="cuda")
+    u_len = torch.randint(0, u + 1, (b,), generator=gen, device="cuda")
+    t_len[0], u_len[0] = tlen, u
+    if with_empty and b > 1:
+        t_len[1] = 0
+    sb, sl, t_len, u_len = rnnt_loss.lattice_grids(lp_b, lp_l, t_len, u_len)
+    return sb, sl, rnnt_loss.terminal_inject(sb, t_len, u_len)[1]
+
+
+def attention_grads(fn, leaves, gout):
+    """The output and the six gradients (q, k, v, un-sliced r_emb, r_w_bias,
+    r_bias) of ``fn`` on the leaves ``(qkv, r_emb, r_w_bias, r_bias)``."""
+    from transformer_transducer_tpu_torch.models.attention import slice_pos_table
+    for x in leaves:
+        x.grad = None
+    qkv, re, u, rb = leaves
+    q, k, v = qkv.unbind(2)
+    tlen = q.shape[1]
+    out = fn(q, k, v, slice_pos_table(re, tlen), u, slice_pos_table(rb, tlen))
+    out.backward(gout)
+    return [out.detach(), *qkv.grad.unbind(2), re.grad, u.grad, rb.grad]
+
+
+def check_training_kernels(gen):
+    """Phase 3, the training kernels: the lattice sweeps against the eager
+    scans and the attention backward against autograd through the plain
+    versions; returns the largest abs error of each kernel."""
+    import torch
+    from transformer_transducer_tpu_torch.ops.cuda.banded_attention import (
+        banded_attention, banded_attention_plain)
+    from transformer_transducer_tpu_torch.ops.cuda.flash_rel_attention import (
+        flash_rel_attention, flash_rel_attention_plain)
+    from transformer_transducer_tpu_torch.ops.cuda.rnnt_kernel import (
+        alpha_scan, alpha_scan_plain, beta_scan, beta_scan_plain)
+    errs = {"alpha": 0.0, "beta": 0.0, "banded_bwd": 0.0, "flash_bwd": 0.0}
+    log(f"lattice sweeps vs eager scans (rtol {LATTICE_TOL['rtol']}, atol "
+        f"{LATTICE_TOL['atol']}):")
+    shapes = [(B_TRAIN, T_MAIN, 42)] + [(B_TRAIN, t, u) for t in (1, 37, 410)
+                                        for u in (0, 1, 42)]
+    for b, tlen, u in shapes:
+        sb, sl, inject = lattice_inputs(b, tlen, u, gen)
+        pairs = (("alpha", alpha_scan(sb, sl), alpha_scan_plain(sb, sl)),
+                 ("beta", beta_scan(sb, sl, inject),
+                  beta_scan_plain(sb, sl, inject)))
+        torch.cuda.synchronize()
+        line = []
+        for name, got, ref in pairs:
+            err = (got - ref).abs().max().item()
+            torch.testing.assert_close(got, ref, **LATTICE_TOL)
+            errs[name] = max(errs[name], err)
+            line.append(f"{name} {err:.3e}")
+        log(f"  B={b} T={tlen:3d} U={u:2d}: max|err| " + ", ".join(line))
+
+    log(f"attention backward vs autograd through the plain versions (atol "
+        f"{GRAD_TOL} * max|ref| + {GRAD_FLOOR}, rtol {GRAD_TOL}):")
+    names = ("out", "dq", "dk", "dv", "d_r_emb", "d_r_w_bias", "d_r_bias")
+    for tlen in (1, 37, 410, 513):
+        for band in (None, (10, 2), (0, 0), (64, 64)):
+            mk = lambda *s: (torch.randn(*s, generator=gen, device="cuda")
+                             * 0.5).requires_grad_()
+            leaves = [mk(B_TRAIN, tlen, 3, H, DH), mk(T_MAIN, H, DH), mk(H, DH),
+                      mk(T_MAIN, H)]
+            gout = torch.randn(B_TRAIN, tlen, H, DH, generator=gen, device="cuda")
+            if band is None:
+                key, kern, plain = "flash_bwd", flash_rel_attention, \
+                    flash_rel_attention_plain
+            else:
+                key = "banded_bwd"
+                kern = lambda *a, band=band: banded_attention(*a, *band)
+                plain = lambda *a, band=band: banded_attention_plain(*a, *band)
+            got = attention_grads(kern, leaves, gout)
+            ref = attention_grads(plain, leaves, gout)
+            torch.cuda.synchronize()
+            line = []
+            for name, a, r in zip(names, got, ref):
+                err = (a - r).abs().max().item()
+                torch.testing.assert_close(
+                    a, r, atol=GRAD_TOL * r.abs().max().item() + GRAD_FLOOR,
+                    rtol=GRAD_TOL, msg=f"T={tlen} band={band} {name}")
+                if name != "out":
+                    errs[key] = max(errs[key], err)
+                line.append(f"{name} {err:.2e}")
+            label = "flash " if band is None else f"banded ({band[0]},{band[1]})"
+            log(f"  {label} T={tlen:3d}: " + ", ".join(line))
+    return errs
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Route the attention and lattice wrappers to their plain versions on
+    the card (the comparisons' reference path)."""
+    from transformer_transducer_tpu_torch.ops import rnnt_loss
+    from transformer_transducer_tpu_torch.ops.cuda import banded_attention as ba
+    from transformer_transducer_tpu_torch.ops.cuda import flash_rel_attention as fa
+    from transformer_transducer_tpu_torch.ops.cuda import rnnt_kernel as rk
+    saved = (ba.banded_attention, fa.flash_rel_attention, rnnt_loss.alpha_scan,
+             rnnt_loss.beta_scan)
+    ba.banded_attention = ba.banded_attention_plain
+    fa.flash_rel_attention = fa.flash_rel_attention_plain
+    rnnt_loss.alpha_scan, rnnt_loss.beta_scan = rk.alpha_scan_plain, rk.beta_scan_plain
+    try:
+        yield
+    finally:
+        (ba.banded_attention, fa.flash_rel_attention, rnnt_loss.alpha_scan,
+         rnnt_loss.beta_scan) = saved
+
+
+@functools.lru_cache(maxsize=None)
+def counters():
+    """The launch counters of every kernel wrapper, by name (the wrappers
+    themselves, read before ``plain_versions`` can swap them out)."""
+    from transformer_transducer_tpu_torch.ops.cuda import banded_attention as ba
+    from transformer_transducer_tpu_torch.ops.cuda import flash_rel_attention as fa
+    from transformer_transducer_tpu_torch.ops.cuda import rnnt_kernel as rk
+    return {"banded_fwd": ba.banded_attention, "banded_bwd": ba.banded_attention_backward,
+            "flash_fwd": fa.flash_rel_attention,
+            "flash_bwd": fa.flash_rel_attention_backward,
+            "alpha": rk.alpha_scan, "beta": rk.beta_scan}
+
+
+def reset_counts():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def training_batch(cfg, device, seed):
+    """B_TRAIN synthetic utterances of 60-410 frames through the dataset's
+    host frontend (log-mel eps, stack, subsample), padded to
+    max_input_length, with 5-42 random targets; and its seconds of audio."""
+    import numpy as np
+    from transformer_transducer_tpu_torch.ops import features_np as F
+    from transformer_transducer_tpu_torch.training.train_step import batch_to_device
+    from transformer_transducer_tpu_torch.utils.config import (
+        stack_context, subsample_factor)
+    waves = synthetic_waves(B_TRAIN, seed)
+    left, right = stack_context(cfg.data)
+    feats = [F.subsample(F.stack_frames(F.logmel_eps(w, 16000, cfg.data.feature_dim),
+                                        left, right), subsample_factor(cfg.data))
+             for w in waves]
+    t_max, u_max = cfg.data.max_input_length, cfg.data.max_target_length
+    x = np.zeros((B_TRAIN, t_max, feats[0].shape[1]), np.float32)
+    for i, f in enumerate(feats):
+        x[i, :min(len(f), t_max)] = f[:t_max]
+    rng = np.random.default_rng(seed)
+    u_len = np.linspace(5, u_max, B_TRAIN).astype(np.int64)
+    targets = np.zeros((B_TRAIN, u_max), np.int64)
+    for i, n in enumerate(u_len):
+        targets[i, :n] = rng.integers(1, cfg.model.vocab_size, n)
+    batch = {"inputs": x, "inputs_length": np.array([min(len(f), t_max) for f in feats]),
+             "targets": targets, "targets_length": u_len}
+    return batch_to_device(batch, device), sum(len(w) for w in waves) / 16000.0
+
+
+def make_trainee(model_cfg, optim_cfg, state, mode, device):
+    """A model in train mode with ``state``, its SGD optimizer (momentum,
+    clip 200 as the trainer builds it) and its train step (SpecAugment on)."""
+    from transformer_transducer_tpu_torch.models.transducer import build_transducer
+    from transformer_transducer_tpu_torch.training.optim import build_optimizer
+    from transformer_transducer_tpu_torch.training.train_step import (
+        TrainStepConfig, make_train_step)
+    model = build_transducer(model_cfg, flash=mode == "flash",
+                             banded=mode == "banded", device=device)
+    model.load_state_dict(state)
+    model.train()
+    opt = build_optimizer(optim_cfg, list(model.parameters()), max_grad_norm=200.0)
+    return model, opt, make_train_step(model, opt, TrainStepConfig())
+
+
+def train_three_steps(model_cfg, optim_cfg, state, mode, batch, device, plain):
+    """Phase 6: 3 steps from ``state`` with the SpecAugment stream seeded
+    alike; per step (loss, raw gradient norm, launch counts)."""
+    import torch
+    model, opt, step = make_trainee(model_cfg, optim_cfg, state, mode, device)
+    gen = torch.Generator().manual_seed(0)
+    out = []
+    with plain_versions() if plain else contextlib.nullcontext():
+        for _ in range(3):
+            reset_counts()          # the main path: counts from 0, read after
+            m = step(batch, gen)
+            torch.cuda.synchronize()
+            out.append((float(m["loss"]), float(m["grad_norm"]), read_counts()))
+    return out
 
 
 def check_kernels(gen):
@@ -265,6 +516,88 @@ def compare_tokens(name, got, ref, model, enc_k, enc_p, t_len, max_tokens):
                                  f"utterance {u}, frame {frame} (gap {gap:.3e})")
 
 
+def load_flagship():
+    """``configs/joint_streaming.yaml`` as a port ``Config``."""
+    from transformer_transducer_tpu_torch.utils.config import Config, parse_yaml
+    with open(os.path.join(HERE, "configs", "joint_streaming.yaml"),
+              encoding="utf-8") as fh:
+        return Config(parse_yaml(fh.read()))
+
+
+def write_corpus(root, cfg) -> str:
+    """16 train and 8 dev synthetic waves with random labels over a vocabulary
+    of ``vocab_size`` symbols, and the flagship config pointing at them;
+    returns the config's path."""
+    import numpy as np
+    from transformer_transducer_tpu_torch.data.wav import write_wave
+    from transformer_transducer_tpu_torch.utils.config import dump_config
+    from transformer_transducer_tpu_torch.utils.vocab import Vocabulary
+    chars = [chr(0x4E00 + i) for i in range(cfg.model.vocab_size - 2)]
+    vocab_path = os.path.join(root, "vocab.txt")
+    Vocabulary.from_symbols(chars + ["<unk>"]).save(vocab_path)
+    rng = np.random.default_rng(3)
+    cli_cfg = load_flagship()
+    cli_cfg.override("data.vocab", vocab_path)
+    for split, n, seed in (("train", 16, 2), ("dev", 8, 3)):
+        lines = ["file_path,label"]
+        for i, wave in enumerate(synthetic_waves(n, seed)):
+            path = os.path.join(root, f"{split}_{i}.wav")
+            write_wave(path, wave)
+            n_tok = int(rng.integers(5, cfg.data.max_target_length + 1))
+            lines.append(path + "," + "".join(rng.choice(chars, n_tok)))
+        csv_path = os.path.join(root, f"{split}.csv")
+        with open(csv_path, "w", encoding="utf-8") as fh:
+            fh.write("\n".join(lines) + "\n")
+        cli_cfg.override(f"data.{split}", csv_path)
+    cli_cfg.override("data.test", cli_cfg.data.dev)
+    cfg_path = os.path.join(root, "config.yaml")
+    dump_config(cli_cfg, cfg_path)
+    return cfg_path
+
+
+def split_step(model, opt, batch, gen, samples: int = 5) -> dict:
+    """Median host ms of a train step's phases, each ended by a synchronise:
+    encoder forward (SpecAugment + ``encode_both``), loss forward (the fused
+    joint and the lattice), backward, optimizer (gradient norm + update)."""
+    import torch
+    from transformer_transducer_tpu_torch.ops.rnnt_loss import (
+        joint_params, rnnt_loss_fused)
+    from transformer_transducer_tpu_torch.ops.specaug import spec_augment
+    from transformer_transducer_tpu_torch.training.optim import global_norm
+    from transformer_transducer_tpu_torch.training.train_step import TrainStepConfig
+    cfg = TrainStepConfig()
+    names = ("encoder forward", "loss forward", "backward", "optimizer")
+    times = {n: [] for n in names}
+    for r in range(samples + 1):
+        torch.cuda.synchronize()
+        marks = [time.perf_counter()]
+        model.train()
+        for p in opt.params:
+            p.grad = None
+        x = spec_augment(gen, batch["inputs"], cfg.max_mask_time,
+                         cfg.max_mask_frequency, cfg.mask_num)
+        enc, dec = model.encode_both(x, batch["targets"])
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        loss = rnnt_loss_fused(enc, dec, joint_params(model), batch["targets"],
+                               batch["inputs_length"], batch["targets_length"],
+                               chunk_size=cfg.loss_chunk_size, remat=cfg.loss_remat)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        loss.backward()
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in opt.params]
+        global_norm(grads)
+        opt.step(grads)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        if r:                                   # round 0 warms up
+            for name, a, b in zip(names, marks, marks[1:]):
+                times[name].append((b - a) * 1e3)
+    return {n: statistics.median(v) for n, v in times.items()}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -286,7 +619,7 @@ def main() -> int:
         flash_rel_attention, flash_rel_attention_plain)
     from transformer_transducer_tpu_torch.ops.masks import context_mask
     from transformer_transducer_tpu_torch.utils.config import (
-        Config, parse_yaml, stack_context, subsample_factor)
+        Config, stack_context, subsample_factor)
     from transformer_transducer_tpu_torch.utils.convert import (
         from_jax_params, random_jax_params)
     from transformer_transducer_tpu_torch.utils.device import resolve_device
@@ -317,11 +650,10 @@ def main() -> int:
     log("kernels vs plain versions (atol 1e-4, rtol 1e-4):")
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = check_kernels(gen)
+    errs.update(check_training_kernels(gen))
 
     # ---- 4. the slice at full width
-    with open(os.path.join(HERE, "configs", "joint_streaming.yaml"),
-              encoding="utf-8") as fh:
-        cfg = Config(parse_yaml(fh.read()))
+    cfg = load_flagship()
     left_ctx, right_ctx = stack_context(cfg.data)
     n_mels = cfg.data.feature_dim
     max_tokens = cfg.data.max_target_length + 1
@@ -369,18 +701,18 @@ def main() -> int:
     log(f"blank logit biased by {offset:.3f}")
 
     # the main path: counts set to 0 just before, read just after
-    banded_attention.launches = 0
-    flash_rel_attention.launches = 0
+    reset_counts()
     tok_band = recognize(model, x, t_len, band=band, max_tokens=max_tokens)
     tok_full = recognize(model_flash, x, t_len, max_tokens=max_tokens)
     torch.cuda.synchronize()
-    launches = {"banded": banded_attention.launches,
-                "flash": flash_rel_attention.launches}
+    counts = read_counts()
+    launches = {"banded": counts["banded_fwd"], "flash": counts["flash_fwd"]}
     log(f"main path launches: banded {launches['banded']}, flash "
         f"{launches['flash']} (18 per encode expected)")
     n_layer = cfg.model.enc.n_layer
-    require(launches == {"banded": n_layer, "flash": n_layer},
-            f"the main path did not launch each kernel once a layer: {launches}")
+    require(counts == {"banded_fwd": n_layer, "flash_fwd": n_layer, "banded_bwd": 0,
+                       "flash_bwd": 0, "alpha": 0, "beta": 0},
+            f"the main path did not launch each kernel once a layer: {counts}")
 
     n_frames = int(t_len.sum())
     for name, toks in (("band", tok_band), ("full-context", tok_full)):
@@ -490,6 +822,178 @@ def main() -> int:
             f"call, encode {enc_ms:.2f} ms + greedy loop {dec_ms:.2f} ms (host "
             f"clock); device busy {busy:.2f} ms of one recognize, idle share "
             f"{share} of the median recognize")
+    # ---- 6. training at full width: kernels, then the plain versions
+    del models, model, model_flash, enc, dec, logits, enc_band_k, enc_band_p, \
+        enc_full_k, enc_full_p
+    torch.cuda.empty_cache()
+    model_cfg0 = load_flagship().model
+    model_cfg0.override("dropout", 0.0)           # --set model.dropout=0
+    optim_cfg = Config({"type": "sgd", "lr": cfg.optim.lr, "momentum": 0.9})
+    batch, batch_audio_s = training_batch(cfg, device, seed=1)
+    log(f"training batch: {B_TRAIN} utterances, {batch_audio_s:.2f} s of audio, "
+        f"frames {batch['inputs_length'].tolist()}, targets "
+        f"{batch['targets_length'].tolist()}; SGD lr {cfg.optim.lr}, momentum "
+        f"0.9, clip 200; dropout 0 for the comparison")
+    per_step = {"flash": {"flash_fwd": n_layer, "flash_bwd": n_layer},
+                "banded": {"banded_fwd": n_layer, "banded_bwd": n_layer}}
+    train_launches = dict.fromkeys(read_counts(), 0)
+    for mode in ("flash", "banded"):
+        kern = train_three_steps(model_cfg0, optim_cfg, state, mode, batch,
+                                 device, plain=False)
+        plain = train_three_steps(model_cfg0, optim_cfg, state, mode, batch,
+                                  device, plain=True)
+        want = dict.fromkeys(train_launches, 0)
+        want.update(per_step[mode], alpha=1, beta=1)
+        for i, ((lk, nk, ck), (lp, norm_p, cp)) in enumerate(zip(kern, plain)):
+            rel = abs(lk - lp) / abs(lp)
+            log(f"  {mode} step {i + 1}: loss kernel {lk:.6f} / plain {lp:.6f} "
+                f"(rel {rel:.2e}), grad norm {nk:.5f} / {norm_p:.5f}; "
+                f"launches {ck}")
+            require(ck == want, f"{mode} step {i + 1}: launches {ck}, want {want}")
+            require(not any(cp.values()), f"{mode} plain step launched {cp}")
+            require(rel <= LOSS_RTOL, f"{mode} step {i + 1}: losses differ by {rel:.2e}")
+            for name, n in ck.items():
+                train_launches[name] += n
+        rel = abs(kern[0][1] - plain[0][1]) / abs(plain[0][1])
+        log(f"  {mode}: step 1 grad norm rel diff {rel:.2e} (tolerance {NORM_RTOL})")
+        require(rel <= NORM_RTOL, f"{mode}: step 1 grad norms differ by {rel:.2e}")
+
+    # ---- 7. the training entry point: one epoch, then -mode continue
+    from transformer_transducer_tpu_torch.apps import train as train_app
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path = write_corpus(tmp, cfg)
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            reset_counts()
+            start = time.perf_counter()
+            first = train_app.main(["-config", cfg_path, "--flash", "--epochs", "1"])
+            second = train_app.main(["-config", cfg_path, "--flash", "-mode",
+                                     "continue", "--epochs", "2"])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - start
+            cli_counts = read_counts()
+        finally:
+            os.chdir(cwd)
+        exp = os.path.join(tmp, first.exp_dir)
+        with open(os.path.join(exp, "metrics.jsonl"), encoding="utf-8") as fh:
+            cers = [r["value"] for r in map(json.loads, fh) if r["tag"] == "cer"]
+        log(f"apps/train.py --flash: 2 epochs (the second by -mode continue) in "
+            f"{cli_s:.1f} s, {second.global_step} steps, CER per epoch {cers}, "
+            f"launches {cli_counts}")
+        require(second.start_epoch == 1 and second.global_step == 2 * 4,
+                f"continue mode resumed at epoch {second.start_epoch}, step "
+                f"{second.global_step}")
+        for epoch in (0, 1):
+            require(os.path.exists(os.path.join(exp, f"epoch_{epoch}", "model.pt")),
+                    f"no epoch_{epoch} checkpoint")
+            require(os.path.getsize(os.path.join(exp, f"decode_{epoch}.txt")) > 0,
+                    f"no decode dump for epoch {epoch}")
+        require(len(cers) == 2 and all(np.isfinite(cers)), f"CER {cers}")
+        require(all(cli_counts[k] > 0 for k in ("flash_fwd", "flash_bwd", "alpha", "beta"))
+                and cli_counts["banded_fwd"] == cli_counts["banded_bwd"] == 0,
+                f"the entry point did not run the flash and lattice kernels: {cli_counts}")
+        del first, second
+    torch.cuda.empty_cache()
+
+    # ---- 8. training timings (B=4, T=410, H=8, Dh=64)
+    from transformer_transducer_tpu_torch.ops.cuda import common
+    from transformer_transducer_tpu_torch.ops.cuda.banded_attention import (
+        banded_attention_backward)
+    from transformer_transducer_tpu_torch.ops.cuda.flash_rel_attention import (
+        flash_rel_attention_backward)
+    from transformer_transducer_tpu_torch.ops.cuda.rnnt_kernel import (
+        alpha_scan, alpha_scan_plain, beta_scan, beta_scan_plain)
+    log(f"training timings on {smi}:")
+    for rec in records:          # the forward kernels ran in training too
+        rec["launches"] += train_launches[f"{rec['name'].split('_')[0]}_fwd"]
+    sb, sl, inject = lattice_inputs(B_TRAIN, T_MAIN, 42, gen, with_empty=False)
+    d_total, u1 = sb.shape[1], sb.shape[2]
+    for name, key, replaces, kern, plain, n_grids in (
+            ("rnnt_alpha", "alpha", "rnnt_kernel.py:158",
+             lambda: alpha_scan(sb, sl), lambda: alpha_scan_plain(sb, sl), 3),
+            ("rnnt_beta", "beta", "rnnt_kernel.py:190",
+             lambda: beta_scan(sb, sl, inject),
+             lambda: beta_scan_plain(sb, sl, inject), 4)):
+        ms, plain_ms = cuda_ms(kern), cuda_ms(plain, samples=5, reps=2)
+        bound_ms, bound_by = lattice_bound(B_TRAIN, d_total, u1, n_grids)
+        log(f"  {name} (B={B_TRAIN}, D={d_total}, U1={u1}): kernel {ms:.4f} ms "
+            f"({1e3 * ms / (d_total - 1):.3f} us per dependent diagonal), plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
+            f"{train_launches[key] // 6} launch per step")
+        records.append({
+            "name": name, "route": "cuda", "source": f"{PKG}/csrc/rnnt_lattice.cu",
+            "replaces": f"transformer_transducer_tpu/ops/pallas/{replaces}",
+            "launches": train_launches[key], "max_abs_err": errs[key], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None})
+
+    args = attention_inputs(T_MAIN, 410, gen, b=B_TRAIN)
+    gout = torch.randn(B_TRAIN, T_MAIN, H, DH, generator=gen, device="cuda")
+    leaves = [a.detach().requires_grad_() for a in args]
+    q, k, v, re, u, rb = args
+    qh, kh, vh = (z.transpose(1, 2).detach().requires_grad_() for z in (q, k, v))
+    with torch.no_grad():
+        from transformer_transducer_tpu_torch.models.attention import rel_shift
+        bd = rel_shift(torch.einsum("bind,jnd->bnij", q, re) + rb.t()[None, :, None, :])
+        add = (bd + torch.einsum("nd,bjnd->bnj", u, k)[:, :, None, :]) / DH ** 0.5
+        add_band = add.masked_fill(context_mask(T_MAIN, *band, device=device),
+                                   float("-inf"))
+    for name, key, fn, bwd, plain_fn, extra, mask_add, cells, replaces in (
+            ("banded_attention_bwd", "banded", "ttx_banded_attention_fwd",
+             banded_attention_backward, banded_attention_plain, band, add_band,
+             band_cells(T_MAIN, *band), "banded_attention.py:346"),
+            ("flash_rel_attention_bwd", "flash", "ttx_flash_rel_attention_fwd",
+             flash_rel_attention_backward, flash_rel_attention_plain, (), add,
+             T_MAIN * T_MAIN, "flash_rel_attention.py:288")):
+        out, lse, _ = common.launch_forward(fn, args, tuple(extra), with_lse=True)
+        out_p = plain_fn(*leaves, *extra)
+        # yardstick only: SDPA's backward on q, k, v with BD as a
+        # precomputed additive mask (no table gradients); never in the port
+        out_s = torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask_add)
+        ms = cuda_ms(lambda: bwd(*args, out, lse, gout, *extra))
+        plain_ms = cuda_ms(lambda: torch.autograd.grad(out_p, leaves, gout,
+                                                       retain_graph=True))
+        yard_ms = cuda_ms(lambda: torch.autograd.grad(
+            out_s, (qh, kh, vh), gout.transpose(1, 2), retain_graph=True))
+        bound_ms, bound_by = backward_bound(B_TRAIN, T_MAIN, cells)
+        log(f"  {name}: kernel {ms:.4f} ms, plain (autograd) {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f} % "
+            f"of bound; SDPA backward with BD as a precomputed mask (yardstick) "
+            f"{yard_ms:.4f} ms; {n_layer} launches per step")
+        records.append({
+            "name": name, "route": "cuda", "source": f"{PKG}/csrc/rel_attention.cu",
+            "replaces": f"transformer_transducer_tpu/ops/pallas/{replaces}",
+            "launches": train_launches[f"{key}_bwd"],
+            "max_abs_err": errs[f"{key}_bwd"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "sdpa_bd_mask_yardstick_ms": yard_ms})
+    del args, leaves, out, lse, out_p, out_s, bd, add, add_band
+    torch.cuda.empty_cache()
+
+    # the flagship train step, config dropout 0.5, SpecAugment on
+    for mode in ("flash", "banded", "dense"):
+        model, opt, step = make_trainee(cfg.model, optim_cfg, state, mode, device)
+        sa = torch.Generator().manual_seed(0)
+        run = lambda: step(batch, sa)
+        ms = host_ms({mode: run})[mode]
+        parts = split_step(model, opt, batch, sa)
+        busy = device_busy_ms(run)
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        med = statistics.median(ms)
+        share = (f"{100 * (1 - busy / med):.1f} %" if busy > 0
+                 else "not measured (the profiler saw no device time)")
+        log(f"  train step B={B_TRAIN} ({mode}): {spread(ms)}, "
+            f"{batch_audio_s * 1e3 / med:.1f} s of audio per second; split "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in parts.items())
+            + f"; device busy {busy:.2f} ms of one step, idle share {share}; "
+            f"peak memory {peak:.2f} GiB")
+        del model, opt, step, run
+        torch.cuda.empty_cache()
 
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -63,7 +63,7 @@ def test_importing_every_module_leaves_jax_out():
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
-    from transformer_transducer_tpu_torch.apps import predict
+    from transformer_transducer_tpu_torch.apps import predict, train
     from transformer_transducer_tpu_torch.models.transducer import build_transducer
     from transformer_transducer_tpu_torch.utils.config import Config
     from transformer_transducer_tpu_torch.utils.device import resolve_device
@@ -77,6 +77,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         predict.main(["--config", "x.yaml", "--checkpoint", "m.pt",
                       "--wav", "a.wav"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["-config", os.path.join(ROOT, "configs", "joint_streaming.yaml")])
     assert resolve_device("cpu").type == "cpu"
 
 

@@ -100,14 +100,20 @@ class Transducer(nn.Module):
 
     ``enc``/``dec``: (n_layer, k_len, n_head, d_model, d_head, d_inner).
     ``flash``: unmasked encoder attention goes through the flash kernel.
+    ``band``: ``(left, right)`` trains (``encode_both``) the encoder under
+    the streaming band through the banded kernel.  As in the JAX package this
+    deviates on purpose from the reference, which trains every config with no
+    audio mask and only decodes with the band.
     """
 
     def __init__(self, vocab_size: int, enc: Tuple[int, ...],
                  dec: Tuple[int, ...], joint_inner: int, dropout: float = 0.0,
-                 share_embedding: bool = False, flash: bool = False):
+                 share_embedding: bool = False, flash: bool = False,
+                 band: Optional[Tuple[int, int]] = None):
         super().__init__()
         self.vocab_size = vocab_size
         self.share_embedding = share_embedding
+        self.band = band
         self.encoder = AudioEncoder(*enc, dropout=dropout, flash=flash)
         self.decoder = LabelEncoder(vocab_size, *dec, dropout=dropout)
         self.joint = JointNetwork(enc[3] + dec[3], joint_inner, vocab_size,
@@ -119,9 +125,12 @@ class Transducer(nn.Module):
         return self.joint_logits(*self.encode_both(inputs, targets))
 
     def encode_both(self, inputs: torch.Tensor, targets: torch.Tensor):
+        """Encoder + label-encoder states, the training hot path (the fused
+        loss consumes them; no (B,T,U,V) tensor)."""
         prefixed = nn.functional.pad(targets, (1, 0))            # blank prefix
         label_mask = look_ahead_mask(prefixed.shape[1], device=targets.device)
-        return self.encoder(inputs), self.decoder(prefixed, label_mask)
+        return (self.encoder(inputs, band=self.band),
+                self.decoder(prefixed, label_mask))
 
     def encode(self, inputs: torch.Tensor,
                attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -145,10 +154,14 @@ class Transducer(nn.Module):
         return self.joint(enc_state, dec_state)
 
 
-def build_transducer(model_cfg, flash: bool = False, device=None) -> Transducer:
+def build_transducer(model_cfg, flash: bool = False, device=None,
+                     banded: bool = False) -> Transducer:
     """A :class:`Transducer` from a reference-schema ``model:`` block, in
-    eval mode on ``device`` (``cuda`` unless the caller passes ``cpu``).
+    eval mode on ``device`` (``cuda`` unless the caller passes ``cpu``); a
+    trainer calls ``.train()``.
 
+    ``banded=True`` trains the encoder under the config's streaming band
+    (``enc.left_context``/``enc.right_context``), see :class:`Transducer`.
     Like the reference (``tt/model.py:53``), tying is gated on the
     ``share_embedding`` key; the shipped configs' ``share_weight`` is ignored.
     """
@@ -160,10 +173,17 @@ def build_transducer(model_cfg, flash: bool = False, device=None) -> Transducer:
            model_cfg.dec.d_head, model_cfg.dec.d_inner)
     if bool(model_cfg.share_embedding) and model_cfg.joint.inner_size != dec[3]:
         raise ValueError("weight tying needs joint.inner_size == dec.d_model")
+    band = None
+    if banded:
+        left, right = model_cfg.enc.left_context, model_cfg.enc.right_context
+        if left is None or right is None:
+            raise ValueError("banded training needs model.enc.left_context "
+                             "and right_context")
+        band = (int(left), int(right))
     with torch.device(resolve_device(device)):
         model = Transducer(vocab_size=model_cfg.vocab_size, enc=enc, dec=dec,
                            joint_inner=model_cfg.joint.inner_size,
                            dropout=model_cfg.dropout or 0.0,
                            share_embedding=bool(model_cfg.share_embedding),
-                           flash=flash)
+                           flash=flash, band=band)
     return model.eval()

@@ -1,13 +1,18 @@
-"""Banded rel-position attention forward: CUDA kernel + plain version.
+"""Banded rel-position attention, forward and backward: CUDA kernels + plain
+version.
 
-Replaces the TPU kernel ``ops/pallas/banded_attention.py::banded_attention``
-forward (``_fwd_impl``, ``_band_kernel``).  The streaming encoder attends
-within ``[i - left, i + right]`` (reference ``tt/utils.py:242-251``); the
-kernel (``csrc/rel_attention.cu``, ``ttx_banded_attention_fwd``) walks only
-that key window, with the score rule and bounds documented in the source.
+Replaces the TPU kernels of ``ops/pallas/banded_attention.py::
+banded_attention``: the forward (``_fwd_impl``, ``_band_kernel``) and the
+backward (``_bwd_impl``, ``_band_bwd_kernel``).  The streaming encoder
+attends within ``[i - left, i + right]`` (reference ``tt/utils.py:242-251``);
+the kernels (``csrc/rel_attention.cu``, ``ttx_banded_attention_fwd`` /
+``_bwd``) walk only that key window, with the score rule and bounds
+documented in the source.
 
-Dispatch: a CPU tensor takes :func:`banded_attention_plain`; a CUDA tensor
-launches the kernel or raises.  ``banded_attention.launches`` counts kernel
+Dispatch: a CPU tensor takes :func:`banded_attention_plain` (its gradients
+by autograd); a CUDA tensor runs the kernels behind a
+``torch.autograd.Function`` or raises.  ``banded_attention.launches``
+counts forward launches, ``banded_attention_backward.launches`` backward
 launches.
 """
 
@@ -16,9 +21,8 @@ from __future__ import annotations
 import torch
 
 from transformer_transducer_tpu_torch.models.attention import rel_attention_dense
-from transformer_transducer_tpu_torch.ops.cuda import build
 from transformer_transducer_tpu_torch.ops.cuda.common import (
-    HALO, check_inputs, kernel_args)
+    HALO, check_inputs, launch_backward, launch_forward)
 from transformer_transducer_tpu_torch.ops.masks import context_mask
 
 
@@ -29,10 +33,42 @@ def banded_attention_plain(q, k, v, r_emb, r_w_bias, r_bias, left: int,
     return rel_attention_dense(q, k, v, r_emb, r_w_bias, r_bias, mask)
 
 
+def banded_attention_backward(q, k, v, r_emb, r_w_bias, r_bias, out, lse,
+                              grad, left: int, right: int):
+    """The backward kernel: gradients of q, k, v, r_emb, r_w_bias, r_bias
+    (tables as sliced to T rows) over the band."""
+    grads, launched = launch_backward(
+        "ttx_banded_attention_bwd",
+        (q, k, v, r_emb, r_w_bias, r_bias, out, lse), grad, (left, right))
+    banded_attention_backward.launches += int(launched)
+    return grads
+
+
+banded_attention_backward.launches = 0
+
+
+class _BandedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, r_emb, r_w_bias, r_bias, left, right):
+        inputs = (q, k, v, r_emb, r_w_bias, r_bias)
+        out, lse, launched = launch_forward(
+            "ttx_banded_attention_fwd", inputs, (left, right),
+            with_lse=any(ctx.needs_input_grad))
+        banded_attention.launches += int(launched)
+        ctx.band = (left, right)
+        ctx.save_for_backward(*inputs, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grads = banded_attention_backward(*ctx.saved_tensors, grad, *ctx.band)
+        return (*grads, None, None)
+
+
 def banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      r_emb: torch.Tensor, r_w_bias: torch.Tensor,
                      r_bias: torch.Tensor, left: int, right: int) -> torch.Tensor:
-    """Banded rel-attention forward.
+    """Banded rel-attention, differentiable.
 
     Args:
       q, k, v: (B, T, H, Dh) post-projection heads (strided views of the
@@ -48,18 +84,8 @@ def banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return banded_attention_plain(q, k, v, r_emb, r_w_bias, r_bias,
                                       left, right)
-    lib = build.library()
-    ptrs = kernel_args(q, k, v, r_emb, r_w_bias, r_bias, lib.ttx_head_dim())
-    b, t, h, dh = q.shape
-    out = torch.empty((b, t, h, dh), dtype=torch.float32, device=q.device)
-    if out.numel() == 0:
-        return out
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    build.check(lib.ttx_banded_attention_fwd(*ptrs, out.data_ptr(), b, t, h,
-                                             left, right, stream),
-                "ttx_banded_attention_fwd")
-    banded_attention.launches += 1
-    return out
+    return _BandedAttention.apply(q, k, v, r_emb, r_w_bias, r_bias,
+                                  int(left), int(right))
 
 
 banded_attention.launches = 0

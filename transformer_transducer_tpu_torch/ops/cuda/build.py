@@ -72,16 +72,27 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.ttx_banded_attention_fwd.argtypes = [
-            ptr, ptr, ptr, i64, i64, i64, ptr, ptr, ptr, ptr,
-            i32, i32, i32, i32, i32, ptr]
-        lib.ttx_banded_attention_fwd.restype = i32
-        lib.ttx_flash_rel_attention_fwd.argtypes = [
-            ptr, ptr, ptr, i64, i64, i64, ptr, ptr, ptr, ptr,
-            i32, i32, i32, ptr]
-        lib.ttx_flash_rel_attention_fwd.restype = i32
-        lib.ttx_head_dim.argtypes = []
-        lib.ttx_head_dim.restype = i32
+        # q, k, v, their row strides, the three tables
+        inputs = [ptr, ptr, ptr, i64, i64, i64, ptr, ptr, ptr]
+        signatures = {
+            # ... out, lse, B, T, H, [left, right,] stream
+            "ttx_banded_attention_fwd": inputs + [ptr, ptr] + [i32] * 5 + [ptr],
+            "ttx_flash_rel_attention_fwd": inputs + [ptr, ptr] + [i32] * 3 + [ptr],
+            # ... out, lse, dout, dq, dk, dv, dre, du, drb, B, T, H,
+            # [left, right,] stream
+            "ttx_banded_attention_bwd": inputs + [ptr] * 9 + [i32] * 5 + [ptr],
+            "ttx_flash_rel_attention_bwd": inputs + [ptr] * 9 + [i32] * 3 + [ptr],
+            # sb, sl, alpha, B, D, U1, stream
+            "ttx_rnnt_alpha": [ptr, ptr, ptr, i32, i32, i32, ptr],
+            # sb, sl, inject, beta, B, D, U1, stream
+            "ttx_rnnt_beta": [ptr, ptr, ptr, ptr, i32, i32, i32, ptr],
+            "ttx_head_dim": [],
+            "ttx_rnnt_max_u1": [],
+        }
+        for name, argtypes in signatures.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = i32
         lib.ttx_error_string.argtypes = [i32]
         lib.ttx_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,10 +1,14 @@
-"""Input checks and launch arguments shared by the rel-attention wrappers."""
+"""Input checks and launches shared by the rel-attention wrappers."""
 
 from __future__ import annotations
 
+from typing import Optional, Sequence, Tuple
+
 import torch
 
-HALO = 64   # band bound of the banded kernel: 0 <= left, right <= HALO
+from transformer_transducer_tpu_torch.ops.cuda import build
+
+HALO = 64   # band bound of the banded kernels: 0 <= left, right <= HALO
 
 
 def check_inputs(q, k, v, r_emb, r_w_bias, r_bias) -> None:
@@ -36,6 +40,11 @@ def row_stride(x: torch.Tensor, name: str) -> int:
     return s[1]
 
 
+def _aligned(x: torch.Tensor, name: str) -> None:
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned for float4 loads")
+
+
 def kernel_args(q, k, v, r_emb, r_w_bias, r_bias, head_dim: int):
     """Pointers and strides for a launch; raises on what the kernels do not
     take (a CPU or non-contiguous table, another head width, a pointer that
@@ -50,7 +59,57 @@ def kernel_args(q, k, v, r_emb, r_w_bias, r_bias, head_dim: int):
             raise ValueError(f"{name} must be contiguous")
     for x, name in ((q, "q"), (k, "k"), (v, "v"), (r_emb, "r_emb"),
                     (r_w_bias, "r_w_bias")):
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned for float4 loads")
+        _aligned(x, name)
     return ([q.data_ptr(), k.data_ptr(), v.data_ptr()] + strides
             + [r_emb.data_ptr(), r_w_bias.data_ptr(), r_bias.data_ptr()])
+
+
+def launch_forward(fn: str, inputs: Sequence[torch.Tensor], band: Tuple[int, ...],
+                   with_lse: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor], bool]:
+    """Run forward kernel ``fn`` of ``csrc/rel_attention.cu`` on
+    ``inputs = (q, k, v, r_emb, r_w_bias, r_bias)``.  Returns the output
+    (B, T, H, Dh), the row log-sum-exp (B, H, T) the backward needs (when
+    ``with_lse``) and whether a kernel was launched (not for empty inputs)."""
+    lib = build.library()
+    ptrs = kernel_args(*inputs, lib.ttx_head_dim())
+    q = inputs[0]
+    b, t, h, dh = q.shape
+    out = torch.empty((b, t, h, dh), dtype=torch.float32, device=q.device)
+    lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if out.numel() == 0:
+        return out, lse, False
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    build.check(getattr(lib, fn)(*ptrs, out.data_ptr(),
+                                 None if lse is None else lse.data_ptr(),
+                                 b, t, h, *band, stream), fn)
+    return out, lse, True
+
+
+def launch_backward(fn: str, saved: Sequence[torch.Tensor], grad: torch.Tensor,
+                    band: Tuple[int, ...]) -> Tuple[Tuple[torch.Tensor, ...], bool]:
+    """Run backward kernel ``fn`` on ``saved = (q, k, v, r_emb, r_w_bias,
+    r_bias, out, lse)`` and the output gradient.  Returns the gradients of
+    the six inputs (q, k, v contiguous; tables as sliced) and whether a
+    kernel was launched."""
+    q, k, v, r_emb, r_w_bias, r_bias, out, lse = saved
+    if lse is None:
+        raise RuntimeError("the forward kept no row statistics: it ran with "
+                           "no input that requires a gradient")
+    grad = grad.contiguous()
+    if grad.dtype != torch.float32 or grad.shape != out.shape:
+        raise ValueError(f"the output gradient must be float32 {tuple(out.shape)}")
+    lib = build.library()
+    ptrs = kernel_args(q, k, v, r_emb, r_w_bias, r_bias, lib.ttx_head_dim())
+    _aligned(grad, "the output gradient")
+    grads = (torch.zeros_like(out), torch.zeros_like(out), torch.zeros_like(out),
+             torch.zeros_like(r_emb), torch.zeros_like(r_w_bias),
+             torch.zeros_like(r_bias))
+    if out.numel() == 0:
+        return grads, False
+    b, t, h, _ = q.shape
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    build.check(getattr(lib, fn)(*ptrs, out.data_ptr(), lse.data_ptr(),
+                                 grad.data_ptr(), *(g.data_ptr() for g in grads),
+                                 b, t, h, *band, stream), fn)
+    return grads, True

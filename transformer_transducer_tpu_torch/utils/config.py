@@ -161,6 +161,49 @@ def load_config(path_or_stream, overrides: Mapping[str, Any] | None = None) -> C
     return cfg
 
 
+def _dump_scalar(value: Any) -> str:
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        if value != value:
+            return ".nan"
+        if value in (float("inf"), float("-inf")):
+            return ".inf" if value > 0 else "-.inf"
+        text = repr(value)
+        mant, e, exp = text.partition("e")
+        if "." not in mant:       # YAML 1.1 reads "1e-05" as a string
+            mant += ".0"
+        return mant + e + exp
+    if isinstance(value, str):
+        if _scalar(value) == value and value == value.strip() and not (
+                set(value) & set("#:'\"{}[],&*!|>%@`") or value.startswith("-")):
+            return value
+        return "'" + value.replace("'", "''") + "'"
+    raise TypeError(f"cannot write {type(value).__name__} {value!r} to a config")
+
+
+def dump_config(cfg: Mapping, path: str) -> None:
+    """Write a config as the block-map YAML that :func:`parse_yaml` (and
+    PyYAML) read back."""
+    lines = []
+
+    def emit(node: Mapping, indent: int) -> None:
+        for key, value in node.items():
+            if isinstance(value, Mapping):
+                lines.append(" " * indent + f"{key}:")
+                emit(value, indent + 4)
+            else:
+                lines.append(" " * indent + f"{key}: {_dump_scalar(value)}")
+
+    emit(cfg, 0)
+    with open(path, "w", encoding="utf-8") as fh:
+        fh.write("\n".join(lines) + "\n")
+
+
 def apply_overrides(cfg, pairs):
     """Apply CLI ``KEY=VALUE`` override pairs (dotted keys; values parsed as
     Python literals when possible, else kept as strings)."""
