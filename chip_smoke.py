@@ -10,7 +10,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    csrc`` (timed);
 3. each kernel against its plain PyTorch version on the same CUDA inputs
    (atol 1e-4, rtol 1e-4), at the main path's shapes and a sweep around
-   them;
+   them: the additive logZ at (B, T, U1, V) = (4, 410, 43, 6485) and over
+   T = 1, 17, 410, 513, U1 = 1, 6, 43, V = 37, 6485, B = 1, 4, 8; the band
+   sweeps at S = 2-8 with ragged t_len, a zero-length row and a clamped
+   terminal slot;
 4. the slice at full width: ``configs/joint_streaming.yaml`` (18 layers,
    d_model 512, V 6485) with seeded random weights, 8 synthetic utterances
    of 60-410 frames through the host frontend and batched greedy
@@ -29,23 +32,34 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    backward launches, 1 alpha and 1 beta sweep), then the same steps through
    the plain versions: losses within 1e-4 and step 1's gradient norm within
    1e-3, relative;
+6b. the pruned loss at full width: the same batch, ``flash=True`` with
+   ``loss_pruned_range = 5`` (simple scale 0.25), 3 steps with the kernels
+   (per step 1 logZ, 1 band alpha, 1 band beta, 1 alpha and 1 beta sweep,
+   18 + 18 flash launches), then 3 through the plain versions at the same
+   tolerances.  Each step's band starts are compared between the two paths;
+   the plain path is handed the kernel path's starts, so a start that
+   rounds the other way (an occupancy centre at .5) cannot move its loss;
 7. the training entry point: ``apps/train.py --flash`` on a synthetic corpus
    (16 train, 8 dev utterances, a 6485-symbol vocabulary) for one epoch,
    then ``-mode continue`` for a second: two checkpoints, decode dumps and a
-   finite CER;
-8. training timings: the new kernels against their plain versions and
-   bounds, and the flagship train step (config dropout 0.5) for
-   ``--flash``, ``--banded`` and dense attention, end to end and split into
-   encoder forward, loss forward, backward and optimizer, with the device's
-   idle share and peak memory.
+   finite CER; then ``--flash --pruned-range 5`` for one epoch;
+8. training timings: the training kernels against their plain versions and
+   bounds (the logZ also against ``torch.logsumexp`` over the whole sum),
+   and the flagship train step (config dropout 0.5) for ``--flash`` with
+   the full and the pruned loss (first in turns), ``--banded`` and dense
+   attention, end to end and split into phases (encoder forward, loss
+   forward, backward, optimizer; for the pruned loss the simple stage,
+   bounds, banded joint and band DP in place of the loss forward), with the
+   device's idle share and peak memory.
 
 Kernel checks in phase 3: each forward against its plain version (atol
 1e-4, rtol 1e-4); the attention backward against autograd through the
 plain version (atol 1e-4 * max|ref| + 1e-5, rtol 1e-4: the shared sums are
 fp32 atomics in a varying order, and where a gradient is 0 in exact
 arithmetic, as every softmax gradient at T = 1, only rounding is left); the
-lattice sweeps against the eager scans (rtol 1e-5, atol 1e-3: log-alphas
-reach thousands).
+lattice and band sweeps against the eager scans (rtol 1e-5, atol 1e-3:
+log-alphas reach thousands; a band sweep's recorded error is read with
+both sides clamped at NEG, where the cells no path reaches sit).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -70,6 +84,8 @@ PKG = "transformer_transducer_tpu_torch"
 # bytes/s and float32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+# exponentials per SM per clock of the special function units (Hopper)
+SFU_PER_SM_PER_CLOCK = 16
 
 B, H, DH = 8, 8, 64
 T_MAIN, BAND = 410, (10, 2)
@@ -81,6 +97,7 @@ GRAD_TOL = 1e-4          # atol GRAD_TOL * max|ref| + GRAD_FLOOR, rtol GRAD_TOL
 GRAD_FLOOR = 1e-5        # for gradients that are 0 in exact arithmetic (T = 1)
 B_TRAIN = 4              # configs/joint_streaming.yaml data.batch_size
 LOSS_RTOL, NORM_RTOL = 1e-4, 1e-3
+S_RANGE = 5              # the pruned loss's band (--pruned-range 5)
 
 
 def log(*args):
@@ -98,6 +115,14 @@ def nvidia_smi() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock, as ``nvidia-smi`` reports it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def cuda_ms(fn, samples: int = 20, reps: int = 10) -> float:
@@ -197,6 +222,22 @@ def device_busy_ms(fn):
                if e.device_type == DeviceType.CUDA) / 1e3
 
 
+def device_top(fn, n: int = 6) -> str:
+    """The ``n`` operators with the most device time in one call of ``fn``
+    (``torch.profiler``, self device time), as "name ms" pairs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(prof.key_averages(), reverse=True,
+                  key=lambda e: getattr(e, "self_device_time_total", 0))[:n]
+    return ", ".join(f"{e.key[:48]} {getattr(e, 'self_device_time_total', 0) / 1e3:.2f} ms"
+                     for e in rows)
+
+
 def roofline(n_bytes, n_ops):
     """(least ms, "bytes" or "operations") at the card's published peaks."""
     t_bytes = n_bytes / HBM_BYTES_PER_S
@@ -225,6 +266,114 @@ def lattice_bound(b, d_total, u1, n_grids):
     read or written once; about 10 operations per cell (two adds and the
     log-add-exp), far below the bytes."""
     return roofline(4 * n_grids * b * d_total * u1, 10 * b * d_total * u1)
+
+
+def logz_bound(b, tlen, u1, v):
+    """Least time for the additive logZ: A, L read and logZ written once,
+    against B*T*U1*V exponentials at the special function units' rate
+    (and about 5 fp32 operations beside each at the fp32 peak): (ms, by,
+    exponential ms, bytes ms)."""
+    import torch
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    cells = b * tlen * u1 * v
+    t_exp = cells / (SFU_PER_SM_PER_CLOCK * n_sm * sm_clock_hz())
+    t_bytes = 4 * (b * tlen * v + b * u1 * v + b * tlen * u1) / HBM_BYTES_PER_S
+    t_ops = max(t_exp, 5 * cells / FP32_FLOP_PER_S)
+    by = "operations" if t_ops > t_bytes else "bytes"
+    return max(t_ops, t_bytes) * 1e3, by, t_exp * 1e3, t_bytes * 1e3
+
+
+def band_bound(b, tlen, s_range, n_arrays):
+    """Least time for a band sweep: ``n_arrays`` (B, T, S) fp32 arrays and
+    the (B, T) shifts read or written once; about 10 operations per cell
+    and slot of the label chain, far below the bytes."""
+    return roofline(4 * (n_arrays * b * tlen * s_range + b * tlen),
+                    10 * b * tlen * s_range * s_range)
+
+
+def band_inputs(gen, b, tlen, s_range):
+    """The band sweeps' inputs as the pruned loss builds them: log-probs,
+    label cells past a random u_len at NEG, monotone band starts (steps in
+    [0, S)); ragged t_len with a zero-length row (when B > 1); and one row
+    whose u_len the corridor cannot reach, so its terminal slot clamps at
+    S - 1.  Returns (lp_b, lp_l, d_alpha, d_beta, tf, sf)."""
+    import torch
+    from transformer_transducer_tpu_torch.ops import rnnt_loss_pruned as rp
+    rand = lambda: torch.log(torch.rand(b, tlen, s_range, generator=gen,
+                                        device="cuda") * 0.95 + 0.05)
+    lp_b, lp_l = rand(), rand()
+    steps = torch.randint(0, s_range, (b, tlen), generator=gen, device="cuda")
+    steps[:, 0] = 0
+    rs = torch.cumsum(steps, dim=1)
+    u_len = rs[:, -1] + torch.randint(0, s_range, (b,), generator=gen, device="cuda")
+    t_len = torch.randint(1, tlen + 1, (b,), generator=gen, device="cuda")
+    t_len[0] = tlen
+    if b > 1:
+        t_len[1] = 0
+    if b > 2:
+        u_len[2] += 3 * s_range
+    uidx = rs[:, :, None] + torch.arange(s_range, device="cuda")
+    lp_l = torch.where(uidx < u_len[:, None, None], lp_l, torch.full_like(lp_l, -1e30))
+    _, tf, sf = rp._band_terminal(lp_b, rs, t_len, u_len)
+    d = rs[:, 1:] - rs[:, :-1]
+    pad = torch.nn.functional.pad
+    return lp_b, lp_l, pad(d, (1, 0)), pad(d, (0, 1)), tf, sf
+
+
+def check_pruned_kernels(gen):
+    """Phase 3, the pruned loss's kernels: the additive logZ against its
+    plain version (atol 1e-4, rtol 1e-4) at the flagship shape and a sweep,
+    the band sweeps against theirs (rtol 1e-5, atol 1e-3) at S = 2-8;
+    returns the largest abs error of each."""
+    import torch
+    from transformer_transducer_tpu_torch.ops.cuda.band_kernel import (
+        band_alpha, band_alpha_plain, band_beta, band_beta_plain)
+    from transformer_transducer_tpu_torch.ops.cuda.logz_kernel import (
+        additive_logz, additive_logz_plain)
+    errs = {"logz": 0.0, "band_alpha": 0.0, "band_beta": 0.0}
+    log("additive logZ vs plain (atol 1e-4, rtol 1e-4):")
+    shapes = [(B_TRAIN, T_MAIN, 43, 6485)]
+    for i, (tlen, u1, v) in enumerate((tlen, u1, v) for tlen in (1, 17, 410, 513)
+                                      for u1 in (1, 6, 43) for v in (37, 6485)):
+        shapes.append(((1, 4, 8)[i % 3], tlen, u1, v))
+    worst = []
+    for b, tlen, u1, v in shapes:
+        a = torch.randn(b, tlen, v, generator=gen, device="cuda") * 3
+        l = torch.randn(b, u1, v, generator=gen, device="cuda") * 3
+        with torch.no_grad():
+            got, ref = additive_logz(a, l), additive_logz_plain(a, l)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        torch.testing.assert_close(got, ref, **KERNEL_TOL,
+                                   msg=f"logZ B={b} T={tlen} U1={u1} V={v}")
+        errs["logz"] = max(errs["logz"], err)
+        worst.append((err, (b, tlen, u1, v)))
+    log(f"  flagship (4, 410, 43, 6485): max|err| {worst[0][0]:.3e}; "
+        f"{len(shapes)} shapes, worst {max(worst)[0]:.3e} at (B, T, U1, V) = "
+        f"{max(worst)[1]}")
+    log(f"band sweeps vs plain (rtol {LATTICE_TOL['rtol']}, atol "
+        f"{LATTICE_TOL['atol']}; ragged t_len, a zero-length row, a clamped "
+        f"terminal slot):")
+    for s_range in range(2, 9):
+        line = []
+        for tlen in (1, 37, T_MAIN):
+            lp_b, lp_l, d_a, d_b, tf, sf = band_inputs(gen, B_TRAIN, tlen, s_range)
+            pairs = (("band_alpha", band_alpha(lp_b, lp_l, d_a, s_range),
+                      band_alpha_plain(lp_b, lp_l, d_a)),
+                     ("band_beta", band_beta(lp_b, lp_l, d_b, tf, sf, s_range),
+                      band_beta_plain(lp_b, lp_l, d_b, tf, sf)))
+            torch.cuda.synchronize()
+            for name, got, ref in pairs:
+                torch.testing.assert_close(got, ref, **LATTICE_TOL,
+                                           msg=f"{name} S={s_range} T={tlen}")
+                # cells no path reaches sit at or below NEG: the error is
+                # read with both sides clamped there
+                err = (got.clamp(min=-1e30) - ref.clamp(min=-1e30)).abs().max()
+                errs[name] = max(errs[name], err.item())
+            line.append(f"T={tlen}")
+        log(f"  S={s_range} ({', '.join(line)}): max|err| so far alpha "
+            f"{errs['band_alpha']:.3e}, beta {errs['band_beta']:.3e}")
+    return errs
 
 
 def lattice_inputs(b, tlen, u, gen, with_empty=True):
@@ -326,22 +475,50 @@ def check_training_kernels(gen):
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route the attention and lattice wrappers to their plain versions on
-    the card (the comparisons' reference path)."""
+    """Route the attention, lattice, logZ and band wrappers to their plain
+    versions on the card (the comparisons' reference path; the logZ's
+    gradient then comes from autograd through the plain version)."""
     from transformer_transducer_tpu_torch.ops import rnnt_loss
+    from transformer_transducer_tpu_torch.ops import rnnt_loss_pruned as rp
     from transformer_transducer_tpu_torch.ops.cuda import banded_attention as ba
+    from transformer_transducer_tpu_torch.ops.cuda import band_kernel as bk
     from transformer_transducer_tpu_torch.ops.cuda import flash_rel_attention as fa
+    from transformer_transducer_tpu_torch.ops.cuda import logz_kernel as lk
     from transformer_transducer_tpu_torch.ops.cuda import rnnt_kernel as rk
     saved = (ba.banded_attention, fa.flash_rel_attention, rnnt_loss.alpha_scan,
-             rnnt_loss.beta_scan)
+             rnnt_loss.beta_scan, rp.additive_logz, rp.band_alpha, rp.band_beta)
     ba.banded_attention = ba.banded_attention_plain
     fa.flash_rel_attention = fa.flash_rel_attention_plain
     rnnt_loss.alpha_scan, rnnt_loss.beta_scan = rk.alpha_scan_plain, rk.beta_scan_plain
+    rp.additive_logz = lambda a, l: lk.additive_logz_plain(a.float(), l.float())
+    rp.band_alpha = lambda lp_b, lp_l, d, s_range: bk.band_alpha_plain(lp_b, lp_l, d)
+    rp.band_beta = lambda lp_b, lp_l, d, tf, sf, s_range: bk.band_beta_plain(
+        lp_b, lp_l, d, tf, sf)
     try:
         yield
     finally:
         (ba.banded_attention, fa.flash_rel_attention, rnnt_loss.alpha_scan,
-         rnnt_loss.beta_scan) = saved
+         rnnt_loss.beta_scan, rp.additive_logz, rp.band_alpha, rp.band_beta) = saved
+
+
+@contextlib.contextmanager
+def band_starts(record, force=None):
+    """Append each pruned step's band starts ``rs`` to ``record``; with
+    ``force`` (another run's records), hand the loss the starts of that
+    run's same step instead of its own."""
+    from transformer_transducer_tpu_torch.ops import rnnt_loss_pruned as rp
+    original = rp.bounds_from_occ
+
+    def hooked(*args):
+        rs = original(*args)
+        record.append(rs)
+        return rs if force is None else force[len(record) - 1]
+
+    rp.bounds_from_occ = hooked
+    try:
+        yield
+    finally:
+        rp.bounds_from_occ = original
 
 
 @functools.lru_cache(maxsize=None)
@@ -349,12 +526,16 @@ def counters():
     """The launch counters of every kernel wrapper, by name (the wrappers
     themselves, read before ``plain_versions`` can swap them out)."""
     from transformer_transducer_tpu_torch.ops.cuda import banded_attention as ba
+    from transformer_transducer_tpu_torch.ops.cuda import band_kernel as bk
     from transformer_transducer_tpu_torch.ops.cuda import flash_rel_attention as fa
+    from transformer_transducer_tpu_torch.ops.cuda import logz_kernel as lk
     from transformer_transducer_tpu_torch.ops.cuda import rnnt_kernel as rk
     return {"banded_fwd": ba.banded_attention, "banded_bwd": ba.banded_attention_backward,
             "flash_fwd": fa.flash_rel_attention,
             "flash_bwd": fa.flash_rel_attention_backward,
-            "alpha": rk.alpha_scan, "beta": rk.beta_scan}
+            "alpha": rk.alpha_scan, "beta": rk.beta_scan,
+            "logz": lk.additive_logz, "band_alpha": bk.band_alpha,
+            "band_beta": bk.band_beta}
 
 
 def reset_counts():
@@ -394,9 +575,10 @@ def training_batch(cfg, device, seed):
     return batch_to_device(batch, device), sum(len(w) for w in waves) / 16000.0
 
 
-def make_trainee(model_cfg, optim_cfg, state, mode, device):
+def make_trainee(model_cfg, optim_cfg, state, mode, device, pruned_range=None):
     """A model in train mode with ``state``, its SGD optimizer (momentum,
-    clip 200 as the trainer builds it) and its train step (SpecAugment on)."""
+    clip 200 as the trainer builds it) and its train step (SpecAugment on;
+    the pruned loss with simple scale 0.25 when ``pruned_range``)."""
     from transformer_transducer_tpu_torch.models.transducer import build_transducer
     from transformer_transducer_tpu_torch.training.optim import build_optimizer
     from transformer_transducer_tpu_torch.training.train_step import (
@@ -406,17 +588,22 @@ def make_trainee(model_cfg, optim_cfg, state, mode, device):
     model.load_state_dict(state)
     model.train()
     opt = build_optimizer(optim_cfg, list(model.parameters()), max_grad_norm=200.0)
-    return model, opt, make_train_step(model, opt, TrainStepConfig())
+    cfg = TrainStepConfig(loss_pruned_range=pruned_range)
+    return model, opt, make_train_step(model, opt, cfg)
 
 
-def train_three_steps(model_cfg, optim_cfg, state, mode, batch, device, plain):
-    """Phase 6: 3 steps from ``state`` with the SpecAugment stream seeded
-    alike; per step (loss, raw gradient norm, launch counts)."""
+def train_three_steps(model_cfg, optim_cfg, state, mode, batch, device, plain,
+                      pruned_range=None, hook=None):
+    """Phases 6 and 6b: 3 steps from ``state`` with the SpecAugment stream
+    seeded alike, inside the context ``hook`` when given; per step (loss,
+    raw gradient norm, launch counts)."""
     import torch
-    model, opt, step = make_trainee(model_cfg, optim_cfg, state, mode, device)
+    model, opt, step = make_trainee(model_cfg, optim_cfg, state, mode, device,
+                                    pruned_range)
     gen = torch.Generator().manual_seed(0)
     out = []
-    with plain_versions() if plain else contextlib.nullcontext():
+    with plain_versions() if plain else contextlib.nullcontext(), \
+            hook or contextlib.nullcontext():
         for _ in range(3):
             reset_counts()          # the main path: counts from 0, read after
             m = step(batch, gen)
@@ -598,6 +785,64 @@ def split_step(model, opt, batch, gen, samples: int = 5) -> dict:
     return {n: statistics.median(v) for n, v in times.items()}
 
 
+def split_pruned_step(model, opt, batch, gen, samples: int = 5) -> dict:
+    """Median host ms of a pruned train step's phases (``--pruned-range
+    5``, simple scale 0.25), each ended by a synchronise: encoder forward,
+    simple stage (linearized grids, logZ, the alpha and beta sweeps), bounds
+    (the band starts' clip scan), banded joint, band DP (alpha sweep and
+    loss), backward, optimizer."""
+    import torch
+    from transformer_transducer_tpu_torch.ops import rnnt_loss_pruned as rp
+    from transformer_transducer_tpu_torch.ops.rnnt_loss import joint_params
+    from transformer_transducer_tpu_torch.ops.specaug import spec_augment
+    from transformer_transducer_tpu_torch.training.optim import global_norm
+    from transformer_transducer_tpu_torch.training.train_step import TrainStepConfig
+    cfg = TrainStepConfig(loss_pruned_range=S_RANGE)
+    names = ("encoder forward", "simple stage", "bounds", "banded joint",
+             "band DP", "backward", "optimizer")
+    times = {n: [] for n in names}
+    labels = batch["targets"]
+    for r in range(samples + 1):
+        torch.cuda.synchronize()
+        marks = [time.perf_counter()]
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        model.train()
+        for p in opt.params:
+            p.grad = None
+        x = spec_augment(gen, batch["inputs"], cfg.max_mask_time,
+                         cfg.max_mask_frequency, cfg.mask_num)
+        enc, dec = model.encode_both(x, labels)
+        mark()
+        jp = joint_params(model)
+        t_len = torch.clamp(batch["inputs_length"], max=enc.shape[1])
+        u_len = torch.clamp(batch["targets_length"], max=dec.shape[1] - 1)
+        sp_b, sp_l = rp.simple_grid_logprobs(enc, dec, jp, labels)
+        simple, occ = rp.simple_loss_and_occ(sp_b, sp_l, t_len, u_len)
+        mark()
+        rs = rp.bounds_from_occ(occ, t_len, u_len, S_RANGE)
+        mark()
+        lp_b, lp_l = rp.banded_grid_logprobs(enc, dec, jp, labels, rs, u_len, S_RANGE,
+                                             chunk_size=cfg.loss_chunk_size)
+        mark()
+        loss = (rp.rnnt_loss_banded(lp_b, lp_l, rs, t_len, u_len)
+                + cfg.loss_simple_scale * simple).mean()
+        mark()
+        loss.backward()
+        mark()
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in opt.params]
+        global_norm(grads)
+        opt.step(grads)
+        mark()
+        if r:                                   # round 0 warms up
+            for name, a, b in zip(names, marks, marks[1:]):
+                times[name].append((b - a) * 1e3)
+    return {n: statistics.median(v) for n, v in times.items()}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -651,6 +896,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = check_kernels(gen)
     errs.update(check_training_kernels(gen))
+    errs.update(check_pruned_kernels(gen))
 
     # ---- 4. the slice at full width
     cfg = load_flagship()
@@ -710,8 +956,9 @@ def main() -> int:
     log(f"main path launches: banded {launches['banded']}, flash "
         f"{launches['flash']} (18 per encode expected)")
     n_layer = cfg.model.enc.n_layer
-    require(counts == {"banded_fwd": n_layer, "flash_fwd": n_layer, "banded_bwd": 0,
-                       "flash_bwd": 0, "alpha": 0, "beta": 0},
+    want = dict.fromkeys(counts, 0)
+    want.update(banded_fwd=n_layer, flash_fwd=n_layer)
+    require(counts == want,
             f"the main path did not launch each kernel once a layer: {counts}")
 
     n_frames = int(t_len.sum())
@@ -858,6 +1105,42 @@ def main() -> int:
         log(f"  {mode}: step 1 grad norm rel diff {rel:.2e} (tolerance {NORM_RTOL})")
         require(rel <= NORM_RTOL, f"{mode}: step 1 grad norms differ by {rel:.2e}")
 
+    # ---- 6b. the pruned loss at full width (--flash --pruned-range 5): the
+    # kernels, then the plain versions handed the kernel run's band starts
+    rs_kern, rs_plain = [], []
+    kern = train_three_steps(model_cfg0, optim_cfg, state, "flash", batch, device,
+                             plain=False, pruned_range=S_RANGE,
+                             hook=band_starts(rs_kern))
+    plain = train_three_steps(model_cfg0, optim_cfg, state, "flash", batch, device,
+                              plain=True, pruned_range=S_RANGE,
+                              hook=band_starts(rs_plain, force=rs_kern))
+    want = dict.fromkeys(train_launches, 0)
+    want.update(per_step["flash"], alpha=1, beta=1, logz=1, band_alpha=1, band_beta=1)
+    pruned_launches = dict.fromkeys(train_launches, 0)
+    for i, ((lk, nk, ck), (lp, norm_p, cp)) in enumerate(zip(kern, plain)):
+        rel = abs(lk - lp) / abs(lp)
+        differ = int((rs_kern[i] != rs_plain[i]).sum())
+        note = " (the plain loss used the kernel path's)" if differ else ""
+        log(f"  flash, pruned {S_RANGE}, step {i + 1}: loss kernel {lk:.6f} / plain "
+            f"{lp:.6f} (rel {rel:.2e}), grad norm {nk:.5f} / {norm_p:.5f}; band "
+            f"starts: {differ} of {rs_kern[i].numel()} cells differ between the "
+            f"paths{note}; launches {ck}")
+        require(ck == want, f"pruned step {i + 1}: launches {ck}, want {want}")
+        require(not any(cp.values()), f"pruned plain step launched {cp}")
+        require(rel <= LOSS_RTOL, f"pruned step {i + 1}: losses differ by {rel:.2e}")
+        for name, n in ck.items():
+            train_launches[name] += n
+            pruned_launches[name] += n
+    rel = abs(kern[0][1] - plain[0][1]) / abs(plain[0][1])
+    log(f"  flash, pruned {S_RANGE}: step 1 grad norm rel diff {rel:.2e} (tolerance "
+        f"{NORM_RTOL})")
+    require(rel <= NORM_RTOL, f"pruned: step 1 grad norms differ by {rel:.2e}")
+    rs0 = rs_kern[0]
+    require(bool((rs0[:, 0] == 0).all()) and bool((rs0.diff(dim=1) >= 0).all())
+            and bool((rs0.diff(dim=1) < S_RANGE).all()),
+            "the band starts break their invariants")
+    del rs_kern, rs_plain
+
     # ---- 7. the training entry point: one epoch, then -mode continue
     from transformer_transducer_tpu_torch.apps import train as train_app
     with tempfile.TemporaryDirectory() as tmp:
@@ -893,7 +1176,36 @@ def main() -> int:
         require(all(cli_counts[k] > 0 for k in ("flash_fwd", "flash_bwd", "alpha", "beta"))
                 and cli_counts["banded_fwd"] == cli_counts["banded_bwd"] == 0,
                 f"the entry point did not run the flash and lattice kernels: {cli_counts}")
-        del first, second
+        # the pruned loss through the entry point, one epoch
+        os.chdir(tmp)
+        try:
+            reset_counts()
+            start = time.perf_counter()
+            third = train_app.main(["-config", cfg_path, "--flash", "--pruned-range",
+                                    str(S_RANGE), "--epochs", "1",
+                                    "--set", "training.save_model=pruned"])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - start
+            cli_counts = read_counts()
+        finally:
+            os.chdir(cwd)
+        exp = os.path.join(tmp, third.exp_dir)
+        with open(os.path.join(exp, "metrics.jsonl"), encoding="utf-8") as fh:
+            rows = [r for r in map(json.loads, fh)]
+        cers = [r["value"] for r in rows if r["tag"] == "cer"]
+        losses = [r["value"] for r in rows if r["tag"] == "train_loss"]
+        log(f"apps/train.py --flash --pruned-range {S_RANGE}: 1 epoch in {cli_s:.1f} s, "
+            f"{third.global_step} steps, train losses {losses}, CER {cers}, "
+            f"launches {cli_counts}")
+        require(third.step_cfg.loss_pruned_range == S_RANGE and third.global_step == 4,
+                f"pruned CLI: {third.step_cfg}, {third.global_step} steps")
+        require(os.path.exists(os.path.join(exp, "epoch_0", "model.pt"))
+                and len(cers) == 1 and all(np.isfinite(cers + losses)),
+                f"pruned CLI: no checkpoint, or CER {cers} / losses {losses}")
+        require(all(cli_counts[k] == 4 for k in ("logz", "band_alpha", "band_beta"))
+                and cli_counts["flash_bwd"] == 4 * n_layer,
+                f"the pruned entry point did not run its kernels once a step: {cli_counts}")
+        del first, second, third
     torch.cuda.empty_cache()
 
     # ---- 8. training timings (B=4, T=410, H=8, Dh=64)
@@ -920,11 +1232,72 @@ def main() -> int:
         log(f"  {name} (B={B_TRAIN}, D={d_total}, U1={u1}): kernel {ms:.4f} ms "
             f"({1e3 * ms / (d_total - 1):.3f} us per dependent diagonal), plain "
             f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
-            f"{train_launches[key] // 6} launch per step")
+            f"{train_launches[key] // 9} launch per step")
         records.append({
             "name": name, "route": "cuda", "source": f"{PKG}/csrc/rnnt_lattice.cu",
             "replaces": f"transformer_transducer_tpu/ops/pallas/{replaces}",
             "launches": train_launches[key], "max_abs_err": errs[key], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None})
+
+    # the pruned loss's kernels at the flagship training shapes
+    from transformer_transducer_tpu_torch.ops.cuda.band_kernel import (
+        band_alpha, band_alpha_plain, band_beta, band_beta_plain)
+    from transformer_transducer_tpu_torch.ops.cuda.logz_kernel import (
+        additive_logz, additive_logz_plain)
+    u1, vocab = cfg.data.max_target_length + 1, cfg.model.vocab_size
+    a = torch.randn(B_TRAIN, T_MAIN, vocab, generator=gen, device="cuda") * 3
+    l = torch.randn(B_TRAIN, u1, vocab, generator=gen, device="cuda") * 3
+    with torch.no_grad():
+        ms = cuda_ms(lambda: additive_logz(a, l))
+        plain_ms = cuda_ms(lambda: additive_logz_plain(a, l), samples=5, reps=2)
+        # library yardstick, never called by the port: one PyTorch call over
+        # the whole (B, T, U1, V) sum (1.8 GB)
+        lib_ms = cuda_ms(lambda: torch.logsumexp(a[:, :, None] + l[:, None], dim=-1),
+                         samples=5, reps=2)
+    # the logZ's backward (plain PyTorch, a loop over U1), as the pruned
+    # step's simple-loss term runs it
+    a.requires_grad_()
+    l.requires_grad_()
+    z = additive_logz(a, l)
+    g = torch.randn_like(z)
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(z, (a, l), g, retain_graph=True),
+                     samples=5, reps=2)
+    del z, g
+    bound_ms, bound_by, exp_ms, bytes_ms = logz_bound(B_TRAIN, T_MAIN, u1, vocab)
+    log(f"  additive_logz (B={B_TRAIN}, T={T_MAIN}, U1={u1}, V={vocab}): kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.logsumexp over the whole sum "
+        f"(library) {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+        f"exponentials {exp_ms:.4f} ms at {SFU_PER_SM_PER_CLOCK}/SM/clock and "
+        f"{sm_clock_hz() / 1e6:.0f} MHz, bytes {bytes_ms:.4f} ms), "
+        f"{100 * bound_ms / ms:.1f} % of bound; "
+        f"{pruned_launches['logz'] // 3} launch per pruned step; its backward "
+        f"(plain, {u1} passes over (B, T, V)) {bwd_ms:.4f} ms")
+    records.append({
+        "name": "additive_logz", "route": "cuda", "source": f"{PKG}/csrc/rnnt_pruned.cu",
+        "replaces": "transformer_transducer_tpu/ops/pallas/logz_kernel.py:58",
+        "launches": pruned_launches["logz"], "max_abs_err": errs["logz"], "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": lib_ms})
+    del a, l
+    lp_b, lp_l, d_a, d_b, tf, sf = band_inputs(gen, B_TRAIN, T_MAIN, S_RANGE)
+    for name, replaces, kern, plain, n_arrays in (
+            ("band_alpha", "band_kernel.py:181",
+             lambda: band_alpha(lp_b, lp_l, d_a, S_RANGE),
+             lambda: band_alpha_plain(lp_b, lp_l, d_a), 3),
+            ("band_beta", "band_kernel.py:215",
+             lambda: band_beta(lp_b, lp_l, d_b, tf, sf, S_RANGE),
+             lambda: band_beta_plain(lp_b, lp_l, d_b, tf, sf), 3)):
+        ms, plain_ms = cuda_ms(kern), cuda_ms(plain, samples=5, reps=2)
+        bound_ms, bound_by = band_bound(B_TRAIN, T_MAIN, S_RANGE, n_arrays)
+        log(f"  {name} (B={B_TRAIN}, T={T_MAIN}, S={S_RANGE}): kernel {ms:.4f} ms "
+            f"({1e3 * ms / (T_MAIN - 1):.3f} us per dependent row), plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
+            f"{pruned_launches[name] // 3} launch per pruned step")
+        records.append({
+            "name": name, "route": "cuda", "source": f"{PKG}/csrc/rnnt_pruned.cu",
+            "replaces": f"transformer_transducer_tpu/ops/pallas/{replaces}",
+            "launches": pruned_launches[name], "max_abs_err": errs[name], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None})
 
@@ -972,13 +1345,28 @@ def main() -> int:
     del args, leaves, out, lse, out_p, out_s, bd, add, add_band
     torch.cuda.empty_cache()
 
-    # the flagship train step, config dropout 0.5, SpecAugment on
-    for mode in ("flash", "banded", "dense"):
-        model, opt, step = make_trainee(cfg.model, optim_cfg, state, mode, device)
+    # the flagship train step, config dropout 0.5, SpecAugment on; first the
+    # full and the pruned loss with --flash in turns, then each mode alone
+    pair = {}
+    for name, pruned_range in (("flash", None), (f"flash, pruned {S_RANGE}", S_RANGE)):
+        step = make_trainee(cfg.model, optim_cfg, state, "flash", device,
+                            pruned_range)[2]
+        sa = torch.Generator().manual_seed(0)
+        pair[name] = functools.partial(step, batch, sa)
+    for name, ms in host_ms(pair).items():
+        log(f"  train step B={B_TRAIN} ({name}), the two in turns: {spread(ms)}")
+    del pair, step
+    torch.cuda.empty_cache()
+    for mode, pruned_range in (("flash", None), ("flash", S_RANGE), ("banded", None),
+                               ("dense", None)):
+        model, opt, step = make_trainee(cfg.model, optim_cfg, state, mode, device,
+                                        pruned_range)
+        if pruned_range:
+            mode = f"flash, pruned {S_RANGE}"
         sa = torch.Generator().manual_seed(0)
         run = lambda: step(batch, sa)
         ms = host_ms({mode: run})[mode]
-        parts = split_step(model, opt, batch, sa)
+        parts = (split_pruned_step if pruned_range else split_step)(model, opt, batch, sa)
         busy = device_busy_ms(run)
         torch.cuda.reset_peak_memory_stats()
         run()
@@ -992,6 +1380,8 @@ def main() -> int:
             + ", ".join(f"{k} {v:.2f} ms" for k, v in parts.items())
             + f"; device busy {busy:.2f} ms of one step, idle share {share}; "
             f"peak memory {peak:.2f} GiB")
+        if mode.startswith("flash"):
+            log(f"    most device time in one step: {device_top(run)}")
         del model, opt, step, run
         torch.cuda.empty_cache()
 

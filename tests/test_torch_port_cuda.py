@@ -1,8 +1,9 @@
 """PyTorch port on the card: each CUDA kernel against its plain version (the
-attention forward and backward, the RNN-T lattice sweeps), the launch
-counters, the wrappers' input checks, a small encoder through the attention
-kernels against the dense path, and gradients of whole models through the
-kernels against the plain path.
+attention forward and backward, the RNN-T lattice sweeps, the pruned loss's
+logZ and band sweeps), the launch counters, the wrappers' input checks, a
+small encoder through the attention kernels against the dense path,
+gradients of whole models through the kernels against the plain path, and
+the pruned loss on the card against the CPU.
 
 A CUDA kernel has no CPU mode, so every test here needs an NVIDIA card and
 skips without one.  On a machine with a card:
@@ -17,16 +18,21 @@ Tolerance: atol 1e-4, rtol 1e-4 for a kernel against its plain version
 gradients through the attention backward, whose shared sums are fp32
 atomics in a varying order, within atol 1e-4 * max|ref| + 1e-5 (the floor
 for gradients that are 0 in exact arithmetic, as at T = 1) and rtol 1e-4; the
-lattice sweeps within rtol 1e-5 / atol 1e-3 (log-alphas reach thousands).
+lattice and band sweeps within rtol 1e-5 / atol 1e-3 (log-alphas reach
+thousands).
 """
 
 import pytest
 import torch
 
 from transformer_transducer_tpu_torch.models.attention import slice_pos_table
-from transformer_transducer_tpu_torch.ops import rnnt_loss
+from transformer_transducer_tpu_torch.ops import rnnt_loss, rnnt_loss_pruned
+from transformer_transducer_tpu_torch.ops.cuda.band_kernel import (
+    band_alpha, band_alpha_plain, band_beta, band_beta_plain)
+from transformer_transducer_tpu_torch.ops.cuda.logz_kernel import (
+    additive_logz, additive_logz_plain)
 from transformer_transducer_tpu_torch.ops.cuda.rnnt_kernel import (
-    alpha_scan, alpha_scan_plain, beta_scan, beta_scan_plain)
+    NEG, alpha_scan, alpha_scan_plain, beta_scan, beta_scan_plain)
 from transformer_transducer_tpu_torch.models.transducer import build_transducer
 from transformer_transducer_tpu_torch.ops.cuda.banded_attention import (
     banded_attention, banded_attention_backward, banded_attention_plain)
@@ -247,3 +253,109 @@ def test_lattice_wrappers_reject_what_the_kernels_do_not_take(gen):
         alpha_scan(sb, sb)
     with pytest.raises(TypeError, match="float32"):
         alpha_scan(sb[:, :4, :4].double(), sb[:, :4, :4].double())
+
+
+# ---------------------------------------------------------------------------
+# The pruned loss: logZ and band sweeps (csrc/rnnt_pruned.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,tlen,u1,v", [(4, 410, 43, 6485), (1, 1, 1, 37), (2, 17, 6, 129),
+                                         (3, 9, 64, 300), (1, 33, 43, 128)])
+def test_logz_kernel_matches_plain(gen, b, tlen, u1, v):
+    a = torch.randn(b, tlen, v, generator=gen, device="cuda") * 3
+    l = torch.randn(b, u1, v, generator=gen, device="cuda") * 3
+    before = additive_logz.launches
+    got = additive_logz(a, l)
+    torch.cuda.synchronize()
+    assert additive_logz.launches == before + 1 and got.shape == (b, tlen, u1)
+    torch.testing.assert_close(got, additive_logz_plain(a, l), **TOL)
+
+
+def _band_inputs(gen, b, tlen, s_range, bad_shifts=False):
+    """Band grids with label cells past a random u_len at NEG, monotone band
+    starts (steps in [0, S)), ragged t_len with a zero-length row, and the
+    terminal slot clamped at the band's edge for one row."""
+    lp_b = torch.log(torch.rand(b, tlen, s_range, generator=gen, device="cuda") * 0.95 + 0.05)
+    lp_l = torch.log(torch.rand(b, tlen, s_range, generator=gen, device="cuda") * 0.95 + 0.05)
+    steps = torch.randint(0, s_range, (b, tlen), generator=gen, device="cuda")
+    steps[:, 0] = 0
+    rs = torch.cumsum(steps, dim=1)
+    u_len = rs[:, -1] + torch.randint(0, s_range, (b,), generator=gen, device="cuda")
+    uidx = rs[:, :, None] + torch.arange(s_range, device="cuda")
+    lp_l = torch.where(uidx < u_len[:, None, None], lp_l, torch.full_like(lp_l, NEG))
+    t_len = torch.randint(1, tlen + 1, (b,), generator=gen, device="cuda")
+    t_len[0] = tlen
+    if b > 1:
+        t_len[1] = 0
+    if b > 2:
+        u_len[2] = u_len[2] + 3 * s_range          # sf clamps at S - 1
+    d = rs[:, 1:] - rs[:, :-1]
+    if bad_shifts and tlen > 3:
+        d[0, 1], d[-1, 2] = -1, s_range
+    _, tf, sf = rnnt_loss_pruned._band_terminal(lp_b, rs, t_len, u_len)
+    return lp_b, lp_l, rs, t_len, u_len, d, tf, sf
+
+
+@pytest.mark.parametrize("s_range", [1, 2, 3, 5, 8, 32])
+@pytest.mark.parametrize("b,tlen", [(4, 410), (3, 1), (5, 37)])
+def test_band_kernels_match_plain(gen, b, tlen, s_range):
+    lp_b, lp_l, rs, t_len, u_len, d, tf, sf = _band_inputs(gen, b, tlen, s_range,
+                                                           bad_shifts=True)
+    pad = torch.nn.functional.pad
+    d_alpha, d_beta = pad(d, (1, 0)), pad(d, (0, 1))
+    before = (band_alpha.launches, band_beta.launches)
+    alpha = band_alpha(lp_b, lp_l, d_alpha, s_range)
+    beta = band_beta(lp_b, lp_l, d_beta, tf, sf, s_range)
+    torch.cuda.synchronize()
+    assert (band_alpha.launches, band_beta.launches) == (before[0] + 1, before[1] + 1)
+    tol = dict(rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(alpha, band_alpha_plain(lp_b, lp_l, d_alpha), **tol)
+    torch.testing.assert_close(beta, band_beta_plain(lp_b, lp_l, d_beta, tf, sf), **tol)
+
+
+@pytest.mark.parametrize("simple_scale", [0.0, 0.25])
+def test_pruned_loss_on_the_card_matches_the_cpu(gen, simple_scale):
+    """Loss and gradients of ``rnnt_loss_pruned`` through the three kernels
+    and the lattice sweeps against the same call on the CPU (plain
+    versions), with a zero-length row; the band starts are equal."""
+    b, tlen, u, d, inner, v = 3, 50, 9, 16, 24, 40
+    mk = lambda *s: torch.randn(*s, generator=gen, device="cuda") * 0.5
+    tensors = [mk(b, tlen, d), mk(b, u + 1, d), mk(d, inner), mk(d, inner), mk(inner),
+               mk(inner, v), mk(v)]
+    labels = torch.randint(1, v, (b, u), generator=gen, device="cuda")
+    t_len, u_len = torch.tensor([50, 0, 31]), torch.tensor([9, 4, 6])
+    out = []
+    for dev in ("cuda", "cpu"):
+        leaves = [x.detach().to(dev).requires_grad_() for x in tensors]
+        losses = rnnt_loss_pruned.rnnt_loss_pruned(
+            leaves[0], leaves[1], leaves[2:], labels.to(dev), t_len, u_len, s_range=3,
+            chunk_size=16, reduction="none", simple_scale=simple_scale)
+        grads = torch.autograd.grad(losses.sum(), leaves)
+        out.append([losses.detach().cpu()] + [g.cpu() for g in grads])
+    assert out[0][0][1].item() == 0.0
+    for got, ref in zip(*out):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_banded_loss_gradients_on_the_card(gen):
+    """The band DP's analytic backward (beta kernel) against autograd
+    through the oracle, on the card."""
+    lp_b, lp_l, rs, t_len, u_len, *_ = _band_inputs(gen, 4, 120, 5)
+    a, c = lp_b.clone().requires_grad_(), lp_l.clone().requires_grad_()
+    rnnt_loss_pruned.rnnt_loss_banded(a, c, rs, t_len, u_len).sum().backward()
+    a2, c2 = lp_b.clone().requires_grad_(), lp_l.clone().requires_grad_()
+    rnnt_loss_pruned.rnnt_loss_banded_grid(a2, c2, rs, t_len, u_len).sum().backward()
+    torch.testing.assert_close(a.grad, a2.grad, rtol=1e-3, atol=5e-4)
+    torch.testing.assert_close(c.grad, c2.grad, rtol=1e-3, atol=5e-4)
+    assert not a.grad[1].any()
+
+
+def test_pruned_wrappers_reject_what_the_kernels_do_not_take(gen):
+    x = torch.zeros(1, 4, 33, device="cuda")
+    d = torch.zeros(1, 4, dtype=torch.long, device="cuda")
+    with pytest.raises(ValueError, match="S <= 32"):
+        band_alpha(x, x, d, 33)
+    with pytest.raises(ValueError, match="inputs on different devices"):
+        band_alpha(x[..., :4], x[..., :4], d.cpu(), 4)
+    with pytest.raises(ValueError, match="U1 <= 64"):
+        additive_logz(torch.zeros(1, 2, 8, device="cuda"), torch.zeros(1, 65, 8, device="cuda"))

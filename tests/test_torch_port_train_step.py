@@ -1,7 +1,8 @@
 """PyTorch port: the training step held against the JAX package's
 ``make_train_step`` (``TrainStepConfig(specaug=False)``) on the same weights
 and batch: losses, raw gradient norms and every parameter after one and
-three steps, for the dense, flash and banded models (on the CPU the port's
+three steps, for the dense, flash and banded models, with the full and the
+pruned loss (on the CPU the port's
 kernels take their plain versions; JAX runs its Pallas kernels in interpret
 mode).  Parameters come back to the JAX layout through
 ``utils/torch_convert.transducer_params``.  fp32, tolerance ``TOL`` (rtol
@@ -20,12 +21,14 @@ import torch
 from transformer_transducer_tpu.models.transducer import build_transducer as jax_build
 from transformer_transducer_tpu.training import optim as jax_optim
 from transformer_transducer_tpu.training.train_step import (
-    TrainStepConfig as JaxStepConfig, make_train_step as jax_make_train_step)
+    TrainStepConfig as JaxStepConfig, make_eval_loss_step as jax_eval,
+    make_loss_fn as jax_make_loss_fn, make_train_step as jax_make_train_step)
 from transformer_transducer_tpu.utils.config import Config as JaxConfig
 from transformer_transducer_tpu.utils.torch_convert import transducer_params
 from transformer_transducer_tpu_torch.training.optim import build_optimizer
 from transformer_transducer_tpu_torch.training.train_step import (
-    TrainStepConfig, batch_to_device, make_eval_loss_step, make_train_step)
+    TrainStepConfig, batch_to_device, make_eval_loss_step, make_loss_fn,
+    make_train_step)
 from transformer_transducer_tpu_torch.utils.config import Config
 
 from torch_port_helpers import TOL, port_model, tiny_model_cfg, to_numpy_tree
@@ -73,33 +76,44 @@ def _rebuild(cfg, variables, **kw):
     return model
 
 
-def _port_params(model):
-    sd = lambda m: {k: v.detach().numpy().copy() for k, v in m.state_dict().items()}
+def _port_params(model, grads=False):
+    """The port's parameters (or, with ``grads``, their gradients) in the JAX
+    layout."""
+    if grads:
+        sd = lambda m: {k: v.grad.numpy().copy() for k, v in m.named_parameters()}
+    else:
+        sd = lambda m: {k: v.detach().numpy().copy() for k, v in m.state_dict().items()}
     return transducer_params(sd(model.encoder), sd(model.decoder),
                              sd(model.joint))["params"]
 
 
-def _assert_params_close(params, params_j):
+def _assert_params_close(params, params_j, scaled_atol=0.0):
+    """Leaf by leaf within ``TOL``; ``scaled_atol`` adds that multiple of the
+    leaf's largest magnitude to the absolute tolerance."""
     got = jax.tree_util.tree_leaves_with_path(params)
     want = dict(jax.tree_util.tree_leaves_with_path(params_j))
     assert len(got) == len(want)
     for path, leaf in got:
-        np.testing.assert_allclose(leaf, np.asarray(want[path]),
-                                   err_msg=jax.tree_util.keystr(path), **TOL)
+        ref = np.asarray(want[path])
+        np.testing.assert_allclose(
+            leaf, ref, err_msg=jax.tree_util.keystr(path), rtol=TOL["rtol"],
+            atol=TOL["atol"] + scaled_atol * np.abs(ref).max())
 
 
-def _run_both(kind, optim, max_norm, batches, accum=1, nan_guard=False):
+def _run_both(kind, optim, max_norm, batches, accum=1, nan_guard=False, **loss_kw):
+    """``loss_kw``: the loss fields of both step configs (loss_pruned_range,
+    loss_simple_scale)."""
     model_j, params_j, model = _models(kind)
     tx = jax_optim.build_optimizer(JaxConfig(dict(optim)), max_grad_norm=max_norm)
     if accum > 1:
         tx = optax.MultiSteps(tx, every_k_schedule=accum).gradient_transformation()
     step_j = jax.jit(jax_make_train_step(
-        model_j, tx, JaxStepConfig(specaug=False, nan_guard=nan_guard)))
+        model_j, tx, JaxStepConfig(specaug=False, nan_guard=nan_guard, **loss_kw)))
     opt_state = tx.init(params_j)
     opt = build_optimizer(Config(dict(optim)), list(model.parameters()),
                           max_grad_norm=max_norm, grad_accum_steps=accum)
     step = make_train_step(model, opt, TrainStepConfig(specaug=False,
-                                                       nan_guard=nan_guard))
+                                                       nan_guard=nan_guard, **loss_kw))
     metrics, snapshots = [], []
     for batch in batches:
         params_j, opt_state, m_j = step_j(params_j, opt_state,
@@ -163,7 +177,6 @@ def test_grad_accumulation_matches_jax_multisteps():
 
 
 def test_eval_loss_step_gives_per_utterance_losses():
-    from transformer_transducer_tpu.training.train_step import make_eval_loss_step as jax_eval
     model_j, params_j, model = _models("dense")
     batch = _batch(5)
     want = jax_eval(model_j, JaxStepConfig())(params_j, {k: jnp.asarray(v)
@@ -171,3 +184,52 @@ def test_eval_loss_step_gives_per_utterance_losses():
     got = make_eval_loss_step(model, TrainStepConfig())(batch_to_device(batch, "cpu"))
     assert got.shape == (3,) and not got.requires_grad
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("kind", ["dense", "flash"])
+@pytest.mark.parametrize("simple_scale", [0.25, 0.0])
+def test_pruned_loss_fn_and_gradients_match_jax(kind, simple_scale):
+    """``make_loss_fn`` with ``loss_pruned_range=3``: the loss and the
+    gradient of every parameter against JAX's on the same weights.  The
+    untrained label encoder's layer-norm biases get gradients of about 5e7
+    (the full loss's too), so a leaf's small elements carry fp32 rounding of
+    its large ones: the absolute tolerance adds 1e-6 of each leaf's largest
+    magnitude."""
+    model_j, params_j, model = _models(kind)
+    batch = _batch(7)
+    kw = dict(specaug=False, loss_pruned_range=3, loss_simple_scale=simple_scale)
+    loss_j, grads_j = jax.value_and_grad(jax_make_loss_fn(model_j, JaxStepConfig(**kw)))(
+        params_j, {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(0))
+    model.train()
+    loss = make_loss_fn(model, TrainStepConfig(**kw))(batch_to_device(batch, "cpu"), None)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(loss_j), **TOL)
+    _assert_params_close(_port_params(model, grads=True), grads_j, scaled_atol=1e-6)
+
+
+def test_pruned_steps_match_jax():
+    """Three SGD steps on the pruned loss: losses, gradient norms and the
+    parameters after steps 1 and 3."""
+    cfg, max_norm = OPTIMS["sgd"]
+    batches = [_batch(seed) for seed in range(3)]
+    model, opt, snapshots, metrics = _run_both("dense", cfg, max_norm, batches,
+                                               loss_pruned_range=3)
+    for m, m_j in metrics:
+        np.testing.assert_allclose(float(m["loss"]), float(m_j["loss"]), **TOL)
+        np.testing.assert_allclose(float(m["grad_norm"]), float(m_j["grad_norm"]),
+                                   **TOL)
+    _assert_params_close(*snapshots[0])
+    _assert_params_close(*snapshots[2])
+
+
+def test_eval_step_reports_the_full_nll_when_training_is_pruned():
+    model_j, params_j, model = _models("dense")
+    batch = _batch(5)
+    pruned = TrainStepConfig(loss_pruned_range=2)
+    got = make_eval_loss_step(model, pruned)(batch_to_device(batch, "cpu"))
+    full = make_eval_loss_step(model, TrainStepConfig())(batch_to_device(batch, "cpu"))
+    assert torch.equal(got, full)
+    want = jax_eval(model_j, JaxStepConfig(loss_pruned_range=2))(
+        params_j, {k: jnp.asarray(v) for k, v in batch.items()})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert pruned.loss_pruned_range == 2            # the caller's config stays

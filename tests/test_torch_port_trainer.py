@@ -1,7 +1,8 @@
 """PyTorch port: the trainer and its CLI on the CPU, on a synthetic tone
 corpus with a tiny config: epochs with checkpoints, decode dumps and CER,
 ``-mode continue``, the exact mid-epoch resume of ``--save-steps``, a
-falling loss, checkpoint loading, and the flags of later slices."""
+falling loss, checkpoint loading, the pruned loss (``--pruned-range``), and
+the flags of later slices."""
 
 import glob
 import os
@@ -144,8 +145,7 @@ def test_load_model_and_components(corpus, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--bf16"], ["--remat"], ["--augment"], ["--zero"], ["--pruned-range", "4"],
-    ["--n_model", "2"], ["--n_data", "2"], ["--n_pipe", "2"],
+    ["--bf16"], ["--remat"], ["--augment"], ["--zero"], ["--n_model", "2"], ["--n_data", "2"], ["--n_pipe", "2"],
     ["--pipe-micro", "2"], ["--n_seq", "2"], ["--profile", "trace"]])
 def test_flags_of_later_slices_raise(flag):
     with pytest.raises(NotImplementedError, match="later slice"):
@@ -153,8 +153,52 @@ def test_flags_of_later_slices_raise(flag):
 
 
 @pytest.mark.parametrize("key,value", [("parallel.n_pipe", 2),
-                                       ("training.loss_pruned_range", 4),
                                        ("model.mask", {"encoder_left_mask": 4})])
 def test_trainer_raises_for_later_slices(corpus, tmp_path, key, value):
     with pytest.raises(NotImplementedError, match="later slice"):
         Trainer(_cfg(corpus, **{key: value}), exp_root=str(tmp_path), device="cpu")
+
+
+def test_cli_trains_the_pruned_loss(corpus, tmp_path, monkeypatch):
+    """``--pruned-range 3`` trains the tone corpus and writes checkpoints;
+    the step config carries the band and the default simple scale, and the
+    evaluation reports the full NLL."""
+    monkeypatch.chdir(tmp_path)
+    path = str(tmp_path / "tiny.yaml")
+    dump_config(_cfg(corpus), path)
+    trainer = train_app.main(["-config", path, "--device", "cpu", "--banded",
+                              "--pruned-range", "3", "--epochs", "1"])
+    assert trainer.step_cfg.loss_pruned_range == 3
+    assert trainer.step_cfg.loss_simple_scale == 0.25
+    assert trainer.config.training.loss_pruned_range == 3
+    assert trainer.global_step == 3
+    assert os.path.exists(os.path.join(trainer.exp_dir, "epoch_0", "model.pt"))
+    log = open(os.path.join(trainer.exp_dir, "train.log"), encoding="utf-8").read()
+    assert log.count("CER:") == 1 and "nan" not in log.lower()
+    _, dev = trainer.make_loaders()
+    batch = next(iter(dev))
+    from transformer_transducer_tpu_torch.training.train_step import (
+        TrainStepConfig, batch_to_device, make_eval_loss_step)
+    full = make_eval_loss_step(trainer.model, TrainStepConfig())(
+        batch_to_device(batch, "cpu"))
+    assert torch.equal(trainer.eval_loss_step(batch_to_device(batch, "cpu")), full)
+
+
+@pytest.mark.parametrize("overrides,want", [
+    ({}, (None, 0.25)),
+    ({"training.loss_pruned_range": 4}, (4, 0.25)),
+    ({"training.loss_pruned_range": 2, "training.loss_simple_scale": 0.0}, (2, 0.0))])
+def test_trainer_wires_the_pruned_loss_config(corpus, tmp_path, overrides, want):
+    trainer = Trainer(_cfg(corpus, **overrides), exp_root=str(tmp_path), device="cpu")
+    assert (trainer.step_cfg.loss_pruned_range, trainer.step_cfg.loss_simple_scale) == want
+
+
+def test_pruned_memorisation_loss_falls(corpus, tmp_path):
+    cfg = _cfg(corpus, **{"training.specaug": False, "optim.type": "adam",
+                          "optim.lr": 2e-3, "optim.decay_ratio": 1.0,
+                          "training.loss_pruned_range": 2})
+    trainer = Trainer(cfg, exp_root=str(tmp_path), device="cpu")
+    loader, _ = trainer.make_loaders()
+    losses = [trainer.train_epoch(epoch, loader) for epoch in range(8)]
+    assert all(np.isfinite(losses))
+    assert losses[-1] < 0.6 * losses[0], losses

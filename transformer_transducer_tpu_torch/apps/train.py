@@ -3,13 +3,17 @@
 
     python -m transformer_transducer_tpu_torch.apps.train \\
         -config configs/joint_streaming.yaml -log train.log \\
-        -mode retrain|continue [--flash | --banded] [--device cpu]
+        -mode retrain|continue [--flash | --banded] [--pruned-range N]
+        [--device cpu]
 
 ``--flash`` trains the unmasked encoder through the flash rel-attention
 kernels (forward and backward), ``--banded`` under the streaming band
 through the banded kernels; with neither, the dense attention path.  The
-RNN-T lattice sweeps run on their kernels in every mode.  Checkpoints,
-logs and decode dumps go to ``egs/<data.name>/<training.save_model>/``.
+RNN-T lattice sweeps run on their kernels in every mode.  ``--pruned-range
+N`` trains the pruned loss (the joint on a width-N label band, with the
+logZ and band-sweep kernels); it combines with either attention mode.
+Checkpoints, logs and decode dumps go to
+``egs/<data.name>/<training.save_model>/``.
 """
 
 from __future__ import annotations
@@ -21,7 +25,6 @@ _LATER = {
     "bf16": "bfloat16 training (--bf16)",
     "remat": "encoder rematerialisation (--remat)",
     "augment": "waveform augmentation (ops/augment.py, --augment)",
-    "pruned_range": "the pruned loss (ops/rnnt_loss_pruned.py, --pruned-range)",
     "n_model": "tensor parallelism (--n_model)",
     "n_data": "data parallelism (--n_data)",
     "n_pipe": "pipeline parallelism (--n_pipe)",
@@ -60,8 +63,10 @@ def parse_args(argv=None):
                     help="torch device (default cuda; pass cpu to run there)")
     for flag in ("--bf16", "--remat", "--augment", "--zero"):
         ap.add_argument(flag, action="store_true", default=None)
-    for flag in ("--pruned-range", "--n_model", "--n_data", "--n_pipe",
-                 "--pipe-micro", "--n_seq"):
+    ap.add_argument("--pruned-range", type=int, default=None, metavar="N",
+                    help="pruned transducer loss with a width-N label band "
+                    "(same as --set training.loss_pruned_range=N)")
+    for flag in ("--n_model", "--n_data", "--n_pipe", "--pipe-micro", "--n_seq"):
         ap.add_argument(flag, type=int, default=None)
     ap.add_argument("--profile", default=None, metavar="DIR")
     return ap.parse_args(argv)
@@ -86,6 +91,8 @@ def main(argv=None):
         cfg.override("training.steps_per_call", args.steps_per_call)
     if args.save_steps:
         cfg.override("training.save_every_steps", args.save_steps)
+    if args.pruned_range:
+        cfg.override("training.loss_pruned_range", args.pruned_range)
     if args.nan_guard:
         cfg.override("training.nan_guard", True)
 

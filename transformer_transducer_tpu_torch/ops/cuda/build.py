@@ -86,8 +86,15 @@ def library() -> ctypes.CDLL:
             "ttx_rnnt_alpha": [ptr, ptr, ptr, i32, i32, i32, ptr],
             # sb, sl, inject, beta, B, D, U1, stream
             "ttx_rnnt_beta": [ptr, ptr, ptr, ptr, i32, i32, i32, ptr],
+            # A, L, logZ, B, T, U1, V, stream
+            "ttx_additive_logz": [ptr, ptr, ptr, i32, i32, i32, i32, ptr],
+            # lp_b, lp_l, d, alpha, B, T, S, stream
+            "ttx_band_alpha": [ptr, ptr, ptr, ptr, i32, i32, i32, ptr],
+            # lp_b, lp_l, d, tf, sf, beta, B, T, S, stream
+            "ttx_band_beta": [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr],
             "ttx_head_dim": [],
             "ttx_rnnt_max_u1": [],
+            "ttx_logz_max_u1": [],
         }
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)

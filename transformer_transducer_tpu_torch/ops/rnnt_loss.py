@@ -89,53 +89,67 @@ def terminal_inject(skew_b: torch.Tensor, t_len: torch.Tensor,
     return terminal, torch.where(terminal, skew_b, torch.full_like(skew_b, NEG))
 
 
+def rnnt_fwd(lp_b: torch.Tensor, lp_l: torch.Tensor, t_len, u_len):
+    """The loss's forward (the JAX package's ``_rnnt_fwd``): per-sequence NLL
+    (B,) and the residuals :func:`rnnt_bwd` takes, from one alpha sweep."""
+    lp_b = lp_b.float()
+    b, t, u1 = lp_b.shape
+    skew_b, skew_l, t_len, u_len = lattice_grids(lp_b, lp_l, t_len, u_len)
+    alpha = alpha_scan(skew_b, skew_l)
+    bi = torch.arange(b, device=lp_b.device)
+    # t_len == 0 rows have no lattice: a zero loss (and zero gradients)
+    valid = t_len > 0
+    d_final = torch.clamp(t_len - 1 + u_len, min=0)
+    log_z = (alpha[bi, d_final, u_len]
+             + lp_b[bi, torch.clamp(t_len - 1, min=0), u_len])
+    loss = torch.where(valid, -log_z, torch.zeros_like(log_z))
+    return loss, (skew_b, skew_l, alpha, log_z, t_len, u_len, t)
+
+
+def rnnt_bwd(res, g: torch.Tensor):
+    """The loss's analytic backward (the JAX package's ``_rnnt_bwd``): the
+    gradients of the (B, T, U1) grids for the loss cotangent ``g`` (B,),
+    from one beta sweep; with ``g = 1`` they are minus the occupancies."""
+    skew_b, skew_l, alpha, log_z, t_len, u_len, t = res
+    b, d_total, u1 = skew_b.shape
+    dev = skew_b.device
+    valid = t_len > 0
+    terminal, inject = terminal_inject(skew_b, t_len, u_len)
+    beta = beta_scan(skew_b, skew_l, inject)
+
+    beta_next = torch.cat([beta[:, 1:], torch.full_like(beta[:, :1], NEG)],
+                          dim=1)                           # beta' on d+1
+    # invalid rows: a sanitized log_z (theirs may be -1e30) and a zero chain
+    # scale
+    lz = torch.where(valid, log_z, torch.zeros_like(log_z))[:, None, None]
+    occ_b = torch.exp(alpha + skew_b + beta_next - lz)
+    occ_b = occ_b + torch.where(terminal, torch.exp(alpha + skew_b - lz),
+                                torch.zeros_like(occ_b))
+    occ_l = torch.exp(alpha + skew_l + _shift_left_u(beta_next) - lz)
+
+    scale = torch.where(valid, -g, torch.zeros_like(g))[:, None, None]
+    d_lp_b = _unskew(occ_b * scale, t)
+    d_lp_l = _unskew(occ_l * scale, t)
+    # masked label columns got NEG in the forward: no gradient there
+    has_label = (torch.arange(u1, device=dev)[None, None, :]
+                 < u_len[:, None, None])
+    d_lp_l = torch.where(has_label, d_lp_l, torch.zeros_like(d_lp_l))
+    return d_lp_b, d_lp_l
+
+
 class _RnntLossGrid(torch.autograd.Function):
     """Per-sequence NLL from the grids, with the analytic backward."""
 
     @staticmethod
     def forward(ctx, lp_b, lp_l, t_len, u_len):
-        lp_b = lp_b.float()
-        b, t, u1 = lp_b.shape
-        skew_b, skew_l, t_len, u_len = lattice_grids(lp_b, lp_l, t_len, u_len)
-        alpha = alpha_scan(skew_b, skew_l)
-        bi = torch.arange(b, device=lp_b.device)
-        # t_len == 0 rows have no lattice: a zero loss (and zero gradients)
-        valid = t_len > 0
-        d_final = torch.clamp(t_len - 1 + u_len, min=0)
-        log_z = (alpha[bi, d_final, u_len]
-                 + lp_b[bi, torch.clamp(t_len - 1, min=0), u_len])
-        loss = torch.where(valid, -log_z, torch.zeros_like(log_z))
-        ctx.t = t
-        ctx.save_for_backward(skew_b, skew_l, alpha, log_z, t_len, u_len)
+        loss, res = rnnt_fwd(lp_b, lp_l, t_len, u_len)
+        *tensors, ctx.t = res
+        ctx.save_for_backward(*tensors)
         return loss
 
     @staticmethod
     def backward(ctx, g):
-        skew_b, skew_l, alpha, log_z, t_len, u_len = ctx.saved_tensors
-        b, d_total, u1 = skew_b.shape
-        dev = skew_b.device
-        valid = t_len > 0
-        terminal, inject = terminal_inject(skew_b, t_len, u_len)
-        beta = beta_scan(skew_b, skew_l, inject)
-
-        beta_next = torch.cat([beta[:, 1:], torch.full_like(beta[:, :1], NEG)],
-                              dim=1)                           # beta' on d+1
-        # invalid rows: a sanitized log_z (theirs may be -1e30) and a zero
-        # chain scale
-        lz = torch.where(valid, log_z, torch.zeros_like(log_z))[:, None, None]
-        occ_b = torch.exp(alpha + skew_b + beta_next - lz)
-        occ_b = occ_b + torch.where(terminal, torch.exp(alpha + skew_b - lz),
-                                    torch.zeros_like(occ_b))
-        occ_l = torch.exp(alpha + skew_l + _shift_left_u(beta_next) - lz)
-
-        scale = torch.where(valid, -g, torch.zeros_like(g))[:, None, None]
-        d_lp_b = _unskew(occ_b * scale, ctx.t)
-        d_lp_l = _unskew(occ_l * scale, ctx.t)
-        # masked label columns got NEG in the forward: no gradient there
-        has_label = (torch.arange(u1, device=dev)[None, None, :]
-                     < u_len[:, None, None])
-        d_lp_l = torch.where(has_label, d_lp_l, torch.zeros_like(d_lp_l))
-        return d_lp_b, d_lp_l, None, None
+        return (*rnnt_bwd((*ctx.saved_tensors, ctx.t), g), None, None)
 
 
 def rnnt_loss_grid(lp_b: torch.Tensor, lp_l: torch.Tensor, t_len: torch.Tensor,

@@ -1,11 +1,13 @@
 """The training step on one device (port of ``training/train_step.py``,
-native family, full loss).
+native family).
 
 Reference step (``train.py:31-65``): SpecAugment + forward + RNN-T loss +
 grad-clip(200) + optimizer step.  As in the JAX package the joint, the
 log-softmax and the lattice run through the fused loss
-(``ops/rnnt_loss.rnnt_loss_fused``), so no (B,T,U,V) tensor exists, and
-padding is ignored by the loss through ``t_len``/``u_len``.
+(``ops/rnnt_loss.rnnt_loss_fused``), or with ``loss_pruned_range`` through
+the pruned loss (``ops/rnnt_loss_pruned.rnnt_loss_pruned``), so no
+(B,T,U,V) tensor exists, and padding is ignored by the loss through
+``t_len``/``u_len``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 
 from transformer_transducer_tpu_torch.ops.rnnt_loss import (
     joint_params, rnnt_loss_fused)
+from transformer_transducer_tpu_torch.ops.rnnt_loss_pruned import rnnt_loss_pruned
 from transformer_transducer_tpu_torch.ops.specaug import spec_augment
 from transformer_transducer_tpu_torch.training.optim import Optimizer, global_norm
 
@@ -32,6 +35,13 @@ class TrainStepConfig:
     # recompute each T-chunk of the joint in the backward instead of keeping
     # its activations (ops/rnnt_loss.fused_grid_logprobs)
     loss_remat: bool = True
+    # > 0: the pruned transducer loss (ops/rnnt_loss_pruned.py), the joint
+    # evaluated on a width-N band of label positions around the alignment;
+    # None/0: the full loss
+    loss_pruned_range: Optional[int] = None
+    # weight of the linearized-joint NLL in the pruned loss (k2's simple-loss
+    # term; keeps the corridor estimate aligned)
+    loss_simple_scale: float = 0.25
     # a non-finite loss or gradient norm leaves the parameters and the
     # optimizer state untouched and is reported as metrics["skipped"]
     nan_guard: bool = False
@@ -49,7 +59,8 @@ def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Ten
 
 def make_loss_fn(model, cfg: TrainStepConfig, reduction: str = "mean") -> Callable:
     """``loss_fn(batch, gen, train=True)``: SpecAugment (training only, from
-    the ``torch.Generator`` ``gen``), ``encode_both``, then the fused loss.
+    the ``torch.Generator`` ``gen``), ``encode_both``, then the fused or,
+    with ``loss_pruned_range``, the pruned loss.
     The caller sets the model's train/eval mode (dropout)."""
 
     def loss_fn(batch: Dict[str, torch.Tensor], gen: Optional[torch.Generator],
@@ -59,11 +70,14 @@ def make_loss_fn(model, cfg: TrainStepConfig, reduction: str = "mean") -> Callab
             inputs = spec_augment(gen, inputs, cfg.max_mask_time,
                                   cfg.max_mask_frequency, cfg.mask_num)
         enc, dec = model.encode_both(inputs, batch["targets"])
-        return rnnt_loss_fused(enc, dec, joint_params(model), batch["targets"],
-                               batch["inputs_length"], batch["targets_length"],
-                               chunk_size=cfg.loss_chunk_size,
-                               reduction=reduction,
-                               remat=cfg.loss_remat and torch.is_grad_enabled())
+        args = (enc, dec, joint_params(model), batch["targets"],
+                batch["inputs_length"], batch["targets_length"])
+        kw = dict(chunk_size=cfg.loss_chunk_size, reduction=reduction,
+                  remat=cfg.loss_remat and torch.is_grad_enabled())
+        if cfg.loss_pruned_range:
+            return rnnt_loss_pruned(*args, s_range=int(cfg.loss_pruned_range),
+                                    simple_scale=cfg.loss_simple_scale, **kw)
+        return rnnt_loss_fused(*args, **kw)
     return loss_fn
 
 
@@ -98,8 +112,11 @@ def make_train_step(model, optimizer: Optimizer,
 
 def make_eval_loss_step(model, cfg: Optional[TrainStepConfig] = None) -> Callable:
     """``eval_step(batch) -> (B,)`` per-utterance losses: eval mode, no
-    SpecAugment, no gradients."""
-    loss_fn = make_loss_fn(model, cfg or TrainStepConfig(), reduction="none")
+    SpecAugment, no gradients.  The exact full NLL even when training is
+    pruned: the pruned loss upper-bounds it by a band-dependent margin, which
+    would make dev losses incomparable across band widths."""
+    cfg = dataclasses.replace(cfg or TrainStepConfig(), loss_pruned_range=None)
+    loss_fn = make_loss_fn(model, cfg, reduction="none")
 
     @torch.no_grad()
     def eval_step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -53,8 +53,6 @@ class Trainer:
         pcfg = config.parallel or Config()
         if (pcfg.n_pipe or 1) > 1 or (pcfg.n_seq or 1) > 1 or pcfg.zero:
             raise _later("parallel training (parallel/)")
-        if config.training.loss_pruned_range:
-            raise _later("the pruned loss (ops/rnnt_loss_pruned.py)")
         self.config = config
         self.mode = mode
         self.exp_dir = os.path.join(exp_root, config.data.name or "exp",
@@ -100,9 +98,16 @@ class Trainer:
         self._maybe_load()
 
         tcfg = config.training
+        # training.loss_pruned_range: band width N > 0 selects the pruned
+        # loss (ops/rnnt_loss_pruned.py), absent the full loss;
+        # training.loss_simple_scale defaults to 0.25
         self.step_cfg = TrainStepConfig(
             specaug=True if tcfg.specaug is None else bool(tcfg.specaug),
             loss_remat=True if tcfg.loss_remat is None else bool(tcfg.loss_remat),
+            loss_pruned_range=int(tcfg.loss_pruned_range) if tcfg.loss_pruned_range
+            else None,
+            loss_simple_scale=0.25 if tcfg.loss_simple_scale is None
+            else float(tcfg.loss_simple_scale),
             nan_guard=bool(tcfg.nan_guard))
         self.max_skipped_steps = int(tcfg.max_skipped_steps or 25)
         self._consecutive_skips = 0
