@@ -7,13 +7,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. the device: name, power limit, torch and nvcc versions;
 2. build the port's CUDA kernels from ``transformer_transducer_tpu_torch/
-   csrc`` (timed);
+   csrc`` (timed), with ptxas's registers and spills, and the ``HMMA``
+   (tensor-core) instructions of the flash backward (``cuobjdump -sass``;
+   none fails the run);
 3. each kernel against its plain PyTorch version on the same CUDA inputs
    (atol 1e-4, rtol 1e-4), at the main path's shapes and a sweep around
    them: the additive logZ at (B, T, U1, V) = (4, 410, 43, 6485) and over
    T = 1, 17, 410, 513, U1 = 1, 6, 43, V = 37, 6485, B = 1, 4, 8; the band
    sweeps at S = 2-8 with ragged t_len, a zero-length row and a clamped
-   terminal slot;
+   terminal slot; the flash backward also at the tile edges T = 15-17,
+   31-33, 63-65, 127-129;
 4. the slice at full width: ``configs/joint_streaming.yaml`` (18 layers,
    d_model 512, V 6485) with seeded random weights, 8 synthetic utterances
    of 60-410 frames through the host frontend and batched greedy
@@ -44,7 +47,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    then ``-mode continue`` for a second: two checkpoints, decode dumps and a
    finite CER; then ``--flash --pruned-range 5`` for one epoch;
 8. training timings: the training kernels against their plain versions and
-   bounds (the logZ also against ``torch.logsumexp`` over the whole sum),
+   bounds (the logZ also against ``torch.logsumexp`` over the whole sum;
+   the flash backward, on the tensor cores, also against its 3xTF32 bound,
+   with the count of ``HMMA`` instructions in its SASS from phase 2),
    and the flagship train step (config dropout 0.5) for ``--flash`` with
    the full and the pruned loss (first in turns), ``--banded`` and dense
    attention, end to end and split into phases (encoder forward, loss
@@ -67,10 +72,12 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -81,9 +88,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "transformer_transducer_tpu_torch"
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit): HBM
-# bytes/s and float32 FLOP/s outside the tensor cores
+# bytes/s, float32 FLOP/s outside the tensor cores, dense TF32 tensor-core
+# FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 # exponentials per SM per clock of the special function units (Hopper)
 SFU_PER_SM_PER_CLOCK = 16
 
@@ -259,6 +268,31 @@ def backward_bound(b, tlen, cells):
     table gradient)."""
     elems = 7 * b * tlen * H * DH + 2 * (tlen * H * DH + H * DH + tlen * H)
     return roofline(4 * elems, b * H * cells * 16 * DH)
+
+
+def backward_bound_tc(b, tlen, cells):
+    """The same FLOP as ``backward_bound`` done fp32-accurate as 3xTF32 (three
+    TF32 tensor-core products per product) at the dense TF32 peak, in ms."""
+    return 3 * b * H * cells * 16 * DH / TF32_FLOP_PER_S * 1e3
+
+
+def sass_opcodes(lib_path, symbol: str) -> collections.Counter:
+    """The static count of each opcode in the SASS of the kernel whose
+    mangled name holds ``symbol`` (``cuobjdump -sass`` on the built
+    library; a predicate guard is skipped)."""
+    from transformer_transducer_tpu_torch.ops.cuda import build
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    count, inside = collections.Counter(), False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = symbol in line
+        elif inside:
+            op = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)", line)
+            if op:
+                count[op.group(1)] += 1
+    return count
 
 
 def lattice_bound(b, d_total, u1, n_grids):
@@ -442,34 +476,39 @@ def check_training_kernels(gen):
     log(f"attention backward vs autograd through the plain versions (atol "
         f"{GRAD_TOL} * max|ref| + {GRAD_FLOOR}, rtol {GRAD_TOL}):")
     names = ("out", "dq", "dk", "dv", "d_r_emb", "d_r_w_bias", "d_r_bias")
-    for tlen in (1, 37, 410, 513):
-        for band in (None, (10, 2), (0, 0), (64, 64)):
-            mk = lambda *s: (torch.randn(*s, generator=gen, device="cuda")
-                             * 0.5).requires_grad_()
-            leaves = [mk(B_TRAIN, tlen, 3, H, DH), mk(T_MAIN, H, DH), mk(H, DH),
-                      mk(T_MAIN, H)]
-            gout = torch.randn(B_TRAIN, tlen, H, DH, generator=gen, device="cuda")
-            if band is None:
-                key, kern, plain = "flash_bwd", flash_rel_attention, \
-                    flash_rel_attention_plain
-            else:
-                key = "banded_bwd"
-                kern = lambda *a, band=band: banded_attention(*a, *band)
-                plain = lambda *a, band=band: banded_attention_plain(*a, *band)
-            got = attention_grads(kern, leaves, gout)
-            ref = attention_grads(plain, leaves, gout)
-            torch.cuda.synchronize()
-            line = []
-            for name, a, r in zip(names, got, ref):
-                err = (a - r).abs().max().item()
-                torch.testing.assert_close(
-                    a, r, atol=GRAD_TOL * r.abs().max().item() + GRAD_FLOOR,
-                    rtol=GRAD_TOL, msg=f"T={tlen} band={band} {name}")
-                if name != "out":
-                    errs[key] = max(errs[key], err)
-                line.append(f"{name} {err:.2e}")
-            label = "flash " if band is None else f"banded ({band[0]},{band[1]})"
-            log(f"  {label} T={tlen:3d}: " + ", ".join(line))
+    # the flash backward also at the edges of its 32-row query tiles and
+    # 64-key chunks
+    cases = [(tlen, band) for tlen in (1, 37, 410, 513)
+             for band in (None, (10, 2), (0, 0), (64, 64))]
+    cases += [(tlen, None) for tlen in (15, 16, 17, 31, 32, 33, 63, 64, 65, 127,
+                                         128, 129)]
+    for tlen, band in cases:
+        mk = lambda *s: (torch.randn(*s, generator=gen, device="cuda")
+                         * 0.5).requires_grad_()
+        leaves = [mk(B_TRAIN, tlen, 3, H, DH), mk(T_MAIN, H, DH), mk(H, DH),
+                  mk(T_MAIN, H)]
+        gout = torch.randn(B_TRAIN, tlen, H, DH, generator=gen, device="cuda")
+        if band is None:
+            key, kern, plain = "flash_bwd", flash_rel_attention, \
+                flash_rel_attention_plain
+        else:
+            key = "banded_bwd"
+            kern = lambda *a, band=band: banded_attention(*a, *band)
+            plain = lambda *a, band=band: banded_attention_plain(*a, *band)
+        got = attention_grads(kern, leaves, gout)
+        ref = attention_grads(plain, leaves, gout)
+        torch.cuda.synchronize()
+        line = []
+        for name, a, r in zip(names, got, ref):
+            err = (a - r).abs().max().item()
+            torch.testing.assert_close(
+                a, r, atol=GRAD_TOL * r.abs().max().item() + GRAD_FLOOR,
+                rtol=GRAD_TOL, msg=f"T={tlen} band={band} {name}")
+            if name != "out":
+                errs[key] = max(errs[key], err)
+            line.append(f"{name} {err:.2e}")
+        label = "flash " if band is None else f"banded ({band[0]},{band[1]})"
+        log(f"  {label} T={tlen:3d}: " + ", ".join(line))
     return errs
 
 
@@ -888,8 +927,15 @@ def main() -> int:
     ptxas = lib_path.with_name(lib_path.stem + ".ptxas.txt")
     if ptxas.exists():
         for line in ptxas.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Function properties" in line:
                 log("  ptxas:", line.strip())
+    # the flash backward's products run on the tensor cores (mma.sync)
+    ops = sass_opcodes(lib_path, "flash_bwd_tc")
+    hmma = ops["HMMA"]
+    log(f"  flash backward (flash_bwd_tc): {hmma} HMMA of {sum(ops.values())} "
+        f"instructions in its SASS; most: "
+        + ", ".join(f"{op} {n}" for op, n in ops.most_common(12)))
+    require(hmma > 0, "the flash backward has no tensor-core instruction")
 
     # ---- 3. kernels vs plain versions
     log("kernels vs plain versions (atol 1e-4, rtol 1e-4):")
@@ -1312,13 +1358,14 @@ def main() -> int:
         add = (bd + torch.einsum("nd,bjnd->bnj", u, k)[:, :, None, :]) / DH ** 0.5
         add_band = add.masked_fill(context_mask(T_MAIN, *band, device=device),
                                    float("-inf"))
-    for name, key, fn, bwd, plain_fn, extra, mask_add, cells, replaces in (
+    for name, key, fn, bwd, plain_fn, extra, mask_add, cells, replaces, source in (
             ("banded_attention_bwd", "banded", "ttx_banded_attention_fwd",
              banded_attention_backward, banded_attention_plain, band, add_band,
-             band_cells(T_MAIN, *band), "banded_attention.py:346"),
+             band_cells(T_MAIN, *band), "banded_attention.py:346", "rel_attention.cu"),
             ("flash_rel_attention_bwd", "flash", "ttx_flash_rel_attention_fwd",
              flash_rel_attention_backward, flash_rel_attention_plain, (), add,
-             T_MAIN * T_MAIN, "flash_rel_attention.py:288")):
+             T_MAIN * T_MAIN, "flash_rel_attention.py:288",
+             "flash_rel_attention_bwd.cu")):
         out, lse, _ = common.launch_forward(fn, args, tuple(extra), with_lse=True)
         out_p = plain_fn(*leaves, *extra)
         # yardstick only: SDPA's backward on q, k, v with BD as a
@@ -1331,17 +1378,24 @@ def main() -> int:
         yard_ms = cuda_ms(lambda: torch.autograd.grad(
             out_s, (qh, kh, vh), gout.transpose(1, 2), retain_graph=True))
         bound_ms, bound_by = backward_bound(B_TRAIN, T_MAIN, cells)
+        rec = {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{source}",
+               "replaces": f"transformer_transducer_tpu/ops/pallas/{replaces}",
+               "launches": train_launches[f"{key}_bwd"],
+               "max_abs_err": errs[f"{key}_bwd"], "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+               "sdpa_bd_mask_yardstick_ms": yard_ms}
+        tc = ""
+        if key == "flash":      # on the tensor cores: its 3xTF32 bound too
+            rec.update(bound_tc_ms=backward_bound_tc(B_TRAIN, T_MAIN, cells),
+                       share_of_bound=bound_ms / ms, hmma=hmma)
+            rec["share_of_bound_tc"] = rec["bound_tc_ms"] / ms
+            tc = (f", 3xTF32 bound {rec['bound_tc_ms']:.4f} ms, "
+                  f"{100 * rec['share_of_bound_tc']:.1f} % of it; {hmma} HMMA")
         log(f"  {name}: kernel {ms:.4f} ms, plain (autograd) {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f} % "
-            f"of bound; SDPA backward with BD as a precomputed mask (yardstick) "
-            f"{yard_ms:.4f} ms; {n_layer} launches per step")
-        records.append({
-            "name": name, "route": "cuda", "source": f"{PKG}/csrc/rel_attention.cu",
-            "replaces": f"transformer_transducer_tpu/ops/pallas/{replaces}",
-            "launches": train_launches[f"{key}_bwd"],
-            "max_abs_err": errs[f"{key}_bwd"], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "sdpa_bd_mask_yardstick_ms": yard_ms})
+            f"bound {bound_ms:.4f} ms ({bound_by}, fp32), {100 * bound_ms / ms:.1f} % "
+            f"of bound{tc}; SDPA backward with BD as a precomputed mask "
+            f"(yardstick) {yard_ms:.4f} ms; {n_layer} launches per step")
+        records.append(rec)
     del args, leaves, out, lse, out_p, out_s, bd, add, add_band
     torch.cuda.empty_cache()
 

@@ -139,7 +139,8 @@ def _grads(fn, leaves, gout):
     return [out.detach()] + [x.grad.clone() for x in leaves]
 
 
-@pytest.mark.parametrize("tlen", [1, 33, 97, 200])
+# 16, 32, 64, 65: the flash backward's 32-row query tiles and 64-key chunks
+@pytest.mark.parametrize("tlen", [1, 16, 32, 33, 64, 65, 97, 200, 410])
 @pytest.mark.parametrize("band", [None, (10, 2), (0, 0), (64, 64)])
 def test_attention_backward_kernels_match_plain_autograd(gen, tlen, band):
     mk = lambda *s: (torch.randn(*s, generator=gen, device="cuda") * 0.5).requires_grad_()
@@ -158,6 +159,26 @@ def test_attention_backward_kernels_match_plain_autograd(gen, tlen, band):
     assert counter.launches == before + 1
     ref = _grads(plain, leaves, gout)
     for name, a, b in zip(("out", "qkv", "r_emb", "r_w_bias", "r_bias"), got, ref):
+        _grad_close(a, b, name)
+
+
+@pytest.mark.parametrize("tlen", [33, 410])
+def test_flash_backward_takes_strided_and_contiguous_inputs_alike(gen, tlen):
+    """Row-strided q, k, v views of a packed qkv (as the model hands them
+    over) and contiguous copies give the same gradients."""
+    mk = lambda *s: torch.randn(*s, generator=gen, device="cuda") * 0.5
+    qkv = mk(B, tlen, 3, H, DH)
+    tables = (slice_pos_table(mk(K_LEN, H, DH), tlen), mk(H, DH),
+              slice_pos_table(mk(K_LEN, H), tlen))
+    gout = torch.randn(B, tlen, H, DH, generator=gen, device="cuda")
+    strided = qkv.unbind(2)
+    assert strided[0].stride(1) == 3 * H * DH
+    grads = []
+    for q, k, v in (strided, [x.contiguous() for x in strided]):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v, *tables)]
+        flash_rel_attention(*leaves).backward(gout)
+        grads.append([x.grad for x in leaves])
+    for name, a, b in zip(("q", "k", "v", "r_emb", "r_w_bias", "r_bias"), *grads):
         _grad_close(a, b, name)
 
 

@@ -1,14 +1,14 @@
 // Rel-position self-attention, forward and backward, for Hopper (sm_90a), fp32.
 //
-// Replaces four TPU kernels of the JAX package:
+// Replaces three TPU kernels of the JAX package:
 //   * ops/pallas/banded_attention.py :: banded_attention forward
 //     (_fwd_impl, _band_kernel) -- ttx_banded_attention_fwd below;
 //   * ops/pallas/banded_attention.py :: banded_attention backward
 //     (_bwd_impl, _band_bwd_kernel) -- ttx_banded_attention_bwd below;
 //   * ops/pallas/flash_rel_attention.py :: flash_rel_attention forward
-//     (_fwd_impl, _fwd_kernel) -- ttx_flash_rel_attention_fwd below;
-//   * ops/pallas/flash_rel_attention.py :: flash_rel_attention backward
-//     (_vjp_bwd, _bwd_kernel) -- ttx_flash_rel_attention_bwd below.
+//     (_fwd_impl, _fwd_kernel) -- ttx_flash_rel_attention_fwd below.
+// The flash backward (the fourth) is csrc/flash_rel_attention_bwd.cu, on
+// the tensor cores.
 //
 // All compute one score rule (models/attention.py dense branch), with the
 // tables already sliced to T rows, o = j - i and scale = 1/sqrt(Dh):
@@ -38,10 +38,9 @@
 //   * forward at the flagship serving shape B=8, T=410, H=8, Dh=64: banded
 //     (left 10, right 2) about 28 MB moved and 0.13 GFLOP, memory-bound,
 //     about 8 us; flash the same 28 MB but 4.1 GFLOP, about 62 us.
-//   * backward at the flagship training batch B=4: flash about 16 Dh
-//     operations per (i, j) cell, 5.5 GFLOP, about 82 us (operations);
-//     banded (10, 2) 0.17 GFLOP but q, k, v, dO in and dq, dk, dv out,
-//     about 23.5 MB, about 7 us (bytes).
+//   * banded backward at the flagship training batch B=4, band (10, 2):
+//     0.17 GFLOP but q, k, v, dO in and dq, dk, dv out, about 23.5 MB,
+//     about 7 us (bytes).
 //
 // Design (simple and exact first; wgmma/TMA tiling is later work):
 //   * one block of 256 threads per (query tile of TQ=32 rows, head, batch);
@@ -612,19 +611,6 @@ int ttx_banded_attention_bwd(const void* q, const void* k, const void* v,
                                           lse, dout, dq, dk, dv, dre, du, drb,
                                           B, T, H, left, right),
                             static_cast<cudaStream_t>(stream));
-}
-
-int ttx_flash_rel_attention_bwd(const void* q, const void* k, const void* v,
-                                long long sq, long long sk, long long sv,
-                                const void* re, const void* u, const void* rb,
-                                const void* out, const void* lse,
-                                const void* dout, void* dq, void* dk, void* dv,
-                                void* dre, void* du, void* drb, int B, int T,
-                                int H, void* stream) {
-    return launch_bwd<false>(make_bwd_args(q, k, v, sq, sk, sv, re, u, rb,
-                                           out, lse, dout, dq, dk, dv, dre,
-                                           du, drb, B, T, H, 0, 0),
-                             static_cast<cudaStream_t>(stream));
 }
 
 const char* ttx_error_string(int code) {

@@ -7,8 +7,10 @@ backward (``_vjp_bwd``, ``_bwd_kernel``).  Unmasked Transformer-XL attention
 with learnable tables, computed per query tile with an online softmax so no
 (B, H, T, T) tensor reaches device memory; the backward recomputes the
 probabilities from the row log-sum-exp the forward keeps.  The kernels are
-``ttx_flash_rel_attention_fwd`` / ``_bwd`` in ``csrc/rel_attention.cu``,
-which documents the score rule and bounds.
+``ttx_flash_rel_attention_fwd`` in ``csrc/rel_attention.cu``, which
+documents the score rule, and ``ttx_flash_rel_attention_bwd`` in
+``csrc/flash_rel_attention_bwd.cu``, whose products run on the TF32 tensor
+cores in 3xTF32 (fp32 accuracy); each source states its bounds.
 
 Dispatch: a CPU tensor takes :func:`flash_rel_attention_plain` (its
 gradients by autograd); a CUDA tensor runs the kernels behind a
