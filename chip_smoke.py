@@ -7,16 +7,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. the device: name, power limit, torch and nvcc versions;
 2. build the port's CUDA kernels from ``transformer_transducer_tpu_torch/
-   csrc`` (timed), with ptxas's registers and spills, and the ``HMMA``
-   (tensor-core) instructions of the flash backward (``cuobjdump -sass``;
-   none fails the run);
+   csrc`` (timed; one ``nvcc`` a source, all at once), with ptxas's
+   registers and spills, and the ``HMMA`` (tensor-core) instructions of the
+   flash forward and backward at Dh = 64 (``cuobjdump -sass``; none in
+   either fails the run);
 3. each kernel against its plain PyTorch version on the same CUDA inputs
    (atol 1e-4, rtol 1e-4), at the main path's shapes and a sweep around
    them: the additive logZ at (B, T, U1, V) = (4, 410, 43, 6485) and over
-   T = 1, 17, 410, 513, U1 = 1, 6, 43, V = 37, 6485, B = 1, 4, 8; the band
-   sweeps at S = 2-8 with ragged t_len, a zero-length row and a clamped
-   terminal slot; the flash backward also at the tile edges T = 15-17,
-   31-33, 63-65, 127-129;
+   T = 1, 17, 410, 513, U1 = 1, 6, 43, V = 37, 6485, B = 1, 4, 8, and past
+   one block of label rows at U1 = 65, 129; the band sweeps at S = 2-8 with
+   ragged t_len, a zero-length row and a clamped terminal slot, and at
+   S = 33, 64, 128 (several slots a lane); the flash forward and backward
+   also at the tile edges T = 15-17, 31-33, 63-65, 127-129; the four
+   attention kernels at head width 32 as well as 64;
 4. the slice at full width: ``configs/joint_streaming.yaml`` (18 layers,
    d_model 512, V 6485) with seeded random weights, 8 synthetic utterances
    of 60-410 frames through the host frontend and batched greedy
@@ -25,9 +28,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    that run; then the same through the plain versions, comparing encoder
    states (1e-3 after 18 layers) and tokens;
 5. timings (medians after warm-up; CUDA events for device work, the host
-   clock around synchronised calls): each kernel, its plain version, its
-   bound, the end-to-end ``recognize``, and that split into the encoder and
-   the greedy loop, with the device's idle share from ``torch.profiler``;
+   clock around synchronised calls): each kernel alone (20 launches
+   captured in a CUDA graph, replayed between two events, so the wrapper's
+   host time is not read), its plain version, its bound, the end-to-end
+   ``recognize``, and that split into the encoder and the greedy loop, with
+   the device's idle share from ``torch.profiler``;
 6. training at full width: the same config with dropout 0, a batch of 4
    utterances (60-410 frames, 5-42 targets), 3 SGD steps (momentum 0.9,
    clip 200) with ``flash=True`` and then ``banded=True``, each with the
@@ -42,14 +47,22 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    tolerances.  Each step's band starts are compared between the two paths;
    the plain path is handed the kernel path's starts, so a start that
    rounds the other way (an occupancy centre at .5) cannot move its loss;
+6c. head width 32 end to end: ``artifacts/tone_small/config.yaml`` (2
+   encoder layers, 2 heads x 32) with seeded random weights, 3 ``--flash``
+   and 3 ``--banded`` steps and a ``recognize`` under the band and at full
+   context, through the kernels and then the plain versions, at the
+   tolerances of phases 6 and 4;
 7. the training entry point: ``apps/train.py --flash`` on a synthetic corpus
    (16 train, 8 dev utterances, a 6485-symbol vocabulary) for one epoch,
    then ``-mode continue`` for a second: two checkpoints, decode dumps and a
-   finite CER; then ``--flash --pruned-range 5`` for one epoch;
-8. training timings: the training kernels against their plain versions and
-   bounds (the logZ also against ``torch.logsumexp`` over the whole sum;
-   the flash backward, on the tensor cores, also against its 3xTF32 bound,
-   with the count of ``HMMA`` instructions in its SASS from phase 2),
+   finite CER; ``apps/predict.py --full-context`` on the ``epoch_1``
+   directory it wrote, whose text must be the trained model's greedy
+   decode; then ``--flash --pruned-range 5`` for one epoch;
+8. training timings: the training kernels (alone, under a CUDA graph)
+   against their plain versions and bounds (the logZ also against
+   ``torch.logsumexp`` over the whole sum; the flash kernels, on the tensor
+   cores, also against their 3xTF32 bounds, with the count of ``HMMA``
+   instructions in their SASS from phase 2),
    and the flagship train step (config dropout 0.5) for ``--flash`` with
    the full and the pruned loss (first in turns), ``--banded`` and dense
    attention, end to end and split into phases (encoder forward, loss
@@ -154,6 +167,37 @@ def cuda_ms(fn, samples: int = 20, reps: int = 10) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, launches: int = 20, samples: int = 10) -> float:
+    """A kernel alone: ``launches`` back-to-back calls of its wrapper
+    captured in one CUDA graph, replayed ``samples`` times between two CUDA
+    events after a warm-up; the median per launch.  The wrapper's host time
+    is spent at capture, so it does not read as the kernel's."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm up off the default stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(samples):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    del graph
+    return statistics.median(times)
+
+
 def host_ms(fns: dict, samples: int = 10) -> dict:
     """Wall times (ms) of calls that end in a synchronise, after a warm-up:
     ``samples`` rounds in which every function runs once, in an order that
@@ -198,16 +242,16 @@ def split_ms(encode, decode, samples: int = 10):
     return statistics.median(enc_ms), statistics.median(dec_ms)
 
 
-def attention_inputs(tlen, k_len, gen, b=B):
+def attention_inputs(tlen, k_len, gen, b=B, dh=DH):
     """q, k, v as strided views of one fused projection (as the model hands
     them over), and tables of ``k_len`` rows sliced/front-padded to T."""
     import torch
     from transformer_transducer_tpu_torch.models.attention import slice_pos_table
     mk = lambda *s: torch.randn(*s, generator=gen, device="cuda") * 0.5
-    q, k, v = mk(b, tlen, 3, H, DH).unbind(2)
-    re = slice_pos_table(mk(k_len, H, DH), tlen)
+    q, k, v = mk(b, tlen, 3, H, dh).unbind(2)
+    re = slice_pos_table(mk(k_len, H, dh), tlen)
     rb = slice_pos_table(mk(k_len, H), tlen)
-    return q, k, v, re, mk(H, DH), rb
+    return q, k, v, re, mk(H, dh), rb
 
 
 def band_cells(tlen, left, right):
@@ -274,6 +318,30 @@ def backward_bound_tc(b, tlen, cells):
     """The same FLOP as ``backward_bound`` done fp32-accurate as 3xTF32 (three
     TF32 tensor-core products per product) at the dense TF32 peak, in ms."""
     return 3 * b * H * cells * 16 * DH / TF32_FLOP_PER_S * 1e3
+
+
+def bound_tc(cells):
+    """The forward's FLOP (``bound``: 6*Dh per live cell) as 3xTF32 at the
+    dense TF32 peak, in ms."""
+    return 3 * B * H * cells * 6 * DH / TF32_FLOP_PER_S * 1e3
+
+
+def ptxas_entries(text: str, symbol: str):
+    """(registers, spill store bytes, spill load bytes) of each kernel whose
+    mangled name holds ``symbol``, from ptxas's ``-v`` report."""
+    out, current, spills = [], None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current and symbol in current:
+            out.append((int(m.group(1)), *spills))
+            current = None
+    return out
 
 
 def sass_opcodes(lib_path, symbol: str) -> collections.Counter:
@@ -356,9 +424,9 @@ def band_inputs(gen, b, tlen, s_range):
 
 def check_pruned_kernels(gen):
     """Phase 3, the pruned loss's kernels: the additive logZ against its
-    plain version (atol 1e-4, rtol 1e-4) at the flagship shape and a sweep,
-    the band sweeps against theirs (rtol 1e-5, atol 1e-3) at S = 2-8;
-    returns the largest abs error of each."""
+    plain version (atol 1e-4, rtol 1e-4) at the flagship shape and a sweep
+    (U1 to 129), the band sweeps against theirs (rtol 1e-5, atol 1e-3) at
+    S = 2-8 and 33, 64, 128; returns the largest abs error of each."""
     import torch
     from transformer_transducer_tpu_torch.ops.cuda.band_kernel import (
         band_alpha, band_alpha_plain, band_beta, band_beta_plain)
@@ -370,6 +438,8 @@ def check_pruned_kernels(gen):
     for i, (tlen, u1, v) in enumerate((tlen, u1, v) for tlen in (1, 17, 410, 513)
                                       for u1 in (1, 6, 43) for v in (37, 6485)):
         shapes.append(((1, 4, 8)[i % 3], tlen, u1, v))
+    # past one block of 64 label rows
+    shapes += [(2, 37, 65, 6485), (B_TRAIN, T_MAIN, 65, 6485), (2, 17, 129, 300)]
     worst = []
     for b, tlen, u1, v in shapes:
         a = torch.randn(b, tlen, v, generator=gen, device="cuda") * 3
@@ -388,9 +458,13 @@ def check_pruned_kernels(gen):
     log(f"band sweeps vs plain (rtol {LATTICE_TOL['rtol']}, atol "
         f"{LATTICE_TOL['atol']}; ragged t_len, a zero-length row, a clamped "
         f"terminal slot):")
-    for s_range in range(2, 9):
+    # S past 32 takes several slots a lane; its plain sweep is slow (a step
+    # per slot and row), so most of those run at a short T
+    sweeps = [(s_range, (1, 37, T_MAIN)) for s_range in range(2, 9)]
+    sweeps += [(33, (1, 37, T_MAIN)), (64, (1, 37)), (128, (1, 37))]
+    for s_range, lengths in sweeps:
         line = []
-        for tlen in (1, 37, T_MAIN):
+        for tlen in lengths:
             lp_b, lp_l, d_a, d_b, tf, sf = band_inputs(gen, B_TRAIN, tlen, s_range)
             pairs = (("band_alpha", band_alpha(lp_b, lp_l, d_a, s_range),
                       band_alpha_plain(lp_b, lp_l, d_a)),
@@ -480,14 +554,17 @@ def check_training_kernels(gen):
     # 64-key chunks
     cases = [(tlen, band) for tlen in (1, 37, 410, 513)
              for band in (None, (10, 2), (0, 0), (64, 64))]
-    cases += [(tlen, None) for tlen in (15, 16, 17, 31, 32, 33, 63, 64, 65, 127,
-                                         128, 129)]
-    for tlen, band in cases:
+    cases = [(tlen, band, DH) for tlen, band in cases]
+    cases += [(tlen, None, DH) for tlen in (15, 16, 17, 31, 32, 33, 63, 64, 65, 127,
+                                             128, 129)]
+    # head width 32
+    cases += [(tlen, band, 32) for tlen in (1, 33, 129, 410) for band in (None, (10, 2))]
+    for tlen, band, dh in cases:
         mk = lambda *s: (torch.randn(*s, generator=gen, device="cuda")
                          * 0.5).requires_grad_()
-        leaves = [mk(B_TRAIN, tlen, 3, H, DH), mk(T_MAIN, H, DH), mk(H, DH),
+        leaves = [mk(B_TRAIN, tlen, 3, H, dh), mk(T_MAIN, H, dh), mk(H, dh),
                   mk(T_MAIN, H)]
-        gout = torch.randn(B_TRAIN, tlen, H, DH, generator=gen, device="cuda")
+        gout = torch.randn(B_TRAIN, tlen, H, dh, generator=gen, device="cuda")
         if band is None:
             key, kern, plain = "flash_bwd", flash_rel_attention, \
                 flash_rel_attention_plain
@@ -508,7 +585,7 @@ def check_training_kernels(gen):
                 errs[key] = max(errs[key], err)
             line.append(f"{name} {err:.2e}")
         label = "flash " if band is None else f"banded ({band[0]},{band[1]})"
-        log(f"  {label} T={tlen:3d}: " + ", ".join(line))
+        log(f"  {label} Dh={dh} T={tlen:3d}: " + ", ".join(line))
     return errs
 
 
@@ -652,33 +729,46 @@ def train_three_steps(model_cfg, optim_cfg, state, mode, batch, device, plain,
 
 
 def check_kernels(gen):
-    """Phase 3: every kernel against its plain version; returns the largest
-    abs error of each."""
+    """Phase 3: the attention forward kernels against their plain versions
+    (the flash forward's row log-sum-exp too); returns the largest abs error
+    of each."""
     import torch
+    from transformer_transducer_tpu_torch.models.attention import rel_attention_scores
+    from transformer_transducer_tpu_torch.ops.cuda import common
     from transformer_transducer_tpu_torch.ops.cuda.banded_attention import (
         banded_attention, banded_attention_plain)
     from transformer_transducer_tpu_torch.ops.cuda.flash_rel_attention import (
-        flash_rel_attention, flash_rel_attention_plain)
+        flash_rel_attention_plain)
     errs = {"banded": 0.0, "flash": 0.0}
-    for tlen in (1, 37, 129, 410):
-        for left, right in ((10, 2), (0, 0), (64, 64)):
-            args = attention_inputs(tlen, 410, gen)
-            got = banded_attention(*args, left, right)
-            ref = banded_attention_plain(*args, left, right)
+    for dh in (DH, 32):
+        for tlen in (1, 37, 129, 410):
+            for left, right in ((10, 2), (0, 0), (64, 64)):
+                args = attention_inputs(tlen, 410, gen, dh=dh)
+                got = banded_attention(*args, left, right)
+                ref = banded_attention_plain(*args, left, right)
+                torch.cuda.synchronize()
+                err = (got - ref).abs().max().item()
+                log(f"  banded Dh={dh} T={tlen:4d} band=({left},{right}): max|err| {err:.3e}")
+                torch.testing.assert_close(got, ref, **KERNEL_TOL)
+                errs["banded"] = max(errs["banded"], err)
+    # the flash forward (on the tensor cores) at the edges of its 128-row
+    # query tiles and 32-key chunks, with its row log-sum-exp; 513 > k_len:
+    # front pad
+    for dh in (DH, 32):
+        for tlen in (1, 15, 16, 17, 31, 32, 33, 37, 63, 64, 65, 127, 128, 129,
+                     410, 513):
+            args = attention_inputs(tlen, 410, gen, dh=dh)
+            got, lse, _ = common.launch_forward("ttx_flash_rel_attention_fwd", args, (),
+                                                with_lse=True)
+            ref = flash_rel_attention_plain(*args)
+            lse_ref = torch.logsumexp(rel_attention_scores(*args[:2], *args[3:]), -1)
             torch.cuda.synchronize()
             err = (got - ref).abs().max().item()
-            log(f"  banded T={tlen:4d} band=({left},{right}): max|err| {err:.3e}")
+            err_lse = (lse - lse_ref).abs().max().item()
+            log(f"  flash  Dh={dh} T={tlen:4d}: max|err| {err:.3e}, lse {err_lse:.3e}")
             torch.testing.assert_close(got, ref, **KERNEL_TOL)
-            errs["banded"] = max(errs["banded"], err)
-    for tlen in (1, 37, 410, 513):
-        args = attention_inputs(tlen, 410, gen)     # 513 > k_len: front pad
-        got = flash_rel_attention(*args)
-        ref = flash_rel_attention_plain(*args)
-        torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        log(f"  flash  T={tlen:4d}: max|err| {err:.3e}")
-        torch.testing.assert_close(got, ref, **KERNEL_TOL)
-        errs["flash"] = max(errs["flash"], err)
+            torch.testing.assert_close(lse, lse_ref, **KERNEL_TOL)
+            errs["flash"] = max(errs["flash"], err, err_lse)
     return errs
 
 
@@ -742,12 +832,90 @@ def compare_tokens(name, got, ref, model, enc_k, enc_p, t_len, max_tokens):
                                  f"utterance {u}, frame {frame} (gap {gap:.3e})")
 
 
+def load_config(*path):
+    """A config of the repo (path under its root) as a port ``Config``."""
+    from transformer_transducer_tpu_torch.utils.config import Config, parse_yaml
+    with open(os.path.join(HERE, *path), encoding="utf-8") as fh:
+        return Config(parse_yaml(fh.read()))
+
+
 def load_flagship():
     """``configs/joint_streaming.yaml`` as a port ``Config``."""
-    from transformer_transducer_tpu_torch.utils.config import Config, parse_yaml
-    with open(os.path.join(HERE, "configs", "joint_streaming.yaml"),
-              encoding="utf-8") as fh:
-        return Config(parse_yaml(fh.read()))
+    return load_config("configs", "joint_streaming.yaml")
+
+
+def check_head_width_32(device):
+    """Phase 6c: ``artifacts/tone_small/config.yaml`` (2 heads x 32) with
+    seeded random weights: 3 ``--flash`` and 3 ``--banded`` steps through the
+    kernels and through the plain versions (losses within 1e-4, step 1's
+    gradient norm within 1e-3, relative; 2 attention forward and 2 backward
+    launches a step), then ``recognize`` under the band and at full context
+    against the plain path (encoder states within 1e-3, tokens identical or
+    a tie)."""
+    import torch
+    from transformer_transducer_tpu_torch.decoding.greedy import recognize
+    from transformer_transducer_tpu_torch.models.transducer import build_transducer
+    from transformer_transducer_tpu_torch.ops.masks import context_mask
+    from transformer_transducer_tpu_torch.utils.config import Config
+    from transformer_transducer_tpu_torch.utils.convert import (
+        from_jax_params, random_jax_params)
+    cfg = load_config("artifacts", "tone_small", "config.yaml")
+    require(cfg.model.enc.d_head == 32, "the tone config is not at head width 32")
+    n_layer = cfg.model.enc.n_layer
+    state = from_jax_params(random_jax_params(cfg.model, seed=0))
+    optim_cfg = Config({"type": "sgd", "lr": cfg.optim.lr, "momentum": 0.9})
+    batch, _ = training_batch(cfg, device, seed=2)
+    log(f"head width 32 ({cfg.model.enc.n_layer} encoder layers, "
+        f"{cfg.model.enc.n_head} heads x {cfg.model.enc.d_head}): batch of {B_TRAIN}, "
+        f"frames {batch['inputs_length'].tolist()}")
+    for mode in ("flash", "banded"):
+        kern = train_three_steps(cfg.model, optim_cfg, state, mode, batch, device,
+                                 plain=False)
+        plain = train_three_steps(cfg.model, optim_cfg, state, mode, batch, device,
+                                  plain=True)
+        want = dict.fromkeys(read_counts(), 0)
+        want.update({f"{mode}_fwd": n_layer, f"{mode}_bwd": n_layer}, alpha=1, beta=1)
+        for i, ((lk, nk, ck), (lp, norm_p, cp)) in enumerate(zip(kern, plain)):
+            rel = abs(lk - lp) / abs(lp)
+            log(f"  Dh 32 {mode} step {i + 1}: loss kernel {lk:.6f} / plain {lp:.6f} "
+                f"(rel {rel:.2e}), grad norm {nk:.5f} / {norm_p:.5f}")
+            require(ck == want, f"Dh 32 {mode} step {i + 1}: launches {ck}, want {want}")
+            require(not any(cp.values()), f"Dh 32 {mode} plain step launched {cp}")
+            require(rel <= LOSS_RTOL, f"Dh 32 {mode} step {i + 1}: losses differ by {rel:.2e}")
+        rel = abs(kern[0][1] - plain[0][1]) / abs(plain[0][1])
+        log(f"  Dh 32 {mode}: step 1 grad norm rel diff {rel:.2e} (tolerance {NORM_RTOL})")
+        require(rel <= NORM_RTOL, f"Dh 32 {mode}: step 1 grad norms differ by {rel:.2e}")
+
+    models = {}
+    for flash in (False, True):
+        models[flash] = build_transducer(cfg.model, flash=flash, device=device)
+        models[flash].load_state_dict(state)
+    x, t_len = batch["inputs"], batch["inputs_length"].cpu().numpy()
+    tlen = x.shape[1]
+    band = (cfg.model.enc.left_context, cfg.model.enc.right_context)
+    max_tokens = cfg.data.max_target_length + 1
+    mask = context_mask(tlen, *band, device=device)
+    reset_counts()
+    toks = {"band": recognize(models[False], x, t_len, band=band, max_tokens=max_tokens),
+            "full-context": recognize(models[True], x, t_len, max_tokens=max_tokens)}
+    torch.cuda.synchronize()
+    counts = read_counts()
+    require(counts["banded_fwd"] == n_layer and counts["flash_fwd"] == n_layer,
+            f"Dh 32 recognize did not run the attention kernels once a layer: {counts}")
+    toks_p = {"band": recognize(models[False], x, t_len, audio_mask=mask,
+                                max_tokens=max_tokens),
+              "full-context": recognize(models[False], x, t_len, max_tokens=max_tokens)}
+    with torch.no_grad():
+        encs = {"band": (models[False].encode_banded(x, *band), models[False].encode(x, mask)),
+                "full-context": (models[True].encode(x), models[False].encode(x))}
+    for name, (enc_k, enc_p) in encs.items():
+        err = (enc_k - enc_p).abs().max().item()
+        log(f"  Dh 32 {name}: encoder states kernel vs plain max|err| {err:.3e} "
+            f"(tolerance {ENC_TOL})")
+        require(bool(torch.isfinite(enc_k).all()) and err <= ENC_TOL,
+                f"Dh 32 {name}: encoder states differ by {err}")
+        compare_tokens(f"Dh 32 {name}", toks[name], toks_p[name], models[False],
+                       enc_k, enc_p, t_len, max_tokens)
 
 
 def write_corpus(root, cfg) -> str:
@@ -901,6 +1069,7 @@ def main() -> int:
         banded_attention, banded_attention_plain)
     from transformer_transducer_tpu_torch.ops.cuda.flash_rel_attention import (
         flash_rel_attention, flash_rel_attention_plain)
+    from transformer_transducer_tpu_torch.data.wav import read_wave
     from transformer_transducer_tpu_torch.ops.masks import context_mask
     from transformer_transducer_tpu_torch.utils.config import (
         Config, stack_context, subsample_factor)
@@ -924,18 +1093,23 @@ def main() -> int:
     build.library()
     log(f"kernels built in {time.perf_counter() - start:.1f} s -> "
         f"{os.path.relpath(lib_path, HERE)}")
-    ptxas = lib_path.with_name(lib_path.stem + ".ptxas.txt")
-    if ptxas.exists():
-        for line in ptxas.read_text().splitlines():
-            if "registers" in line or "spill" in line or "Function properties" in line:
-                log("  ptxas:", line.strip())
-    # the flash backward's products run on the tensor cores (mma.sync)
-    ops = sass_opcodes(lib_path, "flash_bwd_tc")
-    hmma = ops["HMMA"]
-    log(f"  flash backward (flash_bwd_tc): {hmma} HMMA of {sum(ops.values())} "
-        f"instructions in its SASS; most: "
-        + ", ".join(f"{op} {n}" for op, n in ops.most_common(12)))
-    require(hmma > 0, "the flash backward has no tensor-core instruction")
+    ptxas = lib_path.with_name(lib_path.stem + ".ptxas.txt").read_text()
+    for line in ptxas.splitlines():
+        if "registers" in line or "spill" in line or "Function properties" in line:
+            log("  ptxas:", line.strip())
+    # the flash kernels' products run on the tensor cores (mma.sync); Dh 64
+    tc = {}
+    for name, symbol in (("flash forward", "flash_fwd_tcILi64E"),
+                         ("flash backward", "flash_bwd_tcILi64E")):
+        ops = sass_opcodes(lib_path, symbol)
+        (regs, spill_st, spill_ld), = ptxas_entries(ptxas, symbol)
+        tc[name] = {"hmma": ops["HMMA"], "sass": sum(ops.values()), "registers": regs,
+                    "spill_bytes": spill_st + spill_ld}
+        log(f"  {name} ({symbol}): {ops['HMMA']} HMMA of {sum(ops.values())} "
+            f"instructions in its SASS, {regs} registers, {spill_st} + {spill_ld} bytes "
+            f"of spill stores + loads; most: "
+            + ", ".join(f"{op} {n}" for op, n in ops.most_common(12)))
+        require(ops["HMMA"] > 0, f"the {name} has no tensor-core instruction")
 
     # ---- 3. kernels vs plain versions
     log("kernels vs plain versions (atol 1e-4, rtol 1e-4):")
@@ -1073,17 +1247,28 @@ def main() -> int:
          T_MAIN * T_MAIN),
     )
     for name, key, replaces, kern, plain, yard, cells in rows:
-        ms, plain_ms, yard_ms = cuda_ms(kern), cuda_ms(plain), cuda_ms(yard)
+        with torch.no_grad():
+            ms = graph_ms(kern)
+        plain_ms, yard_ms = cuda_ms(plain), cuda_ms(yard)
         bound_ms, bound_by = bound(T_MAIN, cells)
-        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f} % of "
-            f"bound; SDPA with BD as a precomputed mask (yardstick) {yard_ms:.4f} ms")
-        records.append({
-            "name": name, "route": "cuda",
-            "source": f"{PKG}/csrc/rel_attention.cu", "replaces": replaces,
-            "launches": launches[key], "max_abs_err": errs[key], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "sdpa_bd_mask_yardstick_ms": yard_ms})
+        rec = {"name": name, "route": "cuda",
+               "source": f"{PKG}/csrc/rel_attention.cu", "replaces": replaces,
+               "launches": launches[key], "max_abs_err": errs[key], "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": None, "sdpa_bd_mask_yardstick_ms": yard_ms}
+        note = ""
+        if key == "flash":      # on the tensor cores: its 3xTF32 bound too
+            rec.update(source=f"{PKG}/csrc/flash_rel_attention_fwd.cu",
+                       bound_tc_ms=bound_tc(cells), share_of_bound=bound_ms / ms,
+                       **tc["flash forward"])
+            rec["share_of_bound_tc"] = rec["bound_tc_ms"] / ms
+            note = (f", 3xTF32 bound {rec['bound_tc_ms']:.4f} ms, "
+                    f"{100 * rec['share_of_bound_tc']:.1f} % of it; "
+                    f"{rec['hmma']} HMMA, {rec['registers']} registers")
+        log(f"  {name}: kernel {ms:.4f} ms (alone, CUDA graph), plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}, fp32), {100 * bound_ms / ms:.1f} % of "
+            f"bound{note}; SDPA with BD as a precomputed mask (yardstick) {yard_ms:.4f} ms")
+        records.append(rec)
 
     runs = {
         "band, kernel": lambda: recognize(model, x, t_len, band=band,
@@ -1187,6 +1372,9 @@ def main() -> int:
             "the band starts break their invariants")
     del rs_kern, rs_plain
 
+    # ---- 6c. head width 32 end to end
+    check_head_width_32(device)
+
     # ---- 7. the training entry point: one epoch, then -mode continue
     from transformer_transducer_tpu_torch.apps import train as train_app
     with tempfile.TemporaryDirectory() as tmp:
@@ -1222,6 +1410,40 @@ def main() -> int:
         require(all(cli_counts[k] > 0 for k in ("flash_fwd", "flash_bwd", "alpha", "beta"))
                 and cli_counts["banded_fwd"] == cli_counts["banded_bwd"] == 0,
                 f"the entry point did not run the flash and lattice kernels: {cli_counts}")
+        # the recognition entry point on the checkpoint training wrote, and
+        # its loader's weights against the trained model's
+        from transformer_transducer_tpu_torch.apps import predict as predict_app
+        from transformer_transducer_tpu_torch.models.factory import load_family
+        from transformer_transducer_tpu_torch.utils.config import load_config as load_cfg_file
+        from transformer_transducer_tpu_torch.utils.vocab import Vocabulary
+        cli_cfg = load_cfg_file(cfg_path)
+        with open(cli_cfg.data.dev, encoding="utf-8") as fh:
+            wav = fh.read().splitlines()[1].split(",")[0]
+        reset_counts()
+        text = predict_app.main(["--config", cfg_path, "--checkpoint",
+                                 os.path.join(exp, "epoch_1"), "--wav", wav,
+                                 "--full-context"])
+        torch.cuda.synchronize()
+        pred_counts = read_counts()
+        wave, rate = read_wave(wav)
+        feats = F.subsample(F.stack_frames(F.logmel_masked(wave, rate, n_mels),
+                                           left_ctx, right_ctx), subsample_factor(cfg.data))
+        second.model.eval()
+        loaded = load_family(cli_cfg, feats.shape[1], os.path.join(exp, "epoch_1"),
+                             device=device, flash=True)
+        require(all(torch.equal(a, b) for a, b in zip(second.model.state_dict().values(),
+                                                      loaded.state_dict().values())),
+                "predict's loader did not restore the trained weights")
+        del loaded
+        tokens = recognize(second.model, torch.from_numpy(feats[None]).to(device),
+                           [feats.shape[0]], max_tokens=max_tokens)[0]
+        want_text = "".join(Vocabulary.from_file(cli_cfg.data.vocab).decode(tokens))
+        log(f"apps/predict.py --full-context on epoch_1: {len(text)} characters, "
+            f"launches {pred_counts}; its loader restored the trained weights; the "
+            f"trained model's greedy decode {'matches' if text == want_text else 'differs'}")
+        require(text == want_text, f"predict gave {text!r}, the trained model {want_text!r}")
+        require(pred_counts["flash_fwd"] == n_layer,
+                f"predict did not run the flash forward once a layer: {pred_counts}")
         # the pruned loss through the entry point, one epoch
         os.chdir(tmp)
         try:
@@ -1273,7 +1495,7 @@ def main() -> int:
             ("rnnt_beta", "beta", "rnnt_kernel.py:190",
              lambda: beta_scan(sb, sl, inject),
              lambda: beta_scan_plain(sb, sl, inject), 4)):
-        ms, plain_ms = cuda_ms(kern), cuda_ms(plain, samples=5, reps=2)
+        ms, plain_ms = graph_ms(kern), cuda_ms(plain, samples=5, reps=2)
         bound_ms, bound_by = lattice_bound(B_TRAIN, d_total, u1, n_grids)
         log(f"  {name} (B={B_TRAIN}, D={d_total}, U1={u1}): kernel {ms:.4f} ms "
             f"({1e3 * ms / (d_total - 1):.3f} us per dependent diagonal), plain "
@@ -1295,7 +1517,7 @@ def main() -> int:
     a = torch.randn(B_TRAIN, T_MAIN, vocab, generator=gen, device="cuda") * 3
     l = torch.randn(B_TRAIN, u1, vocab, generator=gen, device="cuda") * 3
     with torch.no_grad():
-        ms = cuda_ms(lambda: additive_logz(a, l))
+        ms = graph_ms(lambda: additive_logz(a, l))
         plain_ms = cuda_ms(lambda: additive_logz_plain(a, l), samples=5, reps=2)
         # library yardstick, never called by the port: one PyTorch call over
         # the whole (B, T, U1, V) sum (1.8 GB)
@@ -1334,7 +1556,7 @@ def main() -> int:
             ("band_beta", "band_kernel.py:215",
              lambda: band_beta(lp_b, lp_l, d_b, tf, sf, S_RANGE),
              lambda: band_beta_plain(lp_b, lp_l, d_b, tf, sf), 3)):
-        ms, plain_ms = cuda_ms(kern), cuda_ms(plain, samples=5, reps=2)
+        ms, plain_ms = graph_ms(kern), cuda_ms(plain, samples=5, reps=2)
         bound_ms, bound_by = band_bound(B_TRAIN, T_MAIN, S_RANGE, n_arrays)
         log(f"  {name} (B={B_TRAIN}, T={T_MAIN}, S={S_RANGE}): kernel {ms:.4f} ms "
             f"({1e3 * ms / (T_MAIN - 1):.3f} us per dependent row), plain "
@@ -1372,7 +1594,7 @@ def main() -> int:
         # precomputed additive mask (no table gradients); never in the port
         out_s = torch.nn.functional.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=mask_add)
-        ms = cuda_ms(lambda: bwd(*args, out, lse, gout, *extra))
+        ms = graph_ms(lambda: bwd(*args, out, lse, gout, *extra))
         plain_ms = cuda_ms(lambda: torch.autograd.grad(out_p, leaves, gout,
                                                        retain_graph=True))
         yard_ms = cuda_ms(lambda: torch.autograd.grad(
@@ -1384,17 +1606,18 @@ def main() -> int:
                "max_abs_err": errs[f"{key}_bwd"], "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
                "sdpa_bd_mask_yardstick_ms": yard_ms}
-        tc = ""
+        note = ""
         if key == "flash":      # on the tensor cores: its 3xTF32 bound too
             rec.update(bound_tc_ms=backward_bound_tc(B_TRAIN, T_MAIN, cells),
-                       share_of_bound=bound_ms / ms, hmma=hmma)
+                       share_of_bound=bound_ms / ms, **tc["flash backward"])
             rec["share_of_bound_tc"] = rec["bound_tc_ms"] / ms
-            tc = (f", 3xTF32 bound {rec['bound_tc_ms']:.4f} ms, "
-                  f"{100 * rec['share_of_bound_tc']:.1f} % of it; {hmma} HMMA")
-        log(f"  {name}: kernel {ms:.4f} ms, plain (autograd) {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}, fp32), {100 * bound_ms / ms:.1f} % "
-            f"of bound{tc}; SDPA backward with BD as a precomputed mask "
-            f"(yardstick) {yard_ms:.4f} ms; {n_layer} launches per step")
+            note = (f", 3xTF32 bound {rec['bound_tc_ms']:.4f} ms, "
+                    f"{100 * rec['share_of_bound_tc']:.1f} % of it; {rec['hmma']} HMMA, "
+                    f"{rec['registers']} registers")
+        log(f"  {name}: kernel {ms:.4f} ms (alone, CUDA graph), plain (autograd) "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, fp32), "
+            f"{100 * bound_ms / ms:.1f} % of bound{note}; SDPA backward with BD as a "
+            f"precomputed mask (yardstick) {yard_ms:.4f} ms; {n_layer} launches per step")
         records.append(rec)
     del args, leaves, out, lse, out_p, out_s, bd, add, add_band
     torch.cuda.empty_cache()

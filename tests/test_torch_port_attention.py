@@ -116,7 +116,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         flash_rel_attention(q, k, v, re[:-1], u, rb)
     with pytest.raises(ValueError):   # the kernel route wants CUDA tensors
-        common.kernel_args(q, k, v, re, u, rb, head_dim=DH)
+        common.kernel_args(q, k, v, re, u, rb)
     # packed heads and a row stride that is a multiple of 4: strided views of
     # a fused projection pass, transposed heads do not
     qkv = torch.zeros(B, 37, 3, H, DH)

@@ -1,6 +1,7 @@
 """PyTorch port on the card: each CUDA kernel against its plain version (the
-attention forward and backward, the RNN-T lattice sweeps, the pruned loss's
-logZ and band sweeps), the launch counters, the wrappers' input checks, a
+attention forward and backward at head widths 32 and 64, the RNN-T lattice
+sweeps, the pruned loss's logZ at any U1 and band sweeps up to S = 128),
+the launch counters, the wrappers' input checks, a
 small encoder through the attention kernels against the dense path,
 gradients of whole models through the kernels against the plain path, and
 the pruned loss on the card against the CPU.
@@ -77,9 +78,22 @@ def test_banded_kernel_matches_plain(gen, tlen, left, right):
     torch.testing.assert_close(got, banded_attention_plain(*args, left, right), **TOL)
 
 
-@pytest.mark.parametrize("tlen", [1, 2, 33, 64, 65, 200])
-def test_flash_kernel_matches_plain(gen, tlen):
-    args = _inputs(gen, tlen)
+@pytest.mark.parametrize("tlen", [1, 33, 97, 200])
+@pytest.mark.parametrize("left,right", [(10, 2), (64, 64)])
+def test_banded_kernel_matches_plain_at_head_width_32(gen, tlen, left, right):
+    args = _inputs(gen, tlen, dh=32)
+    before = banded_attention.launches
+    got = banded_attention(*args, left, right)
+    torch.cuda.synchronize()
+    assert banded_attention.launches == before + 1
+    torch.testing.assert_close(got, banded_attention_plain(*args, left, right), **TOL)
+
+
+# T around the forward's 128-row query tile and 32-key chunk
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("tlen", [1, 2, 31, 32, 33, 64, 65, 127, 128, 129, 200])
+def test_flash_kernel_matches_plain(gen, tlen, dh):
+    args = _inputs(gen, tlen, dh)
     before = flash_rel_attention.launches
     got = flash_rel_attention(*args)
     torch.cuda.synchronize()
@@ -89,8 +103,8 @@ def test_flash_kernel_matches_plain(gen, tlen):
 
 def test_wrappers_reject_what_the_kernels_do_not_take(gen):
     q, k, v, re, u, rb = _inputs(gen, 40)
-    with pytest.raises(ValueError, match="Dh == 64"):
-        flash_rel_attention(*_inputs(gen, 40, dh=32))
+    with pytest.raises(ValueError, match=r"take Dh in \(32, 64\), got 48"):
+        flash_rel_attention(*_inputs(gen, 40, dh=48))
     with pytest.raises(ValueError, match="contiguous"):
         flash_rel_attention(q, k, v, re.transpose(1, 2).contiguous().transpose(1, 2),
                             u, rb)
@@ -139,13 +153,10 @@ def _grads(fn, leaves, gout):
     return [out.detach()] + [x.grad.clone() for x in leaves]
 
 
-# 16, 32, 64, 65: the flash backward's 32-row query tiles and 64-key chunks
-@pytest.mark.parametrize("tlen", [1, 16, 32, 33, 64, 65, 97, 200, 410])
-@pytest.mark.parametrize("band", [None, (10, 2), (0, 0), (64, 64)])
-def test_attention_backward_kernels_match_plain_autograd(gen, tlen, band):
+def _check_backward(gen, tlen, band, dh):
     mk = lambda *s: (torch.randn(*s, generator=gen, device="cuda") * 0.5).requires_grad_()
-    leaves = [mk(B, tlen, 3, H, DH), mk(K_LEN, H, DH), mk(H, DH), mk(K_LEN, H)]
-    gout = torch.randn(B, tlen, H, DH, generator=gen, device="cuda")
+    leaves = [mk(B, tlen, 3, H, dh), mk(K_LEN, H, dh), mk(H, dh), mk(K_LEN, H)]
+    gout = torch.randn(B, tlen, H, dh, generator=gen, device="cuda")
     if band is None:
         kern, plain, counter = flash_rel_attention, flash_rel_attention_plain, \
             flash_rel_attention_backward
@@ -160,6 +171,19 @@ def test_attention_backward_kernels_match_plain_autograd(gen, tlen, band):
     ref = _grads(plain, leaves, gout)
     for name, a, b in zip(("out", "qkv", "r_emb", "r_w_bias", "r_bias"), got, ref):
         _grad_close(a, b, name)
+
+
+# 16, 32, 64, 65: the flash backward's 32-row query tiles and 64-key chunks
+@pytest.mark.parametrize("tlen", [1, 16, 32, 33, 64, 65, 97, 200, 410])
+@pytest.mark.parametrize("band", [None, (10, 2), (0, 0), (64, 64)])
+def test_attention_backward_kernels_match_plain_autograd(gen, tlen, band):
+    _check_backward(gen, tlen, band, DH)
+
+
+@pytest.mark.parametrize("tlen", [1, 33, 129, 200])
+@pytest.mark.parametrize("band", [None, (10, 2), (64, 64)])
+def test_attention_backward_kernels_at_head_width_32(gen, tlen, band):
+    _check_backward(gen, tlen, band, 32)
 
 
 @pytest.mark.parametrize("tlen", [33, 410])
@@ -280,8 +304,10 @@ def test_lattice_wrappers_reject_what_the_kernels_do_not_take(gen):
 # The pruned loss: logZ and band sweeps (csrc/rnnt_pruned.cu)
 # ---------------------------------------------------------------------------
 
+# U1 past 64 takes a second (and third) block of label rows
 @pytest.mark.parametrize("b,tlen,u1,v", [(4, 410, 43, 6485), (1, 1, 1, 37), (2, 17, 6, 129),
-                                         (3, 9, 64, 300), (1, 33, 43, 128)])
+                                         (3, 9, 64, 300), (1, 33, 43, 128), (2, 37, 65, 300),
+                                         (2, 37, 129, 6485)])
 def test_logz_kernel_matches_plain(gen, b, tlen, u1, v):
     a = torch.randn(b, tlen, v, generator=gen, device="cuda") * 3
     l = torch.randn(b, u1, v, generator=gen, device="cuda") * 3
@@ -317,7 +343,8 @@ def _band_inputs(gen, b, tlen, s_range, bad_shifts=False):
     return lp_b, lp_l, rs, t_len, u_len, d, tf, sf
 
 
-@pytest.mark.parametrize("s_range", [1, 2, 3, 5, 8, 32])
+# S past 32: each lane holds ceil(S / 32) band slots
+@pytest.mark.parametrize("s_range", [1, 2, 3, 5, 8, 32, 33, 64, 128])
 @pytest.mark.parametrize("b,tlen", [(4, 410), (3, 1), (5, 37)])
 def test_band_kernels_match_plain(gen, b, tlen, s_range):
     lp_b, lp_l, rs, t_len, u_len, d, tf, sf = _band_inputs(gen, b, tlen, s_range,
@@ -372,11 +399,11 @@ def test_banded_loss_gradients_on_the_card(gen):
 
 
 def test_pruned_wrappers_reject_what_the_kernels_do_not_take(gen):
-    x = torch.zeros(1, 4, 33, device="cuda")
+    x = torch.zeros(1, 4, 129, device="cuda")
     d = torch.zeros(1, 4, dtype=torch.long, device="cuda")
-    with pytest.raises(ValueError, match="S <= 32"):
-        band_alpha(x, x, d, 33)
+    with pytest.raises(ValueError, match="S <= 128, got 129"):
+        band_alpha(x, x, d, 129)
     with pytest.raises(ValueError, match="inputs on different devices"):
         band_alpha(x[..., :4], x[..., :4], d.cpu(), 4)
-    with pytest.raises(ValueError, match="U1 <= 64"):
-        additive_logz(torch.zeros(1, 2, 8, device="cuda"), torch.zeros(1, 65, 8, device="cuda"))
+    with pytest.raises(ValueError, match="empty vocabulary"):
+        additive_logz(torch.zeros(1, 2, 0, device="cuda"), torch.zeros(1, 65, 0, device="cuda"))

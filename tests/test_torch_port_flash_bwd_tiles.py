@@ -30,19 +30,13 @@ from transformer_transducer_tpu.ops.pallas.flash_rel_attention import (
 from transformer_transducer_tpu_torch.ops.cuda.flash_rel_attention import (
     flash_rel_attention_plain)
 
-from torch_port_helpers import TOL, t
+from torch_port_helpers import TOL, bd_rows, gather_rows, t, tc_product, tf32_rna
 
 torch.set_num_threads(1)
 
 TK = 64
 T_VALUES = [1, 15, 16, 17, 33, 64, 65, 150]
 SHAPES = [(2, 2, 16), (1, 1, 64)]        # (B, H, Dh)
-
-
-def _bd_rows(tlen, o):
-    """Table row of each offset o, or -1 (o == 1, or outside the table)."""
-    row = torch.where(o <= 0, tlen - 1 + o, o - 2)
-    return torch.where((o == 1) | (row < 0) | (row >= tlen), -1, row)
 
 
 def _tile_chunks(tlen, tq):
@@ -52,14 +46,8 @@ def _tile_chunks(tlen, tq):
         for j0 in range(0, tlen, TK):
             omin = j0 - (i0 + tq - 1)
             x = torch.arange(nx)
-            rows = torch.where(x < tq + TK - 1, _bd_rows(tlen, omin + x), -1)
+            rows = torch.where(x < tq + TK - 1, bd_rows(tlen, omin + x), -1)
             yield i0, j0, rows, x < 1 - omin
-
-
-def _gather_rows(table, rows):
-    """table[rows] with zeros where rows == -1; table (T, H, ...)."""
-    out = table[rows.clamp(min=0)]
-    return out * (rows >= 0).view(-1, *([1] * (out.dim() - 1))).to(out.dtype)
 
 
 def emulate_flash_bwd(q, k, v, re, u, rb, dout, tq):
@@ -77,8 +65,8 @@ def emulate_flash_bwd(q, k, v, re, u, rb, dout, tq):
 
     def tile_scores(i0, j0, rows, own):
         qt, qn = qp[:, :, i0:i0 + tq], qp[:, :, i0 + 1:i0 + tq + 1]
-        e = _gather_rows(re, rows).transpose(0, 1)                  # (H, NX, Dh)
-        eb = _gather_rows(rb, rows).t()[None, :, None, :]           # (1, H, 1, NX)
+        e = gather_rows(re, rows).transpose(0, 1)                   # (H, NX, Dh)
+        eb = gather_rows(rb, rows).t()[None, :, None, :]            # (1, H, 1, NX)
         qe = torch.where(own, qt @ e.transpose(-1, -2), qn @ e.transpose(-1, -2)) + eb
         bd = qe[:, :, r_idx, kk_idx - r_idx + tq - 1]               # diagonal read
         s_ac = (qt + u[None, :, None]) @ kp[:, :, j0:j0 + TK].transpose(-1, -2)
@@ -182,31 +170,6 @@ def test_own_next_split_is_by_column():
 # ---------------------------------------------------------------------------
 
 CARD_TOL = 1e-4     # atol CARD_TOL * max|ref| + 1e-5, rtol CARD_TOL
-
-
-def tf32_rna(x: torch.Tensor) -> torch.Tensor:
-    """``cvt.rna.tf32.f32``: round fp32 to 10 mantissa bits, to nearest with
-    ties away from zero, on the bits (the low 13 bits become zero)."""
-    bits = x.contiguous().view(torch.int32)
-    sign = bits & torch.tensor(-0x80000000, dtype=torch.int32)
-    mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
-    return (sign | mag).view(torch.float32)
-
-
-def tc_product(a: torch.Tensor, b: torch.Tensor, terms: str) -> torch.Tensor:
-    """(M, K) . (K, N) as the kernel's mma.sync.m16n8k8 tiles compute it: an
-    fp32 accumulator that takes each 8-deep step's exact products; ``terms``
-    "3x" adds lo.hi + hi.lo + hi.hi of the split operands, "1x" hi.hi."""
-    a_hi, b_hi = tf32_rna(a), tf32_rna(b)
-    a_lo, b_lo = tf32_rna(a - a_hi), tf32_rna(b - b_hi)
-    pairs = [(a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)] if terms == "3x" else [(a_hi, b_hi)]
-    c = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
-    for k in range(0, a.shape[1], 8):
-        for x, y in pairs:
-            # products of two TF32 values are exact in fp64; the step's sum
-            # enters the fp32 accumulator once
-            c = c + (x[:, k:k + 8].double() @ y[k:k + 8].double()).float()
-    return c
 
 
 def _budget_inputs(seed):

@@ -1,8 +1,8 @@
 """PyTorch port: the trainer and its CLI on the CPU, on a synthetic tone
 corpus with a tiny config: epochs with checkpoints, decode dumps and CER,
 ``-mode continue``, the exact mid-epoch resume of ``--save-steps``, a
-falling loss, checkpoint loading, the pruned loss (``--pruned-range``), and
-the flags of later slices."""
+falling loss, checkpoint loading (also by ``apps/predict.py``), the pruned
+loss (``--pruned-range``), and the flags of later slices."""
 
 import glob
 import os
@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from data_helpers import make_tone_corpus, tiny_train_config
+from transformer_transducer_tpu_torch.apps import predict as predict_app
 from transformer_transducer_tpu_torch.apps import train as train_app
 from transformer_transducer_tpu_torch.training.trainer import Trainer
 from transformer_transducer_tpu_torch.utils import checkpoint as ckpt_lib
@@ -82,6 +83,60 @@ def test_cli_trains_epochs_then_continues(corpus, tmp_path, monkeypatch):
     assert again.optimizer.learning_rate == pytest.approx(0.01 * 0.5 ** 3)
     assert os.path.exists(os.path.join(exp, "epoch_2", "model.pt"))
     assert ckpt_lib.latest_checkpoint(exp).endswith("epoch_2")
+
+
+@pytest.fixture(scope="module")
+def one_epoch(corpus, tmp_path_factory):
+    """The CLI trained one epoch: (trainer, its config file, its epoch_0)."""
+    root = tmp_path_factory.mktemp("one_epoch")
+    path = str(root / "tiny.yaml")
+    dump_config(_cfg(corpus), path)
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        trainer = train_app.main(["-config", path, "--device", "cpu", "--epochs", "1"])
+    finally:
+        os.chdir(cwd)
+    return trainer, path, str(root / trainer.exp_dir / "epoch_0")
+
+
+@pytest.mark.parametrize("form", ["epoch directory", "model.pt", "flat state_dict"])
+def test_predict_loads_what_training_wrote(corpus, one_epoch, tmp_path, form):
+    """``apps/predict.py`` takes the trainer's ``epoch_0`` directory, its
+    ``model.pt`` and a flat ``state_dict`` file: the weights are the
+    trainer's and the tokens its model's greedy decode."""
+    from transformer_transducer_tpu_torch.data.wav import read_wave
+    from transformer_transducer_tpu_torch.decoding.greedy import recognize
+    from transformer_transducer_tpu_torch.models.factory import load_family
+    from transformer_transducer_tpu_torch.ops import features_np as F
+    from transformer_transducer_tpu_torch.utils.config import (
+        stack_context, subsample_factor)
+    from transformer_transducer_tpu_torch.utils.vocab import Vocabulary
+    trainer, cfg_path, ckpt = one_epoch
+    if form == "model.pt":
+        ckpt = os.path.join(ckpt, ckpt_lib.MODEL_FILE)
+    elif form == "flat state_dict":
+        ckpt = str(tmp_path / "flat.pt")
+        torch.save(trainer.model.state_dict(), ckpt)
+    cfg = load_config(cfg_path)
+    left, right = stack_context(cfg.data)
+    d_in = cfg.data.feature_dim * (1 + left + right)
+    loaded = load_family(cfg, d_in, ckpt, device="cpu")
+    for (name, a), b in zip(trainer.model.state_dict().items(),
+                            loaded.state_dict().values()):
+        assert torch.equal(a, b), name
+
+    wav = open(corpus[2]["dev"], encoding="utf-8").read().splitlines()[1].split(",")[0]
+    text = predict_app.main(["--config", cfg_path, "--checkpoint", ckpt, "--wav", wav,
+                             "--device", "cpu"])
+    wave, rate = read_wave(wav)
+    feats = F.subsample(F.stack_frames(F.logmel_masked(wave, rate, cfg.data.feature_dim),
+                                       left, right), subsample_factor(cfg.data))
+    trainer.model.eval()
+    tokens = recognize(trainer.model, torch.from_numpy(feats[None]), [feats.shape[0]],
+                       band=(cfg.model.enc.left_context, cfg.model.enc.right_context),
+                       max_tokens=cfg.data.max_target_length + 1)[0]
+    assert text == "".join(Vocabulary.from_file(cfg.data.vocab).decode(tokens))
 
 
 def test_save_steps_resume_is_step_for_step(corpus, tmp_path):

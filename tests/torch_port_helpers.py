@@ -73,3 +73,47 @@ def bias_blank(variables, offset: float):
 
 def t(x) -> torch.Tensor:
     return torch.from_numpy(np.asarray(x))
+
+
+# ---------------------------------------------------------------------------
+# The flash kernels' tile algebra (tests/test_torch_port_flash_*_tiles.py)
+# ---------------------------------------------------------------------------
+
+def bd_rows(tlen, o):
+    """Table row of each offset o, or -1 (o == 1, or outside the table)."""
+    row = torch.where(o <= 0, tlen - 1 + o, o - 2)
+    return torch.where((o == 1) | (row < 0) | (row >= tlen), -1, row)
+
+
+def gather_rows(table, rows):
+    """table[rows] with zeros where rows == -1; table (T, H, ...)."""
+    out = table[rows.clamp(min=0)]
+    return out * (rows >= 0).view(-1, *([1] * (out.dim() - 1))).to(out.dtype)
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: round fp32 to 10 mantissa bits, to nearest with
+    ties away from zero, on the bits (the low 13 bits become zero)."""
+    bits = x.contiguous().view(torch.int32)
+    sign = bits & torch.tensor(-0x80000000, dtype=torch.int32)
+    mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
+    return (sign | mag).view(torch.float32)
+
+
+def tc_product(a: torch.Tensor, b: torch.Tensor, terms: str,
+               acc: torch.Tensor = None) -> torch.Tensor:
+    """(..., M, K) . (..., K, N) as the kernels' mma.sync.m16n8k8 tiles
+    compute it: an fp32 accumulator (``acc``, else zeros) that takes each
+    8-deep step's exact products; ``terms`` "3x" adds lo.hi + hi.lo + hi.hi
+    of the split operands, "1x" hi.hi."""
+    a_hi, b_hi = tf32_rna(a), tf32_rna(b)
+    a_lo, b_lo = tf32_rna(a - a_hi), tf32_rna(b - b_hi)
+    pairs = [(a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)] if terms == "3x" else [(a_hi, b_hi)]
+    c = torch.zeros(*torch.broadcast_shapes(a.shape[:-2], b.shape[:-2]), a.shape[-2],
+                    b.shape[-1], dtype=torch.float32) if acc is None else acc
+    for k in range(0, a.shape[-1], 8):
+        for x, y in pairs:
+            # products of two TF32 values are exact in fp64; the step's sum
+            # enters the fp32 accumulator once
+            c = c + (x[..., k:k + 8].double() @ y[..., k:k + 8, :].double()).float()
+    return c

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Offline single-wav recognition on the card (port of ``apps/predict.py``).
 
-Loads a config + a port ``state_dict`` checkpoint (``torch.save``), extracts
+Loads a config + a port checkpoint (a trainer's ``epoch_N`` directory, its
+``model.pt``, or a flat ``state_dict`` file written with ``torch.save``), extracts
 features, encodes under the streaming band through the banded kernel (or
 full-context through the flash kernel), greedy-decodes and reports CER
 against an optional reference transcript.
 
     python -m transformer_transducer_tpu_torch.apps.predict \\
-        --config configs/joint_streaming.yaml --checkpoint model.pt \\
+        --config configs/joint_streaming.yaml \\
+        --checkpoint egs/<name>/<save_model>/epoch_19 \\
         --wav path/to/audio.wav [--truth "真实文本"] [--full-context]
 """
 
@@ -22,7 +24,9 @@ def main(argv=None) -> str:
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", required=True)
     ap.add_argument("--checkpoint", required=True,
-                    help="port state_dict file written with torch.save")
+                    help="a port checkpoint directory written by the trainer "
+                         "(epoch_N), its model.pt, or a flat state_dict file "
+                         "written with torch.save")
     ap.add_argument("--wav", required=True)
     ap.add_argument("--truth", default=None)
     ap.add_argument("--beam", action="store_true", help="width-5 beam search")

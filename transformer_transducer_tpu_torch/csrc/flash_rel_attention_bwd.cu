@@ -4,7 +4,7 @@
 // Replaces ops/pallas/flash_rel_attention.py :: flash_rel_attention
 // backward (_vjp_bwd, _bwd_kernel) -- ttx_flash_rel_attention_bwd below.
 // The score rule and the gradients are those of csrc/rel_attention.cu's
-// note: with o = j - i, scale = 1/8 and the tables sliced to T rows,
+// note: with o = j - i, scale = 1/sqrt(Dh) and the tables sliced to T rows,
 //   score(i,j) = scale [ (q_i + u).k_j + BD(i,j) ],
 //   BD = q_i.re[T-1+o] + rb[T-1+o] (o <= 0), 0 (o == 1),
 //        q_{i+1}.re[o-2] + rb[o-2] (o >= 2);
@@ -18,8 +18,9 @@
 // the bytes (q, k, v, dO, O in, dq, dk, dv and the tables out, about 24 MB)
 // take 7 us.
 //
-// Design: one block of 8 warps per (query tile of TQ = 32 rows, head,
-// batch) walks the key chunks of TK = 64 over [0, T).  q + u, q (and the row
+// Design: templated on the head width Dh (32 or 64; the products below
+// are at Dh = 64).  One block of 8 warps per (query tile of TQ = 32 rows,
+// head, batch) walks the key chunks of TK = 64 over [0, T).  q + u, q (and the row
 // after the tile), dO, the chunk's k and v, and the NE = TQ + TK - 1 table
 // rows of the chunk's offsets o = omin + x (omin = j0 - i0 - TQ + 1) sit in
 // shared memory.  Every product is a warp-level mma.sync.m16n8k8 TF32 tile
@@ -40,15 +41,8 @@
 // into that skew, DSk[r][kk - r + TQ - 1] = dS[r][kk]; d rb is DSk's column
 // sums and d u the column sums of the tile's dq_ac.
 //
-// 3xTF32: each fp32 operand x is split as it is loaded into hi = x rounded
-// to TF32 (to nearest, ties away: the bits of cvt.rna.tf32.f32, taken by
-// integer arithmetic, split()) and lo = cvt.rna.tf32(x - hi), and each
-// product adds lo.hi' + hi.lo' + hi.hi' in fp32.  hi carries 11 significant
-// bits and lo the next 11, so the dropped lo.lo' term and the rounding of lo
-// are below 2^-21 relative to each term, against 2^-11 for one TF32 product
-// (which misses the card tolerance, atol 1e-4 max|ref|, by about 20x at
-// K = 64; tests/test_torch_port_flash_bwd_tiles.py emulates both).  Both
-// halves are rounded: fed raw fp32, the tensor core drops the low 13 bits.
+// Each fp32 operand is split into its 3xTF32 halves (csrc/tensor_core.cuh,
+// which holds the helpers named below) as its fragment is loaded.
 //
 // Shared tiles are stored with an XOR swizzle of the column by the row's
 // low 3 bits (at()), so that a fragment load is free of bank conflicts
@@ -72,29 +66,29 @@
 // Plain C interface (loaded with ctypes); the launch runs on the caller's
 // stream, allocates nothing and returns cudaGetLastError().
 
-#include <cuda_runtime.h>
+#include "tensor_core.cuh"
 
 namespace {
 
-constexpr int DH = 64;              // head width
+using namespace ttx;
+
 constexpr int TQ = 32;              // query rows per block
 constexpr int TK = 64;              // keys per chunk
 constexpr int NE = TQ + TK - 1;     // offsets o in one chunk
 constexpr int NX = 96;              // NE padded to 12 tiles of 8
 constexpr int NTHREADS = 256;       // 8 warps
-constexpr unsigned FULL = 0xffffffffu;
 
 struct Args {
-    const float* q;       // q[b, t, h, d] at q + (b*T + t)*sq + h*DH + d
+    const float* q;       // q[b, t, h, d] at q + (b*T + t)*sq + h*Dh + d
     const float* k;
     const float* v;
     long long sq, sk, sv;
-    const float* re;      // (T, H, DH), sliced to T rows
-    const float* u;       // r_w_bias (H, DH)
+    const float* re;      // (T, H, Dh), sliced to T rows
+    const float* u;       // r_w_bias (H, Dh)
     const float* rb;      // r_bias (T, H)
-    const float* out;     // forward output (B, T, H, DH)
+    const float* out;     // forward output (B, T, H, Dh)
     const float* lse;     // forward row log-sum-exp (B, H, T)
-    const float* dout;    // dO (B, T, H, DH)
+    const float* dout;    // dO (B, T, H, Dh)
     float* dq;            // outputs, zeroed by the caller
     float* dk;
     float* dv;
@@ -104,12 +98,7 @@ struct Args {
     int B, T, H;
 };
 
-// Tiles of W floats a row, the column swizzled by the row's low 3 bits:
-// (row & 3) picks one of four 8-bank groups, (row & 4) a half of it.
-__device__ __forceinline__ int swz(int row) { return ((row & 3) << 3) | (row & 4); }
-
-__device__ __forceinline__ int at(int row, int col, int w) { return row * w + (col ^ swz(row)); }
-
+template <int DH>
 struct __align__(16) Smem {
     float qu[TQ * DH];          // q_i + u
     float q[(TQ + 1) * DH];     // q_i; row TQ is q_{i0+TQ}
@@ -125,165 +114,14 @@ struct __align__(16) Smem {
     float lse[TQ];
 };
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-    return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 ldg4(const float* p) {
-    return __ldg(reinterpret_cast<const float4*>(p));
-}
-
-__device__ __forceinline__ void st4(float* p, float4 x) {
-    *reinterpret_cast<float4*>(p) = x;
-}
-
-// Table row of offset o, or -1 (o == 1, or outside the table).
-__device__ __forceinline__ int bd_row(int T, int o) {
-    const int row = o <= 0 ? T - 1 + o : o - 2;
-    return (o == 1 || row < 0 || row >= T) ? -1 : row;
-}
-
-// hi: x rounded to TF32 to nearest, ties away from zero, on the bits.  For
-// every x but a NaN these are the bits of cvt.rna.tf32.f32, without the
-// Inf/NaN guard ptxas wraps around it; a NaN x gets a finite hi, but its lo
-// is NaN, so its products stay NaN.
-__device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
-    hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-    const float rest = x - __uint_as_float(hi);
-    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(rest));
-}
-
-// Fragment loads from a swizzled tile.  Lane 4g + t holds A elements
-// (m0 + g + 8i, k + t + 4h) and B elements (k + t + 4h, n0 + g + 8i); a
-// view gives the element for (k, h, i), k a multiple of 8, from addresses
-// worked out once per product.
-
-// The tile's rows are the operand's m (or n) index, its columns k: the
-// lane's rows x0 + g + 8i share row & 7 and so one swizzle f, and
-// (k + c) ^ f = (k ^ (f & 24)) + (c ^ (f & 7)) for c = t + 4h < 8.
-template <int W>
-struct RowView {
-    const float* p[2];
-    int s;
-    __device__ __forceinline__ RowView(const float* tile, int x0) {
-        const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-        const int f = swz(x0 + g);
-        p[0] = tile + (x0 + g) * W + (t ^ (f & 7));
-        p[1] = tile + (x0 + g) * W + ((t + 4) ^ (f & 7));
-        s = f & 24;
-    }
-    __device__ __forceinline__ float operator()(int k, int h, int i) const {
-        return p[h][8 * i * W + (k ^ s)];
-    }
-};
-
-// The tile's rows are the operand's k index (shifted by rs), its columns m
-// (or n): the lane's rows k + t + 4h + rs share row & 7 for every k.
-template <int W, int NI>
-struct KView {
-    const float* p[2][NI];
-    __device__ __forceinline__ KView(const float* tile, int x0, int rs = 0) {
-        const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            const int row = t + 4 * h + rs;
-#pragma unroll
-            for (int i = 0; i < NI; ++i)
-                p[h][i] = tile + row * W + ((x0 + g + 8 * i) ^ swz(row));
-        }
-    }
-    __device__ __forceinline__ float operator()(int k, int h, int i) const {
-        return p[h][i][k * W];
-    }
-};
-
-__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
-                                    const unsigned (&b)[2]) {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-template <int NT>
-__device__ __forceinline__ void zero(float (&c)[NT][4]) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
-}
-
-// Row and column of element e of tile j of a warp's accumulator.
-__device__ __forceinline__ int c_row(int m0, int e) {
-    return m0 + ((threadIdx.x & 31) >> 2) + 8 * (e >> 1);
-}
-__device__ __forceinline__ int c_col(int n0, int j, int e) {
-    return n0 + 8 * j + 2 * (threadIdx.x & 3) + (e & 1);
-}
-
-// One 8-deep step of a warp's tile product in 3xTF32: c[j] += lo.hi' +
-// hi.lo' + hi.hi' for the tiles j at columns n0 + 8j, the small terms
-// first.  Fragments (PTX ISA, m16n8k8 .tf32): lane 4g + t holds A rows g,
-// g+8 at columns t, t+4, B rows t, t+4 at column g, and C rows g, g+8 at
-// columns 2t, 2t+1.  The tiles interleave, so consecutive mma of a step are
-// independent.
-template <int NT, class FA, class FB>
-__device__ __forceinline__ void mma_step(float (&c)[NT][4], const FA& A, const FB& B, int k) {
-    unsigned ah[4], al[4], bh[NT][2], bl[NT][2];
-    split(A(k, 0, 0), ah[0], al[0]);
-    split(A(k, 0, 1), ah[1], al[1]);
-    split(A(k, 1, 0), ah[2], al[2]);
-    split(A(k, 1, 1), ah[3], al[3]);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-        split(B(k, 0, j), bh[j][0], bl[j][0]);
-        split(B(k, 1, j), bh[j][1], bl[j][1]);
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) mma(c[j], al, bh[j]);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) mma(c[j], ah, bl[j]);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) mma(c[j], ah, bh[j]);
-}
-
-// c[j] += A[m0:m0+16, 0:K] . B[0:K, n0+8j:n0+8j+8], one warp, A and B
-// views (or masks of views) placed at m0 and n0.
-template <int K, int NT, class FA, class FB>
-__device__ __forceinline__ void warp_mma(float (&c)[NT][4], const FA& A, const FB& B) {
-#pragma unroll
-    for (int k = 0; k < K; k += 8) mma_step(c, A, B, k);
-}
-
-// The same over k in [k_lo, k_hi), multiples of 8 known only at run time.
-template <int NT, class FA, class FB>
-__device__ __forceinline__ void warp_mma_range(float (&c)[NT][4], const FA& A, const FB& B,
-                                               int k_lo, int k_hi) {
-#pragma unroll 2
-    for (int k = k_lo; k < k_hi; k += 8) mma_step(c, A, B, k);
-}
-
-// Add a warp's accumulator tiles to memory as float4 atomics: lanes 2s and
-// 2s+1 swap halves, so each holds four columns of one row.  dst(row) gives
-// the row's first float in memory, or nullptr for a row that adds nothing.
-template <int NT, class F>
-__device__ __forceinline__ void emit_rows(const float (&c)[NT][4], int m0, int n0, F dst) {
-    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-    const bool odd = t & 1;
-    float* base = dst(m0 + g + (odd ? 8 : 0));
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-        const float r0 = __shfl_xor_sync(FULL, odd ? c[j][0] : c[j][2], 1);
-        const float r1 = __shfl_xor_sync(FULL, odd ? c[j][1] : c[j][3], 1);
-        const float4 x = odd ? make_float4(r0, r1, c[j][2], c[j][3])
-                             : make_float4(c[j][0], c[j][1], r0, r1);
-        if (base != nullptr)
-            atomicAdd(reinterpret_cast<float4*>(base + n0 + 8 * j + 4 * (t >> 1)), x);
-    }
-}
-
+template <int DH>
 __global__ void __launch_bounds__(NTHREADS, 2)
 flash_bwd_tc(Args a) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    Smem& s = *reinterpret_cast<Smem*>(smem_raw);
+    Smem<DH>& s = *reinterpret_cast<Smem<DH>*>(smem_raw);
+    // dq tiles of 8 dims a warp in products b and e (four column groups),
+    // d v / d k tiles in product a (two), d re tiles in product e (four)
+    constexpr int NQD = DH / 32, NKD = DH / 16, NRD = DH / 32;
 
     const int tid = threadIdx.x;
     const int warp = tid >> 5;
@@ -313,9 +151,9 @@ flash_bwd_tc(Args a) {
         const int r = tid >> 3, c = tid & 7, i = i0 + r;
         float di = 0.f;
         if (i < T) {
-            const long long row = (((long long)b * T + i) * H + h) * DH + 8 * c;
+            const long long row = (((long long)b * T + i) * H + h) * DH + (DH / 8) * c;
 #pragma unroll
-            for (int x = 0; x < 8; x += 4) {
+            for (int x = 0; x < DH / 8; x += 4) {
                 const float4 o4 = ld4(a.out + row + x), g4 = ld4(a.dout + row + x);
                 di += o4.x * g4.x + o4.y * g4.y + o4.z * g4.z + o4.w * g4.w;
             }
@@ -329,10 +167,12 @@ flash_bwd_tc(Args a) {
         }
     }
 
-    // the warp's tiles: rows m0..m0+15 of the query tile, 16 dims of dq
+    // the warp's tiles: rows m0..m0+15 of the query tile, 16 keys of the
+    // scores, DH/4 dims of dq
     const int mq = 16 * (warp & 1);
     const int nq = 16 * (warp >> 1);
-    float dq_ac[2][4], dq_own[2][4], dq_nx[2][4];
+    const int nqd = (DH / 4) * (warp >> 1);
+    float dq_ac[NQD][4], dq_own[NQD][4], dq_nx[NQD][4];
     zero(dq_ac);
     zero(dq_own);
     zero(dq_nx);
@@ -432,32 +272,32 @@ flash_bwd_tc(Args a) {
             }
         __syncthreads();
 
-        // a: dV and dK of the chunk; warp: 16 keys x 32 dims
+        // a: dV and dK of the chunk; warp: 16 keys x DH/2 dims
         {
-            const int mk = 16 * (warp & 3), nk = 32 * (warp >> 2);
+            const int mk = 16 * (warp & 3), nk = (DH / 2) * (warp >> 2);
             auto key_row = [&](float* base) {
                 return [=](int kk) -> float* {
                     return j0 + kk < T ? base + (((long long)b * T + j0 + kk) * H + h) * DH
                                        : nullptr;
                 };
             };
-            float acc[4][4];
+            float acc[NKD][4];
             zero(acc);
-            warp_mma<TQ>(acc, KView<TK, 2>(s.p, mk), KView<DH, 4>(s.go, nk));
+            warp_mma<TQ>(acc, KView<TK, 2>(s.p, mk), KView<DH, NKD>(s.go, nk));
             emit_rows(acc, mk, nk, key_row(a.dv));
             zero(acc);
-            warp_mma<TQ>(acc, KView<TK, 2>(s.ds, mk), KView<DH, 4>(s.qu, nk));
+            warp_mma<TQ>(acc, KView<TK, 2>(s.ds, mk), KView<DH, NKD>(s.qu, nk));
             emit_rows(acc, mk, nk, key_row(a.dk));
         }
 
         // b: dq's AC part
-        warp_mma<TK>(dq_ac, RowView<TK>(s.ds, mq), KView<DH, 2>(s.k, nq));
+        warp_mma<TK>(dq_ac, RowView<TK>(s.ds, mq), KView<DH, NQD>(s.k, nqd));
 
         // e: dq's BD parts from DSk (own columns x = k + t + 4h to row i, the
         // others to row i+1)
         {
             const RowView<NX> dsk(s.qe, mq);
-            const KView<DH, 2> e_cols(s.e, nq);
+            const KView<DH, NQD> e_cols(s.e, nqd);
             auto own = [&](int k, int hh, int i) {
                 return k + t + 4 * hh < xs ? dsk(k, hh, i) : 0.f;
             };
@@ -470,13 +310,13 @@ flash_bwd_tc(Args a) {
 
         // e: the table gradients
         {
-            // d re = DSk^T . Q_sel; warp: 3 x 16 offsets x 16 dims
+            // d re = DSk^T . Q_sel; warp: 3 x 16 offsets x DH/4 dims
             auto table_row = [&](int x) -> float* {
                 const int row = x < NE ? bd_row(T, omin + x) : -1;
                 return row >= 0 ? a.dre + ((long long)row * H + h) * DH : nullptr;
             };
-            const int nr = 16 * (warp & 3);
-            const KView<DH, 2> q_own(s.q, nr), q_next(s.q, nr, 1);
+            const int nr = (DH / 4) * (warp & 3);
+            const KView<DH, NRD> q_own(s.q, nr), q_next(s.q, nr, 1);
 #pragma unroll 1
             for (int m = 0; m < 3; ++m) {
                 const int mr = 48 * (warp >> 2) + 16 * m;
@@ -488,7 +328,7 @@ flash_bwd_tc(Args a) {
                 auto nxt = [&](int k, int hh, int i) {
                     return mr + g + 8 * i >= xs ? dskt(k, hh, i) : 0.f;
                 };
-                float acc[2][4];
+                float acc[NRD][4];
                 zero(acc);
                 if (mr < xs) warp_mma<TQ>(acc, own, q_own);
                 if (mr + 16 > xs) warp_mma<TQ>(acc, nxt, q_next);
@@ -510,20 +350,20 @@ flash_bwd_tc(Args a) {
     // of dq_ac.  Staged row-major (unswizzled) in qe and p.
     __syncthreads();
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+    for (int j = 0; j < NQD; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-            const int r = c_row(mq, e), d = c_col(nq, j, e);
+            const int r = c_row(mq, e), d = c_col(nqd, j, e);
             s.qe[r * DH + d] = dq_ac[j][e] + dq_own[j][e];
             s.p[r * DH + d] = dq_ac[j][e];
         }
     if (tid < DH) s.qe[TQ * DH + tid] = 0.f;
     __syncthreads();
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+    for (int j = 0; j < NQD; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-            s.qe[(c_row(mq, e) + 1) * DH + c_col(nq, j, e)] += dq_nx[j][e];
+            s.qe[(c_row(mq, e) + 1) * DH + c_col(nqd, j, e)] += dq_nx[j][e];
     __syncthreads();
     if (tid < DH / 4) {
         float4 sum = zero4;
@@ -549,7 +389,7 @@ extern "C" int ttx_flash_rel_attention_bwd(
         const void* q, const void* k, const void* v, long long sq, long long sk,
         long long sv, const void* re, const void* u, const void* rb,
         const void* out, const void* lse, const void* dout, void* dq, void* dk,
-        void* dv, void* dre, void* du, void* drb, int B, int T, int H,
+        void* dv, void* dre, void* du, void* drb, int B, int T, int H, int Dh,
         void* stream) {
     Args a;
     a.q = static_cast<const float*>(q);
@@ -569,11 +409,14 @@ extern "C" int ttx_flash_rel_attention_bwd(
     a.du = static_cast<float*>(du);
     a.drb = static_cast<float*>(drb);
     a.B = B; a.T = T; a.H = H;
-    const int smem = (int)sizeof(Smem);
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_tc, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((T + TQ - 1) / TQ, H, B);
-    flash_bwd_tc<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
-    return (int)cudaGetLastError();
+    return with_head_dim(Dh, [&](auto dh) {
+        constexpr int DH = decltype(dh)::value;
+        const int smem = (int)sizeof(Smem<DH>);
+        cudaError_t err = cudaFuncSetAttribute(
+            flash_bwd_tc<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return (int)err;
+        const dim3 grid((T + TQ - 1) / TQ, H, B);
+        flash_bwd_tc<DH><<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
+        return (int)cudaGetLastError();
+    });
 }

@@ -1,17 +1,16 @@
-// Rel-position self-attention, forward and backward, for Hopper (sm_90a), fp32.
+// Banded rel-position self-attention, forward and backward, for Hopper
+// (sm_90a), fp32.
 //
-// Replaces three TPU kernels of the JAX package:
+// Replaces two TPU kernels of the JAX package:
 //   * ops/pallas/banded_attention.py :: banded_attention forward
 //     (_fwd_impl, _band_kernel) -- ttx_banded_attention_fwd below;
 //   * ops/pallas/banded_attention.py :: banded_attention backward
-//     (_bwd_impl, _band_bwd_kernel) -- ttx_banded_attention_bwd below;
-//   * ops/pallas/flash_rel_attention.py :: flash_rel_attention forward
-//     (_fwd_impl, _fwd_kernel) -- ttx_flash_rel_attention_fwd below.
-// The flash backward (the fourth) is csrc/flash_rel_attention_bwd.cu, on
-// the tensor cores.
+//     (_bwd_impl, _band_bwd_kernel) -- ttx_banded_attention_bwd below.
+// The full-context (flash) kernels, on the tensor cores, are
+// csrc/flash_rel_attention_fwd.cu and csrc/flash_rel_attention_bwd.cu.
 //
-// All compute one score rule (models/attention.py dense branch), with the
-// tables already sliced to T rows, o = j - i and scale = 1/sqrt(Dh):
+// All four compute one score rule (models/attention.py dense branch), with
+// the tables already sliced to T rows, o = j - i and scale = 1/sqrt(Dh):
 //
 //   score(i,j) = scale * [ (q_i + r_w_bias).k_j + BD(i,j) ]
 //   BD(i,j) = q_i.re[T-1+o]     + rb[T-1+o]   if o <= 0
@@ -35,24 +34,26 @@
 //
 // Bounds on the card (H100 SXM: 3.35 TB/s, 67 TFLOP/s fp32 without tensor
 // cores):
-//   * forward at the flagship serving shape B=8, T=410, H=8, Dh=64: banded
-//     (left 10, right 2) about 28 MB moved and 0.13 GFLOP, memory-bound,
-//     about 8 us; flash the same 28 MB but 4.1 GFLOP, about 62 us.
+//   * forward at the flagship serving shape B=8, T=410, H=8, Dh=64, band
+//     (left 10, right 2): about 28 MB moved and 0.13 GFLOP, memory-bound,
+//     about 8 us.
 //   * banded backward at the flagship training batch B=4, band (10, 2):
 //     0.17 GFLOP but q, k, v, dO in and dq, dk, dv out, about 23.5 MB,
 //     about 7 us (bytes).
 //
-// Design (simple and exact first; wgmma/TMA tiling is later work):
+// Design (simple and exact first; wgmma/TMA tiling is later work), templated
+// on the head width Dh (32 or 64):
 //   * one block of 256 threads per (query tile of TQ=32 rows, head, batch);
 //   * q + r_w_bias, q (and the row after the tile, for the wrap term), a
 //     chunk of TK=64 keys/values and the TQ+TK-1 table rows that the
 //     chunk's offsets o need sit in shared memory, so the BD term indexes its
 //     table row directly (no TPU lane-rolls, no (T, T) scores in memory);
-//   * 8 threads per query row, each scoring 8 keys of the chunk; the forward
-//     carries an online softmax in fp32 (max, sum, 64-wide accumulator)
-//     across chunks;
-//   * the banded kernels walk only the key window [i0-left, i0+TQ-1+right]
-//     (one chunk at the flagship band), the flash kernels all of [0, T);
+//   * 8 threads per query row, each scoring 8 keys of the chunk and owning
+//     Dh/8 output columns (4c..4c+3, then 32 on); the forward carries an
+//     online softmax in fp32 (max, sum, Dh/8-wide accumulator) across
+//     chunks;
+//   * the kernels walk only the key window [i0-left, i0+TQ-1+right] (one
+//     chunk at the flagship band);
 //   * the backward keeps each query row's dq in registers (the wrap term's
 //     share for row i+1 too) and adds it to memory once at the end; dk, dv
 //     and the table gradients, which many blocks share, go out per chunk with
@@ -64,43 +65,52 @@
 // Plain C interface (loaded with ctypes).  Kernels run on the caller's
 // stream, allocate nothing and return cudaGetLastError() after the launch.
 
-#include <cuda_runtime.h>
+#include "tensor_core.cuh"
 
 namespace {
 
-constexpr int DH = 64;              // head width the kernels take
+using namespace ttx;
+
 constexpr int TQ = 32;              // query rows per block
 constexpr int TK = 64;              // keys per chunk
 constexpr int NTHREADS = 256;       // 8 threads per query row
-constexpr int LD = DH + 4;          // padded shared row, in floats
 constexpr int NE = TQ + TK - 1;     // distinct offsets o in one chunk
 constexpr int LDP = TK + 1;
 constexpr float NEG = -1e30f;
-constexpr unsigned FULL = 0xffffffffu;
 
 struct Args {
-    const float* q;       // q[b, t, h, d] at q + (b*T + t)*sq + h*DH + d
+    const float* q;       // q[b, t, h, d] at q + (b*T + t)*sq + h*Dh + d
     const float* k;
     const float* v;
     long long sq, sk, sv; // row strides (elements between consecutive t)
-    const float* re;      // (T, H, DH) contiguous, sliced to T rows
-    const float* u;       // r_w_bias (H, DH)
+    const float* re;      // (T, H, Dh) contiguous, sliced to T rows
+    const float* u;       // r_w_bias (H, Dh)
     const float* rb;      // r_bias (T, H)
-    float* out;           // (B, T, H, DH) contiguous: written by the forward,
+    float* out;           // (B, T, H, Dh) contiguous: written by the forward,
                           // read by the backward
     float* lse;           // (B, H, T) row log-sum-exp, or null (forward only)
-    const float* dout;    // backward: dO (B, T, H, DH) contiguous
+    const float* dout;    // backward: dO (B, T, H, Dh) contiguous
     float* dq;            // backward outputs, zeroed by the caller:
-    float* dk;            //   dq, dk, dv (B, T, H, DH)
+    float* dk;            //   dq, dk, dv (B, T, H, Dh)
     float* dv;
-    float* dre;           //   (T, H, DH)
-    float* du;            //   (H, DH)
+    float* dre;           //   (T, H, Dh)
+    float* du;            //   (H, Dh)
     float* drb;           //   (T, H)
     int B, T, H;
-    int left, right;      // band (banded kernels only)
+    int left, right;      // band
 };
 
+// Shared rows are padded to Dh+4 floats (LD); a thread's output columns
+// come in NC groups of 4: 4c..4c+3, 32+4c.., one group per 32 columns.
+template <int DH>
+struct Dims {
+    static constexpr int LD = DH + 4;
+    static constexpr int NC = DH / 32;
+};
+
+template <int DH>
 struct __align__(16) Smem {
+    static constexpr int LD = Dims<DH>::LD;
     float qu[TQ][LD];       // q_i + r_w_bias
     float q[TQ + 1][LD];    // q_i; row TQ holds q_{i0+TQ} for the wrap term
     float k[TK][LD];
@@ -112,7 +122,9 @@ struct __align__(16) Smem {
 
 // float4-read arrays first: each is a multiple of 16 bytes long, so every
 // one of them starts 16-byte aligned
+template <int DH>
 struct __align__(16) SmemBwd {
+    static constexpr int LD = Dims<DH>::LD;
     float qu[TQ][LD];
     float q[TQ + 1][LD];
     float k[TK][LD];
@@ -123,14 +135,6 @@ struct __align__(16) SmemBwd {
     float p[TQ][LDP];
     float ds[TQ][LDP];      // score gradients of the current chunk
 };
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-    return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void st4(float* p, float4 x) {
-    *reinterpret_cast<float4*>(p) = x;
-}
 
 __device__ __forceinline__ float dot4(float4 a, float4 b) {
     return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
@@ -143,20 +147,8 @@ __device__ __forceinline__ void add4(float* p, float4 x) {
     atomicAdd(p + 3, x.w);
 }
 
-// Table row that the BD term uses at offset o, or -1 for none (o == 1, or
-// outside the table).
-__device__ __forceinline__ int bd_index(const Args& a, int o) {
-    int row = -1;
-    if (o <= 0) {
-        row = a.T - 1 + o;
-    } else if (o >= 2) {
-        row = o - 2;
-    }
-    return (row < 0 || row >= a.T) ? -1 : row;
-}
-
 // The q tile (TQ+1 rows, zero past T) and q + r_w_bias.
-template <class S>
+template <int DH, class S>
 __device__ __forceinline__ void stage_q(const Args& a, S& s, int b, int h, int i0) {
     const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int idx = threadIdx.x; idx < (TQ + 1) * (DH / 4); idx += NTHREADS) {
@@ -175,7 +167,7 @@ __device__ __forceinline__ void stage_q(const Args& a, S& s, int b, int h, int i
 
 // Keys and values [j0, j0+TK) (zero from jhi on) and the table rows and
 // r_bias of the chunk's offsets o = omin + x, omin = j0 - (i0 + TQ - 1).
-template <class S>
+template <int DH, class S>
 __device__ __forceinline__ void stage_chunk(const Args& a, S& s, int b, int h,
                                             int i0, int j0, int jhi) {
     const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -195,7 +187,7 @@ __device__ __forceinline__ void stage_chunk(const Args& a, S& s, int b, int h,
     for (int idx = threadIdx.x; idx < NE * (DH / 4); idx += NTHREADS) {
         const int x = idx / (DH / 4);
         const int d = 4 * (idx % (DH / 4));
-        const int row = bd_index(a, omin + x);
+        const int row = bd_row(a.T, omin + x);
         float4 ex = zero4;
         if (row >= 0) ex = ld4(a.re + ((long long)row * a.H + h) * DH + d);
         st4(&s.e[x][d], ex);
@@ -205,7 +197,7 @@ __device__ __forceinline__ void stage_chunk(const Args& a, S& s, int b, int h,
 
 // Scaled scores of query row r (sequence row i) against keys c + 8m of the
 // staged chunk, and the bit mask of the live cells among them.
-template <bool BANDED, class S>
+template <int DH, class S>
 __device__ __forceinline__ unsigned chunk_scores(const Args& a, const S& s,
                                                  int r, int c, int i, int j0,
                                                  int jhi, float sc[8]) {
@@ -232,29 +224,24 @@ __device__ __forceinline__ unsigned chunk_scores(const Args& a, const S& s,
     for (int m = 0; m < 8; ++m) {
         const int kk = c + 8 * m;
         const int o = obase + 8 * m;
-        bool ok = i < a.T && (j0 + kk) < jhi;
-        if (BANDED) ok = ok && o >= -a.left && o <= a.right;
+        const bool ok = i < a.T && (j0 + kk) < jhi && o >= -a.left && o <= a.right;
         sc[m] = (sc[m] + s.eb[kk - r + TQ - 1]) * scale;
         if (ok) live |= 1u << m;
     }
     return live;
 }
 
-__device__ __forceinline__ void key_window(const Args& a, bool banded, int i0,
-                                           int* jlo, int* jhi) {
-    *jlo = 0;
-    *jhi = a.T;
-    if (banded) {
-        *jlo = max(0, i0 - a.left);
-        *jhi = min(a.T, i0 + TQ + a.right);
-    }
+__device__ __forceinline__ void key_window(const Args& a, int i0, int* jlo, int* jhi) {
+    *jlo = max(0, i0 - a.left);
+    *jhi = min(a.T, i0 + TQ + a.right);
 }
 
-template <bool BANDED>
+template <int DH>
 __global__ void __launch_bounds__(NTHREADS)
 rel_attention_fwd(Args a) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    Smem& s = *reinterpret_cast<Smem*>(smem_raw);
+    Smem<DH>& s = *reinterpret_cast<Smem<DH>*>(smem_raw);
+    constexpr int NC = Dims<DH>::NC;
 
     const int tid = threadIdx.x;
     const int i0 = blockIdx.x * TQ;
@@ -262,25 +249,25 @@ rel_attention_fwd(Args a) {
     const int b = blockIdx.z;
     const int T = a.T;
 
-    stage_q(a, s, b, h, i0);
+    stage_q<DH>(a, s, b, h, i0);
     int jlo, jhi;
-    key_window(a, BANDED, i0, &jlo, &jhi);
+    key_window(a, i0, &jlo, &jhi);
 
     const int r = tid >> 3;      // query row within the tile
     const int c = tid & 7;       // this thread's keys: c, c+8, ..., c+56
     const int i = i0 + r;
     float m_run = NEG, l_run = 0.f;
-    float acc[8];
+    float acc[4 * NC];
 #pragma unroll
-    for (int x = 0; x < 8; ++x) acc[x] = 0.f;
+    for (int x = 0; x < 4 * NC; ++x) acc[x] = 0.f;
 
     for (int j0 = jlo; j0 < jhi; j0 += TK) {
         __syncthreads();   // the previous chunk's k, v, e are no longer read
-        stage_chunk(a, s, b, h, i0, j0, jhi);
+        stage_chunk<DH>(a, s, b, h, i0, j0, jhi);
         __syncthreads();
 
         float sc[8];
-        const unsigned live = chunk_scores<BANDED>(a, s, r, c, i, j0, jhi, sc);
+        const unsigned live = chunk_scores<DH>(a, s, r, c, i, j0, jhi, sc);
         float cmax = NEG;
 #pragma unroll
         for (int m = 0; m < 8; ++m)
@@ -303,18 +290,18 @@ rel_attention_fwd(Args a) {
         l_run = l_run * alpha + psum;
         m_run = m_new;
 #pragma unroll
-        for (int x = 0; x < 8; ++x) acc[x] *= alpha;
+        for (int x = 0; x < 4 * NC; ++x) acc[x] *= alpha;
         __syncwarp();   // row r's probabilities come from this warp's lanes
 
         const int nk = min(TK, jhi - j0);
         for (int kk = 0; kk < nk; ++kk) {
             const float p = s.p[r][kk];
-            const float4 v0 = ld4(&s.v[kk][4 * c]);
-            const float4 v1 = ld4(&s.v[kk][32 + 4 * c]);
-            acc[0] += p * v0.x; acc[1] += p * v0.y;
-            acc[2] += p * v0.z; acc[3] += p * v0.w;
-            acc[4] += p * v1.x; acc[5] += p * v1.y;
-            acc[6] += p * v1.z; acc[7] += p * v1.w;
+#pragma unroll
+            for (int n = 0; n < NC; ++n) {
+                const float4 v4 = ld4(&s.v[kk][32 * n + 4 * c]);
+                acc[4 * n] += p * v4.x; acc[4 * n + 1] += p * v4.y;
+                acc[4 * n + 2] += p * v4.z; acc[4 * n + 3] += p * v4.w;
+            }
         }
     }
 
@@ -322,20 +309,21 @@ rel_attention_fwd(Args a) {
     if (i < T) {
         const float inv = 1.f / l_run;
         float* dst = a.out + (((long long)b * T + i) * a.H + h) * DH;
-        st4(dst + 4 * c, make_float4(acc[0] * inv, acc[1] * inv,
-                                     acc[2] * inv, acc[3] * inv));
-        st4(dst + 32 + 4 * c, make_float4(acc[4] * inv, acc[5] * inv,
-                                          acc[6] * inv, acc[7] * inv));
+#pragma unroll
+        for (int n = 0; n < NC; ++n)
+            st4(dst + 32 * n + 4 * c, make_float4(acc[4 * n] * inv, acc[4 * n + 1] * inv,
+                                                  acc[4 * n + 2] * inv, acc[4 * n + 3] * inv));
         if (a.lse != nullptr && c == 0)
             a.lse[((long long)b * a.H + h) * T + i] = m_run + logf(l_run);
     }
 }
 
-template <bool BANDED>
+template <int DH>
 __global__ void __launch_bounds__(NTHREADS)
 rel_attention_bwd(Args a) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    SmemBwd& s = *reinterpret_cast<SmemBwd*>(smem_raw);
+    SmemBwd<DH>& s = *reinterpret_cast<SmemBwd<DH>*>(smem_raw);
+    constexpr int NC = Dims<DH>::NC;
 
     const int tid = threadIdx.x;
     const int i0 = blockIdx.x * TQ;
@@ -346,7 +334,7 @@ rel_attention_bwd(Args a) {
     const float scale = 1.0f / sqrtf((float)DH);
     const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
 
-    stage_q(a, s, b, h, i0);
+    stage_q<DH>(a, s, b, h, i0);
     for (int idx = tid; idx < TQ * (DH / 4); idx += NTHREADS) {
         const int rr = idx / (DH / 4);
         const int d = 4 * (idx % (DH / 4));
@@ -355,36 +343,38 @@ rel_attention_bwd(Args a) {
                                  : zero4);
     }
     int jlo, jhi;
-    key_window(a, BANDED, i0, &jlo, &jhi);
+    key_window(a, i0, &jlo, &jhi);
 
     const int r = tid >> 3;      // query row within the tile
-    const int c = tid & 7;       // keys c + 8m; dims 4c..4c+3 and 32+4c..
+    const int c = tid & 7;       // keys c + 8m; dims 4c..4c+3, 32+4c.., ...
     const int i = i0 + r;
 
     // D_i = dO_i . O_i, reduced over the row's 8 lanes; the row's lse
     float di = 0.f, lse = 0.f;
     if (i < T) {
         const long long row = (((long long)b * T + i) * H + h) * DH;
-        di = dot4(ld4(a.out + row + 4 * c), ld4(a.dout + row + 4 * c))
-           + dot4(ld4(a.out + row + 32 + 4 * c), ld4(a.dout + row + 32 + 4 * c));
+        di = dot4(ld4(a.out + row + 4 * c), ld4(a.dout + row + 4 * c));
+#pragma unroll
+        for (int n = 1; n < NC; ++n)
+            di += dot4(ld4(a.out + row + 32 * n + 4 * c), ld4(a.dout + row + 32 * n + 4 * c));
         lse = a.lse[((long long)b * H + h) * T + i];
     }
     di += __shfl_xor_sync(FULL, di, 1);
     di += __shfl_xor_sync(FULL, di, 2);
     di += __shfl_xor_sync(FULL, di, 4);
 
-    float dq_ac[8], dq_own[8], dq_nx[8];
+    float dq_ac[4 * NC], dq_own[4 * NC], dq_nx[4 * NC];
 #pragma unroll
-    for (int x = 0; x < 8; ++x) dq_ac[x] = dq_own[x] = dq_nx[x] = 0.f;
+    for (int x = 0; x < 4 * NC; ++x) dq_ac[x] = dq_own[x] = dq_nx[x] = 0.f;
 
     for (int j0 = jlo; j0 < jhi; j0 += TK) {
         __syncthreads();   // the previous chunk's tiles are no longer read
-        stage_chunk(a, s, b, h, i0, j0, jhi);
+        stage_chunk<DH>(a, s, b, h, i0, j0, jhi);
         __syncthreads();
 
         // probabilities and score gradients of row r against keys c + 8m
         float sc[8], dp[8];
-        const unsigned live = chunk_scores<BANDED>(a, s, r, c, i, j0, jhi, sc);
+        const unsigned live = chunk_scores<DH>(a, s, r, c, i, j0, jhi, sc);
 #pragma unroll
         for (int m = 0; m < 8; ++m) dp[m] = 0.f;
 #pragma unroll 4
@@ -405,41 +395,40 @@ rel_attention_bwd(Args a) {
         const int nk = min(TK, jhi - j0);
         for (int kk = 0; kk < nk; ++kk) {
             const float g = s.ds[r][kk];
-            const float4 k0 = ld4(&s.k[kk][4 * c]);
-            const float4 k1 = ld4(&s.k[kk][32 + 4 * c]);
-            dq_ac[0] += g * k0.x; dq_ac[1] += g * k0.y;
-            dq_ac[2] += g * k0.z; dq_ac[3] += g * k0.w;
-            dq_ac[4] += g * k1.x; dq_ac[5] += g * k1.y;
-            dq_ac[6] += g * k1.z; dq_ac[7] += g * k1.w;
             const int x = kk - r + TQ - 1;
-            const float4 e0 = ld4(&s.e[x][4 * c]);
-            const float4 e1 = ld4(&s.e[x][32 + 4 * c]);
             // o <= 0 feeds row i, o >= 2 row i+1; o == 1 has a zero table
             // row, so it adds nothing either way
             const float go_ = (j0 + kk - i <= 0) ? g : 0.f;
             const float gn = g - go_;
-            dq_own[0] += go_ * e0.x; dq_own[1] += go_ * e0.y;
-            dq_own[2] += go_ * e0.z; dq_own[3] += go_ * e0.w;
-            dq_own[4] += go_ * e1.x; dq_own[5] += go_ * e1.y;
-            dq_own[6] += go_ * e1.z; dq_own[7] += go_ * e1.w;
-            dq_nx[0] += gn * e0.x; dq_nx[1] += gn * e0.y;
-            dq_nx[2] += gn * e0.z; dq_nx[3] += gn * e0.w;
-            dq_nx[4] += gn * e1.x; dq_nx[5] += gn * e1.y;
-            dq_nx[6] += gn * e1.z; dq_nx[7] += gn * e1.w;
+#pragma unroll
+            for (int n = 0; n < NC; ++n) {
+                const float4 k4 = ld4(&s.k[kk][32 * n + 4 * c]);
+                const float4 e4 = ld4(&s.e[x][32 * n + 4 * c]);
+                float* ac = dq_ac + 4 * n;
+                float* ow = dq_own + 4 * n;
+                float* nx = dq_nx + 4 * n;
+                ac[0] += g * k4.x; ac[1] += g * k4.y;
+                ac[2] += g * k4.z; ac[3] += g * k4.w;
+                ow[0] += go_ * e4.x; ow[1] += go_ * e4.y;
+                ow[2] += go_ * e4.z; ow[3] += go_ * e4.w;
+                nx[0] += gn * e4.x; nx[1] += gn * e4.y;
+                nx[2] += gn * e4.z; nx[3] += gn * e4.w;
+            }
         }
 
-        // dk and dv of the chunk: thread -> key tid/4, 16 dims
+        // dk and dv of the chunk: thread -> key tid/4, Dh/4 dims
         {
+            constexpr int NF = DH / 16;      // float4s a thread
             const int kk = tid >> 2;
-            const int d0 = (tid & 3) * 16;
-            float4 gk[4], gv[4];
+            const int d0 = (tid & 3) * (DH / 4);
+            float4 gk[NF], gv[NF];
 #pragma unroll
-            for (int x = 0; x < 4; ++x) gk[x] = gv[x] = zero4;
+            for (int x = 0; x < NF; ++x) gk[x] = gv[x] = zero4;
             for (int rr = 0; rr < TQ; ++rr) {
                 const float p = s.p[rr][kk];
                 const float g = s.ds[rr][kk];
 #pragma unroll
-                for (int x = 0; x < 4; ++x) {
+                for (int x = 0; x < NF; ++x) {
                     const float4 o4 = ld4(&s.go[rr][d0 + 4 * x]);
                     const float4 u4 = ld4(&s.qu[rr][d0 + 4 * x]);
                     gv[x].x += p * o4.x; gv[x].y += p * o4.y;
@@ -452,7 +441,7 @@ rel_attention_bwd(Args a) {
             if (j < jhi) {
                 const long long row = (((long long)b * T + j) * H + h) * DH + d0;
 #pragma unroll
-                for (int x = 0; x < 4; ++x) {
+                for (int x = 0; x < NF; ++x) {
                     add4(a.dv + row + 4 * x, gv[x]);
                     add4(a.dk + row + 4 * x, gk[x]);
                 }
@@ -465,7 +454,7 @@ rel_attention_bwd(Args a) {
             const int x = idx / (DH / 4);
             const int d = 4 * (idx % (DH / 4));
             const int o = omin + x;
-            const int row = bd_index(a, o);
+            const int row = bd_row(T, o);
             if (row < 0) continue;
             const int sel = o <= 0 ? 0 : 1;          // q_i or q_{i+1}
             const int rlo = max(0, TQ - 1 - x);
@@ -487,14 +476,19 @@ rel_attention_bwd(Args a) {
     // dq rows: own row, and the wrap term's share of row i+1
     if (i < T) {
         float* dst = a.dq + (((long long)b * T + i) * H + h) * DH;
-        add4(dst + 4 * c, make_float4(dq_ac[0] + dq_own[0], dq_ac[1] + dq_own[1],
-                                      dq_ac[2] + dq_own[2], dq_ac[3] + dq_own[3]));
-        add4(dst + 32 + 4 * c, make_float4(dq_ac[4] + dq_own[4], dq_ac[5] + dq_own[5],
-                                           dq_ac[6] + dq_own[6], dq_ac[7] + dq_own[7]));
+#pragma unroll
+        for (int n = 0; n < NC; ++n) {
+            const float* ac = dq_ac + 4 * n;
+            const float* ow = dq_own + 4 * n;
+            add4(dst + 32 * n + 4 * c, make_float4(ac[0] + ow[0], ac[1] + ow[1],
+                                                   ac[2] + ow[2], ac[3] + ow[3]));
+        }
         if (i + 1 < T) {
             float* nxt = dst + (long long)H * DH;
-            add4(nxt + 4 * c, make_float4(dq_nx[0], dq_nx[1], dq_nx[2], dq_nx[3]));
-            add4(nxt + 32 + 4 * c, make_float4(dq_nx[4], dq_nx[5], dq_nx[6], dq_nx[7]));
+#pragma unroll
+            for (int n = 0; n < NC; ++n)
+                add4(nxt + 32 * n + 4 * c, make_float4(dq_nx[4 * n], dq_nx[4 * n + 1],
+                                                       dq_nx[4 * n + 2], dq_nx[4 * n + 3]));
         }
     }
 
@@ -504,7 +498,7 @@ rel_attention_bwd(Args a) {
 #pragma unroll
     for (int x = 0; x < 4; ++x) {
         s.p[r][4 * c + x] = dq_ac[x];
-        s.ds[r][4 * c + x] = dq_ac[4 + x];
+        if (NC > 1) s.ds[r][4 * c + x] = dq_ac[4 * (NC - 1) + x];
     }
     __syncthreads();
     if (tid < DH) {
@@ -515,25 +509,25 @@ rel_attention_bwd(Args a) {
     }
 }
 
-template <bool BANDED>
+template <int DH>
 int launch_fwd(const Args& a, cudaStream_t stream) {
-    const int smem = (int)sizeof(Smem);
+    const int smem = (int)sizeof(Smem<DH>);
     cudaError_t err = cudaFuncSetAttribute(
-        rel_attention_fwd<BANDED>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        rel_attention_fwd<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((a.T + TQ - 1) / TQ, a.H, a.B);
-    rel_attention_fwd<BANDED><<<grid, NTHREADS, smem, stream>>>(a);
+    rel_attention_fwd<DH><<<grid, NTHREADS, smem, stream>>>(a);
     return (int)cudaGetLastError();
 }
 
-template <bool BANDED>
+template <int DH>
 int launch_bwd(const Args& a, cudaStream_t stream) {
-    const int smem = (int)sizeof(SmemBwd);
+    const int smem = (int)sizeof(SmemBwd<DH>);
     cudaError_t err = cudaFuncSetAttribute(
-        rel_attention_bwd<BANDED>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        rel_attention_bwd<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((a.T + TQ - 1) / TQ, a.H, a.B);
-    rel_attention_bwd<BANDED><<<grid, NTHREADS, smem, stream>>>(a);
+    rel_attention_bwd<DH><<<grid, NTHREADS, smem, stream>>>(a);
     return (int)cudaGetLastError();
 }
 
@@ -578,26 +572,23 @@ Args make_bwd_args(const void* q, const void* k, const void* v, long long sq,
 
 extern "C" {
 
-int ttx_head_dim() { return DH; }
+// The head widths the attention kernels are built for: writes up to cap of
+// them to dims and returns how many there are.
+int ttx_attention_head_dims(int* dims, int cap) {
+    for (int n = 0; n < N_HEAD_DIMS && n < cap; ++n) dims[n] = HEAD_DIMS[n];
+    return N_HEAD_DIMS;
+}
 
 int ttx_banded_attention_fwd(const void* q, const void* k, const void* v,
                              long long sq, long long sk, long long sv,
                              const void* re, const void* u, const void* rb,
-                             void* out, void* lse, int B, int T, int H,
+                             void* out, void* lse, int B, int T, int H, int Dh,
                              int left, int right, void* stream) {
-    return launch_fwd<true>(make_args(q, k, v, sq, sk, sv, re, u, rb, out,
-                                      lse, B, T, H, left, right),
-                            static_cast<cudaStream_t>(stream));
-}
-
-int ttx_flash_rel_attention_fwd(const void* q, const void* k, const void* v,
-                                long long sq, long long sk, long long sv,
-                                const void* re, const void* u, const void* rb,
-                                void* out, void* lse, int B, int T, int H,
-                                void* stream) {
-    return launch_fwd<false>(make_args(q, k, v, sq, sk, sv, re, u, rb, out,
-                                       lse, B, T, H, 0, 0),
-                             static_cast<cudaStream_t>(stream));
+    const Args a = make_args(q, k, v, sq, sk, sv, re, u, rb, out, lse, B, T, H,
+                             left, right);
+    return with_head_dim(Dh, [&](auto dh) {
+        return launch_fwd<decltype(dh)::value>(a, static_cast<cudaStream_t>(stream));
+    });
 }
 
 int ttx_banded_attention_bwd(const void* q, const void* k, const void* v,
@@ -606,11 +597,12 @@ int ttx_banded_attention_bwd(const void* q, const void* k, const void* v,
                              const void* out, const void* lse,
                              const void* dout, void* dq, void* dk, void* dv,
                              void* dre, void* du, void* drb, int B, int T,
-                             int H, int left, int right, void* stream) {
-    return launch_bwd<true>(make_bwd_args(q, k, v, sq, sk, sv, re, u, rb, out,
-                                          lse, dout, dq, dk, dv, dre, du, drb,
-                                          B, T, H, left, right),
-                            static_cast<cudaStream_t>(stream));
+                             int H, int Dh, int left, int right, void* stream) {
+    const Args a = make_bwd_args(q, k, v, sq, sk, sv, re, u, rb, out, lse, dout,
+                                 dq, dk, dv, dre, du, drb, B, T, H, left, right);
+    return with_head_dim(Dh, [&](auto dh) {
+        return launch_bwd<decltype(dh)::value>(a, static_cast<cudaStream_t>(stream));
+    });
 }
 
 const char* ttx_error_string(int code) {

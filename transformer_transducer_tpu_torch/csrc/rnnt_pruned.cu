@@ -14,7 +14,7 @@
 //
 // ---- ttx_additive_logz: logZ[b, t, u] = logsumexp_v(A[b, t, v] + L[b, u, v])
 //
-// A (B, T, V), L (B, U1, V), out (B, T, U1), all contiguous fp32, U1 <= 64.
+// A (B, T, V), L (B, U1, V), out (B, T, U1), all contiguous fp32, any U1.
 // The exact log-sum-exp of every cell: no factorisation into
 // exp(A - maxA) @ exp(L - maxL)^T, whose terms underflow to 0 when A[t] and
 // L[u] peak on different symbols.
@@ -26,7 +26,8 @@
 // exponentials bound it, then the adds and maxima beside them (about five
 // fp32 operations a cell-column).
 //
-// Design: one block per (b, tile of LZ_TT = 8 frames) with all U1 label rows.
+// Design: one block per (b, tile of LZ_TT = 8 frames, chunk of LZ_UC = 64
+// label rows); at U1 <= 64 (every shipped config) that is all U1 rows.
 // The loop over V goes in chunks of LZ_VC = 128 columns; each chunk's A tile
 // (8 x 128) and L rows (U1 x 128) are staged in shared memory, pre-scaled by
 // log2(e) so the sums use exp2.  A is read from device memory once and L
@@ -44,7 +45,7 @@
 // ---- ttx_band_alpha / ttx_band_beta: the band DP over T
 //
 // lp_b, lp_l (B, T, S) fp32, d (B, T) int32, tf, sf (B,) int32, out
-// (B, T, S) fp32, S <= 32.  Cell (t, s) is lattice cell (t, rs[t] + s).
+// (B, T, S) fp32, S <= 128.  Cell (t, s) is lattice cell (t, rs[t] + s).
 // With lae(a, b) = max(a, b) + log1p(exp(-|a - b|)) (finite for two NEGs):
 //
 //   alpha[0][s] = s == 0 ? 0 : NEG, then the chain below
@@ -68,15 +69,23 @@
 // shuffle for the blank edge and S - 1 dependent shuffle + lae steps for the
 // label chain.
 //
-// Design: one warp per sequence, lane s holding band slot s, so the
-// wavefront lives in registers and moves by warp shuffles (no shared memory,
-// no barrier).  Each lane loads the next row's lp_b, lp_l and d before it
-// works on the current row, so the loads overlap the chain.  The terminal
+// Design: one warp per sequence, lane s holding band slots s, s + 32, ...
+// (NS = ceil(S / 32) of them, a template parameter), so the wavefront lives
+// in registers and moves by warp shuffles (no shared memory, no barrier).
+// The blank edge gathers slot s + d from lane (s + d) % 32: one shuffle of
+// each of the NS registers, the right one kept.  The in-row label chain
+// steps from slot s - 1 to s by one shuffle up (by lane 31's register j - 1
+// into lane 0's register j where it crosses a 32-slot block).  At S <= 32
+// (NS = 1) the arithmetic is the single-register kernel's, in its order.
+// Each lane loads the next row's lp_b, lp_l and d before it works on the
+// current row, so the loads overlap the chain.  The terminal
 // (tf, sf) is injected inside the beta sweep, so rows past a sequence's end
 // stay near NEG.  No 128-lane padding, row chunks or rolls: those fit the
 // TPU's vector unit and VMEM.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -92,11 +101,11 @@ constexpr int LZ_NTG = LZ_TT / LZ_RT;     // frame groups
 constexpr int LZ_NVG = 4;                 // column groups
 constexpr int LZ_VC = 128;                // columns per chunk
 constexpr int LZ_VPT = LZ_VC / LZ_NVG;    // columns per thread per chunk
-constexpr int LZ_MAX_U1 = 64;
+constexpr int LZ_UC = 64;                 // label rows per block
 constexpr int LZ_STRIDE = LZ_VC + 1;      // padded shared row: no bank conflicts
                                           // between neighbouring rows
 
-constexpr int BAND_MAX_S = 32;
+constexpr int BAND_MAX_S = 128;
 
 __device__ __forceinline__ float lae(float a, float b) {
     return fmaxf(a, b) + log1pf(expf(-fabsf(a - b)));
@@ -106,10 +115,11 @@ __global__ void logz_kernel(const float* __restrict__ A,
                             const float* __restrict__ L,
                             float* __restrict__ out, int T, int U1, int V,
                             int n_ug) {
-    __shared__ float tile[(LZ_TT + LZ_MAX_U1) * LZ_STRIDE];
+    __shared__ float tile[(LZ_TT + LZ_UC) * LZ_STRIDE];
     float* As = tile;
     float* Ls = tile + LZ_TT * LZ_STRIDE;
-    const int b = blockIdx.y;
+    const int b = blockIdx.z;
+    const int u0 = blockIdx.y * LZ_UC;    // this block's first label row
     const int t0 = blockIdx.x * LZ_TT;
     const int tid = threadIdx.x;
     const int n_threads = blockDim.x;
@@ -118,7 +128,7 @@ __global__ void logz_kernel(const float* __restrict__ A,
     const int vg = tid / (n_ug * LZ_NTG);
     const int n_rows = n_ug * LZ_RU;      // label rows staged (>= U1)
     const float* Ab = A + (long long)b * T * V;
-    const float* Lb = L + (long long)b * U1 * V;
+    const float* Lb = L + ((long long)b * U1 + u0) * V;
     // this thread's cells: frames tg + LZ_NTG * i, labels ug + n_ug * k
     // (interleaved, so neighbouring threads read neighbouring rows)
     float m[LZ_RT][LZ_RU], s[LZ_RT][LZ_RU];
@@ -142,7 +152,7 @@ __global__ void logz_kernel(const float* __restrict__ A,
             const int r = i / LZ_VC, c = i % LZ_VC;
             const int v = v0 + c;
             Ls[r * LZ_STRIDE + c] =
-                (r < U1 && v < V) ? Lb[(long long)r * V + v] * LOG2E : 0.f;
+                (u0 + r < U1 && v < V) ? Lb[(long long)r * V + v] * LOG2E : 0.f;
         }
         __syncthreads();
         const float* as = As + tg * LZ_STRIDE + vg * LZ_VPT;
@@ -206,8 +216,8 @@ __global__ void logz_kernel(const float* __restrict__ A,
     for (int i = 0; i < LZ_RT; ++i)
 #pragma unroll
         for (int k = 0; k < LZ_RU; ++k) {
-            const int t = t0 + tg + LZ_NTG * i, u = ug + n_ug * k;
-            const int cell = (tg + LZ_NTG * i) * n_rows + u;
+            const int t = t0 + tg + LZ_NTG * i, ul = ug + n_ug * k, u = u0 + ul;
+            const int cell = (tg + LZ_NTG * i) * n_rows + ul;
             float mx = red_m[cell];
 #pragma unroll
             for (int g = 1; g < LZ_NVG; ++g) mx = fmaxf(mx, red_m[g * n_cells + cell]);
@@ -220,56 +230,100 @@ __global__ void logz_kernel(const float* __restrict__ A,
         }
 }
 
+// The value of slot src across the warp's registers x (slot s is x[s / 32]
+// of lane s % 32): one shuffle of each register, the right one kept; 0
+// where src lies outside [0, 32 NS), where the callers do not use it.
+template <int NS>
+__device__ __forceinline__ float gather(const float (&x)[NS], int src) {
+    float got = 0.f;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+        const float v = __shfl_sync(FULL, x[j], src & 31);
+        if ((src >> 5) == j) got = v;
+    }
+    return got;
+}
+
+template <int NS>
 __global__ void band_alpha_kernel(const float* __restrict__ lpb,
                                   const float* __restrict__ lpl,
                                   const int* __restrict__ d,
                                   float* __restrict__ alpha, int T, int S) {
-    const int s = threadIdx.x;
-    const bool live = s < S;
+    const int lane = threadIdx.x;
     const long long base = (long long)blockIdx.x * T * S;
     const float* pb = lpb + base;
     const float* pl = lpl + base;
     const int* pd = d + (long long)blockIdx.x * T;
     float* pa = alpha + base;
 
-    float a = (s == 0) ? 0.f : NEG;
-    float l_cur = live ? pl[s] : NEG;     // lp_l[t][s]
-    float b_prev = NEG;                   // lp_b[t-1][s]
+    // register j holds slot lane + 32 j
+    float a[NS], l_cur[NS], b_prev[NS];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+        const int s = lane + 32 * j;
+        a[j] = (s == 0) ? 0.f : NEG;
+        l_cur[j] = s < S ? pl[s] : NEG;   // lp_l[t][s]
+        b_prev[j] = NEG;                  // lp_b[t-1][s]
+    }
     int d_cur = 0;                        // d[t]
     for (int t = 0; t < T; ++t) {
-        float l_next = NEG, b_next = NEG;
+        float l_next[NS], b_next[NS];
         int d_next = 0;
+#pragma unroll
+        for (int j = 0; j < NS; ++j) l_next[j] = b_next[j] = NEG;
         if (t + 1 < T) {                  // row t+1's inputs, ahead of the chain
-            if (live) {
-                l_next = pl[(long long)(t + 1) * S + s];
-                b_next = pb[(long long)t * S + s];
+#pragma unroll
+            for (int j = 0; j < NS; ++j) {
+                const int s = lane + 32 * j;
+                if (s < S) {
+                    l_next[j] = pl[(long long)(t + 1) * S + s];
+                    b_next[j] = pb[(long long)t * S + s];
+                }
             }
             d_next = pd[t + 1];
         }
         if (t > 0) {                      // blank edges out of row t-1
-            const int src = s + d_cur;
-            const float got = __shfl_sync(FULL, a + b_prev, src & 31);
-            a = (d_cur >= 0 && d_cur < S && src < S) ? got : NEG;
+            float x[NS];
+#pragma unroll
+            for (int j = 0; j < NS; ++j) x[j] = a[j] + b_prev[j];
+#pragma unroll
+            for (int j = 0; j < NS; ++j) {
+                const int src = lane + 32 * j + d_cur;
+                const float got = gather(x, src);
+                a[j] = (d_cur >= 0 && d_cur < S && src < S) ? got : NEG;
+            }
         }
-        for (int k = 1; k < S; ++k) {     // in-row label chain
-            const float cand = __shfl_up_sync(FULL, a + l_cur, 1);
-            if (s == k) a = lae(a, cand);
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {    // in-row label chain, slots 32j..
+            const int k_end = min(S, 32 * j + 32);
+            if (j > 0 && 32 * j < S) {    // slot 32j from slot 32j - 1
+                const float cand = __shfl_sync(FULL, a[j - 1] + l_cur[j - 1], 31);
+                if (lane == 0) a[j] = lae(a[j], cand);
+            }
+            for (int k = max(1, 32 * j + 1); k < k_end; ++k) {
+                const float cand = __shfl_up_sync(FULL, a[j] + l_cur[j], 1);
+                if (lane + 32 * j == k) a[j] = lae(a[j], cand);
+            }
         }
-        if (live) pa[(long long)t * S + s] = a;
-        l_cur = l_next;
-        b_prev = b_next;
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+            const int s = lane + 32 * j;
+            if (s < S) pa[(long long)t * S + s] = a[j];
+            l_cur[j] = l_next[j];
+            b_prev[j] = b_next[j];
+        }
         d_cur = d_next;
     }
 }
 
+template <int NS>
 __global__ void band_beta_kernel(const float* __restrict__ lpb,
                                  const float* __restrict__ lpl,
                                  const int* __restrict__ d,
                                  const int* __restrict__ tf,
                                  const int* __restrict__ sf,
                                  float* __restrict__ beta, int T, int S) {
-    const int s = threadIdx.x;
-    const bool live = s < S;
+    const int lane = threadIdx.x;
     const long long base = (long long)blockIdx.x * T * S;
     const float* pb = lpb + base;
     const float* pl = lpl + base;
@@ -278,35 +332,77 @@ __global__ void band_beta_kernel(const float* __restrict__ lpb,
     const int t_final = tf[blockIdx.x];
     const int s_final = sf[blockIdx.x];
 
-    float nxt = NEG;                      // beta[t+1][s]
+    // register j holds slot lane + 32 j
+    float nxt[NS], b_cur[NS], l_cur[NS];  // beta[t+1][s], lp_b[t][s], lp_l[t][s]
     const long long last = (long long)(T - 1) * S;
-    float b_cur = live ? pb[last + s] : NEG;
-    float l_cur = live ? pl[last + s] : NEG;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+        const int s = lane + 32 * j;
+        nxt[j] = NEG;
+        b_cur[j] = s < S ? pb[last + s] : NEG;
+        l_cur[j] = s < S ? pl[last + s] : NEG;
+    }
     int d_cur = pd[T - 1];
     for (int t = T - 1; t >= 0; --t) {
-        float b_next = NEG, l_next = NEG;
+        float b_next[NS], l_next[NS];
         int d_next = 0;
+#pragma unroll
+        for (int j = 0; j < NS; ++j) b_next[j] = l_next[j] = NEG;
         if (t > 0) {                      // row t-1's inputs, ahead of the chain
-            if (live) {
-                b_next = pb[(long long)(t - 1) * S + s];
-                l_next = pl[(long long)(t - 1) * S + s];
+#pragma unroll
+            for (int j = 0; j < NS; ++j) {
+                const int s = lane + 32 * j;
+                if (s < S) {
+                    b_next[j] = pb[(long long)(t - 1) * S + s];
+                    l_next[j] = pl[(long long)(t - 1) * S + s];
+                }
             }
             d_next = pd[t - 1];
         }
         // blank edge to row t+1, or the terminal blank at the sequence's end
-        const int src = s - d_cur;
-        const float got = __shfl_sync(FULL, nxt, src & 31);
-        const float shifted = (d_cur >= 0 && d_cur < S && src >= 0) ? got : NEG;
-        float bt = (t == t_final) ? ((s == s_final) ? b_cur : NEG) : b_cur + shifted;
-        for (int k = S - 2; k >= 0; --k) {   // reverse label chain
-            const float cand = l_cur + __shfl_down_sync(FULL, bt, 1);
-            if (s == k) bt = lae(bt, cand);
+        float bt[NS];
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+            const int s = lane + 32 * j;
+            const int src = s - d_cur;
+            const float got = gather(nxt, src);
+            const float shifted = (d_cur >= 0 && d_cur < S && src >= 0) ? got : NEG;
+            bt[j] = (t == t_final) ? ((s == s_final) ? b_cur[j] : NEG) : b_cur[j] + shifted;
         }
-        if (live) po[(long long)t * S + s] = bt;
-        nxt = bt;
-        b_cur = b_next;
-        l_cur = l_next;
+#pragma unroll
+        for (int j = NS - 1; j >= 0; --j) {   // reverse label chain, slots ..32j
+            const int k_top = min(S - 2, 32 * j + 30);
+            if (j + 1 < NS && 32 * j + 31 <= S - 2) {   // slot 32j+31 from 32j+32
+                const float cand = l_cur[j] + __shfl_sync(FULL, bt[min(j + 1, NS - 1)], 0);
+                if (lane == 31) bt[j] = lae(bt[j], cand);
+            }
+            for (int k = k_top; k >= 32 * j; --k) {
+                const float cand = l_cur[j] + __shfl_down_sync(FULL, bt[j], 1);
+                if (lane + 32 * j == k) bt[j] = lae(bt[j], cand);
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+            const int s = lane + 32 * j;
+            if (s < S) po[(long long)t * S + s] = bt[j];
+            nxt[j] = bt[j];
+            b_cur[j] = b_next[j];
+            l_cur[j] = l_next[j];
+        }
         d_cur = d_next;
+    }
+}
+
+// f(std::integral_constant<int, NS>) for the NS = ceil(S / 32) registers a
+// lane needs.
+template <class F>
+int with_slots(int S, F f) {
+    switch ((S + 31) / 32) {
+        case 1: return f(std::integral_constant<int, 1>{});
+        case 2: return f(std::integral_constant<int, 2>{});
+        case 3: return f(std::integral_constant<int, 3>{});
+        case 4: return f(std::integral_constant<int, 4>{});
+        default: return (int)cudaErrorInvalidValue;
     }
 }
 
@@ -314,14 +410,12 @@ __global__ void band_beta_kernel(const float* __restrict__ lpb,
 
 extern "C" {
 
-int ttx_logz_max_u1() { return LZ_MAX_U1; }
-
 int ttx_additive_logz(const void* a, const void* l, void* out, int B, int T,
                       int U1, int V, void* stream) {
-    if (B < 1 || T < 1 || U1 < 1 || U1 > LZ_MAX_U1 || V < 1 || B > 65535)
+    if (B < 1 || T < 1 || U1 < 1 || V < 1 || B > 65535 || (U1 + LZ_UC - 1) / LZ_UC > 65535)
         return (int)cudaErrorInvalidValue;
-    const int n_ug = (U1 + LZ_RU - 1) / LZ_RU;
-    const dim3 grid((T + LZ_TT - 1) / LZ_TT, B);
+    const int n_ug = (min(U1, LZ_UC) + LZ_RU - 1) / LZ_RU;
+    const dim3 grid((T + LZ_TT - 1) / LZ_TT, (U1 + LZ_UC - 1) / LZ_UC, B);
     logz_kernel<<<grid, LZ_NTG * n_ug * LZ_NVG, 0,
                   static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(a), static_cast<const float*>(l),
@@ -332,21 +426,25 @@ int ttx_additive_logz(const void* a, const void* l, void* out, int B, int T,
 int ttx_band_alpha(const void* lpb, const void* lpl, const void* d,
                    void* alpha, int B, int T, int S, void* stream) {
     if (B < 1 || T < 1 || S < 1 || S > BAND_MAX_S) return (int)cudaErrorInvalidValue;
-    band_alpha_kernel<<<B, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(lpb), static_cast<const float*>(lpl),
-        static_cast<const int*>(d), static_cast<float*>(alpha), T, S);
-    return (int)cudaGetLastError();
+    return with_slots(S, [&](auto ns) {
+        band_alpha_kernel<decltype(ns)::value><<<B, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const float*>(lpb), static_cast<const float*>(lpl),
+            static_cast<const int*>(d), static_cast<float*>(alpha), T, S);
+        return (int)cudaGetLastError();
+    });
 }
 
 int ttx_band_beta(const void* lpb, const void* lpl, const void* d,
                   const void* tf, const void* sf, void* beta, int B, int T,
                   int S, void* stream) {
     if (B < 1 || T < 1 || S < 1 || S > BAND_MAX_S) return (int)cudaErrorInvalidValue;
-    band_beta_kernel<<<B, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(lpb), static_cast<const float*>(lpl),
-        static_cast<const int*>(d), static_cast<const int*>(tf),
-        static_cast<const int*>(sf), static_cast<float*>(beta), T, S);
-    return (int)cudaGetLastError();
+    return with_slots(S, [&](auto ns) {
+        band_beta_kernel<decltype(ns)::value><<<B, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const float*>(lpb), static_cast<const float*>(lpl),
+            static_cast<const int*>(d), static_cast<const int*>(tf),
+            static_cast<const int*>(sf), static_cast<float*>(beta), T, S);
+        return (int)cudaGetLastError();
+    });
 }
 
 }  // extern "C"

@@ -53,6 +53,18 @@ def slice_pos_table(table: torch.Tensor, klen: int) -> torch.Tensor:
     return table[k_len - klen:]
 
 
+def rel_attention_scores(q: torch.Tensor, k: torch.Tensor, r_emb: torch.Tensor,
+                         r_w_bias: torch.Tensor, r_bias: torch.Tensor) -> torch.Tensor:
+    """The scaled scores (B, H, T, T) of the dense branch, unmasked:
+    ``(AC + rel_shift(B + D)) / sqrt(Dh)``."""
+    dh = q.shape[-1]
+    ac = torch.einsum("bind,bjnd->bnij", q + r_w_bias, k)
+    b_ = torch.einsum("bind,jnd->bnij", q, r_emb)
+    d_ = r_bias.t()[None, :, None, :]
+    bd = rel_shift(b_ + d_)
+    return (ac + bd) * (1.0 / dh ** 0.5)
+
+
 def rel_attention_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         r_emb: torch.Tensor, r_w_bias: torch.Tensor,
                         r_bias: torch.Tensor,
@@ -63,12 +75,7 @@ def rel_attention_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, T, T) bool, True == masked.  Returns (B, T, H, Dh) (pre
     out-projection).  It is also the plain version of both attention kernels.
     """
-    dh = q.shape[-1]
-    ac = torch.einsum("bind,bjnd->bnij", q + r_w_bias, k)
-    b_ = torch.einsum("bind,jnd->bnij", q, r_emb)
-    d_ = r_bias.t()[None, :, None, :]
-    bd = rel_shift(b_ + d_)
-    score = (ac + bd) * (1.0 / dh ** 0.5)
+    score = rel_attention_scores(q, k, r_emb, r_w_bias, r_bias)
     if attn_mask is not None:
         mask = attn_mask[None, None] if attn_mask.dim() == 2 else attn_mask[:, None]
         score = score.masked_fill(mask, NEG_INF)

@@ -7,9 +7,8 @@ ported in a later slice, so it raises here.
 
 from __future__ import annotations
 
-import torch
-
 from transformer_transducer_tpu_torch.models.transducer import build_transducer
+from transformer_transducer_tpu_torch.utils import checkpoint as ckpt_lib
 
 
 def build_family(cfg, d_in: int, device=None, flash: bool = False):
@@ -28,11 +27,18 @@ def build_family(cfg, d_in: int, device=None, flash: bool = False):
 
 def load_family(cfg, d_in: int, checkpoint=None, device=None,
                 flash: bool = False):
-    """``build_family`` + an optional port ``state_dict`` file written with
-    ``torch.save(model.state_dict(), path)``."""
+    """``build_family`` + optional weights from ``checkpoint``: a checkpoint
+    directory the trainer wrote (``utils/checkpoint.py::save_checkpoint``,
+    e.g. ``egs/<name>/<save_model>/epoch_19``), its ``model.pt``, or a flat
+    ``state_dict`` file written with ``torch.save(model.state_dict(), path)``.
+    A file is told apart by its keys: a trainer's dict holds the split
+    ``encoder``, ``decoder`` and ``joint`` state dicts."""
     model = build_family(cfg, d_in, device=device, flash=flash)
     if checkpoint is not None:
-        state = torch.load(checkpoint, map_location=next(model.parameters()).device,
-                           weights_only=True)
-        model.load_state_dict(state)
+        state = ckpt_lib.load_checkpoint(checkpoint, next(model.parameters()).device)
+        if set(ckpt_lib.COMPONENTS) <= set(state):
+            for comp in ckpt_lib.COMPONENTS:
+                getattr(model, comp).load_state_dict(state[comp])
+        else:
+            model.load_state_dict(state)
     return model

@@ -31,7 +31,7 @@ import torch
 from transformer_transducer_tpu_torch.ops.cuda import build
 from transformer_transducer_tpu_torch.ops.cuda.rnnt_kernel import NEG, logaddexp
 
-MAX_S = 32
+MAX_S = 128
 
 
 def _shifted(x: torch.Tensor, d: torch.Tensor, sign: int) -> torch.Tensor:

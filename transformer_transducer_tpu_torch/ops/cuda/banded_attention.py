@@ -6,8 +6,8 @@ banded_attention``: the forward (``_fwd_impl``, ``_band_kernel``) and the
 backward (``_bwd_impl``, ``_band_bwd_kernel``).  The streaming encoder
 attends within ``[i - left, i + right]`` (reference ``tt/utils.py:242-251``);
 the kernels (``csrc/rel_attention.cu``, ``ttx_banded_attention_fwd`` /
-``_bwd``) walk only that key window, with the score rule and bounds
-documented in the source.
+``_bwd``, head widths 32 and 64) walk only that key window, with the score
+rule and bounds documented in the source.
 
 Dispatch: a CPU tensor takes :func:`banded_attention_plain` (its gradients
 by autograd); a CUDA tensor runs the kernels behind a

@@ -1,15 +1,18 @@
 """Build and load the port's hand-written CUDA kernels.
 
-The sources under ``transformer_transducer_tpu_torch/csrc/`` have a plain C
-interface.  At first use they are compiled with ``nvcc`` for ``sm_90a`` into
-``build/torch_kernels/`` at the root of the checkout, under a name keyed by
-a hash of the sources and flags, so an unchanged tree does not rebuild, and
+The sources under ``transformer_transducer_tpu_torch/csrc/`` (``*.cu``, and
+the ``*.cuh`` headers they include) have a plain C interface.  At first use
+they are compiled with ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/``
+at the root of the checkout, one ``nvcc`` process a source, all started
+together, then linked into one library under a name keyed by a hash of the
+sources, headers and flags, so an unchanged tree does not rebuild, and
 loaded with ``ctypes``.  Nothing is built when a module is imported.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -20,9 +23,10 @@ from typing import Optional
 
 _PKG = Path(__file__).resolve().parents[2]
 SOURCES = sorted((_PKG / "csrc").glob("*.cu"))
+HEADERS = sorted((_PKG / "csrc").glob("*.cuh"))
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -40,7 +44,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libttx_torch_kernels_{digest.hexdigest()[:16]}.so"
@@ -52,17 +56,31 @@ def build() -> Path:
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: a concurrent process never
-    # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                           *map(str, SOURCES)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    (BUILD_DIR / (path.stem + ".ptxas.txt")).write_text(proc.stderr)
-    os.replace(tmp, path)
+    nvcc = _nvcc()
+    # compile each source in its own process, all at once, into a private
+    # directory, then link and rename: a concurrent process never loads a
+    # half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True)
+                 for src, obj in zip(SOURCES, objs)]
+        logs = [proc.communicate() for proc in procs]
+        failed = [(src.name, proc.returncode, err) for src, proc, (_, err)
+                  in zip(SOURCES, procs, logs) if proc.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{name} ({code}):\n{err}" for name, code, err in failed))
+        lib = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                               "-shared", "-o", lib, *objs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link ({proc.returncode}):\n{proc.stderr}")
+        (BUILD_DIR / (path.stem + ".ptxas.txt")).write_text(
+            "".join(err for _, err in logs))
+        os.replace(lib, path)
     return path
 
 
@@ -75,13 +93,13 @@ def library() -> ctypes.CDLL:
         # q, k, v, their row strides, the three tables
         inputs = [ptr, ptr, ptr, i64, i64, i64, ptr, ptr, ptr]
         signatures = {
-            # ... out, lse, B, T, H, [left, right,] stream
-            "ttx_banded_attention_fwd": inputs + [ptr, ptr] + [i32] * 5 + [ptr],
-            "ttx_flash_rel_attention_fwd": inputs + [ptr, ptr] + [i32] * 3 + [ptr],
-            # ... out, lse, dout, dq, dk, dv, dre, du, drb, B, T, H,
+            # ... out, lse, B, T, H, Dh, [left, right,] stream
+            "ttx_banded_attention_fwd": inputs + [ptr, ptr] + [i32] * 6 + [ptr],
+            "ttx_flash_rel_attention_fwd": inputs + [ptr, ptr] + [i32] * 4 + [ptr],
+            # ... out, lse, dout, dq, dk, dv, dre, du, drb, B, T, H, Dh,
             # [left, right,] stream
-            "ttx_banded_attention_bwd": inputs + [ptr] * 9 + [i32] * 5 + [ptr],
-            "ttx_flash_rel_attention_bwd": inputs + [ptr] * 9 + [i32] * 3 + [ptr],
+            "ttx_banded_attention_bwd": inputs + [ptr] * 9 + [i32] * 6 + [ptr],
+            "ttx_flash_rel_attention_bwd": inputs + [ptr] * 9 + [i32] * 4 + [ptr],
             # sb, sl, alpha, B, D, U1, stream
             "ttx_rnnt_alpha": [ptr, ptr, ptr, i32, i32, i32, ptr],
             # sb, sl, inject, beta, B, D, U1, stream
@@ -92,9 +110,9 @@ def library() -> ctypes.CDLL:
             "ttx_band_alpha": [ptr, ptr, ptr, ptr, i32, i32, i32, ptr],
             # lp_b, lp_l, d, tf, sf, beta, B, T, S, stream
             "ttx_band_beta": [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr],
-            "ttx_head_dim": [],
+            # dims, cap
+            "ttx_attention_head_dims": [ctypes.POINTER(i32), i32],
             "ttx_rnnt_max_u1": [],
-            "ttx_logz_max_u1": [],
         }
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)
@@ -104,6 +122,14 @@ def library() -> ctypes.CDLL:
         lib.ttx_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def head_dims() -> tuple:
+    """The head widths the attention kernels are built for."""
+    lib = library()
+    dims = (ctypes.c_int * 8)()
+    return tuple(dims[:lib.ttx_attention_head_dims(dims, len(dims))])
 
 
 def check(code: int, what: str) -> None:

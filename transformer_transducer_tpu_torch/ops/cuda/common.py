@@ -45,14 +45,15 @@ def _aligned(x: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} must be 16-byte aligned for float4 loads")
 
 
-def kernel_args(q, k, v, r_emb, r_w_bias, r_bias, head_dim: int):
+def kernel_args(q, k, v, r_emb, r_w_bias, r_bias):
     """Pointers and strides for a launch; raises on what the kernels do not
-    take (a CPU or non-contiguous table, another head width, a pointer that
-    is not 16-byte aligned)."""
+    take (a CPU or non-contiguous table, a head width the kernels are not
+    built for, a pointer that is not 16-byte aligned)."""
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {q.device}")
-    if q.shape[-1] != head_dim:
-        raise ValueError(f"the kernel takes Dh == {head_dim}, got {q.shape[-1]}")
+    dims = build.head_dims()
+    if q.shape[-1] not in dims:
+        raise ValueError(f"the attention kernels take Dh in {dims}, got {q.shape[-1]}")
     strides = [row_stride(x, n) for x, n in ((q, "q"), (k, "k"), (v, "v"))]
     for x, name in ((r_emb, "r_emb"), (r_w_bias, "r_w_bias"), (r_bias, "r_bias")):
         if not x.is_contiguous():
@@ -66,12 +67,13 @@ def kernel_args(q, k, v, r_emb, r_w_bias, r_bias, head_dim: int):
 
 def launch_forward(fn: str, inputs: Sequence[torch.Tensor], band: Tuple[int, ...],
                    with_lse: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor], bool]:
-    """Run forward kernel ``fn`` of ``csrc/rel_attention.cu`` on
+    """Run forward kernel ``fn`` (``ttx_banded_attention_fwd`` or
+    ``ttx_flash_rel_attention_fwd``) on
     ``inputs = (q, k, v, r_emb, r_w_bias, r_bias)``.  Returns the output
     (B, T, H, Dh), the row log-sum-exp (B, H, T) the backward needs (when
     ``with_lse``) and whether a kernel was launched (not for empty inputs)."""
+    ptrs = kernel_args(*inputs)
     lib = build.library()
-    ptrs = kernel_args(*inputs, lib.ttx_head_dim())
     q = inputs[0]
     b, t, h, dh = q.shape
     out = torch.empty((b, t, h, dh), dtype=torch.float32, device=q.device)
@@ -82,7 +84,7 @@ def launch_forward(fn: str, inputs: Sequence[torch.Tensor], band: Tuple[int, ...
     stream = torch.cuda.current_stream(q.device).cuda_stream
     build.check(getattr(lib, fn)(*ptrs, out.data_ptr(),
                                  None if lse is None else lse.data_ptr(),
-                                 b, t, h, *band, stream), fn)
+                                 b, t, h, dh, *band, stream), fn)
     return out, lse, True
 
 
@@ -99,17 +101,17 @@ def launch_backward(fn: str, saved: Sequence[torch.Tensor], grad: torch.Tensor,
     grad = grad.contiguous()
     if grad.dtype != torch.float32 or grad.shape != out.shape:
         raise ValueError(f"the output gradient must be float32 {tuple(out.shape)}")
+    ptrs = kernel_args(q, k, v, r_emb, r_w_bias, r_bias)
     lib = build.library()
-    ptrs = kernel_args(q, k, v, r_emb, r_w_bias, r_bias, lib.ttx_head_dim())
     _aligned(grad, "the output gradient")
     grads = (torch.zeros_like(out), torch.zeros_like(out), torch.zeros_like(out),
              torch.zeros_like(r_emb), torch.zeros_like(r_w_bias),
              torch.zeros_like(r_bias))
     if out.numel() == 0:
         return grads, False
-    b, t, h, _ = q.shape
+    b, t, h, dh = q.shape
     stream = torch.cuda.current_stream(q.device).cuda_stream
     build.check(getattr(lib, fn)(*ptrs, out.data_ptr(), lse.data_ptr(),
                                  grad.data_ptr(), *(g.data_ptr() for g in grads),
-                                 b, t, h, *band, stream), fn)
+                                 b, t, h, dh, *band, stream), fn)
     return grads, True

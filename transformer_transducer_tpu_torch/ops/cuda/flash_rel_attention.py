@@ -7,10 +7,11 @@ backward (``_vjp_bwd``, ``_bwd_kernel``).  Unmasked Transformer-XL attention
 with learnable tables, computed per query tile with an online softmax so no
 (B, H, T, T) tensor reaches device memory; the backward recomputes the
 probabilities from the row log-sum-exp the forward keeps.  The kernels are
-``ttx_flash_rel_attention_fwd`` in ``csrc/rel_attention.cu``, which
-documents the score rule, and ``ttx_flash_rel_attention_bwd`` in
-``csrc/flash_rel_attention_bwd.cu``, whose products run on the TF32 tensor
-cores in 3xTF32 (fp32 accuracy); each source states its bounds.
+``ttx_flash_rel_attention_fwd`` in ``csrc/flash_rel_attention_fwd.cu`` and
+``ttx_flash_rel_attention_bwd`` in ``csrc/flash_rel_attention_bwd.cu``; the
+products of both run on the TF32 tensor cores in 3xTF32 (fp32 accuracy,
+``csrc/tensor_core.cuh``), at head widths 32 and 64.  Each source states
+its bounds and design; ``csrc/rel_attention.cu`` documents the score rule.
 
 Dispatch: a CPU tensor takes :func:`flash_rel_attention_plain` (its
 gradients by autograd); a CUDA tensor runs the kernels behind a
