@@ -10,7 +10,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    csrc`` (timed; one ``nvcc`` a source, all at once), with ptxas's
    registers and spills, and the ``HMMA`` (tensor-core) instructions of the
    flash forward and backward at Dh = 64 (``cuobjdump -sass``; none in
-   either fails the run);
+   either fails the run), and the SASS instructions and ``RED``/``ATOM``
+   (atomic) instructions of the banded backward's two kernels (any atomic
+   fails the run);
 3. each kernel against its plain PyTorch version on the same CUDA inputs
    (atol 1e-4, rtol 1e-4), at the main path's shapes and a sweep around
    them: the additive logZ at (B, T, U1, V) = (4, 410, 43, 6485) and over
@@ -18,8 +20,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    one block of label rows at U1 = 65, 129; the band sweeps at S = 2-8 with
    ragged t_len, a zero-length row and a clamped terminal slot, and at
    S = 33, 64, 128 (several slots a lane); the flash forward and backward
-   also at the tile edges T = 15-17, 31-33, 63-65, 127-129; the four
-   attention kernels at head width 32 as well as 64;
+   also at the tile edges T = 15-17, 31-33, 63-65, 127-129, the banded
+   backward at bands (10, 2), (0, 0), (64, 64), (3, 64), (64, 0) and at
+   the edges of its 32-row blocks and 48-row cell tiles T = 31-33, 47-49,
+   95-97; the four attention kernels at head width 32 as well as 64;
 4. the slice at full width: ``configs/joint_streaming.yaml`` (18 layers,
    d_model 512, V 6485) with seeded random weights, 8 synthetic utterances
    of 60-410 frames through the host frontend and batched greedy
@@ -62,18 +66,20 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    against their plain versions and bounds (the logZ also against
    ``torch.logsumexp`` over the whole sum; the flash kernels, on the tensor
    cores, also against their 3xTF32 bounds, with the count of ``HMMA``
-   instructions in their SASS from phase 2),
-   and the flagship train step (config dropout 0.5) for ``--flash`` with
-   the full and the pruned loss (first in turns), ``--banded`` and dense
-   attention, end to end and split into phases (encoder forward, loss
+   instructions in their SASS from phase 2; the banded backward with its
+   registers and atomics from phase 2, and two launches that must agree to
+   the bit), and the flagship train step (config dropout 0.5) for
+   ``--flash`` with the full and the pruned loss (first in turns),
+   ``--banded`` and dense attention, end to end and split into phases (encoder forward, loss
    forward, backward, optimizer; for the pruned loss the simple stage,
    bounds, banded joint and band DP in place of the loss forward), with the
    device's idle share and peak memory.
 
 Kernel checks in phase 3: each forward against its plain version (atol
 1e-4, rtol 1e-4); the attention backward against autograd through the
-plain version (atol 1e-4 * max|ref| + 1e-5, rtol 1e-4: the shared sums are
-fp32 atomics in a varying order, and where a gradient is 0 in exact
+plain version (atol 1e-4 * max|ref| + 1e-5, rtol 1e-4: the flash
+backward's shared sums are fp32 atomics in a varying order, and where a
+gradient is 0 in exact
 arithmetic, as every softmax gradient at T = 1, only rounding is left); the
 lattice and band sweeps against the eager scans (rtol 1e-5, atol 1e-3:
 log-alphas reach thousands; a band sweep's recorded error is read with
@@ -275,20 +281,24 @@ def device_busy_ms(fn):
                if e.device_type == DeviceType.CUDA) / 1e3
 
 
-def device_top(fn, n: int = 6) -> str:
-    """The ``n`` operators with the most device time in one call of ``fn``
-    (``torch.profiler``, self device time), as "name ms" pairs."""
+def device_top(fn, n: int = 6, calls: int = 1, unit: str = "ms") -> str:
+    """The ``n`` operators and kernels with the most device time per call of
+    ``fn`` over ``calls`` calls (``torch.profiler``, self device time), as
+    "name time" pairs in ``unit`` ("ms" or "us")."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
     rows = sorted(prof.key_averages(), reverse=True,
                   key=lambda e: getattr(e, "self_device_time_total", 0))[:n]
-    return ", ".join(f"{e.key[:48]} {getattr(e, 'self_device_time_total', 0) / 1e3:.2f} ms"
-                     for e in rows)
+    name = lambda key: re.sub(r"\(.*", "", key.replace("(anonymous namespace)::", ""))
+    per = {"ms": 1e3, "us": 1.0}[unit] * calls
+    return ", ".join(f"{name(e.key)[:48]} {getattr(e, 'self_device_time_total', 0) / per:.2f} "
+                     f"{unit}" for e in rows)
 
 
 def roofline(n_bytes, n_ops):
@@ -309,9 +319,18 @@ def backward_bound(b, tlen, cells):
     """Least time for the attention backward: q, k, v, dO and the tables
     read once, dq, dk, dv and the table gradients written once; about 16*Dh
     FLOP per live cell (scores again, dp, dv, dk, dq from AC and BD, and the
-    table gradient)."""
+    table gradient).  O and the row lse are not counted: the function does
+    not need them (the Pallas kernels recompute the probabilities)."""
     elems = 7 * b * tlen * H * DH + 2 * (tlen * H * DH + H * DH + tlen * H)
     return roofline(4 * elems, b * H * cells * 16 * DH)
+
+
+def backward_io_ms(b, tlen):
+    """The bytes the CUDA attention backwards move as built over the memory
+    rate, in ms: ``backward_bound``'s bytes and O and the row lse, which
+    they read for D_i = dO_i . O_i."""
+    elems = 8 * b * tlen * H * DH + b * H * tlen + 2 * (tlen * H * DH + H * DH + tlen * H)
+    return 4 * elems / HBM_BYTES_PER_S * 1e3
 
 
 def backward_bound_tc(b, tlen, cells):
@@ -554,9 +573,14 @@ def check_training_kernels(gen):
     # 64-key chunks
     cases = [(tlen, band) for tlen in (1, 37, 410, 513)
              for band in (None, (10, 2), (0, 0), (64, 64))]
+    cases += [(tlen, band) for tlen in (1, 37, 410, 513) for band in ((3, 64), (64, 0))]
     cases = [(tlen, band, DH) for tlen, band in cases]
     cases += [(tlen, None, DH) for tlen in (15, 16, 17, 31, 32, 33, 63, 64, 65, 127,
                                              128, 129)]
+    # the banded backward at the edges of its 32-row blocks and 48-row cell
+    # tiles
+    cases += [(tlen, band, DH) for tlen in (31, 32, 33, 47, 48, 49, 95, 96, 97)
+              for band in ((10, 2), (3, 64), (64, 0))]
     # head width 32
     cases += [(tlen, band, 32) for tlen in (1, 33, 129, 410) for band in (None, (10, 2))]
     for tlen, band, dh in cases:
@@ -1110,6 +1134,20 @@ def main() -> int:
             f"of spill stores + loads; most: "
             + ", ".join(f"{op} {n}" for op, n in ops.most_common(12)))
         require(ops["HMMA"] > 0, f"the {name} has no tensor-core instruction")
+    # the banded backward (SIMT, Dh 64): no atomic instruction in either of
+    # its two kernels
+    simt = {}
+    for symbol in ("banded_bwdILi64E", "banded_bwd_tablesILi64E"):
+        ops = sass_opcodes(lib_path, symbol)
+        (regs, spill_st, spill_ld), = ptxas_entries(ptxas, symbol)
+        atomics = sum(n for op, n in ops.items() if op.startswith(("RED", "ATOM")))
+        simt[symbol] = {"sass": sum(ops.values()), "registers": regs,
+                        "spill_bytes": spill_st + spill_ld, "atomics": atomics}
+        log(f"  banded backward ({symbol}): {sum(ops.values())} instructions in its "
+            f"SASS, {atomics} RED/ATOM, {regs} registers, {spill_st} + {spill_ld} "
+            f"bytes of spill stores + loads; most: "
+            + ", ".join(f"{op} {n}" for op, n in ops.most_common(12)))
+        require(atomics == 0, f"the banded backward's {symbol} has atomics")
 
     # ---- 3. kernels vs plain versions
     log("kernels vs plain versions (atol 1e-4, rtol 1e-4):")
@@ -1583,7 +1621,8 @@ def main() -> int:
     for name, key, fn, bwd, plain_fn, extra, mask_add, cells, replaces, source in (
             ("banded_attention_bwd", "banded", "ttx_banded_attention_fwd",
              banded_attention_backward, banded_attention_plain, band, add_band,
-             band_cells(T_MAIN, *band), "banded_attention.py:346", "rel_attention.cu"),
+             band_cells(T_MAIN, *band), "banded_attention.py:346",
+             "banded_attention_bwd.cu"),
             ("flash_rel_attention_bwd", "flash", "ttx_flash_rel_attention_fwd",
              flash_rel_attention_backward, flash_rel_attention_plain, (), add,
              T_MAIN * T_MAIN, "flash_rel_attention.py:288",
@@ -1607,6 +1646,25 @@ def main() -> int:
                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
                "sdpa_bd_mask_yardstick_ms": yard_ms}
         note = ""
+        if key == "banded":     # SIMT, no atomics: two launches bit-identical
+            first = bwd(*args, out, lse, gout, *extra)
+            again = bwd(*args, out, lse, gout, *extra)
+            same = all(torch.equal(x, y) for x, y in zip(first, again))
+            require(same, "two launches of the banded backward differ")
+            del first, again
+            main, tables = simt["banded_bwdILi64E"], simt["banded_bwd_tablesILi64E"]
+            rec.update(kernels_per_launch=2, io_as_built_ms=backward_io_ms(B_TRAIN, T_MAIN),
+                       share_of_bound=bound_ms / ms, registers=main["registers"],
+                       spill_bytes=main["spill_bytes"], sass=main["sass"],
+                       atomics=main["atomics"] + tables["atomics"],
+                       tables_registers=tables["registers"], tables_sass=tables["sass"],
+                       deterministic=same)
+            split = device_top(lambda: bwd(*args, out, lse, gout, *extra), n=2, calls=20,
+                               unit="us")
+            note = (f"; its bytes as built (with O and lse) {rec['io_as_built_ms']:.4f} ms; "
+                    f"{rec['registers']} registers, {rec['sass']} SASS instructions, "
+                    f"{rec['atomics']} atomics, two launches bit-identical; two kernels "
+                    f"a launch: {split}")
         if key == "flash":      # on the tensor cores: its 3xTF32 bound too
             rec.update(bound_tc_ms=backward_bound_tc(B_TRAIN, T_MAIN, cells),
                        share_of_bound=bound_ms / ms, **tc["flash backward"])

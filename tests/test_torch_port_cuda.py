@@ -16,8 +16,8 @@ and these tests import nothing of JAX.)
 
 Tolerance: atol 1e-4, rtol 1e-4 for a kernel against its plain version
 (fp32, another summation order and ``expf`` against ``torch.softmax``);
-gradients through the attention backward, whose shared sums are fp32
-atomics in a varying order, within atol 1e-4 * max|ref| + 1e-5 (the floor
+gradients through the attention backward (the flash backward's shared
+sums are fp32 atomics in a varying order) within atol 1e-4 * max|ref| + 1e-5 (the floor
 for gradients that are 0 in exact arithmetic, as at T = 1) and rtol 1e-4; the
 lattice and band sweeps within rtol 1e-5 / atol 1e-3 (log-alphas reach
 thousands).
@@ -35,6 +35,7 @@ from transformer_transducer_tpu_torch.ops.cuda.logz_kernel import (
 from transformer_transducer_tpu_torch.ops.cuda.rnnt_kernel import (
     NEG, alpha_scan, alpha_scan_plain, beta_scan, beta_scan_plain)
 from transformer_transducer_tpu_torch.models.transducer import build_transducer
+from transformer_transducer_tpu_torch.ops.cuda.common import launch_forward
 from transformer_transducer_tpu_torch.ops.cuda.banded_attention import (
     banded_attention, banded_attention_backward, banded_attention_plain)
 from transformer_transducer_tpu_torch.ops.cuda.flash_rel_attention import (
@@ -186,10 +187,17 @@ def test_attention_backward_kernels_at_head_width_32(gen, tlen, band):
     _check_backward(gen, tlen, band, 32)
 
 
-@pytest.mark.parametrize("tlen", [33, 410])
-def test_flash_backward_takes_strided_and_contiguous_inputs_alike(gen, tlen):
-    """Row-strided q, k, v views of a packed qkv (as the model hands them
-    over) and contiguous copies give the same gradients."""
+# the banded backward's tiles: 32 rows and keys a block, cell tiles of 48
+# rows and 16 offsets
+@pytest.mark.parametrize("tlen", [31, 32, 33, 47, 48, 49, 63, 64, 65, 95, 96, 97])
+@pytest.mark.parametrize("band", [(10, 2), (3, 64), (64, 0)])
+def test_banded_backward_at_its_tile_edges(gen, tlen, band):
+    _check_backward(gen, tlen, band, DH)
+
+
+def _strided_and_contiguous_grads(gen, tlen, fn):
+    """The six gradients of ``fn`` for row-strided q, k, v views of a packed
+    qkv (as the model hands them over) and for contiguous copies."""
     mk = lambda *s: torch.randn(*s, generator=gen, device="cuda") * 0.5
     qkv = mk(B, tlen, 3, H, DH)
     tables = (slice_pos_table(mk(K_LEN, H, DH), tlen), mk(H, DH),
@@ -200,10 +208,44 @@ def test_flash_backward_takes_strided_and_contiguous_inputs_alike(gen, tlen):
     grads = []
     for q, k, v in (strided, [x.contiguous() for x in strided]):
         leaves = [x.detach().requires_grad_() for x in (q, k, v, *tables)]
-        flash_rel_attention(*leaves).backward(gout)
+        fn(*leaves).backward(gout)
         grads.append([x.grad for x in leaves])
+    return grads
+
+
+@pytest.mark.parametrize("tlen", [33, 410])
+def test_flash_backward_takes_strided_and_contiguous_inputs_alike(gen, tlen):
+    """Row-strided q, k, v views of a packed qkv (as the model hands them
+    over) and contiguous copies give the same gradients."""
+    grads = _strided_and_contiguous_grads(gen, tlen, flash_rel_attention)
     for name, a, b in zip(("q", "k", "v", "r_emb", "r_w_bias", "r_bias"), *grads):
         _grad_close(a, b, name)
+
+
+@pytest.mark.parametrize("tlen", [33, 410])
+@pytest.mark.parametrize("band", [(10, 2), (64, 64)])
+def test_banded_backward_takes_strided_and_contiguous_inputs_alike(gen, tlen, band):
+    """The banded backward on strided views and on contiguous copies: the
+    same gradients, to the bit (it sums in a fixed order)."""
+    grads = _strided_and_contiguous_grads(
+        gen, tlen, lambda *a: banded_attention(*a, *band))
+    for name, a, b in zip(("q", "k", "v", "r_emb", "r_w_bias", "r_bias"), *grads):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("tlen,band", [(410, (10, 2)), (200, (64, 64)), (1, (0, 0))])
+def test_banded_backward_is_deterministic(gen, tlen, band):
+    """Two launches on the same inputs give bit-identical gradients: no
+    atomics, and the table partials are summed in a fixed order."""
+    args = _inputs(gen, tlen)
+    with torch.no_grad():
+        out, lse, _ = launch_forward("ttx_banded_attention_fwd", args, band, with_lse=True)
+    gout = torch.randn(B, tlen, H, DH, generator=gen, device="cuda")
+    first = banded_attention_backward(*args, out, lse, gout, *band)
+    second = banded_attention_backward(*args, out, lse, gout, *band)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("q", "k", "v", "r_emb", "r_w_bias", "r_bias"), first, second):
+        assert torch.isfinite(a).all() and torch.equal(a, b), name
 
 
 def test_forward_kernels_keep_the_graph_and_raise_on_odd_inputs(gen):

@@ -1,16 +1,13 @@
-// Banded rel-position self-attention, forward and backward, for Hopper
-// (sm_90a), fp32.
+// Banded rel-position self-attention forward for Hopper (sm_90a), fp32.
 //
-// Replaces two TPU kernels of the JAX package:
-//   * ops/pallas/banded_attention.py :: banded_attention forward
-//     (_fwd_impl, _band_kernel) -- ttx_banded_attention_fwd below;
-//   * ops/pallas/banded_attention.py :: banded_attention backward
-//     (_bwd_impl, _band_bwd_kernel) -- ttx_banded_attention_bwd below.
-// The full-context (flash) kernels, on the tensor cores, are
-// csrc/flash_rel_attention_fwd.cu and csrc/flash_rel_attention_bwd.cu.
+// Replaces ops/pallas/banded_attention.py :: banded_attention forward
+// (_fwd_impl, _band_kernel) -- ttx_banded_attention_fwd below.  Its
+// backward is csrc/banded_attention_bwd.cu; the full-context (flash)
+// kernels, on the tensor cores, are csrc/flash_rel_attention_fwd.cu and
+// csrc/flash_rel_attention_bwd.cu.
 //
-// All four compute one score rule (models/attention.py dense branch), with
-// the tables already sliced to T rows, o = j - i and scale = 1/sqrt(Dh):
+// All of them compute one score rule (models/attention.py dense branch),
+// with the tables already sliced to T rows, o = j - i and scale = 1/sqrt(Dh):
 //
 //   score(i,j) = scale * [ (q_i + r_w_bias).k_j + BD(i,j) ]
 //   BD(i,j) = q_i.re[T-1+o]     + rb[T-1+o]   if o <= 0
@@ -21,25 +18,14 @@
 // -left <= o <= right; the flash kernels keep every 0 <= j < T.  Tables are
 // anchored at the true last row T-1: nothing is padded to a tile multiple.
 // At i = T-1 there is no q_{i+1}; that row of the shared q tile is zero,
-// and only cells with j >= T+1 (never live) would read it.
+// and only cells with j >= T+1 (never live) would read it.  The forward
+// saves the row log-sum-exp (when it is given somewhere to put it), from
+// which the backward recomputes the probabilities.
 //
-// The backward recomputes the probabilities from the row log-sum-exp that
-// the forward saves (when it is given somewhere to put it), and with
-// D_i = sum_d dO_i.O_i and ds = p (dO_i.v_j - D_i) scale accumulates
-//   dv_j += p dO_i,  dk_j += ds (q_i + r_w_bias),  dq_i += ds k_j,
-//   d r_w_bias = sum_i of the last,
-//   o <= 0:  d re[T-1+o] += ds q_i,      dq_i     += ds re[T-1+o],
-//   o >= 2:  d re[o-2]   += ds q_{i+1},  dq_{i+1} += ds re[o-2],
-//   d rb: the same sums with a ones column in place of q.
-//
-// Bounds on the card (H100 SXM: 3.35 TB/s, 67 TFLOP/s fp32 without tensor
-// cores):
-//   * forward at the flagship serving shape B=8, T=410, H=8, Dh=64, band
-//     (left 10, right 2): about 28 MB moved and 0.13 GFLOP, memory-bound,
-//     about 8 us.
-//   * banded backward at the flagship training batch B=4, band (10, 2):
-//     0.17 GFLOP but q, k, v, dO in and dq, dk, dv out, about 23.5 MB,
-//     about 7 us (bytes).
+// Bound on the card (H100 SXM: 3.35 TB/s, 67 TFLOP/s fp32 without tensor
+// cores), at the flagship serving shape B=8, T=410, H=8, Dh=64, band
+// (left 10, right 2): about 28 MB moved and 0.13 GFLOP, memory-bound, about
+// 8 us.
 //
 // Design (simple and exact first; wgmma/TMA tiling is later work), templated
 // on the head width Dh (32 or 64):
@@ -49,21 +35,15 @@
 //     chunk's offsets o need sit in shared memory, so the BD term indexes its
 //     table row directly (no TPU lane-rolls, no (T, T) scores in memory);
 //   * 8 threads per query row, each scoring 8 keys of the chunk and owning
-//     Dh/8 output columns (4c..4c+3, then 32 on); the forward carries an
-//     online softmax in fp32 (max, sum, Dh/8-wide accumulator) across
-//     chunks;
-//   * the kernels walk only the key window [i0-left, i0+TQ-1+right] (one
-//     chunk at the flagship band);
-//   * the backward keeps each query row's dq in registers (the wrap term's
-//     share for row i+1 too) and adds it to memory once at the end; dk, dv
-//     and the table gradients, which many blocks share, go out per chunk with
-//     fp32 atomicAdd into zeroed buffers, so their summation order varies
-//     from run to run.
+//     Dh/8 output columns (4c..4c+3, then 32 on); an online softmax in fp32
+//     (max, sum, Dh/8-wide accumulator) across chunks;
+//   * the kernel walks only the key window [i0-left, i0+TQ-1+right] (one
+//     chunk at the flagship band).
 // Shared rows are padded to Dh+4 floats: 16-byte aligned for float4 loads
 // and conflict-free across the 8 threads of a row.
 //
-// Plain C interface (loaded with ctypes).  Kernels run on the caller's
-// stream, allocate nothing and return cudaGetLastError() after the launch.
+// Plain C interface (loaded with ctypes).  The kernel runs on the caller's
+// stream, allocates nothing and returns cudaGetLastError() after the launch.
 
 #include "tensor_core.cuh"
 
@@ -86,16 +66,8 @@ struct Args {
     const float* re;      // (T, H, Dh) contiguous, sliced to T rows
     const float* u;       // r_w_bias (H, Dh)
     const float* rb;      // r_bias (T, H)
-    float* out;           // (B, T, H, Dh) contiguous: written by the forward,
-                          // read by the backward
-    float* lse;           // (B, H, T) row log-sum-exp, or null (forward only)
-    const float* dout;    // backward: dO (B, T, H, Dh) contiguous
-    float* dq;            // backward outputs, zeroed by the caller:
-    float* dk;            //   dq, dk, dv (B, T, H, Dh)
-    float* dv;
-    float* dre;           //   (T, H, Dh)
-    float* du;            //   (H, Dh)
-    float* drb;           //   (T, H)
+    float* out;           // (B, T, H, Dh) contiguous
+    float* lse;           // (B, H, T) row log-sum-exp, or null
     int B, T, H;
     int left, right;      // band
 };
@@ -120,31 +92,8 @@ struct __align__(16) Smem {
     float p[TQ][LDP];       // probabilities of the current chunk
 };
 
-// float4-read arrays first: each is a multiple of 16 bytes long, so every
-// one of them starts 16-byte aligned
-template <int DH>
-struct __align__(16) SmemBwd {
-    static constexpr int LD = Dims<DH>::LD;
-    float qu[TQ][LD];
-    float q[TQ + 1][LD];
-    float k[TK][LD];
-    float v[TK][LD];
-    float e[NE][LD];
-    float go[TQ][LD];       // dO rows of the tile
-    float eb[NE];
-    float p[TQ][LDP];
-    float ds[TQ][LDP];      // score gradients of the current chunk
-};
-
 __device__ __forceinline__ float dot4(float4 a, float4 b) {
     return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-}
-
-__device__ __forceinline__ void add4(float* p, float4 x) {
-    atomicAdd(p, x.x);
-    atomicAdd(p + 1, x.y);
-    atomicAdd(p + 2, x.z);
-    atomicAdd(p + 3, x.w);
 }
 
 // The q tile (TQ+1 rows, zero past T) and q + r_w_bias.
@@ -319,197 +268,6 @@ rel_attention_fwd(Args a) {
 }
 
 template <int DH>
-__global__ void __launch_bounds__(NTHREADS)
-rel_attention_bwd(Args a) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    SmemBwd<DH>& s = *reinterpret_cast<SmemBwd<DH>*>(smem_raw);
-    constexpr int NC = Dims<DH>::NC;
-
-    const int tid = threadIdx.x;
-    const int i0 = blockIdx.x * TQ;
-    const int h = blockIdx.y;
-    const int b = blockIdx.z;
-    const int T = a.T;
-    const int H = a.H;
-    const float scale = 1.0f / sqrtf((float)DH);
-    const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-
-    stage_q<DH>(a, s, b, h, i0);
-    for (int idx = tid; idx < TQ * (DH / 4); idx += NTHREADS) {
-        const int rr = idx / (DH / 4);
-        const int d = 4 * (idx % (DH / 4));
-        const int ii = i0 + rr;
-        st4(&s.go[rr][d], ii < T ? ld4(a.dout + (((long long)b * T + ii) * H + h) * DH + d)
-                                 : zero4);
-    }
-    int jlo, jhi;
-    key_window(a, i0, &jlo, &jhi);
-
-    const int r = tid >> 3;      // query row within the tile
-    const int c = tid & 7;       // keys c + 8m; dims 4c..4c+3, 32+4c.., ...
-    const int i = i0 + r;
-
-    // D_i = dO_i . O_i, reduced over the row's 8 lanes; the row's lse
-    float di = 0.f, lse = 0.f;
-    if (i < T) {
-        const long long row = (((long long)b * T + i) * H + h) * DH;
-        di = dot4(ld4(a.out + row + 4 * c), ld4(a.dout + row + 4 * c));
-#pragma unroll
-        for (int n = 1; n < NC; ++n)
-            di += dot4(ld4(a.out + row + 32 * n + 4 * c), ld4(a.dout + row + 32 * n + 4 * c));
-        lse = a.lse[((long long)b * H + h) * T + i];
-    }
-    di += __shfl_xor_sync(FULL, di, 1);
-    di += __shfl_xor_sync(FULL, di, 2);
-    di += __shfl_xor_sync(FULL, di, 4);
-
-    float dq_ac[4 * NC], dq_own[4 * NC], dq_nx[4 * NC];
-#pragma unroll
-    for (int x = 0; x < 4 * NC; ++x) dq_ac[x] = dq_own[x] = dq_nx[x] = 0.f;
-
-    for (int j0 = jlo; j0 < jhi; j0 += TK) {
-        __syncthreads();   // the previous chunk's tiles are no longer read
-        stage_chunk<DH>(a, s, b, h, i0, j0, jhi);
-        __syncthreads();
-
-        // probabilities and score gradients of row r against keys c + 8m
-        float sc[8], dp[8];
-        const unsigned live = chunk_scores<DH>(a, s, r, c, i, j0, jhi, sc);
-#pragma unroll
-        for (int m = 0; m < 8; ++m) dp[m] = 0.f;
-#pragma unroll 4
-        for (int d = 0; d < DH; d += 4) {
-            const float4 g4 = ld4(&s.go[r][d]);
-#pragma unroll
-            for (int m = 0; m < 8; ++m) dp[m] += dot4(g4, ld4(&s.v[c + 8 * m][d]));
-        }
-#pragma unroll
-        for (int m = 0; m < 8; ++m) {
-            const float p = (live >> m & 1u) ? expf(sc[m] - lse) : 0.f;
-            s.p[r][c + 8 * m] = p;
-            s.ds[r][c + 8 * m] = p * (dp[m] - di) * scale;
-        }
-        __syncthreads();
-
-        // dq of row r: the AC part and both BD parts (own row, next row)
-        const int nk = min(TK, jhi - j0);
-        for (int kk = 0; kk < nk; ++kk) {
-            const float g = s.ds[r][kk];
-            const int x = kk - r + TQ - 1;
-            // o <= 0 feeds row i, o >= 2 row i+1; o == 1 has a zero table
-            // row, so it adds nothing either way
-            const float go_ = (j0 + kk - i <= 0) ? g : 0.f;
-            const float gn = g - go_;
-#pragma unroll
-            for (int n = 0; n < NC; ++n) {
-                const float4 k4 = ld4(&s.k[kk][32 * n + 4 * c]);
-                const float4 e4 = ld4(&s.e[x][32 * n + 4 * c]);
-                float* ac = dq_ac + 4 * n;
-                float* ow = dq_own + 4 * n;
-                float* nx = dq_nx + 4 * n;
-                ac[0] += g * k4.x; ac[1] += g * k4.y;
-                ac[2] += g * k4.z; ac[3] += g * k4.w;
-                ow[0] += go_ * e4.x; ow[1] += go_ * e4.y;
-                ow[2] += go_ * e4.z; ow[3] += go_ * e4.w;
-                nx[0] += gn * e4.x; nx[1] += gn * e4.y;
-                nx[2] += gn * e4.z; nx[3] += gn * e4.w;
-            }
-        }
-
-        // dk and dv of the chunk: thread -> key tid/4, Dh/4 dims
-        {
-            constexpr int NF = DH / 16;      // float4s a thread
-            const int kk = tid >> 2;
-            const int d0 = (tid & 3) * (DH / 4);
-            float4 gk[NF], gv[NF];
-#pragma unroll
-            for (int x = 0; x < NF; ++x) gk[x] = gv[x] = zero4;
-            for (int rr = 0; rr < TQ; ++rr) {
-                const float p = s.p[rr][kk];
-                const float g = s.ds[rr][kk];
-#pragma unroll
-                for (int x = 0; x < NF; ++x) {
-                    const float4 o4 = ld4(&s.go[rr][d0 + 4 * x]);
-                    const float4 u4 = ld4(&s.qu[rr][d0 + 4 * x]);
-                    gv[x].x += p * o4.x; gv[x].y += p * o4.y;
-                    gv[x].z += p * o4.z; gv[x].w += p * o4.w;
-                    gk[x].x += g * u4.x; gk[x].y += g * u4.y;
-                    gk[x].z += g * u4.z; gk[x].w += g * u4.w;
-                }
-            }
-            const int j = j0 + kk;
-            if (j < jhi) {
-                const long long row = (((long long)b * T + j) * H + h) * DH + d0;
-#pragma unroll
-                for (int x = 0; x < NF; ++x) {
-                    add4(a.dv + row + 4 * x, gv[x]);
-                    add4(a.dk + row + 4 * x, gk[x]);
-                }
-            }
-        }
-
-        // table gradients, one diagonal (offset o = omin + x) at a time
-        const int omin = j0 - (i0 + TQ - 1);
-        for (int idx = tid; idx < NE * (DH / 4); idx += NTHREADS) {
-            const int x = idx / (DH / 4);
-            const int d = 4 * (idx % (DH / 4));
-            const int o = omin + x;
-            const int row = bd_row(T, o);
-            if (row < 0) continue;
-            const int sel = o <= 0 ? 0 : 1;          // q_i or q_{i+1}
-            const int rlo = max(0, TQ - 1 - x);
-            const int rhi = min(TQ, TK + TQ - 1 - x);
-            float4 acc = zero4;
-            float accb = 0.f;
-            for (int rr = rlo; rr < rhi; ++rr) {
-                const float g = s.ds[rr][x - TQ + 1 + rr];
-                const float4 q4 = ld4(&s.q[rr + sel][d]);
-                acc.x += g * q4.x; acc.y += g * q4.y;
-                acc.z += g * q4.z; acc.w += g * q4.w;
-                accb += g;
-            }
-            add4(a.dre + ((long long)row * H + h) * DH + d, acc);
-            if (d == 0) atomicAdd(a.drb + row * H + h, accb);
-        }
-    }
-
-    // dq rows: own row, and the wrap term's share of row i+1
-    if (i < T) {
-        float* dst = a.dq + (((long long)b * T + i) * H + h) * DH;
-#pragma unroll
-        for (int n = 0; n < NC; ++n) {
-            const float* ac = dq_ac + 4 * n;
-            const float* ow = dq_own + 4 * n;
-            add4(dst + 32 * n + 4 * c, make_float4(ac[0] + ow[0], ac[1] + ow[1],
-                                                   ac[2] + ow[2], ac[3] + ow[3]));
-        }
-        if (i + 1 < T) {
-            float* nxt = dst + (long long)H * DH;
-#pragma unroll
-            for (int n = 0; n < NC; ++n)
-                add4(nxt + 32 * n + 4 * c, make_float4(dq_nx[4 * n], dq_nx[4 * n + 1],
-                                                       dq_nx[4 * n + 2], dq_nx[4 * n + 3]));
-        }
-    }
-
-    // d r_w_bias: the tile's AC part of dq, summed over its rows
-    // (dims 0..31 in s.p, 32..63 in s.ds; rows past T hold zeros)
-    __syncthreads();
-#pragma unroll
-    for (int x = 0; x < 4; ++x) {
-        s.p[r][4 * c + x] = dq_ac[x];
-        if (NC > 1) s.ds[r][4 * c + x] = dq_ac[4 * (NC - 1) + x];
-    }
-    __syncthreads();
-    if (tid < DH) {
-        float sum = 0.f;
-        for (int rr = 0; rr < TQ; ++rr)
-            sum += tid < 32 ? s.p[rr][tid] : s.ds[rr][tid - 32];
-        atomicAdd(a.du + h * DH + tid, sum);
-    }
-}
-
-template <int DH>
 int launch_fwd(const Args& a, cudaStream_t stream) {
     const int smem = (int)sizeof(Smem<DH>);
     cudaError_t err = cudaFuncSetAttribute(
@@ -517,17 +275,6 @@ int launch_fwd(const Args& a, cudaStream_t stream) {
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((a.T + TQ - 1) / TQ, a.H, a.B);
     rel_attention_fwd<DH><<<grid, NTHREADS, smem, stream>>>(a);
-    return (int)cudaGetLastError();
-}
-
-template <int DH>
-int launch_bwd(const Args& a, cudaStream_t stream) {
-    const int smem = (int)sizeof(SmemBwd<DH>);
-    cudaError_t err = cudaFuncSetAttribute(
-        rel_attention_bwd<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((a.T + TQ - 1) / TQ, a.H, a.B);
-    rel_attention_bwd<DH><<<grid, NTHREADS, smem, stream>>>(a);
     return (int)cudaGetLastError();
 }
 
@@ -547,24 +294,6 @@ Args make_args(const void* q, const void* k, const void* v, long long sq,
     a.lse = static_cast<float*>(lse);
     a.B = B; a.T = T; a.H = H;
     a.left = left; a.right = right;
-    return a;
-}
-
-Args make_bwd_args(const void* q, const void* k, const void* v, long long sq,
-                   long long sk, long long sv, const void* re, const void* u,
-                   const void* rb, const void* out, const void* lse,
-                   const void* dout, void* dq, void* dk, void* dv, void* dre,
-                   void* du, void* drb, int B, int T, int H, int left,
-                   int right) {
-    Args a = make_args(q, k, v, sq, sk, sv, re, u, rb, const_cast<void*>(out),
-                       const_cast<void*>(lse), B, T, H, left, right);
-    a.dout = static_cast<const float*>(dout);
-    a.dq = static_cast<float*>(dq);
-    a.dk = static_cast<float*>(dk);
-    a.dv = static_cast<float*>(dv);
-    a.dre = static_cast<float*>(dre);
-    a.du = static_cast<float*>(du);
-    a.drb = static_cast<float*>(drb);
     return a;
 }
 
@@ -588,20 +317,6 @@ int ttx_banded_attention_fwd(const void* q, const void* k, const void* v,
                              left, right);
     return with_head_dim(Dh, [&](auto dh) {
         return launch_fwd<decltype(dh)::value>(a, static_cast<cudaStream_t>(stream));
-    });
-}
-
-int ttx_banded_attention_bwd(const void* q, const void* k, const void* v,
-                             long long sq, long long sk, long long sv,
-                             const void* re, const void* u, const void* rb,
-                             const void* out, const void* lse,
-                             const void* dout, void* dq, void* dk, void* dv,
-                             void* dre, void* du, void* drb, int B, int T,
-                             int H, int Dh, int left, int right, void* stream) {
-    const Args a = make_bwd_args(q, k, v, sq, sk, sv, re, u, rb, out, lse, dout,
-                                 dq, dk, dv, dre, du, drb, B, T, H, left, right);
-    return with_head_dim(Dh, [&](auto dh) {
-        return launch_bwd<decltype(dh)::value>(a, static_cast<cudaStream_t>(stream));
     });
 }
 

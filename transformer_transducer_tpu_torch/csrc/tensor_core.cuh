@@ -1,8 +1,8 @@
 // Helpers shared by the rel-position attention kernels (sm_90a): the head
-// widths they are built for, float4 access, the BD table row of an offset,
-// and the warp-level TF32 tensor-core products in 3xTF32 that the flash
-// kernels (csrc/flash_rel_attention_fwd.cu, csrc/flash_rel_attention_bwd.cu)
-// are made of.
+// widths they are built for, float4 access, 16-byte cp.async copies, the BD
+// table row of an offset, and the warp-level TF32 tensor-core products in
+// 3xTF32 that the flash kernels (csrc/flash_rel_attention_fwd.cu,
+// csrc/flash_rel_attention_bwd.cu) are made of.
 //
 // 3xTF32: an fp32 operand x is split into hi = x rounded to TF32 (to
 // nearest, ties away: the bits of cvt.rna.tf32.f32, taken by integer
@@ -55,6 +55,18 @@ __device__ __forceinline__ float4 ldg4(const float* p) {
 
 __device__ __forceinline__ void st4(float* p, float4 x) {
     *reinterpret_cast<float4*>(p) = x;
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b) {
+    return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+}
+
+// 16 bytes from global to shared memory without a register round trip,
+// zeros where ok is false (src then only has to be a valid address).
+__device__ __forceinline__ void cp16(float* dst, const float* src, bool ok) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(d), "l"(src), "r"(ok ? 16 : 0));
 }
 
 // Table row of offset o = j - i, or -1 (o == 1, or outside the T rows).

@@ -5,15 +5,17 @@ Replaces the TPU kernels of ``ops/pallas/banded_attention.py::
 banded_attention``: the forward (``_fwd_impl``, ``_band_kernel``) and the
 backward (``_bwd_impl``, ``_band_bwd_kernel``).  The streaming encoder
 attends within ``[i - left, i + right]`` (reference ``tt/utils.py:242-251``);
-the kernels (``csrc/rel_attention.cu``, ``ttx_banded_attention_fwd`` /
-``_bwd``, head widths 32 and 64) walk only that key window, with the score
-rule and bounds documented in the source.
+the kernels (``csrc/rel_attention.cu``, ``ttx_banded_attention_fwd``;
+``csrc/banded_attention_bwd.cu``, ``ttx_banded_attention_bwd``; head widths
+32 and 64) work only inside the band, with the score rule and bounds
+documented in the sources.  The backward writes every gradient once, with
+no atomics, so its results do not change from run to run.
 
 Dispatch: a CPU tensor takes :func:`banded_attention_plain` (its gradients
 by autograd); a CUDA tensor runs the kernels behind a
 ``torch.autograd.Function`` or raises.  ``banded_attention.launches``
 counts forward launches, ``banded_attention_backward.launches`` backward
-launches.
+launches (each runs two kernels: the cells, then the table sums).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from transformer_transducer_tpu_torch.models.attention import rel_attention_dense
+from transformer_transducer_tpu_torch.ops.cuda import build
 from transformer_transducer_tpu_torch.ops.cuda.common import (
     HALO, check_inputs, launch_backward, launch_forward)
 from transformer_transducer_tpu_torch.ops.masks import context_mask
@@ -37,9 +40,10 @@ def banded_attention_backward(q, k, v, r_emb, r_w_bias, r_bias, out, lse,
                               grad, left: int, right: int):
     """The backward kernel: gradients of q, k, v, r_emb, r_w_bias, r_bias
     (tables as sliced to T rows) over the band."""
+    scratch = build.library().ttx_banded_attention_bwd_scratch(*q.shape, left, right)
     grads, launched = launch_backward(
         "ttx_banded_attention_bwd",
-        (q, k, v, r_emb, r_w_bias, r_bias, out, lse), grad, (left, right))
+        (q, k, v, r_emb, r_w_bias, r_bias, out, lse), grad, (left, right), scratch)
     banded_attention_backward.launches += int(launched)
     return grads
 

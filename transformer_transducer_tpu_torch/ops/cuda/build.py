@@ -96,9 +96,9 @@ def library() -> ctypes.CDLL:
             # ... out, lse, B, T, H, Dh, [left, right,] stream
             "ttx_banded_attention_fwd": inputs + [ptr, ptr] + [i32] * 6 + [ptr],
             "ttx_flash_rel_attention_fwd": inputs + [ptr, ptr] + [i32] * 4 + [ptr],
-            # ... out, lse, dout, dq, dk, dv, dre, du, drb, B, T, H, Dh,
-            # [left, right,] stream
-            "ttx_banded_attention_bwd": inputs + [ptr] * 9 + [i32] * 6 + [ptr],
+            # ... out, lse, dout, dq, dk, dv, dre, du, drb, [part,] B, T, H,
+            # Dh, [left, right,] stream
+            "ttx_banded_attention_bwd": inputs + [ptr] * 10 + [i32] * 6 + [ptr],
             "ttx_flash_rel_attention_bwd": inputs + [ptr] * 9 + [i32] * 4 + [ptr],
             # sb, sl, alpha, B, D, U1, stream
             "ttx_rnnt_alpha": [ptr, ptr, ptr, i32, i32, i32, ptr],
@@ -118,6 +118,9 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = i32
+        # B, T, H, Dh, left, right -> floats of the banded backward's scratch
+        lib.ttx_banded_attention_bwd_scratch.argtypes = [i32] * 6
+        lib.ttx_banded_attention_bwd_scratch.restype = i64
         lib.ttx_error_string.argtypes = [i32]
         lib.ttx_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -89,11 +89,17 @@ def launch_forward(fn: str, inputs: Sequence[torch.Tensor], band: Tuple[int, ...
 
 
 def launch_backward(fn: str, saved: Sequence[torch.Tensor], grad: torch.Tensor,
-                    band: Tuple[int, ...]) -> Tuple[Tuple[torch.Tensor, ...], bool]:
+                    band: Tuple[int, ...],
+                    scratch: Optional[int] = None) -> Tuple[Tuple[torch.Tensor, ...], bool]:
     """Run backward kernel ``fn`` on ``saved = (q, k, v, r_emb, r_w_bias,
     r_bias, out, lse)`` and the output gradient.  Returns the gradients of
     the six inputs (q, k, v contiguous; tables as sliced) and whether a
-    kernel was launched."""
+    kernel was launched.
+
+    Without ``scratch`` the kernel adds into the gradients, which start at
+    zero.  With it, the kernel writes every gradient entry once (they start
+    uninitialised) and takes a float32 work buffer of ``scratch`` floats
+    after them."""
     q, k, v, r_emb, r_w_bias, r_bias, out, lse = saved
     if lse is None:
         raise RuntimeError("the forward kept no row statistics: it ran with "
@@ -104,14 +110,17 @@ def launch_backward(fn: str, saved: Sequence[torch.Tensor], grad: torch.Tensor,
     ptrs = kernel_args(q, k, v, r_emb, r_w_bias, r_bias)
     lib = build.library()
     _aligned(grad, "the output gradient")
-    grads = (torch.zeros_like(out), torch.zeros_like(out), torch.zeros_like(out),
-             torch.zeros_like(r_emb), torch.zeros_like(r_w_bias),
-             torch.zeros_like(r_bias))
+    like = (out, out, out, r_emb, r_w_bias, r_bias)
     if out.numel() == 0:
-        return grads, False
+        return tuple(torch.zeros_like(x) for x in like), False
+    alloc = torch.zeros_like if scratch is None else torch.empty_like
+    grads = tuple(alloc(x) for x in like)
+    work = (None if scratch is None else
+            torch.empty(scratch, dtype=torch.float32, device=q.device))
     b, t, h, dh = q.shape
     stream = torch.cuda.current_stream(q.device).cuda_stream
     build.check(getattr(lib, fn)(*ptrs, out.data_ptr(), lse.data_ptr(),
                                  grad.data_ptr(), *(g.data_ptr() for g in grads),
+                                 *([] if work is None else [work.data_ptr()]),
                                  b, t, h, dh, *band, stream), fn)
     return grads, True
