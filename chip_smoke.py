@@ -11,8 +11,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    registers and spills, and the ``HMMA`` (tensor-core) instructions of the
    flash forward and backward at Dh = 64 (``cuobjdump -sass``; none in
    either fails the run), and the SASS instructions and ``RED``/``ATOM``
-   (atomic) instructions of the banded backward's two kernels (any atomic
-   fails the run);
+   (atomic) instructions of the banded forward and of the banded
+   backward's two kernels (any atomic fails the run);
 3. each kernel against its plain PyTorch version on the same CUDA inputs
    (atol 1e-4, rtol 1e-4), at the main path's shapes and a sweep around
    them: the additive logZ at (B, T, U1, V) = (4, 410, 43, 6485) and over
@@ -23,7 +23,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    also at the tile edges T = 15-17, 31-33, 63-65, 127-129, the banded
    backward at bands (10, 2), (0, 0), (64, 64), (3, 64), (64, 0) and at
    the edges of its 32-row blocks and 48-row cell tiles T = 31-33, 47-49,
-   95-97; the four attention kernels at head width 32 as well as 64;
+   95-97; the banded forward's row log-sum-exp against the band-masked
+   logsumexp of the plain scores at bands (10, 2), (0, 0), (3, 64),
+   (64, 0), (64, 64), as the flash forward's against the full one; the
+   four attention kernels at head width 32 as well as 64;
 4. the slice at full width: ``configs/joint_streaming.yaml`` (18 layers,
    d_model 512, V 6485) with seeded random weights, 8 synthetic utterances
    of 60-410 frames through the host frontend and batched greedy
@@ -34,9 +37,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 5. timings (medians after warm-up; CUDA events for device work, the host
    clock around synchronised calls): each kernel alone (20 launches
    captured in a CUDA graph, replayed between two events, so the wrapper's
-   host time is not read), its plain version, its bound, the end-to-end
-   ``recognize``, and that split into the encoder and the greedy loop, with
-   the device's idle share from ``torch.profiler``;
+   host time is not read; the attention forwards also at the training
+   batch B = 4 with their row log-sum-exp, and two launches of the banded
+   one that must agree to the bit), its plain version, its bound, the
+   end-to-end ``recognize``, and that split into the encoder and the greedy
+   loop, with the device's idle share from ``torch.profiler``;
 6. training at full width: the same config with dropout 0, a batch of 4
    utterances (60-410 frames, 5-42 targets), 3 SGD steps (momentum 0.9,
    clip 200) with ``flash=True`` and then ``banded=True``, each with the
@@ -308,11 +313,11 @@ def roofline(n_bytes, n_ops):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def bound(tlen, cells):
+def bound(tlen, cells, b=B):
     """Least time for the work: each input read once, the output written
     once; 2*Dh FLOP each for AC, BD and AV per live cell."""
-    elems = 4 * B * tlen * H * DH + tlen * H * DH + H * DH + tlen * H
-    return roofline(4 * elems, B * H * cells * 6 * DH)
+    elems = 4 * b * tlen * H * DH + tlen * H * DH + H * DH + tlen * H
+    return roofline(4 * elems, b * H * cells * 6 * DH)
 
 
 def backward_bound(b, tlen, cells):
@@ -753,9 +758,10 @@ def train_three_steps(model_cfg, optim_cfg, state, mode, batch, device, plain,
 
 
 def check_kernels(gen):
-    """Phase 3: the attention forward kernels against their plain versions
-    (the flash forward's row log-sum-exp too); returns the largest abs error
-    of each."""
+    """Phase 3: the attention forward kernels against their plain versions,
+    with their row log-sum-exps against the logsumexp of the plain scores
+    (band-masked for the banded forward); returns the largest abs error of
+    each."""
     import torch
     from transformer_transducer_tpu_torch.models.attention import rel_attention_scores
     from transformer_transducer_tpu_torch.ops.cuda import common
@@ -763,18 +769,32 @@ def check_kernels(gen):
         banded_attention, banded_attention_plain)
     from transformer_transducer_tpu_torch.ops.cuda.flash_rel_attention import (
         flash_rel_attention_plain)
+    from transformer_transducer_tpu_torch.ops.masks import context_mask
     errs = {"banded": 0.0, "flash": 0.0}
+    # the banded forward at the edges of its 32-row blocks and of the 47
+    # keys an offset chunk stages; 513 > k_len: front pad.  The wrapper
+    # (no lse) and a launch with the lse must give the same output bits.
     for dh in (DH, 32):
-        for tlen in (1, 37, 129, 410):
-            for left, right in ((10, 2), (0, 0), (64, 64)):
+        for tlen in (1, 33, 37, 49, 129, 410, 513):
+            for band in ((10, 2), (0, 0), (3, 64), (64, 0), (64, 64)):
                 args = attention_inputs(tlen, 410, gen, dh=dh)
-                got = banded_attention(*args, left, right)
-                ref = banded_attention_plain(*args, left, right)
+                got = banded_attention(*args, *band)
+                with_lse, lse, _ = common.launch_forward("ttx_banded_attention_fwd", args,
+                                                         band, with_lse=True)
+                ref = banded_attention_plain(*args, *band)
+                scores = rel_attention_scores(*args[:2], *args[3:]).masked_fill(
+                    context_mask(tlen, *band, device="cuda"), float("-inf"))
+                lse_ref = torch.logsumexp(scores, -1)
                 torch.cuda.synchronize()
                 err = (got - ref).abs().max().item()
-                log(f"  banded Dh={dh} T={tlen:4d} band=({left},{right}): max|err| {err:.3e}")
+                err_lse = (lse - lse_ref).abs().max().item()
+                log(f"  banded Dh={dh} T={tlen:4d} band=({band[0]},{band[1]}): max|err| "
+                    f"{err:.3e}, lse {err_lse:.3e}")
                 torch.testing.assert_close(got, ref, **KERNEL_TOL)
-                errs["banded"] = max(errs["banded"], err)
+                torch.testing.assert_close(lse, lse_ref, **KERNEL_TOL)
+                require(torch.equal(got, with_lse),
+                        f"banded T={tlen} band={band}: the output moved with the lse")
+                errs["banded"] = max(errs["banded"], err, err_lse)
     # the flash forward (on the tensor cores) at the edges of its 128-row
     # query tiles and 32-key chunks, with its row log-sum-exp; 513 > k_len:
     # front pad
@@ -1134,20 +1154,20 @@ def main() -> int:
             f"of spill stores + loads; most: "
             + ", ".join(f"{op} {n}" for op, n in ops.most_common(12)))
         require(ops["HMMA"] > 0, f"the {name} has no tensor-core instruction")
-    # the banded backward (SIMT, Dh 64): no atomic instruction in either of
-    # its two kernels
+    # the banded forward and backward (SIMT, Dh 64): no atomic instruction
+    # in the forward or in either of the backward's two kernels
     simt = {}
-    for symbol in ("banded_bwdILi64E", "banded_bwd_tablesILi64E"):
+    for symbol in ("banded_fwdILi64E", "banded_bwdILi64E", "banded_bwd_tablesILi64E"):
         ops = sass_opcodes(lib_path, symbol)
         (regs, spill_st, spill_ld), = ptxas_entries(ptxas, symbol)
         atomics = sum(n for op, n in ops.items() if op.startswith(("RED", "ATOM")))
         simt[symbol] = {"sass": sum(ops.values()), "registers": regs,
                         "spill_bytes": spill_st + spill_ld, "atomics": atomics}
-        log(f"  banded backward ({symbol}): {sum(ops.values())} instructions in its "
+        log(f"  banded attention ({symbol}): {sum(ops.values())} instructions in its "
             f"SASS, {atomics} RED/ATOM, {regs} registers, {spill_st} + {spill_ld} "
             f"bytes of spill stores + loads; most: "
             + ", ".join(f"{op} {n}" for op, n in ops.most_common(12)))
-        require(atomics == 0, f"the banded backward's {symbol} has atomics")
+        require(atomics == 0, f"the banded attention's {symbol} has atomics")
 
     # ---- 3. kernels vs plain versions
     log("kernels vs plain versions (atol 1e-4, rtol 1e-4):")
@@ -1252,6 +1272,7 @@ def main() -> int:
                    enc_full_p, t_len, max_tokens)
 
     # ---- 5. timings at the flagship shape (B=8, T=410, H=8, Dh=64)
+    from transformer_transducer_tpu_torch.ops.cuda import common
     log(f"timings on {smi}:")
     args = attention_inputs(T_MAIN, 410, gen)
     q, k, v, re, u, rb = args
@@ -1276,37 +1297,57 @@ def main() -> int:
          lambda: banded_attention(*args, *band),
          lambda: banded_attention_plain(*args, *band),
          lambda: sdpa(qh, kh, vh, attn_mask=add_band),
-         band_cells(T_MAIN, *band)),
+         band_cells(T_MAIN, *band), "ttx_banded_attention_fwd", band),
         ("flash_rel_attention_fwd", "flash",
          "transformer_transducer_tpu/ops/pallas/flash_rel_attention.py:248",
          lambda: flash_rel_attention(*args),
          lambda: flash_rel_attention_plain(*args),
          lambda: sdpa(qh, kh, vh, attn_mask=add),
-         T_MAIN * T_MAIN),
+         T_MAIN * T_MAIN, "ttx_flash_rel_attention_fwd", ()),
     )
-    for name, key, replaces, kern, plain, yard, cells in rows:
+    args4 = attention_inputs(T_MAIN, 410, gen, b=B_TRAIN)
+    for name, key, replaces, kern, plain, yard, cells, fn, extra in rows:
         with torch.no_grad():
             ms = graph_ms(kern)
         plain_ms, yard_ms = cuda_ms(plain), cuda_ms(yard)
         bound_ms, bound_by = bound(T_MAIN, cells)
+        # also at the training batch, with the row lse, as a training step
+        # runs it
+        fwd4 = lambda: common.launch_forward(fn, args4, extra, with_lse=True)[:2]
+        ms_b4 = graph_ms(fwd4)
+        bound_b4, _ = bound(T_MAIN, cells, b=B_TRAIN)
         rec = {"name": name, "route": "cuda",
                "source": f"{PKG}/csrc/rel_attention.cu", "replaces": replaces,
                "launches": launches[key], "max_abs_err": errs[key], "ms": ms,
                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": None, "sdpa_bd_mask_yardstick_ms": yard_ms}
-        note = ""
+               "library_ms": None, "sdpa_bd_mask_yardstick_ms": yard_ms,
+               "share_of_bound": bound_ms / ms, "ms_b4": ms_b4, "bound_b4_ms": bound_b4,
+               "share_of_bound_b4": bound_b4 / ms_b4}
+        note = (f"; at B={B_TRAIN} with the lse {ms_b4:.4f} ms, bound {bound_b4:.4f} ms, "
+                f"{100 * bound_b4 / ms_b4:.1f} % of it")
+        if key == "banded":     # SIMT, no atomics: two launches bit-identical
+            first, again = fwd4(), fwd4()
+            same = all(torch.equal(x, y) for x, y in zip(first, again))
+            require(same, "two launches of the banded forward differ")
+            del first, again
+            fwd = simt["banded_fwdILi64E"]
+            rec.update(registers=fwd["registers"], spill_bytes=fwd["spill_bytes"],
+                       sass=fwd["sass"], atomics=fwd["atomics"], deterministic=same)
+            note += (f"; {rec['registers']} registers, {rec['spill_bytes']} bytes of "
+                     f"spills, {rec['sass']} SASS instructions, {rec['atomics']} atomics, "
+                     f"two launches bit-identical")
         if key == "flash":      # on the tensor cores: its 3xTF32 bound too
             rec.update(source=f"{PKG}/csrc/flash_rel_attention_fwd.cu",
-                       bound_tc_ms=bound_tc(cells), share_of_bound=bound_ms / ms,
-                       **tc["flash forward"])
+                       bound_tc_ms=bound_tc(cells), **tc["flash forward"])
             rec["share_of_bound_tc"] = rec["bound_tc_ms"] / ms
             note = (f", 3xTF32 bound {rec['bound_tc_ms']:.4f} ms, "
                     f"{100 * rec['share_of_bound_tc']:.1f} % of it; "
-                    f"{rec['hmma']} HMMA, {rec['registers']} registers")
+                    f"{rec['hmma']} HMMA, {rec['registers']} registers" + note)
         log(f"  {name}: kernel {ms:.4f} ms (alone, CUDA graph), plain {plain_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}, fp32), {100 * bound_ms / ms:.1f} % of "
             f"bound{note}; SDPA with BD as a precomputed mask (yardstick) {yard_ms:.4f} ms")
         records.append(rec)
+    del args4
 
     runs = {
         "band, kernel": lambda: recognize(model, x, t_len, band=band,
@@ -1515,7 +1556,6 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 8. training timings (B=4, T=410, H=8, Dh=64)
-    from transformer_transducer_tpu_torch.ops.cuda import common
     from transformer_transducer_tpu_torch.ops.cuda.banded_attention import (
         banded_attention_backward)
     from transformer_transducer_tpu_torch.ops.cuda.flash_rel_attention import (

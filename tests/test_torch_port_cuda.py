@@ -1,5 +1,7 @@
 """PyTorch port on the card: each CUDA kernel against its plain version (the
-attention forward and backward at head widths 32 and 64, the RNN-T lattice
+attention forward and backward at head widths 32 and 64, the banded
+forward's row log-sum-exp too, strided inputs and two launches to the
+bit), the RNN-T lattice
 sweeps, the pruned loss's logZ at any U1 and band sweeps up to S = 128),
 the launch counters, the wrappers' input checks, a
 small encoder through the attention kernels against the dense path,
@@ -26,7 +28,8 @@ thousands).
 import pytest
 import torch
 
-from transformer_transducer_tpu_torch.models.attention import slice_pos_table
+from transformer_transducer_tpu_torch.models.attention import (
+    rel_attention_scores, slice_pos_table)
 from transformer_transducer_tpu_torch.ops import rnnt_loss, rnnt_loss_pruned
 from transformer_transducer_tpu_torch.ops.cuda.band_kernel import (
     band_alpha, band_alpha_plain, band_beta, band_beta_plain)
@@ -88,6 +91,57 @@ def test_banded_kernel_matches_plain_at_head_width_32(gen, tlen, left, right):
     torch.cuda.synchronize()
     assert banded_attention.launches == before + 1
     torch.testing.assert_close(got, banded_attention_plain(*args, left, right), **TOL)
+
+
+def _banded_forward(args, band):
+    """The banded forward kernel's output and row log-sum-exp."""
+    with torch.no_grad():
+        out, lse, launched = launch_forward("ttx_banded_attention_fwd", args, band,
+                                            with_lse=True)
+    torch.cuda.synchronize()
+    assert launched
+    return out, lse
+
+
+# the banded forward's 32-row blocks and 16-offset chunks (T 47-49: the 47
+# keys a chunk stages); 410, 513 > K_LEN: the tables front-padded
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("tlen", [1, 31, 32, 33, 47, 48, 49, 410, 513])
+@pytest.mark.parametrize("band", [(10, 2), (3, 64), (64, 0), (64, 64)])
+def test_banded_forward_lse_matches_masked_logsumexp(gen, tlen, band, dh):
+    """The output against the plain version and the row log-sum-exp (which
+    the backward reads) against the band-masked logsumexp of the plain
+    version's scores."""
+    args = _inputs(gen, tlen, dh)
+    out, lse = _banded_forward(args, band)
+    scores = rel_attention_scores(args[0], args[1], *args[3:])
+    scores = scores.masked_fill(context_mask(tlen, *band, device="cuda"), -torch.inf)
+    torch.testing.assert_close(out, banded_attention_plain(*args, *band), **TOL)
+    torch.testing.assert_close(lse, torch.logsumexp(scores, dim=-1), **TOL)
+
+
+@pytest.mark.parametrize("tlen", [33, 410])
+@pytest.mark.parametrize("band", [(10, 2), (64, 64)])
+def test_banded_forward_takes_strided_and_contiguous_inputs_alike(gen, tlen, band):
+    """Row-strided q, k, v views of a packed qkv and contiguous copies give
+    the same output and log-sum-exp, to the bit."""
+    q, k, v, *tables = _inputs(gen, tlen)
+    assert q.stride(1) == 3 * H * DH
+    strided = _banded_forward((q, k, v, *tables), band)
+    packed = _banded_forward((q.contiguous(), k.contiguous(), v.contiguous(), *tables),
+                             band)
+    for name, a, b in zip(("out", "lse"), strided, packed):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("tlen,band", [(410, (10, 2)), (200, (64, 64)), (1, (0, 0))])
+def test_banded_forward_is_deterministic(gen, tlen, band):
+    """Two launches on the same inputs give bit-identical outputs and
+    log-sum-exps: every entry is written once, with no atomics."""
+    args = _inputs(gen, tlen)
+    first, second = _banded_forward(args, band), _banded_forward(args, band)
+    for name, a, b in zip(("out", "lse"), first, second):
+        assert torch.isfinite(a).all() and torch.equal(a, b), name
 
 
 # T around the forward's 128-row query tile and 32-key chunk

@@ -124,12 +124,6 @@ __device__ __forceinline__ void fma4(float* acc, float g, float4 x) {
     acc[0] += g * x.x; acc[1] += g * x.y; acc[2] += g * x.z; acc[3] += g * x.w;
 }
 
-// Sum over the n lanes (a power of two, at most 32) that share a row.
-__device__ __forceinline__ float row_sum(float x, int n) {
-    for (int m = 1; m < n; m <<= 1) x += __shfl_xor_sync(FULL, x, m);
-    return x;
-}
-
 // Whether an offset of the band reads table row `row`: o = row - (T - 1)
 // (o <= 0) or o = row + 2 (o >= 2).
 __device__ __forceinline__ bool row_reached(int row, int T, int L, int R) {

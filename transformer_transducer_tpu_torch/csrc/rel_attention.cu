@@ -24,23 +24,42 @@
 //
 // Bound on the card (H100 SXM: 3.35 TB/s, 67 TFLOP/s fp32 without tensor
 // cores), at the flagship serving shape B=8, T=410, H=8, Dh=64, band
-// (left 10, right 2): about 28 MB moved and 0.13 GFLOP, memory-bound, about
-// 8 us.
+// (left 10, right 2): q, k, v and the tables read once and the output
+// written once, about 28 MB, 8.3 us; 6 Dh FLOP per live cell, 0.13 GFLOP.
+// Under 5 FLOP a byte: the bytes bound it, and the tensor cores would not
+// move the bound, so this stays fp32 SIMT, as exact as before.
 //
-// Design (simple and exact first; wgmma/TMA tiling is later work), templated
-// on the head width Dh (32 or 64):
-//   * one block of 256 threads per (query tile of TQ=32 rows, head, batch);
-//   * q + r_w_bias, q (and the row after the tile, for the wrap term), a
-//     chunk of TK=64 keys/values and the TQ+TK-1 table rows that the
-//     chunk's offsets o need sit in shared memory, so the BD term indexes its
-//     table row directly (no TPU lane-rolls, no (T, T) scores in memory);
-//   * 8 threads per query row, each scoring 8 keys of the chunk and owning
-//     Dh/8 output columns (4c..4c+3, then 32 on); an online softmax in fp32
-//     (max, sum, Dh/8-wide accumulator) across chunks;
-//   * the kernel walks only the key window [i0-left, i0+TQ-1+right] (one
-//     chunk at the flagship band).
-// Shared rows are padded to Dh+4 floats: 16-byte aligned for float4 loads
-// and conflict-free across the 8 threads of a row.
+// The kernel this one replaces staged dense chunks of 64 keys and the 95
+// table rows of all their offsets for a block of 32 rows, scored all
+// 32 x 64 cells where 32 x 13 are live at the flagship band, ran p.v over
+// every key of the window, and took 87 KB of shared memory (two blocks an
+// SM): 0.0635 ms on an H100.  Timed with each part cut back in turn, scoring
+// only the live cells took 21 % off, staging only the live table rows 12 %,
+// p.v over the live keys 3 %, the three together 45 %, and a table tile
+// small enough for three blocks an SM 9 % more.  This design:
+//   * A block owns TQ = 32 query rows of one (b, h), 8 threads a row.  It
+//     walks the band's offsets o in chunks [oa, oa + OC), OC = 16: one
+//     chunk at the flagship band, up to 9 at left = right = 64, with an
+//     online softmax (running max, sum, Dh/8-wide accumulator) across them.
+//   * A chunk stages the TQ + OC - 1 keys and values its cells reach, u.k_j
+//     for each of them (so AC is q_i.k_j + u.k_j, with no q + u tile), and
+//     only the OC table rows and r_bias of its offsets; the block's q rows,
+//     one more for the wrap term q_{i+1} (zero past T), once.  16-byte
+//     cp.async copies, every one issued before the first is waited for,
+//     zero-filled off the sequence, past the band's right edge and at
+//     o == 1.  Rows padded to Dh + 4 floats: 16-byte aligned and free of
+//     bank conflicts.  About 41 KB of shared memory at Dh = 64.
+//   * Each thread scores two cells of its row, offsets oa + c and
+//     oa + c + 8, and only cells inside the band and the sequence count;
+//     p.v then runs over the chunk's offsets with v_{i+o}, each thread
+//     holding Dh/8 output columns in registers.
+//   * One output store a row, and one log-sum-exp store when asked: no
+//     atomics, no memsets, no scratch; two launches give the same bits.
+// It reads 0.0197 ms there, 42 % of the bound: staging alone runs at the
+// bound, the cell products add about 9 us and p.v 3 us.  Neither more
+// blocks an SM, nor 16-row blocks, nor persistent blocks that copy the next
+// chunk while working on this one, nor half the shared loads a cell (four
+// rows and two offsets a lane) made it faster on an H100.
 //
 // Plain C interface (loaded with ctypes).  The kernel runs on the caller's
 // stream, allocates nothing and returns cudaGetLastError() after the launch.
@@ -51,11 +70,11 @@ namespace {
 
 using namespace ttx;
 
-constexpr int TQ = 32;              // query rows per block
-constexpr int TK = 64;              // keys per chunk
-constexpr int NTHREADS = 256;       // 8 threads per query row
-constexpr int NE = TQ + TK - 1;     // distinct offsets o in one chunk
-constexpr int LDP = TK + 1;
+constexpr int TQ = 32;              // query rows a block owns
+constexpr int OC = 16;              // offsets a chunk
+constexpr int NK = TQ + OC - 1;     // keys a chunk's cells reach
+constexpr int NTHREADS = 256;       // 8 threads a row
+constexpr int LDP = OC + 8;         // a warp's 4 rows on distinct banks
 constexpr float NEG = -1e30f;
 
 struct Args {
@@ -72,155 +91,118 @@ struct Args {
     int left, right;      // band
 };
 
-// Shared rows are padded to Dh+4 floats (LD); a thread's output columns
-// come in NC groups of 4: 4c..4c+3, 32+4c.., one group per 32 columns.
-template <int DH>
-struct Dims {
-    static constexpr int LD = DH + 4;
-    static constexpr int NC = DH / 32;
-};
-
 template <int DH>
 struct __align__(16) Smem {
-    static constexpr int LD = Dims<DH>::LD;
-    float qu[TQ][LD];       // q_i + r_w_bias
-    float q[TQ + 1][LD];    // q_i; row TQ holds q_{i0+TQ} for the wrap term
-    float k[TK][LD];
-    float v[TK][LD];
-    float e[NE][LD];        // table row of offset o = omin + x (zero if o == 1)
-    float eb[NE];           // r_bias of offset o = omin + x
-    float p[TQ][LDP];       // probabilities of the current chunk
+    static constexpr int LD = DH + 4;
+    float q[TQ + 1][LD];    // q rows i0 .. i0 + TQ (the last for q_{i+1})
+    float k[NK][LD];        // keys i0 + oa .. i0 + oa + NK - 1
+    float v[NK][LD];
+    float e[OC][LD];        // table rows of offsets oa .. oa + OC - 1
+    float eb[OC];           // their r_bias
+    float uk[NK];           // u . k_j
+    float p[TQ][LDP];       // cell (row i0 + r, offset oa + x)
 };
 
-__device__ __forceinline__ float dot4(float4 a, float4 b) {
-    return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-}
-
-// The q tile (TQ+1 rows, zero past T) and q + r_w_bias.
-template <int DH, class S>
-__device__ __forceinline__ void stage_q(const Args& a, S& s, int b, int h, int i0) {
-    const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int idx = threadIdx.x; idx < (TQ + 1) * (DH / 4); idx += NTHREADS) {
-        const int r = idx / (DH / 4);
-        const int d = 4 * (idx % (DH / 4));
-        const int i = i0 + r;
-        float4 x = zero4;
-        if (i < a.T) x = ld4(a.q + ((long long)b * a.T + i) * a.sq + h * DH + d);
-        st4(&s.q[r][d], x);
-        if (r < TQ) {
-            const float4 w = ld4(a.u + h * DH + d);
-            st4(&s.qu[r][d], make_float4(x.x + w.x, x.y + w.y, x.z + w.z, x.w + w.w));
-        }
+// The block's q rows, zero from T on (issued, not waited for).
+template <int DH>
+__device__ __forceinline__ void stage_q(const Args& a, Smem<DH>& s, int b, int h, int i0) {
+    constexpr int Q4 = DH / 4;
+    for (int idx = threadIdx.x; idx < (TQ + 1) * Q4; idx += NTHREADS) {
+        const int r = idx / Q4, d = 4 * (idx % Q4), i = i0 + r;
+        const long long row = (long long)b * a.T + min(i, a.T - 1);
+        cp16(&s.q[r][d], a.q + row * a.sq + h * DH + d, i < a.T);
     }
 }
 
-// Keys and values [j0, j0+TK) (zero from jhi on) and the table rows and
-// r_bias of the chunk's offsets o = omin + x, omin = j0 - (i0 + TQ - 1).
-template <int DH, class S>
-__device__ __forceinline__ void stage_chunk(const Args& a, S& s, int b, int h,
-                                            int i0, int j0, int jhi) {
-    const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int idx = threadIdx.x; idx < TK * (DH / 4); idx += NTHREADS) {
-        const int kk = idx / (DH / 4);
-        const int d = 4 * (idx % (DH / 4));
-        const int j = j0 + kk;
-        float4 kx = zero4, vx = zero4;
-        if (j < jhi) {
-            kx = ld4(a.k + ((long long)b * a.T + j) * a.sk + h * DH + d);
-            vx = ld4(a.v + ((long long)b * a.T + j) * a.sv + h * DH + d);
-        }
-        st4(&s.k[kk][d], kx);
-        st4(&s.v[kk][d], vx);
+// The chunk of offsets [oa, oa + OC): its keys and values (zero off the
+// sequence) and its table rows and r_bias (zero past the band's right edge,
+// at o == 1 and off the table); then, with the q rows, waited for, and
+// u . k_j of its keys.
+template <int DH>
+__device__ __forceinline__ void stage_chunk(const Args& a, Smem<DH>& s, int b, int h,
+                                            int i0, int oa, float4 u4) {
+    constexpr int Q4 = DH / 4;
+    const int T = a.T, tid = threadIdx.x;
+    for (int idx = tid; idx < NK * Q4; idx += NTHREADS) {
+        const int kk = idx / Q4, d = 4 * (idx % Q4), j = i0 + oa + kk;
+        const bool ok = j >= 0 && j < T;
+        const long long row = (long long)b * T + min(max(j, 0), T - 1);
+        cp16(&s.k[kk][d], a.k + row * a.sk + h * DH + d, ok);
+        cp16(&s.v[kk][d], a.v + row * a.sv + h * DH + d, ok);
     }
-    const int omin = j0 - (i0 + TQ - 1);
-    for (int idx = threadIdx.x; idx < NE * (DH / 4); idx += NTHREADS) {
-        const int x = idx / (DH / 4);
-        const int d = 4 * (idx % (DH / 4));
-        const int row = bd_row(a.T, omin + x);
-        float4 ex = zero4;
-        if (row >= 0) ex = ld4(a.re + ((long long)row * a.H + h) * DH + d);
-        st4(&s.e[x][d], ex);
+    for (int idx = tid; idx < OC * Q4; idx += NTHREADS) {
+        const int x = idx / Q4, d = 4 * (idx % Q4), o = oa + x;
+        const int row = o <= a.right ? bd_row(T, o) : -1;
+        cp16(&s.e[x][d], a.re + ((long long)max(row, 0) * a.H + h) * DH + d, row >= 0);
         if (d == 0) s.eb[x] = row >= 0 ? a.rb[row * a.H + h] : 0.f;
     }
-}
-
-// Scaled scores of query row r (sequence row i) against keys c + 8m of the
-// staged chunk, and the bit mask of the live cells among them.
-template <int DH, class S>
-__device__ __forceinline__ unsigned chunk_scores(const Args& a, const S& s,
-                                                 int r, int c, int i, int j0,
-                                                 int jhi, float sc[8]) {
-    const float scale = 1.0f / sqrtf((float)DH);
-#pragma unroll
-    for (int m = 0; m < 8; ++m) sc[m] = 0.f;
-    const int obase = j0 + c - i;            // o of key c
-#pragma unroll 4
-    for (int d = 0; d < DH; d += 4) {
-        const float4 qu4 = ld4(&s.qu[r][d]);
-        const float4 q4 = ld4(&s.q[r][d]);
-        const float4 qn4 = ld4(&s.q[r + 1][d]);
-#pragma unroll
-        for (int m = 0; m < 8; ++m) {
-            const int kk = c + 8 * m;
-            const float4 k4 = ld4(&s.k[kk][d]);
-            const float4 e4 = ld4(&s.e[kk - r + TQ - 1][d]);
-            const float4 qs = (obase + 8 * m <= 0) ? q4 : qn4;
-            sc[m] += dot4(qu4, k4) + dot4(qs, e4);
-        }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    // u . k_j, a sum over the Q4 lanes of a key; the passes run whole warps
+    for (int base = 0; base < NK * Q4; base += NTHREADS) {
+        const int idx = base + tid, kk = min(idx / Q4, NK - 1), d = 4 * (idx % Q4);
+        const float uk = row_sum(dot4(ld4(&s.k[kk][d]), u4), Q4);
+        if (idx < NK * Q4 && d == 0) s.uk[kk] = uk;
     }
-    unsigned live = 0;
-#pragma unroll
-    for (int m = 0; m < 8; ++m) {
-        const int kk = c + 8 * m;
-        const int o = obase + 8 * m;
-        const bool ok = i < a.T && (j0 + kk) < jhi && o >= -a.left && o <= a.right;
-        sc[m] = (sc[m] + s.eb[kk - r + TQ - 1]) * scale;
-        if (ok) live |= 1u << m;
-    }
-    return live;
-}
-
-__device__ __forceinline__ void key_window(const Args& a, int i0, int* jlo, int* jhi) {
-    *jlo = max(0, i0 - a.left);
-    *jhi = min(a.T, i0 + TQ + a.right);
+    __syncthreads();
 }
 
 template <int DH>
 __global__ void __launch_bounds__(NTHREADS)
-rel_attention_fwd(Args a) {
+banded_fwd(Args a) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     Smem<DH>& s = *reinterpret_cast<Smem<DH>*>(smem_raw);
-    constexpr int NC = Dims<DH>::NC;
+    constexpr int NC = DH / 32;          // float4 groups of a row a thread holds
+    constexpr int Q4 = DH / 4;
 
     const int tid = threadIdx.x;
-    const int i0 = blockIdx.x * TQ;
-    const int h = blockIdx.y;
-    const int b = blockIdx.z;
-    const int T = a.T;
+    const int i0 = blockIdx.x * TQ, h = blockIdx.y, b = blockIdx.z;
+    const int T = a.T, L = a.left, R = a.right;
+    const int iend = min(i0 + TQ, T);
+    const float scale = 1.0f / sqrtf((float)DH);
+    // u's columns 4 (tid % Q4) .. + 3, the same in every pass of the u.k sums
+    const float4 u4 = ldg4(a.u + h * DH + 4 * (tid % Q4));
 
-    stage_q<DH>(a, s, b, h, i0);
-    int jlo, jhi;
-    key_window(a, i0, &jlo, &jhi);
-
-    const int r = tid >> 3;      // query row within the tile
-    const int c = tid & 7;       // this thread's keys: c, c+8, ..., c+56
+    const int r = tid >> 3, c = tid & 7;  // row i0 + r; offsets oa + c, oa + c + 8
     const int i = i0 + r;
     float m_run = NEG, l_run = 0.f;
     float acc[4 * NC];
 #pragma unroll
     for (int x = 0; x < 4 * NC; ++x) acc[x] = 0.f;
 
-    for (int j0 = jlo; j0 < jhi; j0 += TK) {
-        __syncthreads();   // the previous chunk's k, v, e are no longer read
-        stage_chunk<DH>(a, s, b, h, i0, j0, jhi);
-        __syncthreads();
+    stage_q<DH>(a, s, b, h, i0);
+    for (int oa = -L; oa <= R; oa += OC) {
+        const int nx = min(OC, R + 1 - oa);
+        // a chunk whose keys all lie off the sequence for every row is skipped
+        if (iend - 1 + oa + nx - 1 < 0 || i0 + oa >= T) continue;
+        __syncthreads();   // the previous chunk is no longer read
+        stage_chunk<DH>(a, s, b, h, i0, oa, u4);
 
-        float sc[8];
-        const unsigned live = chunk_scores<DH>(a, s, r, c, i, j0, jhi, sc);
+        // the two cells of this thread: x = c and c + 8
+        bool live[2];
+        float sc[2];
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+            const int x = c + 8 * n, j = i + oa + x;
+            live[n] = i < T && x < nx && j >= 0 && j < T;
+            sc[n] = 0.f;
+        }
+        const bool own0 = oa + c <= 0, own1 = oa + c + 8 <= 0;   // q_i, else q_{i+1}
+#pragma unroll 4
+        for (int d = 0; d < DH; d += 4) {
+            const float4 qi = ld4(&s.q[r][d]);
+            const float4 qn = ld4(&s.q[r + 1][d]);
+            sc[0] += dot4(qi, ld4(&s.k[r + c][d])) + dot4(own0 ? qi : qn, ld4(&s.e[c][d]));
+            sc[1] += dot4(qi, ld4(&s.k[r + c + 8][d]))
+                   + dot4(own1 ? qi : qn, ld4(&s.e[c + 8][d]));
+        }
         float cmax = NEG;
 #pragma unroll
-        for (int m = 0; m < 8; ++m)
-            if (live >> m & 1u) cmax = fmaxf(cmax, sc[m]);
+        for (int n = 0; n < 2; ++n) {
+            const int x = c + 8 * n;
+            sc[n] = (sc[n] + s.uk[r + x] + s.eb[x]) * scale;
+            if (live[n]) cmax = fmaxf(cmax, sc[n]);
+        }
         cmax = fmaxf(cmax, __shfl_xor_sync(FULL, cmax, 1));
         cmax = fmaxf(cmax, __shfl_xor_sync(FULL, cmax, 2));
         cmax = fmaxf(cmax, __shfl_xor_sync(FULL, cmax, 4));
@@ -228,26 +210,25 @@ rel_attention_fwd(Args a) {
         const float alpha = expf(m_run - m_new);
         float psum = 0.f;
 #pragma unroll
-        for (int m = 0; m < 8; ++m) {
-            const float p = (live >> m & 1u) ? expf(sc[m] - m_new) : 0.f;
-            s.p[r][c + 8 * m] = p;
+        for (int n = 0; n < 2; ++n) {
+            const float p = live[n] ? expf(sc[n] - m_new) : 0.f;
+            s.p[r][c + 8 * n] = p;
             psum += p;
         }
-        psum += __shfl_xor_sync(FULL, psum, 1);
-        psum += __shfl_xor_sync(FULL, psum, 2);
-        psum += __shfl_xor_sync(FULL, psum, 4);
+        psum = row_sum(psum, 8);
         l_run = l_run * alpha + psum;
         m_run = m_new;
 #pragma unroll
         for (int x = 0; x < 4 * NC; ++x) acc[x] *= alpha;
         __syncwarp();   // row r's probabilities come from this warp's lanes
 
-        const int nk = min(TK, jhi - j0);
-        for (int kk = 0; kk < nk; ++kk) {
-            const float p = s.p[r][kk];
+        // p . v over the chunk's offsets: key i + oa + x is staged row r + x
+#pragma unroll 4
+        for (int x = 0; x < nx; ++x) {
+            const float p = s.p[r][x];
 #pragma unroll
             for (int n = 0; n < NC; ++n) {
-                const float4 v4 = ld4(&s.v[kk][32 * n + 4 * c]);
+                const float4 v4 = ld4(&s.v[r + x][32 * n + 4 * c]);
                 acc[4 * n] += p * v4.x; acc[4 * n + 1] += p * v4.y;
                 acc[4 * n + 2] += p * v4.z; acc[4 * n + 3] += p * v4.w;
             }
@@ -271,10 +252,10 @@ template <int DH>
 int launch_fwd(const Args& a, cudaStream_t stream) {
     const int smem = (int)sizeof(Smem<DH>);
     cudaError_t err = cudaFuncSetAttribute(
-        rel_attention_fwd<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        banded_fwd<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((a.T + TQ - 1) / TQ, a.H, a.B);
-    rel_attention_fwd<DH><<<grid, NTHREADS, smem, stream>>>(a);
+    banded_fwd<DH><<<grid, NTHREADS, smem, stream>>>(a);
     return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
 // Helpers shared by the rel-position attention kernels (sm_90a): the head
-// widths they are built for, float4 access, 16-byte cp.async copies, the BD
-// table row of an offset, and the warp-level TF32 tensor-core products in
+// widths they are built for, float4 access, a sum across the lanes of a row,
+// 16-byte cp.async copies, the BD table row of an offset, and the warp-level TF32 tensor-core products in
 // 3xTF32 that the flash kernels (csrc/flash_rel_attention_fwd.cu,
 // csrc/flash_rel_attention_bwd.cu) are made of.
 //
@@ -59,6 +59,13 @@ __device__ __forceinline__ void st4(float* p, float4 x) {
 
 __device__ __forceinline__ float dot4(float4 a, float4 b) {
     return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+}
+
+// Sum over the n lanes (a power of two, at most 32) that share a row; the
+// whole warp takes part.
+__device__ __forceinline__ float row_sum(float x, int n) {
+    for (int m = 1; m < n; m <<= 1) x += __shfl_xor_sync(FULL, x, m);
+    return x;
 }
 
 // 16 bytes from global to shared memory without a register round trip,
