@@ -11,13 +11,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    registers and spills, and the ``HMMA`` (tensor-core) instructions of the
    flash forward and backward at Dh = 64 (``cuobjdump -sass``; none in
    either fails the run), and the SASS instructions and ``RED``/``ATOM``
-   (atomic) instructions of the banded forward and of the banded
-   backward's two kernels (any atomic fails the run);
+   (atomic) instructions of the banded forward, of the banded
+   backward's two kernels and of the additive logZ's four kernels (any
+   atomic fails the run; the logZ's product must have ``HMMA``);
 3. each kernel against its plain PyTorch version on the same CUDA inputs
    (atol 1e-4, rtol 1e-4), at the main path's shapes and a sweep around
    them: the additive logZ at (B, T, U1, V) = (4, 410, 43, 6485) and over
    T = 1, 17, 410, 513, U1 = 1, 6, 43, V = 37, 6485, B = 1, 4, 8, and past
-   one block of label rows at U1 = 65, 129; the band sweeps at S = 2-8 with
+   one block of label rows at U1 = 65, 129, and on spiked logits (a peak
+   0-1000 nats above the rest on other symbols in A and L) with the count
+   of cells its exact pass took, and two launches to the bit; the band sweeps at S = 2-8 with
    ragged t_len, a zero-length row and a clamped terminal slot, and at
    S = 33, 64, 128 (several slots a lane); the flash forward and backward
    also at the tile edges T = 15-17, 31-33, 63-65, 127-129, the banded
@@ -52,8 +55,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 6b. the pruned loss at full width: the same batch, ``flash=True`` with
    ``loss_pruned_range = 5`` (simple scale 0.25), 3 steps with the kernels
    (per step 1 logZ, 1 band alpha, 1 band beta, 1 alpha and 1 beta sweep,
-   18 + 18 flash launches), then 3 through the plain versions at the same
-   tolerances.  Each step's band starts are compared between the two paths;
+   18 + 18 flash launches; the cells the logZ left to its exact pass), then
+   3 through the plain versions at the same tolerances.  Each step's band starts are compared between the two paths;
    the plain path is handed the kernel path's starts, so a start that
    rounds the other way (an occupancy centre at .5) cannot move its loss;
 6c. head width 32 end to end: ``artifacts/tone_small/config.yaml`` (2
@@ -68,8 +71,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    directory it wrote, whose text must be the trained model's greedy
    decode; then ``--flash --pruned-range 5`` for one epoch;
 8. training timings: the training kernels (alone, under a CUDA graph)
-   against their plain versions and bounds (the logZ also against
-   ``torch.logsumexp`` over the whole sum; the flash kernels, on the tensor
+   against their plain versions and bounds (the logZ, its four launches in
+   one graph, also against ``torch.logsumexp`` over the whole sum, with
+   each launch's share and its cells through the exact pass, and the exact
+   form's bound beside its own; the flash kernels, on the tensor
    cores, also against their 3xTF32 bounds, with the count of ``HMMA``
    instructions in their SASS from phase 2; the banded backward with its
    registers and atomics from phase 2, and two launches that must agree to
@@ -395,18 +400,34 @@ def lattice_bound(b, d_total, u1, n_grids):
 
 
 def logz_bound(b, tlen, u1, v):
-    """Least time for the additive logZ: A, L read and logZ written once,
-    against B*T*U1*V exponentials at the special function units' rate
-    (and about 5 fp32 operations beside each at the fp32 peak): (ms, by,
-    exponential ms, bytes ms)."""
+    """Least time for the additive logZ in its product form: A, L read and
+    logZ written once, against the product's 2 B T U1 V FLOP as 3xTF32 (three
+    TF32 products a product) at the dense TF32 peak and its B (T + U1) V
+    exponentials at the special function units' rate.  Beside it the exact
+    form's bound, its B T U1 V exponentials, and the bytes the kernel moves
+    as built over the memory rate.  All in ms, with "by" and the kernel's
+    slices of V ("n_split")."""
     import torch
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    cells = b * tlen * u1 * v
-    t_exp = cells / (SFU_PER_SM_PER_CLOCK * n_sm * sm_clock_hz())
-    t_bytes = 4 * (b * tlen * v + b * u1 * v + b * tlen * u1) / HBM_BYTES_PER_S
-    t_ops = max(t_exp, 5 * cells / FP32_FLOP_PER_S)
-    by = "operations" if t_ops > t_bytes else "bytes"
-    return max(t_ops, t_bytes) * 1e3, by, t_exp * 1e3, t_bytes * 1e3
+    exp_rate = SFU_PER_SM_PER_CLOCK * n_sm * sm_clock_hz()
+    out = {"bytes": 4 * (b * tlen * v + b * u1 * v + b * tlen * u1) / HBM_BYTES_PER_S,
+           "tf32": 3 * 2 * b * tlen * u1 * v / TF32_FLOP_PER_S,
+           "exp": b * (tlen + u1) * v / exp_rate,
+           "exact_form": b * tlen * u1 * v / exp_rate}
+    # the bytes the four launches move as built: A twice (row maxima, product),
+    # L once, the split q written and read, the slices' partial sums written
+    # and read, logZ written
+    from transformer_transducer_tpu_torch.ops.cuda.logz_kernel import plan
+    n_split = plan(0, b, tlen, u1, v)[1]
+    vq = -(-v // 32) * 32
+    cells = b * tlen * u1
+    out["as_built"] = 4 * (2 * b * tlen * v + b * u1 * v + 4 * b * u1 * vq
+                           + 2 * n_split * cells + cells) / HBM_BYTES_PER_S
+    out = {k: x * 1e3 for k, x in out.items()}
+    ops = max(out["tf32"], out["exp"])
+    out.update(by="operations" if ops > out["bytes"] else "bytes",
+               ms=max(ops, out["bytes"]), n_split=n_split)
+    return out
 
 
 def band_bound(b, tlen, s_range, n_arrays):
@@ -446,14 +467,32 @@ def band_inputs(gen, b, tlen, s_range):
     return lp_b, lp_l, pad(d, (1, 0)), pad(d, (0, 1)), tf, sf
 
 
+def spiked_logits(gen, b, tlen, u1, v, margin):
+    """randn * 3 logits (B, T, V) and (B, U1, V) with a peak ``margin`` nats
+    above the row maximum on symbol 3 in about half the rows of A and on
+    symbol 7 in about half those of L; and the cells whose rows both peak
+    (on different symbols: the logZ's product form underflows there)."""
+    import torch
+    a = torch.randn(b, tlen, v, generator=gen, device="cuda") * 3
+    l = torch.randn(b, u1, v, generator=gen, device="cuda") * 3
+    sa = torch.rand(b, tlen, generator=gen, device="cuda") < 0.5
+    sl = torch.rand(b, u1, generator=gen, device="cuda") < 0.5
+    sa[0, 0] = sl[0, 0] = True
+    a[..., 3] = torch.where(sa, a.amax(-1) + margin, a[..., 3])
+    l[..., 7] = torch.where(sl, l.amax(-1) + margin, l[..., 7])
+    return a, l, sa[:, :, None] & sl[:, None, :]
+
+
 def check_pruned_kernels(gen):
     """Phase 3, the pruned loss's kernels: the additive logZ against its
     plain version (atol 1e-4, rtol 1e-4) at the flagship shape and a sweep
-    (U1 to 129), the band sweeps against theirs (rtol 1e-5, atol 1e-3) at
+    (U1 to 129), on spiked logits (with the cells its exact pass took) and
+    two launches to the bit, the band sweeps against theirs (rtol 1e-5, atol 1e-3) at
     S = 2-8 and 33, 64, 128; returns the largest abs error of each."""
     import torch
     from transformer_transducer_tpu_torch.ops.cuda.band_kernel import (
         band_alpha, band_alpha_plain, band_beta, band_beta_plain)
+    from transformer_transducer_tpu_torch.ops.cuda import logz_kernel as lk
     from transformer_transducer_tpu_torch.ops.cuda.logz_kernel import (
         additive_logz, additive_logz_plain)
     errs = {"logz": 0.0, "band_alpha": 0.0, "band_beta": 0.0}
@@ -479,6 +518,35 @@ def check_pruned_kernels(gen):
     log(f"  flagship (4, 410, 43, 6485): max|err| {worst[0][0]:.3e}; "
         f"{len(shapes)} shapes, worst {max(worst)[0]:.3e} at (B, T, U1, V) = "
         f"{max(worst)[1]}")
+    log("additive logZ on spiked logits (a peak margin nats above the row's "
+        "maximum on symbol 3 in about half the rows of A, on symbol 7 in half "
+        "those of L), cells left to the exact pass:")
+    for b, tlen, u1, v in ((B_TRAIN, T_MAIN, 43, 6485), (2, 70, 65, 37), (2, 19, 6, 131)):
+        line = []
+        for margin in (0, 30, 55, 62, 100, 1000):
+            a, l, both = spiked_logits(gen, b, tlen, u1, v, margin)
+            with torch.no_grad():
+                got = additive_logz(a, l)
+                marked = lk.marked_cells()
+                ref = additive_logz_plain(a, l)
+            torch.testing.assert_close(got, ref, **KERNEL_TOL,
+                                       msg=f"spiked logZ {margin} nats B={b} T={tlen} "
+                                           f"U1={u1} V={v}")
+            errs["logz"] = max(errs["logz"], (got - ref).abs().max().item())
+            n_both = int(both.sum())
+            require(marked == 0 if margin <= 30 else marked <= n_both,
+                    f"logZ at {margin} nats: {marked} cells marked, {n_both} peak twice")
+            require(margin < 100 or marked == n_both > 0,
+                    f"logZ at {margin} nats: {marked} cells marked, {n_both} peak twice")
+            line.append(f"{margin} nats {marked}/{n_both}")
+        log(f"  (B, T, U1, V) = ({b}, {tlen}, {u1}, {v}), {b * tlen * u1} cells; marked / "
+            f"peaked twice: " + ", ".join(line) + f"; max|err| so far {errs['logz']:.3e}")
+    a, l, _ = spiked_logits(gen, B_TRAIN, T_MAIN, 43, 6485, 100)
+    with torch.no_grad():
+        first, again = additive_logz(a, l), additive_logz(a, l)
+    require(torch.equal(first, again), "two launches of the additive logZ differ")
+    log(f"  two launches at (4, 410, 43, 6485), 100 nats ({lk.marked_cells()} cells "
+        f"through the exact pass): bit-identical")
     log(f"band sweeps vs plain (rtol {LATTICE_TOL['rtol']}, atol "
         f"{LATTICE_TOL['atol']}; ragged t_len, a zero-length row, a clamped "
         f"terminal slot):")
@@ -666,6 +734,26 @@ def band_starts(record, force=None):
         rp.bounds_from_occ = original
 
 
+@contextlib.contextmanager
+def logz_marks(record):
+    """Append, after each logZ call of the pruned loss, the cells the kernel
+    left to its exact pass (a read of the device after the call)."""
+    from transformer_transducer_tpu_torch.ops import rnnt_loss_pruned as rp
+    from transformer_transducer_tpu_torch.ops.cuda.logz_kernel import marked_cells
+    original = rp.additive_logz
+
+    def hooked(a_grid, l_grid):
+        z = original(a_grid, l_grid)
+        record.append(marked_cells())
+        return z
+
+    rp.additive_logz = hooked
+    try:
+        yield
+    finally:
+        rp.additive_logz = original
+
+
 @functools.lru_cache(maxsize=None)
 def counters():
     """The launch counters of every kernel wrapper, by name (the wrappers
@@ -738,17 +826,20 @@ def make_trainee(model_cfg, optim_cfg, state, mode, device, pruned_range=None):
 
 
 def train_three_steps(model_cfg, optim_cfg, state, mode, batch, device, plain,
-                      pruned_range=None, hook=None):
+                      pruned_range=None, hooks=()):
     """Phases 6 and 6b: 3 steps from ``state`` with the SpecAugment stream
-    seeded alike, inside the context ``hook`` when given; per step (loss,
-    raw gradient norm, launch counts)."""
+    seeded alike, inside the contexts ``hooks``; per step (loss, raw
+    gradient norm, launch counts)."""
     import torch
     model, opt, step = make_trainee(model_cfg, optim_cfg, state, mode, device,
                                     pruned_range)
     gen = torch.Generator().manual_seed(0)
     out = []
-    with plain_versions() if plain else contextlib.nullcontext(), \
-            hook or contextlib.nullcontext():
+    with contextlib.ExitStack() as stack:
+        if plain:
+            stack.enter_context(plain_versions())
+        for hook in hooks:
+            stack.enter_context(hook)
         for _ in range(3):
             reset_counts()          # the main path: counts from 0, read after
             m = step(batch, gen)
@@ -1168,6 +1259,20 @@ def main() -> int:
             f"bytes of spill stores + loads; most: "
             + ", ".join(f"{op} {n}" for op, n in ops.most_common(12)))
         require(atomics == 0, f"the banded attention's {symbol} has atomics")
+    # the additive logZ's four kernels: no atomic in any of them, the
+    # product (U1 43 -> NT 6, 16-byte copies) on the tensor cores
+    ops = sass_opcodes(lib_path, "logz_")
+    prod = sass_opcodes(lib_path, "logz_productILi6EE")
+    (regs, spill_st, spill_ld), = ptxas_entries(ptxas, "logz_productILi6EE")
+    atomics = sum(n for op, n in ops.items() if op.startswith(("RED", "ATOM")))
+    logz_sass = {"hmma": prod["HMMA"], "sass": sum(prod.values()), "registers": regs,
+                 "spill_bytes": spill_st + spill_ld, "atomics": atomics}
+    log(f"  additive logZ (logz_*): {sum(ops.values())} SASS instructions in its four "
+        f"kernels' instantiations, {atomics} RED/ATOM; the product at NT 6: "
+        f"{prod['HMMA']} HMMA of {sum(prod.values())}, {regs} registers, {spill_st} + "
+        f"{spill_ld} bytes of spill stores + loads")
+    require(atomics == 0, "the additive logZ's kernels have atomics")
+    require(prod["HMMA"] > 0, "the additive logZ's product has no tensor-core instruction")
 
     # ---- 3. kernels vs plain versions
     log("kernels vs plain versions (atol 1e-4, rtol 1e-4):")
@@ -1417,13 +1522,13 @@ def main() -> int:
 
     # ---- 6b. the pruned loss at full width (--flash --pruned-range 5): the
     # kernels, then the plain versions handed the kernel run's band starts
-    rs_kern, rs_plain = [], []
+    rs_kern, rs_plain, pruned_marks = [], [], []
     kern = train_three_steps(model_cfg0, optim_cfg, state, "flash", batch, device,
                              plain=False, pruned_range=S_RANGE,
-                             hook=band_starts(rs_kern))
+                             hooks=(band_starts(rs_kern), logz_marks(pruned_marks)))
     plain = train_three_steps(model_cfg0, optim_cfg, state, "flash", batch, device,
                               plain=True, pruned_range=S_RANGE,
-                              hook=band_starts(rs_plain, force=rs_kern))
+                              hooks=(band_starts(rs_plain, force=rs_kern),))
     want = dict.fromkeys(train_launches, 0)
     want.update(per_step["flash"], alpha=1, beta=1, logz=1, band_alpha=1, band_beta=1)
     pruned_launches = dict.fromkeys(train_launches, 0)
@@ -1434,7 +1539,8 @@ def main() -> int:
         log(f"  flash, pruned {S_RANGE}, step {i + 1}: loss kernel {lk:.6f} / plain "
             f"{lp:.6f} (rel {rel:.2e}), grad norm {nk:.5f} / {norm_p:.5f}; band "
             f"starts: {differ} of {rs_kern[i].numel()} cells differ between the "
-            f"paths{note}; launches {ck}")
+            f"paths{note}; logZ cells through its exact pass {pruned_marks[i]}; "
+            f"launches {ck}")
         require(ck == want, f"pruned step {i + 1}: launches {ck}, want {want}")
         require(not any(cp.values()), f"pruned plain step launched {cp}")
         require(rel <= LOSS_RTOL, f"pruned step {i + 1}: losses differ by {rel:.2e}")
@@ -1590,12 +1696,15 @@ def main() -> int:
     from transformer_transducer_tpu_torch.ops.cuda.band_kernel import (
         band_alpha, band_alpha_plain, band_beta, band_beta_plain)
     from transformer_transducer_tpu_torch.ops.cuda.logz_kernel import (
-        additive_logz, additive_logz_plain)
+        additive_logz, additive_logz_plain, marked_cells)
     u1, vocab = cfg.data.max_target_length + 1, cfg.model.vocab_size
     a = torch.randn(B_TRAIN, T_MAIN, vocab, generator=gen, device="cuda") * 3
     l = torch.randn(B_TRAIN, u1, vocab, generator=gen, device="cuda") * 3
     with torch.no_grad():
+        # the four launches of a call in one graph, 20 calls
         ms = graph_ms(lambda: additive_logz(a, l))
+        marked = marked_cells()
+        launch_split = device_top(lambda: additive_logz(a, l), n=4, calls=20, unit="us")
         plain_ms = cuda_ms(lambda: additive_logz_plain(a, l), samples=5, reps=2)
         # library yardstick, never called by the port: one PyTorch call over
         # the whole (B, T, U1, V) sum (1.8 GB)
@@ -1610,21 +1719,31 @@ def main() -> int:
     bwd_ms = cuda_ms(lambda: torch.autograd.grad(z, (a, l), g, retain_graph=True),
                      samples=5, reps=2)
     del z, g
-    bound_ms, bound_by, exp_ms, bytes_ms = logz_bound(B_TRAIN, T_MAIN, u1, vocab)
+    lb = logz_bound(B_TRAIN, T_MAIN, u1, vocab)
     log(f"  additive_logz (B={B_TRAIN}, T={T_MAIN}, U1={u1}, V={vocab}): kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.logsumexp over the whole sum "
-        f"(library) {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-        f"exponentials {exp_ms:.4f} ms at {SFU_PER_SM_PER_CLOCK}/SM/clock and "
-        f"{sm_clock_hz() / 1e6:.0f} MHz, bytes {bytes_ms:.4f} ms), "
-        f"{100 * bound_ms / ms:.1f} % of bound; "
-        f"{pruned_launches['logz'] // 3} launch per pruned step; its backward "
-        f"(plain, {u1} passes over (B, T, V)) {bwd_ms:.4f} ms")
+        f"{ms:.4f} ms (its four launches, alone, CUDA graph), plain {plain_ms:.4f} ms, "
+        f"torch.logsumexp over the whole sum (library) {lib_ms:.4f} ms, bound "
+        f"{lb['ms']:.4f} ms ({lb['by']}: bytes {lb['bytes']:.4f} ms, 3xTF32 product "
+        f"{lb['tf32']:.4f} ms, exponentials {lb['exp']:.4f} ms at "
+        f"{SFU_PER_SM_PER_CLOCK}/SM/clock and {sm_clock_hz() / 1e6:.0f} MHz), "
+        f"{100 * lb['ms'] / ms:.1f} % of bound; its bytes as built ({lb['n_split']} "
+        f"slices of V) {lb['as_built']:.4f} ms; the exact form's bound (its "
+        f"exponentials) {lb['exact_form']:.4f} ms; cells through the exact pass "
+        f"{marked} here, {pruned_marks} in phase 6b's steps; per launch (profiler, "
+        f"eager): {launch_split}; {logz_sass['hmma']} HMMA, {logz_sass['registers']} "
+        f"registers, {logz_sass['atomics']} atomics; {pruned_launches['logz'] // 3} call "
+        f"per pruned step; its backward (plain, {u1} passes over (B, T, V)) "
+        f"{bwd_ms:.4f} ms")
     records.append({
-        "name": "additive_logz", "route": "cuda", "source": f"{PKG}/csrc/rnnt_pruned.cu",
+        "name": "additive_logz", "route": "cuda", "source": f"{PKG}/csrc/additive_logz.cu",
         "replaces": "transformer_transducer_tpu/ops/pallas/logz_kernel.py:58",
         "launches": pruned_launches["logz"], "max_abs_err": errs["logz"], "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": lib_ms})
+        "plain_ms": plain_ms, "bound_ms": lb["ms"], "bound_by": lb["by"],
+        "library_ms": lib_ms, "kernels_per_launch": 4, "share_of_bound": lb["ms"] / ms,
+        "bound_tc_ms": lb["tf32"], "exact_form_bound_ms": lb["exact_form"],
+        "io_as_built_ms": lb["as_built"], "n_split": lb["n_split"],
+        "marked_cells": marked, "marked_cells_pruned_steps": pruned_marks,
+        "backward_plain_ms": bwd_ms, **logz_sass})
     del a, l
     lp_b, lp_l, d_a, d_b, tf, sf = band_inputs(gen, B_TRAIN, T_MAIN, S_RANGE)
     for name, replaces, kern, plain, n_arrays in (

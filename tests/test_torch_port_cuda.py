@@ -2,7 +2,9 @@
 attention forward and backward at head widths 32 and 64, the banded
 forward's row log-sum-exp too, strided inputs and two launches to the
 bit), the RNN-T lattice
-sweeps, the pruned loss's logZ at any U1 and band sweeps up to S = 128),
+sweeps, the pruned loss's logZ at any U1, V and alignment, on spiked
+logits that its exact pass takes, bit-identical and under a CUDA graph,
+and band sweeps up to S = 128),
 the launch counters, the wrappers' input checks, a
 small encoder through the attention kernels against the dense path,
 gradients of whole models through the kernels against the plain path, and
@@ -34,7 +36,7 @@ from transformer_transducer_tpu_torch.ops import rnnt_loss, rnnt_loss_pruned
 from transformer_transducer_tpu_torch.ops.cuda.band_kernel import (
     band_alpha, band_alpha_plain, band_beta, band_beta_plain)
 from transformer_transducer_tpu_torch.ops.cuda.logz_kernel import (
-    additive_logz, additive_logz_plain)
+    additive_logz, additive_logz_plain, marked_cells)
 from transformer_transducer_tpu_torch.ops.cuda.rnnt_kernel import (
     NEG, alpha_scan, alpha_scan_plain, beta_scan, beta_scan_plain)
 from transformer_transducer_tpu_torch.models.transducer import build_transducer
@@ -397,7 +399,8 @@ def test_lattice_wrappers_reject_what_the_kernels_do_not_take(gen):
 
 
 # ---------------------------------------------------------------------------
-# The pruned loss: logZ and band sweeps (csrc/rnnt_pruned.cu)
+# The pruned loss: logZ (csrc/additive_logz.cu) and band sweeps
+# (csrc/rnnt_pruned.cu)
 # ---------------------------------------------------------------------------
 
 # U1 past 64 takes a second (and third) block of label rows
@@ -412,6 +415,77 @@ def test_logz_kernel_matches_plain(gen, b, tlen, u1, v):
     torch.cuda.synchronize()
     assert additive_logz.launches == before + 1 and got.shape == (b, tlen, u1)
     torch.testing.assert_close(got, additive_logz_plain(a, l), **TOL)
+
+
+def _spiked(gen, b, tlen, u1, v, margin):
+    """randn * 3 logits with a peak ``margin`` nats above the row maximum on
+    symbol 3 in about half the rows of A and on symbol 7 in about half the
+    rows of L; returns (A, L, the cells whose rows both peak)."""
+    a = torch.randn(b, tlen, v, generator=gen, device="cuda") * 3
+    l = torch.randn(b, u1, v, generator=gen, device="cuda") * 3
+    sa = torch.rand(b, tlen, generator=gen, device="cuda") < 0.5
+    sl = torch.rand(b, u1, generator=gen, device="cuda") < 0.5
+    sa[0, 0] = sl[0, 0] = True
+    a[..., 3] = torch.where(sa, a.amax(-1) + margin, a[..., 3])
+    l[..., 7] = torch.where(sl, l.amax(-1) + margin, l[..., 7])
+    return a, l, sa[:, :, None] & sl[:, None, :]
+
+
+# a peak on different symbols in A[t] and L[u]: up to 30 nats every cell is
+# certified; from 100 on exactly the cells whose rows both peak go to the
+# exact pass
+@pytest.mark.parametrize("margin", [0, 30, 100, 1000])
+@pytest.mark.parametrize("b,tlen,u1,v", [(2, 19, 6, 130), (4, 410, 43, 6485), (2, 70, 65, 37)])
+def test_logz_kernel_on_spiked_logits(gen, b, tlen, u1, v, margin):
+    a, l, both = _spiked(gen, b, tlen, u1, v, margin)
+    got = additive_logz(a, l)
+    marked = marked_cells()
+    torch.testing.assert_close(got, additive_logz_plain(a, l), **TOL)
+    if margin <= 30:
+        assert marked == 0
+    else:
+        assert marked == int(both.sum()) > 0
+
+
+@pytest.mark.parametrize("b,tlen,u1,v", [(4, 410, 43, 6485), (2, 37, 129, 300)])
+def test_logz_kernel_is_deterministic(gen, b, tlen, u1, v):
+    a, l, _ = _spiked(gen, b, tlen, u1, v, 100)
+    first, again = additive_logz(a, l), additive_logz(a, l)
+    assert marked_cells() > 0
+    assert torch.equal(first, again)
+
+
+def test_logz_kernel_replays_in_a_cuda_graph(gen):
+    """All four launches captured in one graph; its replay gives the eager
+    call's bits, exact pass included."""
+    a, l, _ = _spiked(gen, 4, 410, 43, 6485, 100)
+    eager = additive_logz(a, l)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        additive_logz(a, l)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = additive_logz(a, l)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+
+
+# V not a multiple of 4 (4-byte copies, a scalar head and tail in the row
+# maxima), and rows that start off a 16-byte boundary
+@pytest.mark.parametrize("b,tlen,u1,v", [(2, 19, 6, 5), (4, 410, 43, 6487), (3, 65, 9, 131)])
+def test_logz_kernel_takes_any_vocabulary_and_alignment(gen, b, tlen, u1, v):
+    a = torch.randn(b, tlen, v, generator=gen, device="cuda") * 3
+    l = torch.randn(b, u1, v, generator=gen, device="cuda") * 3
+    torch.testing.assert_close(additive_logz(a, l), additive_logz_plain(a, l), **TOL)
+    # the same values one float into a buffer: contiguous, not 16-byte aligned
+    ab = torch.empty(a.numel() + 1, device="cuda")
+    lb = torch.empty(l.numel() + 1, device="cuda")
+    a1, l1 = ab[1:].view_as(a).copy_(a), lb[1:].view_as(l).copy_(l)
+    assert a1.is_contiguous() and a1.data_ptr() % 16 != 0
+    torch.testing.assert_close(additive_logz(a1, l1), additive_logz_plain(a, l), **TOL)
 
 
 def _band_inputs(gen, b, tlen, s_range, bad_shifts=False):

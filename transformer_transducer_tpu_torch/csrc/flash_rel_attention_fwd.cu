@@ -109,14 +109,6 @@ __device__ __forceinline__ int atv(int row, int col, int w) {
     return row * w + (col ^ (((row >> 1) & 3) << 2));
 }
 
-// Store x, the 4 elements at column d (a multiple of 4) of a tile row, as
-// (hi, lo) pairs at p, p + 1, p + 2, p + 3 (16-byte aligned).
-__device__ __forceinline__ void st_split(float2* p, float4 x) {
-    const float2 a = split2(x.x), b = split2(x.y), c = split2(x.z), d = split2(x.w);
-    st4(reinterpret_cast<float*>(p), make_float4(a.x, a.y, b.x, b.y));
-    st4(reinterpret_cast<float*>(p + 2), make_float4(c.x, c.y, d.x, d.y));
-}
-
 // P.V's B operand: rows k + 2t + h (keys), columns n0 + g + 8i (dims).  The
 // lane's swizzle is t << 2 for every k, and (8i + g) ^ f = (8i ^ (f & 8)) +
 // (g ^ (f & 4)).

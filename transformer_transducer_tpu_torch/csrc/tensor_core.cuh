@@ -1,8 +1,9 @@
-// Helpers shared by the rel-position attention kernels (sm_90a): the head
+// Helpers shared by the port's CUDA kernels (sm_90a): the attention head
 // widths they are built for, float4 access, a sum across the lanes of a row,
-// 16-byte cp.async copies, the BD table row of an offset, and the warp-level TF32 tensor-core products in
-// 3xTF32 that the flash kernels (csrc/flash_rel_attention_fwd.cu,
-// csrc/flash_rel_attention_bwd.cu) are made of.
+// cp.async copies, the BD table row of an offset, and the warp-level TF32
+// tensor-core products in 3xTF32 that the flash kernels
+// (csrc/flash_rel_attention_fwd.cu, csrc/flash_rel_attention_bwd.cu) and the
+// additive logZ (csrc/additive_logz.cu) are made of.
 //
 // 3xTF32: an fp32 operand x is split into hi = x rounded to TF32 (to
 // nearest, ties away: the bits of cvt.rna.tf32.f32, taken by integer
@@ -74,6 +75,16 @@ __device__ __forceinline__ void cp16(float* dst, const float* src, bool ok) {
     const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                  :: "r"(d), "l"(src), "r"(ok ? 16 : 0));
+}
+
+// Close the group of this thread's copies issued since the last commit.
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// Wait until at most N of this thread's committed groups are in flight;
+// what the others copied is visible to this thread only.
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // Table row of offset o = j - i, or -1 (o == 1, or outside the T rows).
@@ -238,6 +249,14 @@ __device__ __forceinline__ void emit_rows(const float (&c)[NT][4], int m0, int n
 __device__ __forceinline__ int sw2(int row) { return (row & 3) << 2; }
 
 __device__ __forceinline__ int at2(int row, int col, int w) { return row * w + (col ^ sw2(row)); }
+
+// Store x, the 4 elements at column d (a multiple of 4) of a tile row, as
+// (hi, lo) pairs at p, p + 1, p + 2, p + 3 (16-byte aligned).
+__device__ __forceinline__ void st_split(float2* p, float4 x) {
+    const float2 a = split2(x.x), b = split2(x.y), c = split2(x.z), d = split2(x.w);
+    st4(reinterpret_cast<float*>(p), make_float4(a.x, a.y, b.x, b.y));
+    st4(reinterpret_cast<float*>(p + 2), make_float4(c.x, c.y, d.x, d.y));
+}
 
 // Rows are the operand's m (or n) index, columns its k: as RowView, with
 // (k + c) ^ f = (k ^ (f & 8)) + (c ^ (f & 4)) for c = t + 4h < 8.

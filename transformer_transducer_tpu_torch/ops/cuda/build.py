@@ -104,8 +104,8 @@ def library() -> ctypes.CDLL:
             "ttx_rnnt_alpha": [ptr, ptr, ptr, i32, i32, i32, ptr],
             # sb, sl, inject, beta, B, D, U1, stream
             "ttx_rnnt_beta": [ptr, ptr, ptr, ptr, i32, i32, i32, ptr],
-            # A, L, logZ, B, T, U1, V, stream
-            "ttx_additive_logz": [ptr, ptr, ptr, i32, i32, i32, i32, ptr],
+            # A, L, logZ, workspace, B, T, U1, V, stream
+            "ttx_additive_logz": [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr],
             # lp_b, lp_l, d, alpha, B, T, S, stream
             "ttx_band_alpha": [ptr, ptr, ptr, ptr, i32, i32, i32, ptr],
             # lp_b, lp_l, d, tf, sf, beta, B, T, S, stream
@@ -121,6 +121,9 @@ def library() -> ctypes.CDLL:
         # B, T, H, Dh, left, right -> floats of the banded backward's scratch
         lib.ttx_banded_attention_bwd_scratch.argtypes = [i32] * 6
         lib.ttx_banded_attention_bwd_scratch.restype = i64
+        # B, T, U1, V, info -> words of the logZ's workspace
+        lib.ttx_additive_logz_workspace.argtypes = [i32] * 4 + [ctypes.POINTER(i64)]
+        lib.ttx_additive_logz_workspace.restype = i64
         lib.ttx_error_string.argtypes = [i32]
         lib.ttx_error_string.restype = ctypes.c_char_p
         _lib = lib

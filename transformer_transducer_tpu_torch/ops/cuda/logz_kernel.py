@@ -4,18 +4,27 @@
 the pruned loss's linearized joint (``ops/rnnt_loss_pruned.py::
 simple_grid_logprobs``).  Replaces the TPU kernel
 ``ops/pallas/logz_kernel.py::_logz_pallas``; the kernel is
-``ttx_additive_logz`` in ``csrc/rnnt_pruned.cu``, which documents the bound
-and the design.  Output layout (B, T, U1): the TPU's (B, U1, T) lane layout
-and its padding are not carried over.
+``ttx_additive_logz`` in ``csrc/additive_logz.cu``, which documents the bound
+and the design: the product ``exp(A - max) . exp(L - max)^T`` on the tensor
+cores in 3xTF32, with an underflow certificate and an exact pass for the
+cells it does not cover.  Four launches a call, all on the caller's stream,
+with no host read; the workspace is allocated here.  Output layout (B, T,
+U1): the TPU's (B, U1, T) lane layout and its padding are not carried over.
 
 :func:`additive_logz` is differentiable.  Its forward takes the kernel on a
 CUDA tensor (or raises) and :func:`additive_logz_plain` on a CPU tensor; its
 backward is plain PyTorch on both (the JAX package's ``_additive_logz_bwd``,
 a loop over u; the JAX package has no Pallas backward either).
-``additive_logz.launches`` counts kernel launches.
+``additive_logz.launches`` counts kernel calls (one a call, whose four
+launches are one kernel); :func:`marked_cells` reads how many cells the
+last call left to the exact pass.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -38,8 +47,27 @@ def _check(a_grid: torch.Tensor, l_grid: torch.Tensor) -> None:
         raise ValueError("additive_logz: A and L on different devices")
 
 
+@functools.lru_cache(maxsize=None)
+def plan(device: int, b: int, t: int, u1: int, v: int) -> Tuple[int, int, int, int]:
+    """The kernel's plan for a shape on a CUDA device: (4-byte words of its
+    workspace, slices of V, offset and number of the per-block counts of
+    marked cells in the workspace)."""
+    info = (ctypes.c_longlong * 4)()
+    with torch.cuda.device(device):
+        words = build.library().ttx_additive_logz_workspace(b, t, u1, v, info)
+    if words < 0:
+        build.check(-words, "ttx_additive_logz_workspace")
+    return words, info[0], info[3], info[2]
+
+
+# the last call's workspace, kept until the next call, and where its counts
+# lie (read by marked_cells)
+_last: Optional[Tuple[torch.Tensor, int, int]] = None
+
+
 def _launch(a_grid: torch.Tensor, l_grid: torch.Tensor) -> torch.Tensor:
     """``ttx_additive_logz`` on contiguous fp32 CUDA grids."""
+    global _last
     if a_grid.device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {a_grid.device}")
     lib = build.library()
@@ -52,11 +80,25 @@ def _launch(a_grid: torch.Tensor, l_grid: torch.Tensor) -> torch.Tensor:
         return out
     if v == 0:
         raise ValueError("additive_logz: an empty vocabulary has no normalizer")
+    words, _, counts, n_counts = plan(a.device.index, b, t, u1, v)
+    work = torch.empty(words, dtype=torch.float32, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     build.check(lib.ttx_additive_logz(a.data_ptr(), l.data_ptr(), out.data_ptr(),
-                                      b, t, u1, v, stream), "ttx_additive_logz")
+                                      work.data_ptr(), b, t, u1, v, stream),
+                "ttx_additive_logz")
     additive_logz.launches += 1
+    _last = (work, counts, n_counts)
     return out
+
+
+def marked_cells() -> int:
+    """Cells the last kernel call left to its exact pass (those the
+    product's underflow certificate did not cover).  Reads the device, so
+    it synchronises: for tests and measurements, never the main path."""
+    if _last is None:
+        raise RuntimeError("additive_logz has not run on a CUDA tensor")
+    work, counts, n = _last
+    return int(work[counts:counts + n].view(torch.int32).sum())
 
 
 class _AdditiveLogZ(torch.autograd.Function):

@@ -2,7 +2,10 @@
 or, with ``--pass fwd``, its forward (``ttx_banded_attention_fwd``) alone, as
 ``chip_smoke.py`` times them: 20 calls of the wrapper in one CUDA graph, the
 median of 10 replays, per call.  The forward runs as recognition runs it,
-under ``torch.no_grad()`` (no row log-sum-exp).  Each checkout given runs in
+under ``torch.no_grad()`` (no row log-sum-exp).  With ``--pass logz`` it
+times the pruned loss's additive logZ (``ttx_additive_logz``, every launch
+of a call) the same way; a shape is then B,T,U1,V and the logits are
+randn * 3, as ``chip_smoke.py`` draws them.  Each checkout given runs in
 its own process (the packages share a name), builds its own kernels into its
 own ``build/`` and is timed at every shape; the checkouts run in the order
 given, so ``--roots old new new old`` compares two versions on one card in
@@ -12,7 +15,8 @@ one run.
         --roots build/parent . . build/parent [--pass fwd] \\
         --shapes 4,410,8,64 4,410,8,32 4,48,2,32 --band 10 2
 
-A shape is B,T,H,Dh (inputs fp32, drawn from a seed).  Prints one line a
+A shape is B,T,H,Dh (inputs fp32, drawn from a seed), or B,T,U1,V for
+``--pass logz``.  Prints one line a
 checkout and shape, then the card's name and power limit.
 """
 
@@ -29,8 +33,8 @@ REPO = os.path.dirname(os.path.dirname(HERE))
 
 
 def time_one(root: str, shapes, band, which: str) -> None:
-    """Time the ``which`` pass ("fwd" or "bwd") of the package under
-    ``root`` at each shape."""
+    """Time the ``which`` pass ("fwd", "bwd" or "logz") of the package
+    under ``root`` at each shape."""
     sys.path.insert(0, REPO)
     import torch
     from chip_smoke import graph_ms         # this checkout's timer for every root
@@ -39,6 +43,16 @@ def time_one(root: str, shapes, band, which: str) -> None:
     from transformer_transducer_tpu_torch.ops.cuda.banded_attention import (
         banded_attention, banded_attention_backward)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if which == "logz":
+        from transformer_transducer_tpu_torch.ops.cuda.logz_kernel import additive_logz
+        for b, t, u1, v in shapes:
+            a = torch.randn(b, t, v, generator=gen, device="cuda") * 3
+            l = torch.randn(b, u1, v, generator=gen, device="cuda") * 3
+            with torch.no_grad():
+                ms = graph_ms(lambda: additive_logz(a, l))
+            print(json.dumps({"root": root, "pass": which, "B": b, "T": t, "U1": u1,
+                              "V": v, "ms": ms}), flush=True)
+        return
     for b, t, h, dh in shapes:
         mk = lambda *s: torch.randn(*s, generator=gen, device="cuda")
         args = (mk(b, t, h, dh), mk(b, t, h, dh), mk(b, t, h, dh), mk(t, h, dh),
@@ -59,9 +73,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--roots", nargs="+", default=["."],
                     help="checkouts whose port package is timed, in this order")
-    ap.add_argument("--pass", dest="which", choices=("fwd", "bwd"), default="bwd",
-                    help="the wrapper timed: forward or backward")
-    ap.add_argument("--shapes", nargs="+", default=["4,410,8,64"], help="B,T,H,Dh")
+    ap.add_argument("--pass", dest="which", choices=("fwd", "bwd", "logz"), default="bwd",
+                    help="the wrapper timed: the banded forward or backward, or the logZ")
+    ap.add_argument("--shapes", nargs="+", default=["4,410,8,64"],
+                    help="B,T,H,Dh (B,T,U1,V for logz)")
     ap.add_argument("--band", nargs=2, type=int, default=[10, 2], metavar=("LEFT", "RIGHT"))
     ap.add_argument("--one", help=argparse.SUPPRESS)
     a = ap.parse_args()
