@@ -12,8 +12,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    flash forward and backward at Dh = 64 (``cuobjdump -sass``; none in
    either fails the run), and the SASS instructions and ``RED``/``ATOM``
    (atomic) instructions of the banded forward, of the banded
-   backward's two kernels and of the additive logZ's four kernels (any
-   atomic fails the run; the logZ's product must have ``HMMA``);
+   backward's two kernels, of the additive logZ's four kernels and of the
+   band alpha's two (any atomic fails the run; the logZ's product must have
+   ``HMMA``);
 3. each kernel against its plain PyTorch version on the same CUDA inputs
    (atol 1e-4, rtol 1e-4), at the main path's shapes and a sweep around
    them: the additive logZ at (B, T, U1, V) = (4, 410, 43, 6485) and over
@@ -22,7 +23,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    0-1000 nats above the rest on other symbols in A and L) with the count
    of cells its exact pass took, and two launches to the bit; the band sweeps at S = 2-8 with
    ragged t_len, a zero-length row and a clamped terminal slot, and at
-   S = 33, 64, 128 (several slots a lane); the flash forward and backward
+   S = 33, 64, 128 (several slots a lane), the alpha at its plan's chunks
+   of T and at 1, 2 and 7, two of its launches to the bit and its graph
+   replay equal to the eager call; the flash forward and backward
    also at the tile edges T = 15-17, 31-33, 63-65, 127-129, the banded
    backward at bands (10, 2), (0, 0), (64, 64), (3, 64), (64, 0) and at
    the edges of its 32-row blocks and 48-row cell tiles T = 31-33, 47-49,
@@ -93,7 +96,9 @@ gradient is 0 in exact
 arithmetic, as every softmax gradient at T = 1, only rounding is left); the
 lattice and band sweeps against the eager scans (rtol 1e-5, atol 1e-3:
 log-alphas reach thousands; a band sweep's recorded error is read with
-both sides clamped at NEG, where the cells no path reaches sit).
+both sides clamped at NEG, where the cells no path reaches sit; the band
+alpha, whose chunks reassociate the log-sums, is compared so too, and
+both sides must put the same cells at or below NEG / 2).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -488,10 +493,14 @@ def check_pruned_kernels(gen):
     plain version (atol 1e-4, rtol 1e-4) at the flagship shape and a sweep
     (U1 to 129), on spiked logits (with the cells its exact pass took) and
     two launches to the bit, the band sweeps against theirs (rtol 1e-5, atol 1e-3) at
-    S = 2-8 and 33, 64, 128; returns the largest abs error of each."""
+    S = 2-8 and 33, 64, 128 (the alpha with both sides clamped at NEG and the
+    same cells at or below NEG / 2, at the plan's chunks and at 1, 2 and 7;
+    two of its launches to the bit and its graph replay equal to the eager
+    call); returns the largest abs error of each."""
     import torch
+    from transformer_transducer_tpu_torch.ops.cuda import band_kernel as bk
     from transformer_transducer_tpu_torch.ops.cuda.band_kernel import (
-        band_alpha, band_alpha_plain, band_beta, band_beta_plain)
+        band_alpha, band_alpha_plain, band_alpha_plan, band_beta, band_beta_plain)
     from transformer_transducer_tpu_torch.ops.cuda import logz_kernel as lk
     from transformer_transducer_tpu_torch.ops.cuda.logz_kernel import (
         additive_logz, additive_logz_plain)
@@ -549,7 +558,8 @@ def check_pruned_kernels(gen):
         f"through the exact pass): bit-identical")
     log(f"band sweeps vs plain (rtol {LATTICE_TOL['rtol']}, atol "
         f"{LATTICE_TOL['atol']}; ragged t_len, a zero-length row, a clamped "
-        f"terminal slot):")
+        f"terminal slot; alpha with both sides clamped at NEG and equal cells at "
+        f"or below NEG / 2, at the plan's chunks and at 1, 2 and 7):")
     # S past 32 takes several slots a lane; its plain sweep is slow (a step
     # per slot and row), so most of those run at a short T
     sweeps = [(s_range, (1, 37, T_MAIN)) for s_range in range(2, 9)]
@@ -558,21 +568,52 @@ def check_pruned_kernels(gen):
         line = []
         for tlen in lengths:
             lp_b, lp_l, d_a, d_b, tf, sf = band_inputs(gen, B_TRAIN, tlen, s_range)
-            pairs = (("band_alpha", band_alpha(lp_b, lp_l, d_a, s_range),
-                      band_alpha_plain(lp_b, lp_l, d_a)),
-                     ("band_beta", band_beta(lp_b, lp_l, d_b, tf, sf, s_range),
-                      band_beta_plain(lp_b, lp_l, d_b, tf, sf)))
+            # the plain sweep in float64: in float32 its own rounding grows
+            # with the log-alphas (1.7x the tolerance at S 128, T 410)
+            ref = band_alpha_plain(lp_b.double(), lp_l.double(), d_a).float()
+            alphas = [(f"the plan's {band_alpha_plan(tlen, s_range)}",
+                       band_alpha(lp_b, lp_l, d_a, s_range))]
+            alphas += [(str(n), bk._launch_alpha(lp_b, lp_l, d_a, n)) for n in (1, 2, 7)]
+            beta = band_beta(lp_b, lp_l, d_b, tf, sf, s_range)
             torch.cuda.synchronize()
-            for name, got, ref in pairs:
-                torch.testing.assert_close(got, ref, **LATTICE_TOL,
-                                           msg=f"{name} S={s_range} T={tlen}")
-                # cells no path reaches sit at or below NEG: the error is
-                # read with both sides clamped there
+            for chunks, got in alphas:
+                what = f"band_alpha S={s_range} T={tlen}, {chunks} chunks"
+                # cells no path reaches sit at or below NEG: compared, and
+                # the error read, with both sides clamped there
+                torch.testing.assert_close(got.clamp(min=-1e30), ref.clamp(min=-1e30),
+                                           **LATTICE_TOL, msg=what)
+                require(torch.equal(got <= -5e29, ref <= -5e29),
+                        f"{what}: the cells at or below NEG / 2 differ")
                 err = (got.clamp(min=-1e30) - ref.clamp(min=-1e30)).abs().max()
-                errs[name] = max(errs[name], err.item())
+                errs["band_alpha"] = max(errs["band_alpha"], err.item())
+            ref = band_beta_plain(lp_b, lp_l, d_b, tf, sf)
+            torch.testing.assert_close(beta, ref, **LATTICE_TOL,
+                                       msg=f"band_beta S={s_range} T={tlen}")
+            err = (beta.clamp(min=-1e30) - ref.clamp(min=-1e30)).abs().max()
+            errs["band_beta"] = max(errs["band_beta"], err.item())
             line.append(f"T={tlen}")
         log(f"  S={s_range} ({', '.join(line)}): max|err| so far alpha "
             f"{errs['band_alpha']:.3e}, beta {errs['band_beta']:.3e}")
+    # the chunked alpha: two launches to the bit, a graph's replay equal to
+    # the eager call
+    lp_b, lp_l, d_a, _, _, _ = band_inputs(gen, B_TRAIN, T_MAIN, S_RANGE)
+    first, again = band_alpha(lp_b, lp_l, d_a, S_RANGE), band_alpha(lp_b, lp_l, d_a, S_RANGE)
+    require(torch.equal(first, again), "two launches of the band alpha differ")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        band_alpha(lp_b, lp_l, d_a, S_RANGE)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = band_alpha(lp_b, lp_l, d_a, S_RANGE)
+    graph.replay()
+    torch.cuda.synchronize()
+    require(torch.equal(replayed, first), "the band alpha's graph replay differs")
+    del graph
+    log(f"  band alpha at ({B_TRAIN}, {T_MAIN}, {S_RANGE}), "
+        f"{band_alpha_plan(T_MAIN, S_RANGE)} chunks: two launches bit-identical, the "
+        f"graph replay equal to the eager call")
     return errs
 
 
@@ -1273,6 +1314,17 @@ def main() -> int:
         f"{spill_ld} bytes of spill stores + loads")
     require(atomics == 0, "the additive logZ's kernels have atomics")
     require(prod["HMMA"] > 0, "the additive logZ's product has no tensor-core instruction")
+    # the band alpha's two kernels (every slot-register count): no atomic
+    ops = sass_opcodes(lib_path, "band_alpha_")
+    (regs_a, *_), (regs_c, *_) = (ptxas_entries(ptxas, f"{k}ILi1EE")[0]
+                                  for k in ("band_alpha_transfer", "band_alpha_rows"))
+    atomics = sum(n for op, n in ops.items() if op.startswith(("RED", "ATOM")))
+    alpha_sass = {"sass": sum(ops.values()), "atomics": atomics,
+                  "registers": [regs_a, regs_c]}
+    log(f"  band alpha (band_alpha_transfer, band_alpha_rows): {sum(ops.values())} SASS "
+        f"instructions in their instantiations, {atomics} RED/ATOM; {regs_a} and {regs_c} "
+        f"registers at one slot a lane")
+    require(atomics == 0, "the band alpha's kernels have atomics")
 
     # ---- 3. kernels vs plain versions
     log("kernels vs plain versions (atol 1e-4, rtol 1e-4):")
@@ -1694,7 +1746,8 @@ def main() -> int:
 
     # the pruned loss's kernels at the flagship training shapes
     from transformer_transducer_tpu_torch.ops.cuda.band_kernel import (
-        band_alpha, band_alpha_plain, band_beta, band_beta_plain)
+        band_alpha, band_alpha_chain, band_alpha_plain, band_alpha_plan, band_beta,
+        band_beta_plain)
     from transformer_transducer_tpu_torch.ops.cuda.logz_kernel import (
         additive_logz, additive_logz_plain, marked_cells)
     u1, vocab = cfg.data.max_target_length + 1, cfg.model.vocab_size
@@ -1746,6 +1799,8 @@ def main() -> int:
         "backward_plain_ms": bwd_ms, **logz_sass})
     del a, l
     lp_b, lp_l, d_a, d_b, tf, sf = band_inputs(gen, B_TRAIN, T_MAIN, S_RANGE)
+    n_chunks = band_alpha_plan(T_MAIN, S_RANGE)
+    chain = {"band_alpha": band_alpha_chain(T_MAIN, n_chunks, S_RANGE), "band_beta": T_MAIN - 1}
     for name, replaces, kern, plain, n_arrays in (
             ("band_alpha", "band_kernel.py:181",
              lambda: band_alpha(lp_b, lp_l, d_a, S_RANGE),
@@ -1755,16 +1810,23 @@ def main() -> int:
              lambda: band_beta_plain(lp_b, lp_l, d_b, tf, sf), 3)):
         ms, plain_ms = graph_ms(kern), cuda_ms(plain, samples=5, reps=2)
         bound_ms, bound_by = band_bound(B_TRAIN, T_MAIN, S_RANGE, n_arrays)
-        log(f"  {name} (B={B_TRAIN}, T={T_MAIN}, S={S_RANGE}): kernel {ms:.4f} ms "
-            f"({1e3 * ms / (T_MAIN - 1):.3f} us per dependent row), plain "
-            f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
-            f"{pruned_launches[name] // 3} launch per pruned step")
-        records.append({
-            "name": name, "route": "cuda", "source": f"{PKG}/csrc/rnnt_pruned.cu",
-            "replaces": f"transformer_transducer_tpu/ops/pallas/{replaces}",
-            "launches": pruned_launches[name], "max_abs_err": errs[name], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None})
+        rec = {"name": name, "route": "cuda", "source": f"{PKG}/csrc/rnnt_pruned.cu",
+               "replaces": f"transformer_transducer_tpu/ops/pallas/{replaces}",
+               "launches": pruned_launches[name], "max_abs_err": errs[name], "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": None, "chain_steps": chain[name],
+               "us_per_chain_step": 1e3 * ms / chain[name]}
+        note = ""
+        if name == "band_alpha":
+            rec.update(n_chunks=n_chunks, kernels_per_launch=1 + (n_chunks > 1),
+                       **alpha_sass)
+            note = (f"; {n_chunks} chunks of T (band_alpha_plan), {alpha_sass['atomics']} "
+                    f"atomics, registers {alpha_sass['registers']}")
+        log(f"  {name} (B={B_TRAIN}, T={T_MAIN}, S={S_RANGE}): kernel {ms:.4f} ms, "
+            f"{chain[name]} dependent steps on its chain ({rec['us_per_chain_step']:.3f} "
+            f"us a step), plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
+            f"{pruned_launches[name] // 3} call per pruned step{note}")
+        records.append(rec)
 
     args = attention_inputs(T_MAIN, 410, gen, b=B_TRAIN)
     gout = torch.randn(B_TRAIN, T_MAIN, H, DH, generator=gen, device="cuda")

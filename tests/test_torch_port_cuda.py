@@ -33,8 +33,9 @@ import torch
 from transformer_transducer_tpu_torch.models.attention import (
     rel_attention_scores, slice_pos_table)
 from transformer_transducer_tpu_torch.ops import rnnt_loss, rnnt_loss_pruned
+from transformer_transducer_tpu_torch.ops.cuda import band_kernel
 from transformer_transducer_tpu_torch.ops.cuda.band_kernel import (
-    band_alpha, band_alpha_plain, band_beta, band_beta_plain)
+    band_alpha, band_alpha_plain, band_alpha_plan, band_beta, band_beta_plain)
 from transformer_transducer_tpu_torch.ops.cuda.logz_kernel import (
     additive_logz, additive_logz_plain, marked_cells)
 from transformer_transducer_tpu_torch.ops.cuda.rnnt_kernel import (
@@ -513,6 +514,14 @@ def _band_inputs(gen, b, tlen, s_range, bad_shifts=False):
     return lp_b, lp_l, rs, t_len, u_len, d, tf, sf
 
 
+def _assert_alpha_close(got, want, what):
+    """The band alpha's rule: within rtol 1e-5 / atol 1e-3 with both sides
+    clamped at NEG, and the same cells at or below NEG / 2."""
+    torch.testing.assert_close(got.clamp(min=NEG), want.clamp(min=NEG), rtol=1e-5,
+                               atol=1e-3, msg=what)
+    assert torch.equal(got <= NEG / 2, want <= NEG / 2), f"{what}: unreachable cells differ"
+
+
 # S past 32: each lane holds ceil(S / 32) band slots
 @pytest.mark.parametrize("s_range", [1, 2, 3, 5, 8, 32, 33, 64, 128])
 @pytest.mark.parametrize("b,tlen", [(4, 410), (3, 1), (5, 37)])
@@ -527,15 +536,50 @@ def test_band_kernels_match_plain(gen, b, tlen, s_range):
     torch.cuda.synchronize()
     assert (band_alpha.launches, band_beta.launches) == (before[0] + 1, before[1] + 1)
     tol = dict(rtol=1e-5, atol=1e-3)
-    torch.testing.assert_close(alpha, band_alpha_plain(lp_b, lp_l, d_alpha), **tol)
+    # the plain sweep in float64: in float32 its own rounding reaches 1.7x the
+    # tolerance at S = 128, T = 410 (log-alphas near -17600), where the
+    # kernel, with its float64 offsets, is nearer the exact values
+    ref = band_alpha_plain(lp_b.double(), lp_l.double(), d_alpha).float()
+    _assert_alpha_close(alpha, ref, f"alpha, the plan's {band_alpha_plan(tlen, s_range)} chunks")
+    # the chunk counts forced through the launch's private argument
+    for n in (1, 2, 7):
+        _assert_alpha_close(band_kernel._launch_alpha(lp_b, lp_l, d_alpha, n), ref,
+                            f"alpha, {n} chunks")
     torch.testing.assert_close(beta, band_beta_plain(lp_b, lp_l, d_beta, tf, sf), **tol)
 
 
+@pytest.mark.parametrize("s_range,n_chunks", [(5, None), (5, 7), (2, None), (33, 3)])
+def test_band_alpha_is_deterministic_and_graph_safe(gen, s_range, n_chunks):
+    """Two launches of the chunked alpha agree to the bit, and a CUDA graph's
+    replay gives the eager call's result (no host read, workspace from the
+    graph's pool)."""
+    lp_b, lp_l, _, _, _, d, _, _ = _band_inputs(gen, 4, 410, s_range, bad_shifts=True)
+    d_alpha = torch.nn.functional.pad(d, (1, 0))
+    run = lambda: band_kernel._launch_alpha(lp_b, lp_l, d_alpha, n_chunks)
+    first, again = run(), run()
+    assert torch.equal(first, again)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, first)
+
+
 @pytest.mark.parametrize("simple_scale", [0.0, 0.25])
-def test_pruned_loss_on_the_card_matches_the_cpu(gen, simple_scale):
+def test_pruned_loss_on_the_card_matches_the_cpu(gen, simple_scale, monkeypatch):
     """Loss and gradients of ``rnnt_loss_pruned`` through the three kernels
     and the lattice sweeps against the same call on the CPU (plain
-    versions), with a zero-length row; the band starts are equal."""
+    versions), with a zero-length row; the band starts are equal.  The CPU's
+    band alpha is its plain sweep run in float64: the occupancies exp(alpha +
+    beta - logZ) carry alpha's rounding into every gradient, the float32
+    sweep's own rounding moves them by up to 0.3 of the tolerance, and the
+    kernel's alpha (its chunks, its offsets) lies nearer the exact values."""
     b, tlen, u, d, inner, v = 3, 50, 9, 16, 24, 40
     mk = lambda *s: torch.randn(*s, generator=gen, device="cuda") * 0.5
     tensors = [mk(b, tlen, d), mk(b, u + 1, d), mk(d, inner), mk(d, inner), mk(inner),
@@ -544,6 +588,9 @@ def test_pruned_loss_on_the_card_matches_the_cpu(gen, simple_scale):
     t_len, u_len = torch.tensor([50, 0, 31]), torch.tensor([9, 4, 6])
     out = []
     for dev in ("cuda", "cpu"):
+        if dev == "cpu":
+            monkeypatch.setattr(rnnt_loss_pruned, "band_alpha", lambda lp_b, lp_l, d, s: (
+                band_alpha_plain(lp_b.double(), lp_l.double(), d).float()))
         leaves = [x.detach().to(dev).requires_grad_() for x in tensors]
         losses = rnnt_loss_pruned.rnnt_loss_pruned(
             leaves[0], leaves[1], leaves[2:], labels.to(dev), t_len, u_len, s_range=3,

@@ -106,8 +106,8 @@ def library() -> ctypes.CDLL:
             "ttx_rnnt_beta": [ptr, ptr, ptr, ptr, i32, i32, i32, ptr],
             # A, L, logZ, workspace, B, T, U1, V, stream
             "ttx_additive_logz": [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr],
-            # lp_b, lp_l, d, alpha, B, T, S, stream
-            "ttx_band_alpha": [ptr, ptr, ptr, ptr, i32, i32, i32, ptr],
+            # lp_b, lp_l, d, alpha, work, B, T, S, chunks, stream
+            "ttx_band_alpha": [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr],
             # lp_b, lp_l, d, tf, sf, beta, B, T, S, stream
             "ttx_band_beta": [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr],
             # dims, cap

@@ -5,7 +5,12 @@ median of 10 replays, per call.  The forward runs as recognition runs it,
 under ``torch.no_grad()`` (no row log-sum-exp).  With ``--pass logz`` it
 times the pruned loss's additive logZ (``ttx_additive_logz``, every launch
 of a call) the same way; a shape is then B,T,U1,V and the logits are
-randn * 3, as ``chip_smoke.py`` draws them.  Each checkout given runs in
+randn * 3, as ``chip_smoke.py`` draws them.  With ``--pass alpha`` it
+times the pruned loss's band alpha sweep (``ttx_band_alpha``, both launches
+of a call); a shape is then B,T,S and the inputs are drawn as
+``chip_smoke.py::band_inputs`` draws them, and ``--chunks N ...`` also
+times the kernel at those of the chunk counts of T that the plan may
+pick (at most ``MAX_STARTS`` start vectors), beside the plan's.  Each checkout given runs in
 its own process (the packages share a name), builds its own kernels into its
 own ``build/`` and is timed at every shape; the checkouts run in the order
 given, so ``--roots old new new old`` compares two versions on one card in
@@ -15,8 +20,8 @@ one run.
         --roots build/parent . . build/parent [--pass fwd] \\
         --shapes 4,410,8,64 4,410,8,32 4,48,2,32 --band 10 2
 
-A shape is B,T,H,Dh (inputs fp32, drawn from a seed), or B,T,U1,V for
-``--pass logz``.  Prints one line a
+A shape is B,T,H,Dh (inputs fp32, drawn from a seed), B,T,U1,V for
+``--pass logz`` or B,T,S for ``--pass alpha``.  Prints one line a
 checkout and shape, then the card's name and power limit.
 """
 
@@ -32,12 +37,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(os.path.dirname(HERE))
 
 
-def time_one(root: str, shapes, band, which: str) -> None:
-    """Time the ``which`` pass ("fwd", "bwd" or "logz") of the package
+def time_one(root: str, shapes, band, which: str, chunks=()) -> None:
+    """Time the ``which`` pass ("fwd", "bwd", "logz" or "alpha") of the package
     under ``root`` at each shape."""
     sys.path.insert(0, REPO)
     import torch
-    from chip_smoke import graph_ms         # this checkout's timer for every root
+    from chip_smoke import band_inputs, graph_ms   # this checkout's, for every root
     sys.path.insert(0, os.path.abspath(root))
     from transformer_transducer_tpu_torch.ops.cuda import common
     from transformer_transducer_tpu_torch.ops.cuda.banded_attention import (
@@ -52,6 +57,20 @@ def time_one(root: str, shapes, band, which: str) -> None:
                 ms = graph_ms(lambda: additive_logz(a, l))
             print(json.dumps({"root": root, "pass": which, "B": b, "T": t, "U1": u1,
                               "V": v, "ms": ms}), flush=True)
+        return
+    if which == "alpha":
+        from transformer_transducer_tpu_torch.ops.cuda import band_kernel as bk
+        for b, t, s_range in shapes:
+            lp_b, lp_l, d_a, _, _, _ = band_inputs(gen, b, t, s_range)
+            rec = {"root": root, "pass": which, "B": b, "T": t, "S": s_range,
+                   "ms": graph_ms(lambda: bk.band_alpha(lp_b, lp_l, d_a, s_range))}
+            if chunks:      # the chunk counts forced, and the plan's
+                rec["plan"] = bk.band_alpha_plan(t, s_range)
+                rec["ms_by_chunks"] = {
+                    n: graph_ms(lambda: bk._launch_alpha(lp_b, lp_l, d_a, n))
+                    for n in sorted({n for n in chunks if n <= t and n * s_range <= bk.MAX_STARTS}
+                                    | {rec["plan"]})}
+            print(json.dumps(rec), flush=True)
         return
     for b, t, h, dh in shapes:
         mk = lambda *s: torch.randn(*s, generator=gen, device="cuda")
@@ -73,16 +92,20 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--roots", nargs="+", default=["."],
                     help="checkouts whose port package is timed, in this order")
-    ap.add_argument("--pass", dest="which", choices=("fwd", "bwd", "logz"), default="bwd",
-                    help="the wrapper timed: the banded forward or backward, or the logZ")
+    ap.add_argument("--pass", dest="which", choices=("fwd", "bwd", "logz", "alpha"),
+                    default="bwd", help="the wrapper timed: the banded forward or "
+                    "backward, the logZ or the band alpha sweep")
     ap.add_argument("--shapes", nargs="+", default=["4,410,8,64"],
-                    help="B,T,H,Dh (B,T,U1,V for logz)")
+                    help="B,T,H,Dh (B,T,U1,V for logz, B,T,S for alpha)")
     ap.add_argument("--band", nargs=2, type=int, default=[10, 2], metavar=("LEFT", "RIGHT"))
+    ap.add_argument("--chunks", nargs="*", type=int, default=[],
+                    help="with --pass alpha, also time these chunk counts of T and the "
+                    "plan's (a checkout whose band_kernel has the chunked kernel)")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     a = ap.parse_args()
     shapes = [tuple(int(x) for x in s.split(",")) for s in a.shapes]
     if a.one:
-        time_one(a.one, shapes, tuple(a.band), a.which)
+        time_one(a.one, shapes, tuple(a.band), a.which, a.chunks)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -90,7 +113,8 @@ def main() -> int:
         return 1
     for root in a.roots:
         cmd = [sys.executable, os.path.abspath(__file__), "--one", root, "--pass",
-               a.which, "--shapes", *a.shapes, "--band", *map(str, a.band)]
+               a.which, "--shapes", *a.shapes, "--band", *map(str, a.band),
+               "--chunks", *map(str, a.chunks)]
         if subprocess.run(cmd).returncode != 0:
             return 1
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
