@@ -12,8 +12,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    flash forward and backward at Dh = 64 (``cuobjdump -sass``; none in
    either fails the run), and the SASS instructions and ``RED``/``ATOM``
    (atomic) instructions of the banded forward, of the banded
-   backward's two kernels, of the additive logZ's four kernels and of the
-   band alpha's two (any atomic fails the run; the logZ's product must have
+   backward's two kernels, of the additive logZ's four kernels and of each
+   band sweep's two (any atomic fails the run; the logZ's product must have
    ``HMMA``);
 3. each kernel against its plain PyTorch version on the same CUDA inputs
    (atol 1e-4, rtol 1e-4), at the main path's shapes and a sweep around
@@ -23,9 +23,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    0-1000 nats above the rest on other symbols in A and L) with the count
    of cells its exact pass took, and two launches to the bit; the band sweeps at S = 2-8 with
    ragged t_len, a zero-length row and a clamped terminal slot, and at
-   S = 33, 64, 128 (several slots a lane), the alpha at its plan's chunks
-   of T and at 1, 2 and 7, two of its launches to the bit and its graph
-   replay equal to the eager call; the flash forward and backward
+   S = 33, 64, 128 (several slots a lane), each at its plan's chunks and
+   at 1, 2 and 7, two of its launches to the bit and its graph replay
+   equal to the eager call; the flash forward and backward
    also at the tile edges T = 15-17, 31-33, 63-65, 127-129, the banded
    backward at bands (10, 2), (0, 0), (64, 64), (3, 64), (64, 0) and at
    the edges of its 32-row blocks and 48-row cell tiles T = 31-33, 47-49,
@@ -95,10 +95,10 @@ backward's shared sums are fp32 atomics in a varying order, and where a
 gradient is 0 in exact
 arithmetic, as every softmax gradient at T = 1, only rounding is left); the
 lattice and band sweeps against the eager scans (rtol 1e-5, atol 1e-3:
-log-alphas reach thousands; a band sweep's recorded error is read with
-both sides clamped at NEG, where the cells no path reaches sit; the band
-alpha, whose chunks reassociate the log-sums, is compared so too, and
-both sides must put the same cells at or below NEG / 2).
+log-alphas reach thousands; the band sweeps, whose chunks reassociate the
+log-sums, against their eager scans run in float64, compared with both
+sides clamped at NEG, where the cells no path reaches sit, and both sides
+must put the same cells at or below NEG / 2).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -379,9 +379,9 @@ def ptxas_entries(text: str, symbol: str):
 
 
 def sass_opcodes(lib_path, symbol: str) -> collections.Counter:
-    """The static count of each opcode in the SASS of the kernel whose
-    mangled name holds ``symbol`` (``cuobjdump -sass`` on the built
-    library; a predicate guard is skipped)."""
+    """The static count of each opcode in the SASS of the kernels whose
+    mangled names hold a match of the pattern ``symbol`` (``cuobjdump
+    -sass`` on the built library; a predicate guard is skipped)."""
     from transformer_transducer_tpu_torch.ops.cuda import build
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
@@ -389,7 +389,7 @@ def sass_opcodes(lib_path, symbol: str) -> collections.Counter:
     count, inside = collections.Counter(), False
     for line in sass.splitlines():
         if "Function :" in line:
-            inside = symbol in line
+            inside = re.search(symbol, line) is not None
         elif inside:
             op = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)", line)
             if op:
@@ -492,11 +492,11 @@ def check_pruned_kernels(gen):
     """Phase 3, the pruned loss's kernels: the additive logZ against its
     plain version (atol 1e-4, rtol 1e-4) at the flagship shape and a sweep
     (U1 to 129), on spiked logits (with the cells its exact pass took) and
-    two launches to the bit, the band sweeps against theirs (rtol 1e-5, atol 1e-3) at
-    S = 2-8 and 33, 64, 128 (the alpha with both sides clamped at NEG and the
-    same cells at or below NEG / 2, at the plan's chunks and at 1, 2 and 7;
-    two of its launches to the bit and its graph replay equal to the eager
-    call); returns the largest abs error of each."""
+    two launches to the bit, the band sweeps against theirs in float64 (rtol
+    1e-5, atol 1e-3) at S = 2-8 and 33, 64, 128 (with both sides clamped at
+    NEG and the same cells at or below NEG / 2, at the plan's chunks and at
+    1, 2 and 7; two launches of each to the bit and its graph replay equal
+    to the eager call); returns the largest abs error of each."""
     import torch
     from transformer_transducer_tpu_torch.ops.cuda import band_kernel as bk
     from transformer_transducer_tpu_torch.ops.cuda.band_kernel import (
@@ -556,10 +556,10 @@ def check_pruned_kernels(gen):
     require(torch.equal(first, again), "two launches of the additive logZ differ")
     log(f"  two launches at (4, 410, 43, 6485), 100 nats ({lk.marked_cells()} cells "
         f"through the exact pass): bit-identical")
-    log(f"band sweeps vs plain (rtol {LATTICE_TOL['rtol']}, atol "
+    log(f"band sweeps vs plain in float64 (rtol {LATTICE_TOL['rtol']}, atol "
         f"{LATTICE_TOL['atol']}; ragged t_len, a zero-length row, a clamped "
-        f"terminal slot; alpha with both sides clamped at NEG and equal cells at "
-        f"or below NEG / 2, at the plan's chunks and at 1, 2 and 7):")
+        f"terminal slot; both sides clamped at NEG and equal cells at or below "
+        f"NEG / 2, at the plan's chunks and at 1, 2 and 7):")
     # S past 32 takes several slots a lane; its plain sweep is slow (a step
     # per slot and row), so most of those run at a short T
     sweeps = [(s_range, (1, 37, T_MAIN)) for s_range in range(2, 9)]
@@ -568,16 +568,22 @@ def check_pruned_kernels(gen):
         line = []
         for tlen in lengths:
             lp_b, lp_l, d_a, d_b, tf, sf = band_inputs(gen, B_TRAIN, tlen, s_range)
-            # the plain sweep in float64: in float32 its own rounding grows
-            # with the log-alphas (1.7x the tolerance at S 128, T 410)
-            ref = band_alpha_plain(lp_b.double(), lp_l.double(), d_a).float()
-            alphas = [(f"the plan's {band_alpha_plan(tlen, s_range)}",
-                       band_alpha(lp_b, lp_l, d_a, s_range))]
-            alphas += [(str(n), bk._launch_alpha(lp_b, lp_l, d_a, n)) for n in (1, 2, 7)]
-            beta = band_beta(lp_b, lp_l, d_b, tf, sf, s_range)
+            # the plain sweeps in float64: in float32 their own rounding
+            # grows with the log-alphas and log-betas (1.7x and 0.9x the
+            # tolerance at S 128, T 410)
+            refs = {"band_alpha": band_alpha_plain(lp_b.double(), lp_l.double(), d_a).float(),
+                    "band_beta": band_beta_plain(lp_b.double(), lp_l.double(), d_b, tf,
+                                                 sf).float()}
+            plan = f"the plan's {band_alpha_plan(tlen, s_range)}"
+            runs = [("band_alpha", plan, band_alpha(lp_b, lp_l, d_a, s_range)),
+                    ("band_beta", plan, band_beta(lp_b, lp_l, d_b, tf, sf, s_range))]
+            for n in (1, 2, 7):
+                runs += [("band_alpha", str(n), bk._launch_alpha(lp_b, lp_l, d_a, n)),
+                         ("band_beta", str(n), bk._launch_beta(lp_b, lp_l, d_b, tf, sf, n))]
             torch.cuda.synchronize()
-            for chunks, got in alphas:
-                what = f"band_alpha S={s_range} T={tlen}, {chunks} chunks"
+            for name, chunks, got in runs:
+                what = f"{name} S={s_range} T={tlen}, {chunks} chunks"
+                ref = refs[name]
                 # cells no path reaches sit at or below NEG: compared, and
                 # the error read, with both sides clamped there
                 torch.testing.assert_close(got.clamp(min=-1e30), ref.clamp(min=-1e30),
@@ -585,35 +591,32 @@ def check_pruned_kernels(gen):
                 require(torch.equal(got <= -5e29, ref <= -5e29),
                         f"{what}: the cells at or below NEG / 2 differ")
                 err = (got.clamp(min=-1e30) - ref.clamp(min=-1e30)).abs().max()
-                errs["band_alpha"] = max(errs["band_alpha"], err.item())
-            ref = band_beta_plain(lp_b, lp_l, d_b, tf, sf)
-            torch.testing.assert_close(beta, ref, **LATTICE_TOL,
-                                       msg=f"band_beta S={s_range} T={tlen}")
-            err = (beta.clamp(min=-1e30) - ref.clamp(min=-1e30)).abs().max()
-            errs["band_beta"] = max(errs["band_beta"], err.item())
+                errs[name] = max(errs[name], err.item())
             line.append(f"T={tlen}")
         log(f"  S={s_range} ({', '.join(line)}): max|err| so far alpha "
             f"{errs['band_alpha']:.3e}, beta {errs['band_beta']:.3e}")
-    # the chunked alpha: two launches to the bit, a graph's replay equal to
+    # the chunked sweeps: two launches to the bit, a graph's replay equal to
     # the eager call
-    lp_b, lp_l, d_a, _, _, _ = band_inputs(gen, B_TRAIN, T_MAIN, S_RANGE)
-    first, again = band_alpha(lp_b, lp_l, d_a, S_RANGE), band_alpha(lp_b, lp_l, d_a, S_RANGE)
-    require(torch.equal(first, again), "two launches of the band alpha differ")
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        band_alpha(lp_b, lp_l, d_a, S_RANGE)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        replayed = band_alpha(lp_b, lp_l, d_a, S_RANGE)
-    graph.replay()
-    torch.cuda.synchronize()
-    require(torch.equal(replayed, first), "the band alpha's graph replay differs")
-    del graph
-    log(f"  band alpha at ({B_TRAIN}, {T_MAIN}, {S_RANGE}), "
-        f"{band_alpha_plan(T_MAIN, S_RANGE)} chunks: two launches bit-identical, the "
-        f"graph replay equal to the eager call")
+    lp_b, lp_l, d_a, d_b, tf, sf = band_inputs(gen, B_TRAIN, T_MAIN, S_RANGE)
+    for name, run in (("band alpha", lambda: band_alpha(lp_b, lp_l, d_a, S_RANGE)),
+                      ("band beta", lambda: band_beta(lp_b, lp_l, d_b, tf, sf, S_RANGE))):
+        first, again = run(), run()
+        require(torch.equal(first, again), f"two launches of the {name} differ")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            run()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = run()
+        graph.replay()
+        torch.cuda.synchronize()
+        require(torch.equal(replayed, first), f"the {name}'s graph replay differs")
+        del graph
+        log(f"  {name} at ({B_TRAIN}, {T_MAIN}, {S_RANGE}), "
+            f"{band_alpha_plan(T_MAIN, S_RANGE)} chunks: two launches bit-identical, the "
+            f"graph replay equal to the eager call")
     return errs
 
 
@@ -1314,17 +1317,20 @@ def main() -> int:
         f"{spill_ld} bytes of spill stores + loads")
     require(atomics == 0, "the additive logZ's kernels have atomics")
     require(prod["HMMA"] > 0, "the additive logZ's product has no tensor-core instruction")
-    # the band alpha's two kernels (every slot-register count): no atomic
-    ops = sass_opcodes(lib_path, "band_alpha_")
-    (regs_a, *_), (regs_c, *_) = (ptxas_entries(ptxas, f"{k}ILi1EE")[0]
-                                  for k in ("band_alpha_transfer", "band_alpha_rows"))
-    atomics = sum(n for op, n in ops.items() if op.startswith(("RED", "ATOM")))
-    alpha_sass = {"sass": sum(ops.values()), "atomics": atomics,
-                  "registers": [regs_a, regs_c]}
-    log(f"  band alpha (band_alpha_transfer, band_alpha_rows): {sum(ops.values())} SASS "
-        f"instructions in their instantiations, {atomics} RED/ATOM; {regs_a} and {regs_c} "
-        f"registers at one slot a lane")
-    require(atomics == 0, "the band alpha's kernels have atomics")
+    # each band sweep's two kernels (every slot-register count; the beta's
+    # instantiations are <NS, true>): no atomic
+    band_sass = {}
+    for name, beta in (("band_alpha", 0), ("band_beta", 1)):
+        ops = sass_opcodes(lib_path, rf"band_(transfer|rows)ILi\dELb{beta}EE")
+        (regs_a, *_), (regs_c, *_) = (ptxas_entries(ptxas, f"{k}ILi1ELb{beta}EE")[0]
+                                      for k in ("band_transfer", "band_rows"))
+        atomics = sum(n for op, n in ops.items() if op.startswith(("RED", "ATOM")))
+        band_sass[name] = {"sass": sum(ops.values()), "atomics": atomics,
+                           "registers": [regs_a, regs_c]}
+        log(f"  {name} (band_transfer, band_rows): {sum(ops.values())} SASS instructions "
+            f"in their instantiations, {atomics} RED/ATOM; {regs_a} and {regs_c} registers "
+            f"at one slot a lane")
+        require(ops and atomics == 0, f"the {name}'s kernels have atomics or no SASS")
 
     # ---- 3. kernels vs plain versions
     log("kernels vs plain versions (atol 1e-4, rtol 1e-4):")
@@ -1746,8 +1752,8 @@ def main() -> int:
 
     # the pruned loss's kernels at the flagship training shapes
     from transformer_transducer_tpu_torch.ops.cuda.band_kernel import (
-        band_alpha, band_alpha_chain, band_alpha_plain, band_alpha_plan, band_beta,
-        band_beta_plain)
+        band_alpha, band_alpha_plain, band_alpha_plan, band_beta, band_beta_plain,
+        band_chain)
     from transformer_transducer_tpu_torch.ops.cuda.logz_kernel import (
         additive_logz, additive_logz_plain, marked_cells)
     u1, vocab = cfg.data.max_target_length + 1, cfg.model.vocab_size
@@ -1800,7 +1806,9 @@ def main() -> int:
     del a, l
     lp_b, lp_l, d_a, d_b, tf, sf = band_inputs(gen, B_TRAIN, T_MAIN, S_RANGE)
     n_chunks = band_alpha_plan(T_MAIN, S_RANGE)
-    chain = {"band_alpha": band_alpha_chain(T_MAIN, n_chunks, S_RANGE), "band_beta": T_MAIN - 1}
+    # the beta's chain is its longest sequence's: rows tf .. 0
+    chain = {"band_alpha": band_chain(T_MAIN, n_chunks, S_RANGE),
+             "band_beta": band_chain(int(tf.max()) + 1, n_chunks, S_RANGE)}
     for name, replaces, kern, plain, n_arrays in (
             ("band_alpha", "band_kernel.py:181",
              lambda: band_alpha(lp_b, lp_l, d_a, S_RANGE),
@@ -1815,17 +1823,13 @@ def main() -> int:
                "launches": pruned_launches[name], "max_abs_err": errs[name], "ms": ms,
                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": None, "chain_steps": chain[name],
-               "us_per_chain_step": 1e3 * ms / chain[name]}
-        note = ""
-        if name == "band_alpha":
-            rec.update(n_chunks=n_chunks, kernels_per_launch=1 + (n_chunks > 1),
-                       **alpha_sass)
-            note = (f"; {n_chunks} chunks of T (band_alpha_plan), {alpha_sass['atomics']} "
-                    f"atomics, registers {alpha_sass['registers']}")
+               "us_per_chain_step": 1e3 * ms / chain[name], "n_chunks": n_chunks,
+               "kernels_per_launch": 1 + (n_chunks > 1), **band_sass[name]}
         log(f"  {name} (B={B_TRAIN}, T={T_MAIN}, S={S_RANGE}): kernel {ms:.4f} ms, "
             f"{chain[name]} dependent steps on its chain ({rec['us_per_chain_step']:.3f} "
             f"us a step), plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
-            f"{pruned_launches[name] // 3} call per pruned step{note}")
+            f"{pruned_launches[name] // 3} call per pruned step; {n_chunks} chunks "
+            f"(band_alpha_plan), {rec['atomics']} atomics, registers {rec['registers']}")
         records.append(rec)
 
     args = attention_inputs(T_MAIN, 410, gen, b=B_TRAIN)

@@ -1,6 +1,6 @@
 """PyTorch port: the schedule of the band alpha kernel
-(``csrc/rnnt_pruned.cu``: ``band_alpha_transfer``, ``band_alpha_rows``),
-proved on the CPU.
+(``csrc/rnnt_pruned.cu``: ``band_transfer``, ``band_rows``, in the
+alpha's direction), proved on the CPU.
 
 The CUDA kernel cannot run here, so this file emulates its three phases in
 plain PyTorch, in the chunks of T that ``band_alpha_chunks`` gives:
@@ -41,10 +41,11 @@ import torch
 
 from transformer_transducer_tpu.ops.pallas.band_kernel import band_alpha_pallas
 from transformer_transducer_tpu_torch.ops.cuda.band_kernel import (
-    MAX_STARTS, _shifted, band_alpha_chain, band_alpha_chunks, band_alpha_group,
-    band_alpha_plain, band_alpha_plan)
-from transformer_transducer_tpu_torch.ops.cuda.rnnt_kernel import NEG, logaddexp
+    MAX_STARTS, band_alpha_chunks, band_alpha_group, band_alpha_plain, band_alpha_plan,
+    band_chain)
+from transformer_transducer_tpu_torch.ops.cuda.rnnt_kernel import NEG
 
+from torch_port_helpers import band_problem, band_steps, boundaries, renorm
 from torch_port_helpers import t as tt
 
 torch.set_num_threads(1)
@@ -52,124 +53,6 @@ torch.set_num_threads(1)
 TOL = dict(rtol=1e-5, atol=1e-3)
 LENGTHS = (1, 2, 37, 410)
 WIDTHS = (1, 2, 5, 33)
-
-
-def band_problem(tlen, s_range, seed=0):
-    """(lp_b, lp_l, d_alpha) as numpy for 3 sequences: log-probs, label cells
-    past a random u_len at NEG (sequence 1 has no labels: all at NEG),
-    monotone band steps in [0, S); sequence 2 also has the shifts -1 and S."""
-    r = np.random.RandomState(seed + 100 * tlen + s_range)
-    b = 3
-    lp_b = np.log(r.uniform(0.05, 1.0, (b, tlen, s_range))).astype(np.float32)
-    lp_l = np.log(r.uniform(0.05, 1.0, (b, tlen, s_range))).astype(np.float32)
-    steps = r.randint(0, s_range, (b, tlen))
-    steps[:, 0] = 0
-    rs = np.cumsum(steps, axis=1)
-    u_len = rs[:, -1] + r.randint(0, s_range, (b,))
-    u_len[1] = 0
-    uidx = rs[:, :, None] + np.arange(s_range)
-    lp_l = np.where(uidx < u_len[:, None, None], lp_l, NEG).astype(np.float32)
-    d = steps.astype(np.int32)
-    if tlen > 3:
-        d[2, 1], d[2, tlen // 2] = -1, s_range
-    return lp_b, lp_l, d
-
-
-def label_scan(c, lp_l_row):
-    """The in-row label chain as the kernel's scan over slots (S <= 32):
-    (w, v) = (lp_l of the slot before, the value), combined as (w1, v1) o
-    (w2, v2) = (w1 + w2, lae(v2, v1 + w2)) at offsets 1, 2, 4, ..."""
-    s_range = c.shape[-1]
-    w = torch.cat([lp_l_row[..., :1], lp_l_row[..., :-1]], dim=-1)
-    v, o = c, 1
-    while o < s_range:
-        vo = torch.cat([v[..., :o], v[..., :-o]], dim=-1)
-        wo = torch.cat([w[..., :o], w[..., :-o]], dim=-1)
-        on = torch.arange(s_range) >= o
-        v = torch.where(on, logaddexp(v, vo + w), v)
-        w = torch.where(on, w + wo, w)
-        o *= 2
-    return v
-
-
-def renorm(a, k_off):
-    """The kernel's renorm: the largest value of each state moves into its
-    float64 offset, unless the whole state sits at NEG."""
-    m = a.amax(dim=-1)
-    ok = m > NEG / 2
-    m = torch.where(ok, m, torch.zeros_like(m))
-    return a - m[..., None], k_off + m.double()
-
-
-def run_rows(a, lp_b, lp_l, d, r0, r1, k_off=None):
-    """Rows r0 .. r1 - 1 from the state ``k_off + a`` (B, K, S) of row r0 - 1
-    (at r0 = 0, the start: no blank edge into row 0), renormalised after
-    every 8th row; returns the rows (B, K, r1 - r0, S) in float32 and the
-    final state (a, k_off)."""
-    b, k, s_range = a.shape
-    if k_off is None:
-        k_off = torch.zeros(b, k, dtype=torch.float64)
-    rows = []
-    for i, t in enumerate(range(r0, r1)):
-        if t > 0:
-            x = (a + lp_b[:, None, t - 1]).reshape(b * k, s_range)
-            a = _shifted(x, d[:, t].repeat_interleave(k), 1).reshape(b, k, s_range)
-        if s_range <= 32:
-            a = label_scan(a, lp_l[:, None, t])
-        else:
-            cols = list(a.unbind(-1))
-            for s in range(1, s_range):
-                cols[s] = logaddexp(cols[s], cols[s - 1] + lp_l[:, None, t, s - 1])
-            a = torch.stack(cols, dim=-1)
-        rows.append((k_off[..., None] + a.double()).float())
-        if i % 8 == 7:
-            a, k_off = renorm(a, k_off)
-    return torch.stack(rows, dim=2), a, k_off
-
-
-def boundary(p, e):
-    """max(NEG, P (x) E): ``p`` (B, K, S) holds P[s][k] at [:, k, s], ``e``
-    (B, S) the state; the largest of the S terms, then their exponentials
-    summed over k in order, as the kernel's phase B."""
-    terms = p + e[:, :, None]                      # (B, k, s)
-    m = terms.amax(dim=1)
-    total = torch.zeros_like(m)
-    for k in range(terms.shape[1]):
-        total = total + torch.exp(terms[:, k] - m)
-    return torch.clamp(m + torch.log(total), min=NEG)
-
-
-def boundaries(e0, transfer, n_chunks):
-    """E_0 .. E_n from E_0 and P_1 .. P_n: with ``n_chunks``, the kernel's two
-    levels over groups of H = ``band_alpha_group(C)`` (B1: each group's
-    composite from the unit vectors; B2: its end states from E_0; B3: the
-    states inside each group); without, one boundary after another."""
-    if n_chunks is None or not transfer:
-        ends = [e0]
-        for p in transfer:
-            ends.append(boundary(p, ends[-1]))
-        return ends
-    b, s_range = e0.shape
-    h = band_alpha_group(n_chunks)
-    groups = [transfer[i:i + h] for i in range(0, len(transfer), h)]
-    unit = torch.full((s_range, s_range), NEG).fill_diagonal_(0.0)
-    composite = []                                     # B1
-    for group in groups:
-        q = unit.expand(b, s_range, s_range)           # [:, k, s]
-        for p in group:
-            q = torch.stack([boundary(p, q[:, k]) for k in range(s_range)], dim=1)
-        composite.append(q)
-    starts = [e0]                                      # B2
-    for q in composite:
-        starts.append(boundary(q, starts[-1]))
-    ends = [e0]                                        # B3
-    for g, group in enumerate(groups):
-        e = starts[g]
-        for p in group[:-1]:
-            e = boundary(p, e)
-            ends.append(e)
-        ends.append(starts[g + 1])
-    return ends
 
 
 def chunked_alpha(lp_b, lp_l, d, n_chunks):
@@ -180,8 +63,8 @@ def chunked_alpha(lp_b, lp_l, d, n_chunks):
     start[..., 0] = 0.0
     unit = torch.full((s_range, s_range), NEG).fill_diagonal_(0.0)
     # phase A
-    first = run_rows(start, lp_b, lp_l, d, *chunks[0])[0][:, 0]
-    transfer = [run_rows(unit.expand(b, s_range, s_range), lp_b, lp_l, d, r0, r1)
+    first = band_steps(start, lp_b, lp_l, d, range(*chunks[0]), start=True)[0][:, 0]
+    transfer = [band_steps(unit.expand(b, s_range, s_range), lp_b, lp_l, d, range(r0, r1))
                 for r0, r1 in chunks[1:]]
     transfer = [(k_off[..., None] + a.double()).float() for _, a, k_off in transfer]
     # phase B
@@ -190,14 +73,14 @@ def chunked_alpha(lp_b, lp_l, d, n_chunks):
     rows = [first]
     for e, (r0, r1) in zip(ends, chunks[1:]):
         a, k_off = renorm(e[:, None], torch.zeros(b, 1, dtype=torch.float64))
-        rows.append(run_rows(a, lp_b, lp_l, d, r0, r1, k_off)[0][:, 0])
+        rows.append(band_steps(a, lp_b, lp_l, d, range(r0, r1), k_off)[0][:, 0])
     return torch.cat(rows, dim=1)
 
 
 @functools.lru_cache(maxsize=None)
 def references(tlen, s_range):
     """The plain version's and the Pallas kernel's (interpret mode) alphas."""
-    lp_b, lp_l, d = band_problem(tlen, s_range)
+    lp_b, lp_l, d, _, _ = band_problem(tlen, s_range)
     plain = band_alpha_plain(tt(lp_b), tt(lp_l), tt(d)).numpy()
     pallas = np.asarray(band_alpha_pallas(jnp.asarray(lp_b), jnp.asarray(lp_l),
                                           jnp.asarray(d), s_range, True))
@@ -216,7 +99,7 @@ def assert_alpha_close(got, want, what):
 @pytest.mark.parametrize("tlen", LENGTHS)
 def test_chunked_schedule_matches_plain_and_pallas(tlen, s_range, n_chunks):
     n = {"T": tlen, "plan": band_alpha_plan(tlen, s_range)}.get(n_chunks, n_chunks)
-    lp_b, lp_l, d = band_problem(tlen, s_range)
+    lp_b, lp_l, d, _, _ = band_problem(tlen, s_range)
     got = chunked_alpha(tt(lp_b), tt(lp_l), tt(d), n).numpy()
     plain, pallas = references(tlen, s_range)
     assert got.shape == plain.shape == (3, tlen, s_range)
@@ -244,7 +127,7 @@ def test_chunks_cover_the_rows_once(tlen):
 def test_plan_bounds_and_chain(tlen, s_range):
     n = band_alpha_plan(tlen, s_range)
     assert 1 <= n <= max(1, min(tlen, MAX_STARTS // s_range))
-    chain = band_alpha_chain(tlen, n, s_range)
+    chain = band_chain(tlen, n, s_range)
     assert chain <= tlen
     if n == 1:
         assert chain == tlen

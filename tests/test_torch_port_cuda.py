@@ -24,7 +24,8 @@ gradients through the attention backward (the flash backward's shared
 sums are fp32 atomics in a varying order) within atol 1e-4 * max|ref| + 1e-5 (the floor
 for gradients that are 0 in exact arithmetic, as at T = 1) and rtol 1e-4; the
 lattice and band sweeps within rtol 1e-5 / atol 1e-3 (log-alphas reach
-thousands).
+thousands; the band sweeps against their plain versions run in float64,
+both sides clamped at NEG, with the same cells at or below NEG / 2).
 """
 
 import pytest
@@ -514,8 +515,8 @@ def _band_inputs(gen, b, tlen, s_range, bad_shifts=False):
     return lp_b, lp_l, rs, t_len, u_len, d, tf, sf
 
 
-def _assert_alpha_close(got, want, what):
-    """The band alpha's rule: within rtol 1e-5 / atol 1e-3 with both sides
+def _assert_band_close(got, want, what):
+    """The band sweeps' rule: within rtol 1e-5 / atol 1e-3 with both sides
     clamped at NEG, and the same cells at or below NEG / 2."""
     torch.testing.assert_close(got.clamp(min=NEG), want.clamp(min=NEG), rtol=1e-5,
                                atol=1e-3, msg=what)
@@ -535,27 +536,34 @@ def test_band_kernels_match_plain(gen, b, tlen, s_range):
     beta = band_beta(lp_b, lp_l, d_beta, tf, sf, s_range)
     torch.cuda.synchronize()
     assert (band_alpha.launches, band_beta.launches) == (before[0] + 1, before[1] + 1)
-    tol = dict(rtol=1e-5, atol=1e-3)
-    # the plain sweep in float64: in float32 its own rounding reaches 1.7x the
-    # tolerance at S = 128, T = 410 (log-alphas near -17600), where the
-    # kernel, with its float64 offsets, is nearer the exact values
+    # the plain sweeps in float64: in float32 their own rounding reaches 1.7x
+    # (alpha) and 0.9x (beta) the tolerance at S = 128, T = 410 (log-alphas
+    # near -17600, log-betas near -20800), where the kernels, with their
+    # float64 offsets, are nearer the exact values
     ref = band_alpha_plain(lp_b.double(), lp_l.double(), d_alpha).float()
-    _assert_alpha_close(alpha, ref, f"alpha, the plan's {band_alpha_plan(tlen, s_range)} chunks")
-    # the chunk counts forced through the launch's private argument
+    ref_b = band_beta_plain(lp_b.double(), lp_l.double(), d_beta, tf, sf).float()
+    plan = band_alpha_plan(tlen, s_range)
+    _assert_band_close(alpha, ref, f"alpha, the plan's {plan} chunks")
+    _assert_band_close(beta, ref_b, f"beta, the plan's {plan} chunks")
+    # the chunk counts forced through the launches' private argument
     for n in (1, 2, 7):
-        _assert_alpha_close(band_kernel._launch_alpha(lp_b, lp_l, d_alpha, n), ref,
-                            f"alpha, {n} chunks")
-    torch.testing.assert_close(beta, band_beta_plain(lp_b, lp_l, d_beta, tf, sf), **tol)
+        _assert_band_close(band_kernel._launch_alpha(lp_b, lp_l, d_alpha, n), ref,
+                           f"alpha, {n} chunks")
+        _assert_band_close(band_kernel._launch_beta(lp_b, lp_l, d_beta, tf, sf, n), ref_b,
+                           f"beta, {n} chunks")
 
 
 @pytest.mark.parametrize("s_range,n_chunks", [(5, None), (5, 7), (2, None), (33, 3)])
-def test_band_alpha_is_deterministic_and_graph_safe(gen, s_range, n_chunks):
-    """Two launches of the chunked alpha agree to the bit, and a CUDA graph's
-    replay gives the eager call's result (no host read, workspace from the
-    graph's pool)."""
-    lp_b, lp_l, _, _, _, d, _, _ = _band_inputs(gen, 4, 410, s_range, bad_shifts=True)
-    d_alpha = torch.nn.functional.pad(d, (1, 0))
-    run = lambda: band_kernel._launch_alpha(lp_b, lp_l, d_alpha, n_chunks)
+@pytest.mark.parametrize("sweep", ["alpha", "beta"])
+def test_band_alpha_is_deterministic_and_graph_safe(gen, sweep, s_range, n_chunks):
+    """Two launches of a chunked band sweep (the alpha, or the beta) agree
+    to the bit, and a CUDA graph's replay gives the eager call's result (no
+    host read, workspace from the graph's pool)."""
+    lp_b, lp_l, _, _, _, d, tf, sf = _band_inputs(gen, 4, 410, s_range, bad_shifts=True)
+    pad = torch.nn.functional.pad
+    run = {"alpha": lambda: band_kernel._launch_alpha(lp_b, lp_l, pad(d, (1, 0)), n_chunks),
+           "beta": lambda: band_kernel._launch_beta(lp_b, lp_l, pad(d, (0, 1)), tf, sf,
+                                                     n_chunks)}[sweep]
     first, again = run(), run()
     assert torch.equal(first, again)
     side = torch.cuda.Stream()
@@ -576,10 +584,12 @@ def test_pruned_loss_on_the_card_matches_the_cpu(gen, simple_scale, monkeypatch)
     """Loss and gradients of ``rnnt_loss_pruned`` through the three kernels
     and the lattice sweeps against the same call on the CPU (plain
     versions), with a zero-length row; the band starts are equal.  The CPU's
-    band alpha is its plain sweep run in float64: the occupancies exp(alpha +
-    beta - logZ) carry alpha's rounding into every gradient, the float32
-    sweep's own rounding moves them by up to 0.3 of the tolerance, and the
-    kernel's alpha (its chunks, its offsets) lies nearer the exact values."""
+    band sweeps are their plain sweeps run in float64: the occupancies
+    exp(alpha + beta - logZ) carry both sweeps' rounding into every gradient,
+    the float32 sweeps' own rounding moves them by up to 0.3 (alpha) and
+    1.1 (beta, at simple scale 0.25; ``tools/grad_rounding.py``) of the
+    tolerance, and the kernels (their chunks, their offsets) lie nearer the
+    exact values."""
     b, tlen, u, d, inner, v = 3, 50, 9, 16, 24, 40
     mk = lambda *s: torch.randn(*s, generator=gen, device="cuda") * 0.5
     tensors = [mk(b, tlen, d), mk(b, u + 1, d), mk(d, inner), mk(d, inner), mk(inner),
@@ -591,6 +601,8 @@ def test_pruned_loss_on_the_card_matches_the_cpu(gen, simple_scale, monkeypatch)
         if dev == "cpu":
             monkeypatch.setattr(rnnt_loss_pruned, "band_alpha", lambda lp_b, lp_l, d, s: (
                 band_alpha_plain(lp_b.double(), lp_l.double(), d).float()))
+            monkeypatch.setattr(rnnt_loss_pruned, "band_beta", lambda lp_b, lp_l, d, tf, sf, s: (
+                band_beta_plain(lp_b.double(), lp_l.double(), d, tf, sf).float()))
         leaves = [x.detach().to(dev).requires_grad_() for x in tensors]
         losses = rnnt_loss_pruned.rnnt_loss_pruned(
             leaves[0], leaves[1], leaves[2:], labels.to(dev), t_len, u_len, s_range=3,

@@ -18,6 +18,8 @@ import torch
 from transformer_transducer_tpu.models.transducer import build_transducer as jax_build
 from transformer_transducer_tpu.utils.config import Config as JaxConfig
 from transformer_transducer_tpu_torch.models.transducer import build_transducer
+from transformer_transducer_tpu_torch.ops.cuda.band_kernel import _shifted, band_alpha_group
+from transformer_transducer_tpu_torch.ops.cuda.rnnt_kernel import NEG, logaddexp
 from transformer_transducer_tpu_torch.utils.config import Config
 from transformer_transducer_tpu_torch.utils.convert import from_jax_params
 
@@ -117,3 +119,151 @@ def tc_product(a: torch.Tensor, b: torch.Tensor, terms: str,
             # enters the fp32 accumulator once
             c = c + (x[..., k:k + 8].double() @ y[..., k:k + 8, :].double()).float()
     return c
+
+
+# ---------------------------------------------------------------------------
+# The band kernels' chunked schedule (tests/test_torch_port_band_*_chunks.py)
+# ---------------------------------------------------------------------------
+
+def band_problem(tlen, s_range, seed=0, b=3):
+    """(lp_b, lp_l, d_alpha, rs, u_len) as numpy for ``b`` sequences:
+    log-probs, label cells past a random u_len at NEG (sequence 1 has no
+    labels: all at NEG), monotone band steps in [0, S) and the band starts
+    rs they climb; sequence 2 also has the shifts -1 and S."""
+    r = np.random.RandomState(seed + 100 * tlen + s_range)
+    lp_b = np.log(r.uniform(0.05, 1.0, (b, tlen, s_range))).astype(np.float32)
+    lp_l = np.log(r.uniform(0.05, 1.0, (b, tlen, s_range))).astype(np.float32)
+    steps = r.randint(0, s_range, (b, tlen))
+    steps[:, 0] = 0
+    rs = np.cumsum(steps, axis=1)
+    u_len = rs[:, -1] + r.randint(0, s_range, (b,))
+    u_len[1] = 0
+    uidx = rs[:, :, None] + np.arange(s_range)
+    lp_l = np.where(uidx < u_len[:, None, None], lp_l, NEG).astype(np.float32)
+    d = steps.astype(np.int32)
+    if tlen > 3:
+        d[2, 1], d[2, tlen // 2] = -1, s_range
+    return lp_b, lp_l, d, rs, u_len
+
+
+def label_scan(c, lp_l_row, reverse=False):
+    """The in-row label chain as the kernels' scan over slots (S <= 32):
+    (w, v) = (lp_l of the edge into the slot, the value), each element
+    combined with the one o slots back along the chain as (w, v) <- (w +
+    w_o, lae(v, v_o + w)) at o = 1, 2, 4, ...  The alpha's chain climbs the
+    slots (w = lp_l of the slot below); ``reverse``, the beta's, descends
+    them (w = the slot's own lp_l): the alpha's on the flipped slots."""
+    if reverse:
+        flip = lambda x: x.flip(-1)
+        l = flip(lp_l_row)
+        return flip(label_scan(flip(c), torch.cat([l[..., 1:], l[..., :1]], dim=-1)))
+    s_range = c.shape[-1]
+    w = torch.cat([lp_l_row[..., :1], lp_l_row[..., :-1]], dim=-1)
+    v, o = c, 1
+    while o < s_range:
+        vo = torch.cat([v[..., :o], v[..., :-o]], dim=-1)
+        wo = torch.cat([w[..., :o], w[..., :-o]], dim=-1)
+        on = torch.arange(s_range) >= o
+        v = torch.where(on, logaddexp(v, vo + w), v)
+        w = torch.where(on, w + wo, w)
+        o *= 2
+    return v
+
+
+def label_chain(a, lp_l_row, reverse=False):
+    """The row's label chain: the scan at S <= 32, slot by slot beyond."""
+    s_range = a.shape[-1]
+    if s_range <= 32:
+        return label_scan(a, lp_l_row, reverse)
+    cols = list(a.unbind(-1))
+    if reverse:
+        for s in range(s_range - 2, -1, -1):
+            cols[s] = logaddexp(cols[s], lp_l_row[..., s] + cols[s + 1])
+    else:
+        for s in range(1, s_range):
+            cols[s] = logaddexp(cols[s], cols[s - 1] + lp_l_row[..., s - 1])
+    return torch.stack(cols, dim=-1)
+
+
+def renorm(a, k_off):
+    """The kernels' renorm: the largest value of each state moves into its
+    float64 offset, unless the whole state sits at NEG."""
+    m = a.amax(dim=-1)
+    ok = m > NEG / 2
+    m = torch.where(ok, m, torch.zeros_like(m))
+    return a - m[..., None], k_off + m.double()
+
+
+def band_steps(a, lp_b, lp_l, d, rows, k_off=None, start=False, beta=False):
+    """The kernels' steps over ``rows`` (row indices, in the sweep's order)
+    from the state ``k_off + a`` (B, K, S) of the step before, renormalised
+    after every 8th step.  The alpha's blank edge brings slot s + d[t] of
+    the row before plus its lp_b, the beta's (``beta``) slot s - d[t] of
+    the row after, lp_b[t] added where it lands (NEG for a shift outside
+    [0, S)); with ``start`` the first step is the sweep's first, with no
+    edge in (the alpha keeps its start; the beta adds lp_b: the terminal
+    injection).  Returns the rows (B, K, len(rows), S) in float32 and the
+    final state (a, k_off)."""
+    b, k, s_range = a.shape
+    if k_off is None:
+        k_off = torch.zeros(b, k, dtype=torch.float64)
+    out = []
+    for i, t in enumerate(rows):
+        first = start and i == 0
+        if not first:
+            x = a if beta else a + lp_b[:, None, t - 1]
+            a = _shifted(x.reshape(b * k, s_range), d[:, t].repeat_interleave(k),
+                         -1 if beta else 1).reshape(b, k, s_range)
+        if beta:
+            a = a + lp_b[:, None, t]
+        a = label_chain(a, lp_l[:, None, t], reverse=beta)
+        out.append((k_off[..., None] + a.double()).float())
+        if i % 8 == 7:
+            a, k_off = renorm(a, k_off)
+    rows_out = torch.stack(out, dim=2) if out else a.new_zeros(b, k, 0, s_range)
+    return rows_out, a, k_off
+
+
+def boundary(p, e):
+    """max(NEG, P (x) E): ``p`` (B, K, S) holds P[s][k] at [:, k, s], ``e``
+    (B, S) the state; the largest of the S terms, then their exponentials
+    summed over k in order, as the kernels' phase B."""
+    terms = p + e[:, :, None]                      # (B, k, s)
+    m = terms.amax(dim=1)
+    total = torch.zeros_like(m)
+    for k in range(terms.shape[1]):
+        total = total + torch.exp(terms[:, k] - m)
+    return torch.clamp(m + torch.log(total), min=NEG)
+
+
+def boundaries(e0, transfer, n_chunks):
+    """E_0 .. E_n from E_0 and P_1 .. P_n: with ``n_chunks``, the kernels'
+    two levels over groups of H = ``band_alpha_group(C)`` (B1: each group's
+    composite from the unit vectors; B2: its end states from E_0; B3: the
+    states inside each group); without, one boundary after another."""
+    if n_chunks is None or not transfer:
+        ends = [e0]
+        for p in transfer:
+            ends.append(boundary(p, ends[-1]))
+        return ends
+    b, s_range = e0.shape
+    h = band_alpha_group(n_chunks)
+    groups = [transfer[i:i + h] for i in range(0, len(transfer), h)]
+    unit = torch.full((s_range, s_range), NEG).fill_diagonal_(0.0)
+    composite = []                                     # B1
+    for group in groups:
+        q = unit.expand(b, s_range, s_range)           # [:, k, s]
+        for p in group:
+            q = torch.stack([boundary(p, q[:, k]) for k in range(s_range)], dim=1)
+        composite.append(q)
+    starts = [e0]                                      # B2
+    for q in composite:
+        starts.append(boundary(q, starts[-1]))
+    ends = [e0]                                        # B3
+    for g, group in enumerate(groups):
+        e = starts[g]
+        for p in group[:-1]:
+            e = boundary(p, e)
+            ends.append(e)
+        ends.append(starts[g + 1])
+    return ends

@@ -8,7 +8,7 @@
 // The wrappers and plain PyTorch versions are ops/cuda/band_kernel.py.  (The
 // pruned loss's third kernel, the additive logZ, is csrc/additive_logz.cu.)
 // Plain C interface (loaded with ctypes); each kernel runs on the caller's
-// stream, allocates nothing (the alpha sweep's workspace comes from the
+// stream, allocates nothing (the sweeps' workspace comes from the
 // caller) and returns cudaGetLastError() after its launches.
 //
 // ---- ttx_band_alpha / ttx_band_beta: the band DP over T
@@ -39,17 +39,27 @@
 // chain, about 0.6 us at S = 5 with its inputs in shared memory, so a sweep
 // row by row takes T - 1 = 409 of them.
 //
-// The alpha sweep, in chunks of T.  The recurrence is linear in the log
-// semiring: row t is M_t (x) row t - 1, M_t the blank edge (the shift by
-// d[t], plus lp_b[t-1]) followed by the row's label chain.  So T is cut into
-// C chunks of rows [r0, r1) (band_kernel.py::band_alpha_plan picks C,
-// ::band_alpha_chunks the rows: T = C q + rem, the first rem chunks q + 1
-// long), and:
+// Both sweeps run in chunks of their steps, in one code with a direction
+// (BETA).  The alpha steps up through rows 0 .. T - 1.  The beta steps down
+// through rows tf .. 0 of each sequence, its step u being row tf - u (Steps
+// below): below its terminal row it is linear in the log semiring, and row
+// tf is a reset, the injection at slot sf, which does not read row tf + 1.
+// So step u is M_u (x) the state of step u - 1, M_u the blank edge (the
+// alpha's: the shift by d[t], plus lp_b[t-1]; the beta's: the shift by
+// -d[t], plus lp_b[t]) followed by the row's label chain (up the slots for
+// the alpha, down for the beta).  The n steps of a sequence (T for the
+// alpha, tf + 1 for the beta) are cut into C chunks of steps [r0, r1)
+// (band_kernel.py::band_alpha_plan picks C from T for both,
+// ::band_alpha_chunks the rows: n = C q + rem, the first rem chunks q + 1
+// long; where a beta's tf + 1 < C the last chunks are empty, their
+// transfer matrices the identity), and:
 //   * phase A, parallel over (sequence, chunk, start slot k): chunk c >= 1
-//     runs its rows from e_k (0 at slot k, NEG elsewhere) as the state of
-//     row r0 - 1, and its end state is column k of its transfer matrix P_c
-//     (S x S, to work[b][c][k][s]); chunk 0 runs from row 0's start, writes
-//     its alpha rows and leaves its end state E_0;
+//     runs its steps from e_k (0 at slot k, NEG elsewhere) as the state of
+//     step r0 - 1, and its end state is column k of its transfer matrix P_c
+//     (S x S, to work[b][c][k][s]); chunk 0 runs from the known start (the
+//     alpha's row 0 from e_0; the beta's row tf, the injection, from e_sf
+//     plus lp_b[tf]), writes its rows and leaves its end state E_0; the
+//     beta's rows past tf are written NEG, as the plain sweep leaves them;
 //   * phase B, over the chunk boundaries: E_c = max(NEG, P_c (x) E_{c-1}),
 //     an S-term log-sum-exp a slot; the clamp keeps a slot no path reaches
 //     at NEG, as the row-by-row sweep leaves it.  At S <= 32 in two levels
@@ -57,16 +67,16 @@
 //     vectors, in parallel; the groups' end states one after another; the
 //     states inside each group, in parallel): about 2 H + (C - 2) / H steps,
 //     H near sqrt((C - 2) / 2); one boundary after another beyond;
-//   * phase C, parallel over chunks: chunk c >= 1 re-runs its rows from
-//     E_{c-1} and writes its alpha rows.
-// The chain falls from T rows to 2 ceil(T / C) rows plus phase B's steps
-// (band_kernel.py::band_alpha_chain); phase A's work grows about S + 1 fold
+//   * phase C, parallel over chunks: chunk c >= 1 re-runs its steps from
+//     E_{c-1} and writes its rows.
+// The chain falls from n rows to 2 ceil(n / C) rows plus phase B's steps
+// (band_kernel.py::band_chain); phase A's work grows about S + 1 fold
 // (S start vectors a chunk).
-// Two launches: band_alpha_transfer (phase A; at C = 1 the whole sweep, one
-// warp a sequence) and band_alpha_rows (phases B and C, a block a group of
-// chunks, each block repeating phase B up to its last chunk, so every block
-// reads the same E).  The second is a programmatic dependent launch: its
-// blocks start while the first runs and stage their rows' inputs, then wait
+// Two launches: band_transfer (phase A; at C = 1 the whole sweep, one warp
+// a sequence) and band_rows (phases B and C, a block a group of chunks,
+// each block repeating phase B up to its last chunk, so every block reads
+// the same E).  The second is a programmatic dependent launch: its blocks
+// start while the first runs and stage their rows' inputs, then wait
 // (griddepcontrol.wait) before they read P and E_0.
 //
 // A start vector spans W lanes, W the power of two >= S at S <= 32 (32 / W
@@ -79,24 +89,14 @@
 // logarithms run on the special function units (lae_sfu).  A segment holds
 // its state as a float64 offset K plus float32 values near 0: every 8th row
 // its largest value moves into K, so a row's sums round at the size of the
-// row's own log-probs, not at that of the log-alpha (which reaches -17600
-// in the card test's inputs at S = 128, T = 410, where the row-by-row
-// float32 sweep drifts 1.7x the tolerance from float64).  The log-sums are
-// reassociated, so alpha matches the plain version to rounding, not bit for
-// bit; no atomics, the order of every sum is fixed, so two launches agree
-// to the bit.  work holds B C S S floats.
-//
-// The beta sweep: one warp per sequence, lane s holding band slots s,
-// s + 32, ... (NS = ceil(S / 32) of them, a template parameter), so the
-// wavefront lives in registers and moves by warp shuffles (no shared memory,
-// no barrier).  The blank edge gathers slot s - d from lane (s - d) % 32: one
-// shuffle of each of the NS registers, the right one kept.  The in-row label
-// chain steps from slot s + 1 to s by one shuffle down (by lane 0's register
-// j + 1 into lane 31's register j where it crosses a 32-slot block).  Each
-// lane loads the next row's lp_b, lp_l and d before it works on the current
-// row, so the loads overlap the chain.  The terminal (tf, sf) is injected
-// inside the sweep, so rows past a sequence's end stay near NEG.  No 128-lane
-// padding or rolls: those fit the TPU's vector unit and VMEM.
+// row's own log-probs, not at that of the log-alpha or log-beta (which
+// reach -17600 and -20800 in the card test's inputs at S = 128, T = 410,
+// where the row-by-row float32 sweeps drift 1.7x and 0.9x the tolerance
+// from float64).  The log-sums are reassociated, so a sweep matches its
+// plain version to rounding, not bit for bit; no atomics, the order of
+// every sum is fixed, so two launches agree to the bit.  work holds B C S S
+// floats.  No 128-lane padding or rolls: those fit the TPU's vector unit
+// and VMEM.
 
 #include <cuda_runtime.h>
 
@@ -110,41 +110,23 @@ constexpr unsigned FULL = 0xffffffffu;
 
 constexpr int BAND_MAX_S = 128;
 
-__device__ __forceinline__ float lae(float a, float b) {
-    return fmaxf(a, b) + log1pf(expf(-fabsf(a - b)));
-}
-
-// lae for the alpha sweep, its exponential and logarithm each one special
-// function unit op: absolute error about 3e-7, under an ulp of the values
-// the sweep adds it to (kept near 0 by its offsets, see renorm)
+// lae with its exponential and logarithm each one special function unit op:
+// absolute error about 3e-7, under an ulp of the values the sweeps add it to
+// (kept near 0 by their offsets, see renorm)
 __device__ __forceinline__ float lae_sfu(float a, float b) {
     return fmaxf(a, b) + __logf(1.f + __expf(-fabsf(a - b)));
 }
 
-// The value of slot src across the warp's registers x (slot s is x[s / 32]
-// of lane s % 32): one shuffle of each register, the right one kept; 0
-// where src lies outside [0, 32 NS), where the callers do not use it.
-template <int NS>
-__device__ __forceinline__ float gather(const float (&x)[NS], int src) {
-    float got = 0.f;
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-        const float v = __shfl_sync(FULL, x[j], src & 31);
-        if ((src >> 5) == j) got = v;
-    }
-    return got;
-}
+// ---- the sweeps in chunks (see the header)
 
-// ---- the alpha sweep in chunks of T (see the header)
-
-constexpr int ALPHA_K_WARPS = 16;     // start slots a block of the transfer launch
-constexpr int ALPHA_C_WARPS = 16;     // warps a block of the rows launch
+constexpr int K_WARPS = 16;           // start slots a block of the transfer launch
+constexpr int C_WARPS = 16;           // warps a block of the rows launch
 constexpr int SMEM_FLOATS = 48 * 1024 / 4;
 
 // Boundaries a group of phase B's two levels: the H that minimises its chain
 // of 2 H + ceil(n / H) steps over n = C - 2 boundaries
 // (band_kernel.py::band_alpha_group).
-__host__ __device__ inline int alpha_group(int C) {
+__host__ __device__ inline int boundary_group(int C) {
     const int n = C - 2;
     int h = 1;
     while (n > 0 && 2 * (h + 1) + (n + h) / (h + 1) < 2 * h + (n + h - 1) / h) ++h;
@@ -153,7 +135,7 @@ __host__ __device__ inline int alpha_group(int C) {
 
 // Floats of phase B's scratch in shared memory: the two levels' Q and F at
 // one slot a lane, two vectors beyond.
-__host__ __device__ inline int alpha_phase_b_floats(int C, int S, int H) {
+__host__ __device__ inline int phase_b_floats(int C, int S, int H) {
     if (S > 32) return 2 * S;
     const int G = (C - 2 + H - 1) / H;
     return G * S * S + (G + 1) * S;
@@ -166,11 +148,30 @@ __host__ __device__ inline int seg_width(int S) {
     return w;
 }
 
-// The first row of chunk c: T = C q + rem rows, the first rem chunks q + 1
+// The first step of chunk c: n = C q + rem steps, the first rem chunks q + 1
 // long, the others q (band_kernel.py::band_alpha_chunks).
-__device__ __forceinline__ int chunk_row(int c, int T, int C) {
-    const int q = T / C;
-    return c * q + min(c, T - q * C);
+__device__ __forceinline__ int chunk_row(int c, int n, int C) {
+    const int q = n / C;
+    return c * q + min(c, n - q * C);
+}
+
+// The steps of a sweep in one sequence: n of them, step u on row(u).  The
+// alpha's are rows 0 .. T - 1; the beta's rows tf .. 0, none where tf lies
+// outside [0, T) (the plain sweep then injects nothing: every row NEG).
+template <bool BETA>
+struct Steps {
+    int n, top;
+    __device__ int row(int u) const { return BETA ? top - u : u; }
+};
+
+template <bool BETA>
+__device__ __forceinline__ Steps<BETA> steps_of(const int* tf, int b, int T) {
+    if constexpr (BETA) {
+        const int f = tf[b];
+        return {f >= 0 && f < T ? f + 1 : 0, f};
+    } else {
+        return {T, 0};
+    }
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
@@ -178,8 +179,9 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(d), "l"(src));
 }
 
-// The staged inputs of nc chunks, R rows each: row i of chunk slot cl holds
-// lp_l and d of row t = chunk_row(c) + i0 + i and lp_b of row t - 1.
+// The staged inputs of nc chunks, R steps each: step i of chunk slot cl holds
+// lp_l and d of the step's row t and lp_b of the row its blank edge leaves
+// (the alpha's t - 1, the beta's t).
 struct Stage {
     float* l;
     float* b;
@@ -191,24 +193,26 @@ __device__ __forceinline__ Stage carve(float* smem, int nc, int R, int S) {
     return {smem, smem + nc * R * S, reinterpret_cast<int*>(smem + 2 * nc * R * S), R};
 }
 
-// Copy rows i0 .. i0 + R - 1 of chunks c_lo .. c_lo + nc - 1 into the stage
-// (by the whole block; rows past a chunk's end are not copied) and, with
+// Copy steps i0 .. i0 + R - 1 of chunks c_lo .. c_lo + nc - 1 into the stage
+// (by the whole block; steps past a chunk's end are not copied) and, with
 // wait, wait for the copies and the block.
+template <bool BETA>
 __device__ void stage_rows(const Stage& st, const float* pb, const float* pl,
-                           const int* pd, int c_lo, int nc, int i0, int T, int C,
+                           const int* pd, int c_lo, int nc, int i0, Steps<BETA> sw, int C,
                            int S, bool wait = true) {
     const int R = st.R;
     for (int e = threadIdx.x; e < nc * R * S; e += blockDim.x) {
         const int row = e / S, s = e - row * S, cl = row / R;
-        const int c = c_lo + cl, t = chunk_row(c, T, C) + i0 + row - cl * R;
-        if (t < chunk_row(c + 1, T, C)) {
+        const int c = c_lo + cl, u = chunk_row(c, sw.n, C) + i0 + row - cl * R;
+        if (u < chunk_row(c + 1, sw.n, C)) {
+            const int t = sw.row(u), tb = BETA ? t : t - 1;
             cp_async4(&st.l[e], pl + (long long)t * S + s);
-            if (t > 0) cp_async4(&st.b[e], pb + (long long)(t - 1) * S + s);
+            if (tb >= 0) cp_async4(&st.b[e], pb + (long long)tb * S + s);
         }
     }
     for (int e = threadIdx.x; e < nc * R; e += blockDim.x) {
-        const int cl = e / R, c = c_lo + cl, t = chunk_row(c, T, C) + i0 + e - cl * R;
-        if (t < chunk_row(c + 1, T, C)) cp_async4(&st.d[e], pd + t);
+        const int cl = e / R, c = c_lo + cl, u = chunk_row(c, sw.n, C) + i0 + e - cl * R;
+        if (u < chunk_row(c + 1, sw.n, C)) cp_async4(&st.d[e], pd + sw.row(u));
     }
     if (wait) {
         asm volatile("cp.async.wait_all;\n" ::: "memory");
@@ -230,50 +234,47 @@ __device__ __forceinline__ float gather(const float (&x)[NS], int src, int W) {
     return got;
 }
 
-// Row t of a segment whose state K + a[] holds row t - 1 (at t = 0, the
-// start: no blank edge into row 0), from row il of chunk slot cl of the
-// stage.  Every lane of the warp takes every step (the shuffles); a segment
-// that is not on keeps its state.  Writes the row, K + a, to out where given.
-template <int NS>
-__device__ __forceinline__ void row_step(float (&a)[NS], double K, const Stage& st, int cl,
-                                         int il, int t, bool on, int S, int W, int sub,
-                                         float* out) {
-    const int idx = cl * st.R + il;
-    const int dt = st.d[idx];
-    const float* lb = st.b + idx * S;
-    const float* ll = st.l + idx * S;
-    float x[NS], c[NS], l[NS];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {        // (slots past S read slot S - 1, unused)
-        const int s = sub + 32 * j, sc = min(s, S - 1);
-        x[j] = s < S ? a[j] + lb[sc] : NEG;
-        l[j] = s < S ? ll[sc] : NEG;
-    }
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {        // blank edges out of row t - 1
-        const int src = sub + 32 * j + dt;
-        const float got = gather(x, src, W);
-        c[j] = t == 0 ? a[j] : (dt >= 0 && dt < S && src < S) ? got : NEG;
-    }
+// A row's label chain in place, l[] holding its lp_l: the alpha's up the
+// slots, c[s] = lae(c[s], c[s-1] + lp_l[s-1]); the beta's down, c[s] =
+// lae(c[s], lp_l[s] + c[s+1]).
+template <int NS, bool BETA>
+__device__ __forceinline__ void label_chain(float (&c)[NS], const float (&l)[NS], int S, int W,
+                                            int sub) {
     if (NS == 1) {
-        // the in-row label chain as a scan over the segment's slots: (w, v)
-        // = (lp_l of the slot before, the slot's value), combined as
-        // (w1, v1) o (w2, v2) = (w1 + w2, lae_sfu(v2, v1 + w2)); ceil(log2 S) steps
-        float w = __shfl_up_sync(FULL, l[0], 1, W), v = c[0];
+        // a scan over the segment's slots: (w, v) = (lp_l of the edge into
+        // the slot, the slot's value), each element combined with the one o
+        // slots before it along the chain, (w, v) <- (w + w_o, lae_sfu(v,
+        // v_o + w)); ceil(log2 S) steps
+        const auto back = [&](float x, int o) {
+            return BETA ? __shfl_down_sync(FULL, x, o, W) : __shfl_up_sync(FULL, x, o, W);
+        };
+        float w = BETA ? l[0] : back(l[0], 1), v = c[0];
         for (int o = 1; o < S; o <<= 1) {
-            const float wo = __shfl_up_sync(FULL, w, o, W);
-            const float vo = __shfl_up_sync(FULL, v, o, W);
-            if (sub >= o) {
+            const float wo = back(w, o);
+            const float vo = back(v, o);
+            if (BETA ? sub + o < S : sub >= o) {
                 v = lae_sfu(v, vo + w);
                 w += wo;
             }
         }
         c[0] = v;
+    } else if (BETA) {
+#pragma unroll
+        for (int j = NS - 1; j >= 0; --j) {   // the chain slot by slot, slots ..32j
+            if (32 * j + 32 < S) {            // slot 32j + 31 from slot 32j + 32
+                const float cand = l[j] + __shfl_sync(FULL, c[min(j + 1, NS - 1)], 0);
+                if (sub == 31) c[j] = lae_sfu(c[j], cand);
+            }
+            for (int k = min(S, 32 * j + 32) - 2; k >= 32 * j; --k) {
+                const float cand = l[j] + __shfl_down_sync(FULL, c[j], 1);
+                if (sub + 32 * j == k) c[j] = lae_sfu(c[j], cand);
+            }
+        }
     } else {
 #pragma unroll
-        for (int j = 0; j < NS; ++j) {    // the chain slot by slot, slots 32j..
+        for (int j = 0; j < NS; ++j) {        // the chain slot by slot, slots 32j..
             const int k_end = min(S, 32 * j + 32);
-            if (j > 0 && 32 * j < S) {    // slot 32j from slot 32j - 1
+            if (j > 0 && 32 * j < S) {        // slot 32j from slot 32j - 1
                 const float cand = __shfl_sync(FULL, c[j - 1] + l[j - 1], 31);
                 if (sub == 0) c[j] = lae_sfu(c[j], cand);
             }
@@ -283,6 +284,40 @@ __device__ __forceinline__ void row_step(float (&a)[NS], double K, const Stage& 
             }
         }
     }
+}
+
+// A step of a segment whose state K + a[] holds the step before, on row t,
+// from row il of chunk slot cl of the stage.  The alpha's blank edge brings
+// slot s + d of the row before with its lp_b, the beta's slot s - d of the
+// row after, lp_b of slot s added where it lands; at the first step (first)
+// no edge comes in: the alpha keeps its start, the beta adds lp_b to its
+// start e_sf (the injection).  Then the row's label chain.  Every lane of
+// the warp takes every step (the shuffles); a segment that is not on keeps
+// its state.  Writes the row, K + a, to out where given.
+template <int NS, bool BETA>
+__device__ __forceinline__ void row_step(float (&a)[NS], double K, const Stage& st, int cl,
+                                         int il, bool first, int t, bool on, int S, int W,
+                                         int sub, float* out) {
+    const int idx = cl * st.R + il;
+    const int dt = st.d[idx];
+    const float* lb = st.b + idx * S;
+    const float* ll = st.l + idx * S;
+    float x[NS], c[NS], l[NS];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {        // (slots past S read slot S - 1, unused)
+        const int s = sub + 32 * j, sc = min(s, S - 1);
+        x[j] = s < S ? (BETA ? a[j] : a[j] + lb[sc]) : NEG;
+        l[j] = s < S ? ll[sc] : NEG;
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {        // blank edges
+        const int s = sub + 32 * j, src = BETA ? s - dt : s + dt;
+        const float got = gather(x, src, W);
+        const bool ok = dt >= 0 && dt < S && (BETA ? src >= 0 : src < S);
+        c[j] = first ? a[j] : ok ? got : NEG;
+        if (BETA) c[j] = s < S ? c[j] + lb[min(s, S - 1)] : NEG;
+    }
+    label_chain<NS, BETA>(c, l, S, W, sub);
     if (on) {
 #pragma unroll
         for (int j = 0; j < NS; ++j) {
@@ -314,16 +349,15 @@ constexpr int RENORM_ROWS = 8;        // rows between two renorms
 
 // Phase A: grid (B, chunk groups of P, start-slot groups), a warp per start
 // slot k, its P segments on P consecutive chunks.  Chunk c >= 1 runs from e_k
-// as the state of the row before it and leaves its end state as column k of
-// P_c in work[b][c][k][.]; chunk 0 runs from row 0's start (segment k = 0),
-// writes its alpha rows and leaves its end state E_0 in work[b][0][0][.].
-template <int NS>
-__global__ void band_alpha_transfer(const float* __restrict__ lpb,
-                                    const float* __restrict__ lpl,
-                                    const int* __restrict__ d,
-                                    float* __restrict__ alpha,
-                                    float* __restrict__ work, int T, int S, int C,
-                                    int R) {
+// as the state of the step before it and leaves its end state as column k
+// of P_c in work[b][c][k][.]; chunk 0 runs from the known start (segment
+// k = 0), writes its rows and leaves its end state E_0 in work[b][0][0][.].
+// The beta's blocks also write NEG to their sequence's rows past tf.
+template <int NS, bool BETA>
+__global__ void band_transfer(const float* __restrict__ lpb, const float* __restrict__ lpl,
+                              const int* __restrict__ d, const int* __restrict__ tf,
+                              const int* __restrict__ sf, float* __restrict__ out,
+                              float* __restrict__ work, int T, int S, int C, int R) {
     extern __shared__ float smem[];
     asm volatile("griddepcontrol.launch_dependents;");
     const int W = seg_width(S), P = 32 / W;
@@ -333,21 +367,31 @@ __global__ void band_alpha_transfer(const float* __restrict__ lpb,
     const int c = c_lo + seg, k = blockIdx.z * (blockDim.x >> 5) + warp;
     const bool live = seg < nc && k < S && (c > 0 || k == 0);
     const long long base = (long long)b * T * S;
+    const Steps<BETA> sw = steps_of<BETA>(tf, b, T);
     const Stage st = carve(smem, min(P, C), R, S);
+    if (BETA) {
+        const long long nb = (long long)gridDim.y * gridDim.z * blockDim.x;
+        for (long long e = ((long long)blockIdx.y * gridDim.z + blockIdx.z) * blockDim.x +
+                           threadIdx.x;
+             e < (long long)(T - sw.n) * S; e += nb)
+            out[base + (long long)sw.n * S + e] = NEG;
+    }
 
+    const int k0 = c > 0 ? k : BETA ? sf[b] : 0;        // the start's slot
     float a[NS];
 #pragma unroll
-    for (int j = 0; j < NS; ++j) a[j] = (sub + 32 * j == k) ? 0.f : NEG;
-    const int r0 = live ? chunk_row(c, T, C) : 0;
-    const int n = live ? chunk_row(c + 1, T, C) - r0 : 0;
-    const int L = (T + C - 1) / C, cl = min(seg, nc - 1);
-    float* out = (live && c == 0) ? alpha + base : nullptr;
+    for (int j = 0; j < NS; ++j) a[j] = (sub + 32 * j == k0) ? 0.f : NEG;
+    const int r0 = live ? chunk_row(c, sw.n, C) : 0;
+    const int n = live ? chunk_row(c + 1, sw.n, C) - r0 : 0;
+    const int L = (sw.n + C - 1) / C, cl = min(seg, nc - 1);
+    float* o = (live && c == 0) ? out + base : nullptr;
     double K = 0.0;
     for (int i0 = 0; i0 < L; i0 += R) {
         if (i0 > 0) __syncthreads();      // the last tile is read
-        stage_rows(st, lpb + base, lpl + base, d + (long long)b * T, c_lo, nc, i0, T, C, S);
+        stage_rows(st, lpb + base, lpl + base, d + (long long)b * T, c_lo, nc, i0, sw, C, S);
         for (int i = i0; i < min(L, i0 + R); ++i) {
-            row_step(a, K, st, cl, i - i0, r0 + i, i < n, S, W, sub, out);
+            row_step<NS, BETA>(a, K, st, cl, i - i0, r0 + i == 0, sw.row(r0 + i), i < n, S,
+                               W, sub, o);
             if (i % RENORM_ROWS == RENORM_ROWS - 1) renorm(a, K, S, W, sub);
         }
     }
@@ -445,14 +489,13 @@ __device__ void boundaries_two_level(float* ends, float* q, float* f, const floa
 // max(NEG, P_c (x) E_{c-1}), up to its last chunk (every block of a sequence
 // takes the same steps, so all read the same E): in two levels over groups
 // of H at one slot a lane, boundary by boundary by warp 0 beyond.  Then each
-// segment re-runs its chunk from E_{c-1} and writes the alpha rows.  P_c is
+// segment re-runs its chunk from E_{c-1} and writes its rows.  P_c is
 // staged in shared memory when it fits (p_staged), else read from work.
-template <int NS>
-__global__ void band_alpha_rows(const float* __restrict__ lpb,
-                                const float* __restrict__ lpl,
-                                const int* __restrict__ d, float* __restrict__ alpha,
-                                const float* __restrict__ work, int T, int S, int C,
-                                int R, int H, int p_staged) {
+template <int NS, bool BETA>
+__global__ void band_rows(const float* __restrict__ lpb, const float* __restrict__ lpl,
+                          const int* __restrict__ d, const int* __restrict__ tf,
+                          float* __restrict__ out, const float* __restrict__ work, int T,
+                          int S, int C, int R, int H, int p_staged) {
     extern __shared__ float smem[];
     const int W = seg_width(S), P = 32 / W;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -461,14 +504,15 @@ __global__ void band_alpha_rows(const float* __restrict__ lpb,
     const int b = blockIdx.x, c_lo = 1 + blockIdx.y * cb, nc = min(cb, C - c_lo);
     const int c_last = c_lo + nc - 1;
     const long long base = (long long)b * T * S;
+    const Steps<BETA> sw = steps_of<BETA>(tf, b, T);
     const float* wp = work + (long long)b * C * S * S;     // [c][k][s]
     const Stage st = carve(smem, cb, R, S);
     float* ends = smem + cb * R * (2 * S + 1);             // E_{c-1} of chunk slot c - c_lo
     float* buf = ends + cb * S;                            // phase B's scratch
-    float* pm = buf + alpha_phase_b_floats(C, S, H);       // P_1 .. P_{c_last - 1}
+    float* pm = buf + phase_b_floats(C, S, H);       // P_1 .. P_{c_last - 1}
     // the rows' inputs first, while the transfer launch may still run; then
     // wait for its P and E_0
-    stage_rows(st, lpb + base, lpl + base, d + (long long)b * T, c_lo, nc, 0, T, C, S, false);
+    stage_rows(st, lpb + base, lpl + base, d + (long long)b * T, c_lo, nc, 0, sw, C, S, false);
     asm volatile("griddepcontrol.wait;" ::: "memory");
     if (p_staged)
         for (int e = threadIdx.x; e < (c_last - 1) * S * S; e += blockDim.x)
@@ -531,95 +575,19 @@ __global__ void band_alpha_rows(const float* __restrict__ lpb,
     }
     double K = 0.0;
     renorm(a, K, S, W, sub);
-    const int r0 = live ? chunk_row(c, T, C) : 0;
-    const int n = live ? chunk_row(c + 1, T, C) - r0 : 0;
-    const int L = (T + C - 1) / C;
+    const int r0 = live ? chunk_row(c, sw.n, C) : 0;
+    const int n = live ? chunk_row(c + 1, sw.n, C) - r0 : 0;
+    const int L = (sw.n + C - 1) / C;
     for (int i0 = 0; i0 < L; i0 += R) {
         if (i0 > 0) {
             __syncthreads();
-            stage_rows(st, lpb + base, lpl + base, d + (long long)b * T, c_lo, nc, i0, T, C, S);
+            stage_rows(st, lpb + base, lpl + base, d + (long long)b * T, c_lo, nc, i0, sw, C, S);
         }
         for (int i = i0; i < min(L, i0 + R); ++i) {
-            row_step(a, K, st, cl, i - i0, r0 + i, i < n, S, W, sub, alpha + base);
+            row_step<NS, BETA>(a, K, st, cl, i - i0, r0 + i == 0, sw.row(r0 + i), i < n, S,
+                               W, sub, out + base);
             if (i % RENORM_ROWS == RENORM_ROWS - 1) renorm(a, K, S, W, sub);
         }
-    }
-}
-
-template <int NS>
-__global__ void band_beta_kernel(const float* __restrict__ lpb,
-                                 const float* __restrict__ lpl,
-                                 const int* __restrict__ d,
-                                 const int* __restrict__ tf,
-                                 const int* __restrict__ sf,
-                                 float* __restrict__ beta, int T, int S) {
-    const int lane = threadIdx.x;
-    const long long base = (long long)blockIdx.x * T * S;
-    const float* pb = lpb + base;
-    const float* pl = lpl + base;
-    const int* pd = d + (long long)blockIdx.x * T;
-    float* po = beta + base;
-    const int t_final = tf[blockIdx.x];
-    const int s_final = sf[blockIdx.x];
-
-    // register j holds slot lane + 32 j
-    float nxt[NS], b_cur[NS], l_cur[NS];  // beta[t+1][s], lp_b[t][s], lp_l[t][s]
-    const long long last = (long long)(T - 1) * S;
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-        const int s = lane + 32 * j;
-        nxt[j] = NEG;
-        b_cur[j] = s < S ? pb[last + s] : NEG;
-        l_cur[j] = s < S ? pl[last + s] : NEG;
-    }
-    int d_cur = pd[T - 1];
-    for (int t = T - 1; t >= 0; --t) {
-        float b_next[NS], l_next[NS];
-        int d_next = 0;
-#pragma unroll
-        for (int j = 0; j < NS; ++j) b_next[j] = l_next[j] = NEG;
-        if (t > 0) {                      // row t-1's inputs, ahead of the chain
-#pragma unroll
-            for (int j = 0; j < NS; ++j) {
-                const int s = lane + 32 * j;
-                if (s < S) {
-                    b_next[j] = pb[(long long)(t - 1) * S + s];
-                    l_next[j] = pl[(long long)(t - 1) * S + s];
-                }
-            }
-            d_next = pd[t - 1];
-        }
-        // blank edge to row t+1, or the terminal blank at the sequence's end
-        float bt[NS];
-#pragma unroll
-        for (int j = 0; j < NS; ++j) {
-            const int s = lane + 32 * j;
-            const int src = s - d_cur;
-            const float got = gather(nxt, src);
-            const float shifted = (d_cur >= 0 && d_cur < S && src >= 0) ? got : NEG;
-            bt[j] = (t == t_final) ? ((s == s_final) ? b_cur[j] : NEG) : b_cur[j] + shifted;
-        }
-#pragma unroll
-        for (int j = NS - 1; j >= 0; --j) {   // reverse label chain, slots ..32j
-            const int k_top = min(S - 2, 32 * j + 30);
-            if (j + 1 < NS && 32 * j + 31 <= S - 2) {   // slot 32j+31 from 32j+32
-                const float cand = l_cur[j] + __shfl_sync(FULL, bt[min(j + 1, NS - 1)], 0);
-                if (lane == 31) bt[j] = lae(bt[j], cand);
-            }
-            for (int k = k_top; k >= 32 * j; --k) {
-                const float cand = l_cur[j] + __shfl_down_sync(FULL, bt[j], 1);
-                if (lane + 32 * j == k) bt[j] = lae(bt[j], cand);
-            }
-        }
-#pragma unroll
-        for (int j = 0; j < NS; ++j) {
-            const int s = lane + 32 * j;
-            if (s < S) po[(long long)t * S + s] = bt[j];
-            nxt[j] = bt[j];
-            b_cur[j] = b_next[j];
-            l_cur[j] = l_next[j];
-        }
-        d_cur = d_next;
     }
 }
 
@@ -636,12 +604,11 @@ int with_slots(int S, F f) {
     }
 }
 
-}  // namespace
-
-extern "C" {
-
-int ttx_band_alpha(const void* lpb, const void* lpl, const void* d, void* alpha,
-                   void* work, int B, int T, int S, int n_chunks, void* stream) {
+// Either sweep: phase A, then (C > 1) phases B and C as a dependent launch.
+template <bool BETA>
+int band_sweep(const void* lpb, const void* lpl, const void* d, const void* tf,
+               const void* sf, void* out, void* work, int B, int T, int S, int n_chunks,
+               void* stream) {
     if (B < 1 || T < 1 || S < 1 || S > BAND_MAX_S || n_chunks < 1)
         return (int)cudaErrorInvalidValue;
     const int P = 32 / seg_width(S), row = 2 * S + 1;
@@ -649,8 +616,8 @@ int ttx_band_alpha(const void* lpb, const void* lpl, const void* d, void* alpha,
     // staged row a chunk fit the rows launch's 48 KB (the plan stays below)
     int C = std::min(n_chunks, T);
     for (; C > 2; --C) {
-        const int cb = P * std::min(ALPHA_C_WARPS, (C - 1 + P - 1) / P);
-        if (cb * S + alpha_phase_b_floats(C, S, alpha_group(C)) + cb * row <= SMEM_FLOATS) break;
+        const int cb = P * std::min(C_WARPS, (C - 1 + P - 1) / P);
+        if (cb * S + phase_b_floats(C, S, boundary_group(C)) + cb * row <= SMEM_FLOATS) break;
     }
     return with_slots(S, [&](auto ns) {
         constexpr int NS = decltype(ns)::value;
@@ -658,21 +625,23 @@ int ttx_band_alpha(const void* lpb, const void* lpl, const void* d, void* alpha,
         const auto* pb = static_cast<const float*>(lpb);
         const auto* pl = static_cast<const float*>(lpl);
         const auto* pd = static_cast<const int*>(d);
-        auto* pa = static_cast<float*>(alpha);
+        const auto* ptf = static_cast<const int*>(tf);
+        auto* po = static_cast<float*>(out);
         auto* pw = static_cast<float*>(work);
+        // the longest sequence's steps a chunk (the beta's tf + 1 <= T)
         const int L = (T + C - 1) / C;
         // phase A (at C = 1 the whole sweep): a warp per start slot
-        const int kw = C == 1 ? 1 : std::min(S, ALPHA_K_WARPS), slots = std::min(P, C);
+        const int kw = C == 1 ? 1 : std::min(S, K_WARPS), slots = std::min(P, C);
         int R = std::min(L, SMEM_FLOATS / (slots * row));
-        band_alpha_transfer<NS><<<dim3(B, (C + P - 1) / P, (S + kw - 1) / kw), 32 * kw,
-                                  (size_t)slots * R * row * 4, st>>>(pb, pl, pd, pa, pw,
-                                                                     T, S, C, R);
+        band_transfer<NS, BETA><<<dim3(B, (C + P - 1) / P, (S + kw - 1) / kw), 32 * kw,
+                                  (size_t)slots * R * row * 4, st>>>(
+            pb, pl, pd, ptf, static_cast<const int*>(sf), po, pw, T, S, C, R);
         const int err = (int)cudaGetLastError();
         if (err != 0 || C == 1) return err;
         // phases B and C: cb chunks a block
-        const int wc = std::min(ALPHA_C_WARPS, (C - 1 + P - 1) / P), cb = P * wc;
-        const int H = alpha_group(C), pn = (C - 2) * S * S;
-        const int extra = cb * S + alpha_phase_b_floats(C, S, H);
+        const int wc = std::min(C_WARPS, (C - 1 + P - 1) / P), cb = P * wc;
+        const int H = boundary_group(C), pn = (C - 2) * S * S;
+        const int extra = cb * S + phase_b_floats(C, S, H);
         const bool p_staged = extra + pn + cb * row * L <= SMEM_FLOATS;
         R = std::min(L, (SMEM_FLOATS - extra - (p_staged ? pn : 0)) / (cb * row));
         // programmatic dependent launch: its blocks may start, and stage the
@@ -687,23 +656,26 @@ int ttx_band_alpha(const void* lpb, const void* lpl, const void* d, void* alpha,
         attr[0].val.programmaticStreamSerializationAllowed = 1;
         cfg.attrs = attr;
         cfg.numAttrs = 1;
-        return (int)cudaLaunchKernelEx(&cfg, band_alpha_rows<NS>, pb, pl, pd, pa,
+        return (int)cudaLaunchKernelEx(&cfg, band_rows<NS, BETA>, pb, pl, pd, ptf, po,
                                        static_cast<const float*>(pw), T, S, C, R, H,
                                        (int)p_staged);
     });
 }
 
-int ttx_band_beta(const void* lpb, const void* lpl, const void* d,
-                  const void* tf, const void* sf, void* beta, int B, int T,
-                  int S, void* stream) {
-    if (B < 1 || T < 1 || S < 1 || S > BAND_MAX_S) return (int)cudaErrorInvalidValue;
-    return with_slots(S, [&](auto ns) {
-        band_beta_kernel<decltype(ns)::value><<<B, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const float*>(lpb), static_cast<const float*>(lpl),
-            static_cast<const int*>(d), static_cast<const int*>(tf),
-            static_cast<const int*>(sf), static_cast<float*>(beta), T, S);
-        return (int)cudaGetLastError();
-    });
+}  // namespace
+
+extern "C" {
+
+int ttx_band_alpha(const void* lpb, const void* lpl, const void* d, void* alpha,
+                   void* work, int B, int T, int S, int n_chunks, void* stream) {
+    return band_sweep<false>(lpb, lpl, d, nullptr, nullptr, alpha, work, B, T, S, n_chunks,
+                             stream);
+}
+
+int ttx_band_beta(const void* lpb, const void* lpl, const void* d, const void* tf,
+                  const void* sf, void* beta, void* work, int B, int T, int S, int n_chunks,
+                  void* stream) {
+    return band_sweep<true>(lpb, lpl, d, tf, sf, beta, work, B, T, S, n_chunks, stream);
 }
 
 }  // extern "C"

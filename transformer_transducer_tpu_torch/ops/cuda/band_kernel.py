@@ -9,26 +9,26 @@ band shifts ``d`` (B, T), and (B, T, S) outputs.
 * alpha: ``d[:, t] = rs[t] - rs[t-1]`` (row 0 unused);
 * beta: ``d[:, t] = rs[t+1] - rs[t]`` (last row unused) and each sequence's
   terminal row and slot ``tf``, ``sf`` (B,), injected inside the sweep, so
-  rows past a sequence's end stay near NEG.
+  rows past a sequence's end sit at NEG.
 
 A ``d`` outside [0, S) means "no in-band source": the blank edge brings NEG,
 as in the Pallas kernels (the oracle ``rnnt_loss_banded_grid`` still reads
 the in-band sources for ``d < 0``).  The kernels are ``ttx_band_alpha`` /
 ``ttx_band_beta`` in ``csrc/rnnt_pruned.cu``, which documents the bound and
-the design; they take 1 <= S <= 128 (``MAX_S``).  The alpha kernel cuts T
-into chunks (:func:`band_alpha_plan`, :func:`band_alpha_chunks`): each
-chunk's transfer matrix in parallel, a short pass over the chunk boundaries
-(:func:`band_alpha_group`), then each chunk's rows again from its true
-start.
+the design; they take 1 <= S <= 128 (``MAX_S``).  Both kernels cut their
+rows into chunks (:func:`band_alpha_plan`, :func:`band_alpha_chunks`; the
+alpha cuts T, the beta each sequence's rows [0, tf] from the top, into the
+same count): each chunk's transfer matrix in parallel, a short pass over the
+chunk boundaries (:func:`band_alpha_group`), then each chunk's rows again
+from its true start.
 
 Dispatch: a CPU tensor takes :func:`band_alpha_plain` / :func:`band_beta_plain`
 (eager loops over T with the in-row label chain unrolled over s); a CUDA
 tensor launches the kernel or raises.  The plain versions are the
-functions' reference: the beta kernel repeats its arithmetic in its order;
-the alpha kernel reassociates the log-sums across chunks, so it agrees with
-it to rounding (cells no path reaches sit at NEG in both).
-``band_alpha.launches`` and ``band_beta.launches`` count kernel calls (an
-alpha call is one or two launches, one kernel).
+functions' reference: the kernels reassociate the log-sums across chunks,
+so they agree with them to rounding (cells no path reaches sit at NEG in
+both).  ``band_alpha.launches`` and ``band_beta.launches`` count kernel
+calls (a call is one or two launches, one kernel).
 """
 
 from __future__ import annotations
@@ -92,7 +92,7 @@ def band_alpha_chunks(t: int, n_chunks: int) -> list:
 def band_alpha_group(n_chunks: int) -> int:
     """Boundaries a group in the alpha kernel's two-level phase B: the H that
     minimises its 2 H + ceil(n / H) steps over n = C - 2 boundaries
-    (``alpha_group`` in ``csrc/rnnt_pruned.cu``)."""
+    (``boundary_group`` in ``csrc/rnnt_pruned.cu``)."""
     n, h = n_chunks - 2, 1
     while n > 0 and 2 * (h + 1) + -(-n // (h + 1)) < 2 * h + -(-n // h):
         h += 1
@@ -100,10 +100,11 @@ def band_alpha_group(n_chunks: int) -> int:
 
 
 def _chain_parts(t: int, n_chunks: int, s_range: int):
-    """(rows, boundary steps) on the alpha kernel's chain with ``n_chunks``
-    chunks: the longest chunk's rows twice (phases A and C); phase B's steps,
-    in two levels at S <= 32 (its first level in rounds of the rows launch's
-    16 warps of 32 // W start vectors), one boundary after another beyond."""
+    """(rows, boundary steps) on a band kernel's chain with ``n_chunks``
+    chunks of ``t`` rows: the longest chunk's rows twice (phases A and C);
+    phase B's steps, in two levels at S <= 32 (its first level in rounds of
+    the rows launch's 16 warps of 32 // W start vectors), one boundary
+    after another beyond."""
     n = max(1, min(n_chunks, t))
     if n == 1:
         return t, 0
@@ -118,15 +119,16 @@ def _chain_parts(t: int, n_chunks: int, s_range: int):
     return rows, (rounds * h + g + h - 1 if g else 0)
 
 
-def band_alpha_chain(t: int, n_chunks: int, s_range: int) -> int:
-    """Dependent steps of the alpha kernel with ``n_chunks`` chunks: rows
-    and phase B's boundary steps (T rows at C = 1)."""
+def band_chain(t: int, n_chunks: int, s_range: int) -> int:
+    """Dependent steps of a band kernel with ``n_chunks`` chunks of ``t``
+    rows: rows and phase B's boundary steps (t rows at C = 1).  The
+    alpha's ``t`` is T; the beta's the longest sequence's tf + 1."""
     return sum(_chain_parts(t, n_chunks, s_range))
 
 
 @functools.lru_cache(maxsize=None)
 def band_alpha_plan(t: int, s_range: int) -> int:
-    """Chunks of T for the alpha kernel: the C that minimises the cost model
+    """Chunks of T for both band kernels: the C that minimises the cost model
     above over its chain, with at most ``MAX_STARTS`` start vectors a
     sequence; 1 (the plain sweep's single pass) where chunks do not pay, at
     small T."""
@@ -218,33 +220,32 @@ def _inputs(lp_b, lp_l, ints):
     return lp_b, lp_l, ints, torch.empty_like(lp_b), build.library(), stream
 
 
-def _launch_alpha(lp_b, lp_l, d_alpha, n_chunks: Optional[int] = None) -> torch.Tensor:
-    """``ttx_band_alpha`` on CUDA inputs, in ``band_alpha_plan``'s chunks or,
-    for tests and measurements, ``n_chunks``; counts on ``band_alpha``."""
-    lp_b, lp_l, (d_alpha,), out, lib, stream = _inputs(lp_b, lp_l, [d_alpha])
+def _launch(wrapper, lp_b, lp_l, ints, n_chunks: Optional[int]) -> torch.Tensor:
+    """``ttx_<wrapper's name>`` on CUDA inputs (``ints``: d, then the beta's
+    tf and sf), in ``band_alpha_plan``'s chunks or, for tests and
+    measurements, ``n_chunks``; counts on ``wrapper``."""
+    lp_b, lp_l, ints, out, lib, stream = _inputs(lp_b, lp_l, ints)
     b, t, s_range = lp_b.shape
     if out.numel() == 0:
         return out
     n = min(n_chunks or band_alpha_plan(t, s_range), t)
     work = torch.empty(b * n * s_range * s_range, dtype=torch.float32, device=out.device)
-    build.check(lib.ttx_band_alpha(lp_b.data_ptr(), lp_l.data_ptr(), d_alpha.data_ptr(),
-                                   out.data_ptr(), work.data_ptr(), b, t, s_range, n,
-                                   stream), "ttx_band_alpha")
-    band_alpha.launches += 1
+    name = f"ttx_{wrapper.__name__}"
+    build.check(getattr(lib, name)(lp_b.data_ptr(), lp_l.data_ptr(),
+                                   *(x.data_ptr() for x in ints), out.data_ptr(),
+                                   work.data_ptr(), b, t, s_range, n, stream), name)
+    wrapper.launches += 1
     return out
 
 
-def _launch_beta(lp_b, lp_l, d_beta, tf, sf) -> torch.Tensor:
-    """``ttx_band_beta`` on CUDA inputs; counts on ``band_beta``."""
-    lp_b, lp_l, ints, out, lib, stream = _inputs(lp_b, lp_l, [d_beta, tf, sf])
-    if out.numel() == 0:
-        return out
-    b, t, s_range = lp_b.shape
-    build.check(lib.ttx_band_beta(lp_b.data_ptr(), lp_l.data_ptr(),
-                                  *(x.data_ptr() for x in ints), out.data_ptr(),
-                                  b, t, s_range, stream), "ttx_band_beta")
-    band_beta.launches += 1
-    return out
+def _launch_alpha(lp_b, lp_l, d_alpha, n_chunks: Optional[int] = None) -> torch.Tensor:
+    """``ttx_band_alpha``; ``n_chunks`` forces the chunk count."""
+    return _launch(band_alpha, lp_b, lp_l, [d_alpha], n_chunks)
+
+
+def _launch_beta(lp_b, lp_l, d_beta, tf, sf, n_chunks: Optional[int] = None) -> torch.Tensor:
+    """``ttx_band_beta``; ``n_chunks`` forces the chunk count."""
+    return _launch(band_beta, lp_b, lp_l, [d_beta, tf, sf], n_chunks)
 
 
 def band_alpha(lp_b: torch.Tensor, lp_l: torch.Tensor, d_alpha: torch.Tensor,

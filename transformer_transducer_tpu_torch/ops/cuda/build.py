@@ -108,8 +108,8 @@ def library() -> ctypes.CDLL:
             "ttx_additive_logz": [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr],
             # lp_b, lp_l, d, alpha, work, B, T, S, chunks, stream
             "ttx_band_alpha": [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr],
-            # lp_b, lp_l, d, tf, sf, beta, B, T, S, stream
-            "ttx_band_beta": [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr],
+            # lp_b, lp_l, d, tf, sf, beta, work, B, T, S, chunks, stream
+            "ttx_band_beta": [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr],
             # dims, cap
             "ttx_attention_head_dims": [ctypes.POINTER(i32), i32],
             "ttx_rnnt_max_u1": [],

@@ -5,24 +5,25 @@ median of 10 replays, per call.  The forward runs as recognition runs it,
 under ``torch.no_grad()`` (no row log-sum-exp).  With ``--pass logz`` it
 times the pruned loss's additive logZ (``ttx_additive_logz``, every launch
 of a call) the same way; a shape is then B,T,U1,V and the logits are
-randn * 3, as ``chip_smoke.py`` draws them.  With ``--pass alpha`` it
-times the pruned loss's band alpha sweep (``ttx_band_alpha``, both launches
-of a call); a shape is then B,T,S and the inputs are drawn as
-``chip_smoke.py::band_inputs`` draws them, and ``--chunks N ...`` also
-times the kernel at those of the chunk counts of T that the plan may
-pick (at most ``MAX_STARTS`` start vectors), beside the plan's.  Each checkout given runs in
-its own process (the packages share a name), builds its own kernels into its
-own ``build/`` and is timed at every shape; the checkouts run in the order
-given, so ``--roots old new new old`` compares two versions on one card in
-one run.
+randn * 3, as ``chip_smoke.py`` draws them.  With ``--pass alpha`` or
+``--pass beta`` it times the pruned loss's band alpha or beta sweep
+(``ttx_band_alpha``, ``ttx_band_beta``, both launches of a call); a shape
+is then B,T,S and the inputs are drawn as ``chip_smoke.py::band_inputs``
+draws them (the first sequence T frames long), and ``--chunks N ...`` also
+times the kernel at those of the chunk counts that the plan may pick (at
+most ``MAX_STARTS`` start vectors), beside the plan's.  Each checkout given
+runs in its own process (the packages share a name), builds its own kernels
+into its own ``build/`` and is timed at every shape; the checkouts run in
+the order given, so ``--roots old new new old`` compares two versions on
+one card in one run.
 
     python3 transformer_transducer_tpu_torch/tools/time_banded_bwd.py \\
         --roots build/parent . . build/parent [--pass fwd] \\
         --shapes 4,410,8,64 4,410,8,32 4,48,2,32 --band 10 2
 
 A shape is B,T,H,Dh (inputs fp32, drawn from a seed), B,T,U1,V for
-``--pass logz`` or B,T,S for ``--pass alpha``.  Prints one line a
-checkout and shape, then the card's name and power limit.
+``--pass logz`` or B,T,S for ``--pass alpha`` and ``--pass beta``.  Prints
+one line a checkout and shape, then the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -38,8 +39,8 @@ REPO = os.path.dirname(os.path.dirname(HERE))
 
 
 def time_one(root: str, shapes, band, which: str, chunks=()) -> None:
-    """Time the ``which`` pass ("fwd", "bwd", "logz" or "alpha") of the package
-    under ``root`` at each shape."""
+    """Time the ``which`` pass ("fwd", "bwd", "logz", "alpha" or "beta") of
+    the package under ``root`` at each shape."""
     sys.path.insert(0, REPO)
     import torch
     from chip_smoke import band_inputs, graph_ms   # this checkout's, for every root
@@ -58,16 +59,22 @@ def time_one(root: str, shapes, band, which: str, chunks=()) -> None:
             print(json.dumps({"root": root, "pass": which, "B": b, "T": t, "U1": u1,
                               "V": v, "ms": ms}), flush=True)
         return
-    if which == "alpha":
+    if which in ("alpha", "beta"):
         from transformer_transducer_tpu_torch.ops.cuda import band_kernel as bk
         for b, t, s_range in shapes:
-            lp_b, lp_l, d_a, _, _, _ = band_inputs(gen, b, t, s_range)
+            lp_b, lp_l, d_a, d_b, tf, sf = band_inputs(gen, b, t, s_range)
+            if which == "alpha":
+                run = lambda n=None: bk._launch_alpha(lp_b, lp_l, d_a, n)
+                wrapper = lambda: bk.band_alpha(lp_b, lp_l, d_a, s_range)
+            else:
+                run = lambda n=None: bk._launch_beta(lp_b, lp_l, d_b, tf, sf, n)
+                wrapper = lambda: bk.band_beta(lp_b, lp_l, d_b, tf, sf, s_range)
             rec = {"root": root, "pass": which, "B": b, "T": t, "S": s_range,
-                   "ms": graph_ms(lambda: bk.band_alpha(lp_b, lp_l, d_a, s_range))}
+                   "ms": graph_ms(wrapper)}
             if chunks:      # the chunk counts forced, and the plan's
                 rec["plan"] = bk.band_alpha_plan(t, s_range)
                 rec["ms_by_chunks"] = {
-                    n: graph_ms(lambda: bk._launch_alpha(lp_b, lp_l, d_a, n))
+                    n: graph_ms(lambda: run(n))
                     for n in sorted({n for n in chunks if n <= t and n * s_range <= bk.MAX_STARTS}
                                     | {rec["plan"]})}
             print(json.dumps(rec), flush=True)
@@ -92,15 +99,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--roots", nargs="+", default=["."],
                     help="checkouts whose port package is timed, in this order")
-    ap.add_argument("--pass", dest="which", choices=("fwd", "bwd", "logz", "alpha"),
-                    default="bwd", help="the wrapper timed: the banded forward or "
-                    "backward, the logZ or the band alpha sweep")
+    ap.add_argument("--pass", dest="which",
+                    choices=("fwd", "bwd", "logz", "alpha", "beta"), default="bwd",
+                    help="the wrapper timed: the banded forward or backward, the logZ "
+                    "or a band sweep")
     ap.add_argument("--shapes", nargs="+", default=["4,410,8,64"],
-                    help="B,T,H,Dh (B,T,U1,V for logz, B,T,S for alpha)")
+                    help="B,T,H,Dh (B,T,U1,V for logz, B,T,S for alpha and beta)")
     ap.add_argument("--band", nargs=2, type=int, default=[10, 2], metavar=("LEFT", "RIGHT"))
     ap.add_argument("--chunks", nargs="*", type=int, default=[],
-                    help="with --pass alpha, also time these chunk counts of T and the "
-                    "plan's (a checkout whose band_kernel has the chunked kernel)")
+                    help="with --pass alpha or beta, also time these chunk counts and "
+                    "the plan's (a checkout whose band_kernel has that chunked kernel)")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     a = ap.parse_args()
     shapes = [tuple(int(x) for x in s.split(",")) for s in a.shapes]
