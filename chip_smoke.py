@@ -12,9 +12,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    flash forward and backward at Dh = 64 (``cuobjdump -sass``; none in
    either fails the run), and the SASS instructions and ``RED``/``ATOM``
    (atomic) instructions of the banded forward, of the banded
-   backward's two kernels, of the additive logZ's four kernels and of each
-   band sweep's two (any atomic fails the run; the logZ's product must have
-   ``HMMA``);
+   backward's two kernels, of the additive logZ's four kernels, of each
+   band sweep's two and of the lattice sweeps' instantiations (any atomic
+   fails the run; the logZ's product must have ``HMMA``; a ``BAR`` in a
+   one-warp lattice sweep fails it), with the lattice sweeps' registers and
+   their launch plans (cells a lane, warps, diagonals a stage, shared
+   bytes), and their branch-free log1p against log1pf on every float in
+   [0, 1] (one that differs fails the run);
 3. each kernel against its plain PyTorch version on the same CUDA inputs
    (atol 1e-4, rtol 1e-4), at the main path's shapes and a sweep around
    them: the additive logZ at (B, T, U1, V) = (4, 410, 43, 6485) and over
@@ -25,7 +29,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    ragged t_len, a zero-length row and a clamped terminal slot, and at
    S = 33, 64, 128 (several slots a lane), each at its plan's chunks and
    at 1, 2 and 7, two of its launches to the bit and its graph replay
-   equal to the eager call; the flash forward and backward
+   equal to the eager call; the lattice sweeps at T = 1, 37, 410 and U1 =
+   1, 2, 43, and at T = 37 around one warp's 32 lanes of 1, 2 and 4 cells
+   (U1 = 31-33, 64, 65, 128, 129) and at U1 = 1024 (16 warps), two of their
+   launches to the bit and their graph replays equal to the eager calls at
+   U1 = 43, 129 and 1024; the flash forward and backward
    also at the tile edges T = 15-17, 31-33, 63-65, 127-129, the banded
    backward at bands (10, 2), (0, 0), (64, 64), (3, 64), (64, 0) and at
    the edges of its 32-row blocks and 48-row cell tiles T = 31-33, 47-49,
@@ -74,7 +82,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    directory it wrote, whose text must be the trained model's greedy
    decode; then ``--flash --pruned-range 5`` for one epoch;
 8. training timings: the training kernels (alone, under a CUDA graph)
-   against their plain versions and bounds (the logZ, its four launches in
+   against their plain versions and bounds (the lattice sweeps also against
+   their chain bound: D - 1 dependent log-add steps, one step timed alone in
+   one thread, ``ttx_rnnt_lae_chain``; the logZ, its four launches in
    one graph, also against ``torch.logsumexp`` over the whole sum, with
    each launch's share and its cells through the exact pass, and the exact
    form's bound beside its own; the flash kernels, on the tensor
@@ -669,6 +679,9 @@ def check_training_kernels(gen):
         f"{LATTICE_TOL['atol']}):")
     shapes = [(B_TRAIN, T_MAIN, 42)] + [(B_TRAIN, t, u) for t in (1, 37, 410)
                                         for u in (0, 1, 42)]
+    # around one warp's 32 lanes of 1, 2 and 4 cells, several warps, the most
+    shapes += [(B_TRAIN, 37, u) for u in (30, 31, 32, 63, 64, 127, 128, 1023)]
+    shapes += [(B_TRAIN, T_MAIN, 128)]
     for b, tlen, u in shapes:
         sb, sl, inject = lattice_inputs(b, tlen, u, gen)
         pairs = (("alpha", alpha_scan(sb, sl), alpha_scan_plain(sb, sl)),
@@ -682,6 +695,26 @@ def check_training_kernels(gen):
             errs[name] = max(errs[name], err)
             line.append(f"{name} {err:.3e}")
         log(f"  B={b} T={tlen:3d} U={u:2d}: max|err| " + ", ".join(line))
+    for tlen, u in ((T_MAIN, 42), (T_MAIN, 128), (37, 1023)):
+        sb, sl, inject = lattice_inputs(B_TRAIN, tlen, u, gen)
+        for name, run in (("alpha", lambda: alpha_scan(sb, sl)),
+                          ("beta", lambda: beta_scan(sb, sl, inject))):
+            first, again = run(), run()
+            require(torch.equal(first, again), f"two launches of the {name} sweep differ")
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                run()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                replayed = run()
+            graph.replay()
+            torch.cuda.synchronize()
+            require(torch.equal(replayed, first), f"the {name} sweep's graph replay differs")
+            del graph
+        log(f"  T={tlen} U={u}: each sweep's two launches bit-identical, its graph replay "
+            f"equal to the eager call")
 
     log(f"attention backward vs autograd through the plain versions (atol "
         f"{GRAD_TOL} * max|ref| + {GRAD_FLOOR}, rtol {GRAD_TOL}):")
@@ -1332,6 +1365,34 @@ def main() -> int:
             f"at one slot a lane")
         require(ops and atomics == 0, f"the {name}'s kernels have atomics or no SASS")
 
+    # the lattice sweeps (wavefront<K, MULTI, BETA>): no atomic in any
+    # instantiation, no barrier in the one-warp forms (MULTI false)
+    ops = sass_opcodes(lib_path, "wavefront")
+    one_warp = sass_opcodes(lib_path, r"wavefrontILi\dELb0E")
+    atomics = sum(n for op, n in ops.items() if op.startswith(("RED", "ATOM")))
+    barriers = sum(n for op, n in one_warp.items() if op.startswith("BAR"))
+    lattice_sass = {"sass": sum(ops.values()), "atomics": atomics,
+                    "one_warp_barriers": barriers, "registers": {}}
+    for k, multi in ((1, 0), (2, 0), (4, 0), (2, 1)):      # one warp; several
+        for beta in (0, 1):
+            (regs, spill_st, spill_ld), = ptxas_entries(
+                ptxas, f"wavefrontILi{k}ELb{multi}ELb{beta}EE")
+            lattice_sass["registers"][f"K{k}{'_warps' if multi else ''}"
+                                      f"{'_beta' if beta else '_alpha'}"] = regs
+    from transformer_transducer_tpu_torch.ops.cuda.rnnt_kernel import plan as lattice_plan
+    log(f"  lattice sweeps (wavefront): {sum(ops.values())} SASS instructions in their "
+        f"instantiations, {atomics} RED/ATOM, {barriers} BAR in the one-warp forms; "
+        f"registers {lattice_sass['registers']}; at U1 43 alpha "
+        f"{lattice_plan(43, False)}, beta {lattice_plan(43, True)}; at U1 1024 beta "
+        f"{lattice_plan(1024, True)}")
+    require(ops and atomics == 0, "the lattice sweeps have atomics or no SASS")
+    require(one_warp and barriers == 0, "the one-warp lattice sweeps have a barrier")
+    from transformer_transducer_tpu_torch.ops.cuda.rnnt_kernel import log1p_mismatches
+    bad = log1p_mismatches()
+    log(f"  lattice sweeps' branch-free log1p against log1pf over every float in [0, 1]: "
+        f"{bad} differ")
+    require(bad == 0, f"the lattice sweeps' log1p differs from log1pf on {bad} floats")
+
     # ---- 3. kernels vs plain versions
     log("kernels vs plain versions (atol 1e-4, rtol 1e-4):")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1731,6 +1792,15 @@ def main() -> int:
         rec["launches"] += train_launches[f"{rec['name'].split('_')[0]}_fwd"]
     sb, sl, inject = lattice_inputs(B_TRAIN, T_MAIN, 42, gen, with_empty=False)
     d_total, u1 = sb.shape[1], sb.shape[2]
+    # the chain's step alone: one thread, dependent x = lae(x + c, y)
+    from transformer_transducer_tpu_torch.ops.cuda.rnnt_kernel import lae_chain
+    n_chain = 20 * (d_total - 1)
+    cy = torch.tensor([0.0, -0.5, -1.0], device="cuda")
+    chain_step_ms = cuda_ms(lambda: lae_chain(cy, n_chain), samples=10, reps=3) / n_chain
+    chain_ms = (d_total - 1) * chain_step_ms
+    log(f"  the chain's step (one thread, {n_chain} dependent x = lae(x + c, y)): "
+        f"{1e6 * chain_step_ms:.2f} ns; chain bound for {d_total - 1} diagonals "
+        f"{chain_ms:.4f} ms")
     for name, key, replaces, kern, plain, n_grids in (
             ("rnnt_alpha", "alpha", "rnnt_kernel.py:158",
              lambda: alpha_scan(sb, sl), lambda: alpha_scan_plain(sb, sl), 3),
@@ -1741,14 +1811,17 @@ def main() -> int:
         bound_ms, bound_by = lattice_bound(B_TRAIN, d_total, u1, n_grids)
         log(f"  {name} (B={B_TRAIN}, D={d_total}, U1={u1}): kernel {ms:.4f} ms "
             f"({1e3 * ms / (d_total - 1):.3f} us per dependent diagonal), plain "
-            f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), chain bound "
+            f"{chain_ms:.4f} ms ({100 * chain_ms / ms:.1f} % of it), "
             f"{train_launches[key] // 9} launch per step")
         records.append({
             "name": name, "route": "cuda", "source": f"{PKG}/csrc/rnnt_lattice.cu",
             "replaces": f"transformer_transducer_tpu/ops/pallas/{replaces}",
             "launches": train_launches[key], "max_abs_err": errs[key], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None})
+            "library_ms": None, "chain_bound_ms": chain_ms,
+            "registers": {k: r for k, r in lattice_sass["registers"].items()
+                          if k.endswith(key)}})
 
     # the pruned loss's kernels at the flagship training shapes
     from transformer_transducer_tpu_torch.ops.cuda.band_kernel import (

@@ -2,7 +2,8 @@
 attention forward and backward at head widths 32 and 64, the banded
 forward's row log-sum-exp too, strided inputs and two launches to the
 bit), the RNN-T lattice
-sweeps, the pruned loss's logZ at any U1, V and alignment, on spiked
+sweeps (U1 1 to 1024, ragged rows, misaligned views, bit-identical and
+under a CUDA graph), the pruned loss's logZ at any U1, V and alignment, on spiked
 logits that its exact pass takes, bit-identical and under a CUDA graph,
 and band sweeps up to S = 128),
 the launch counters, the wrappers' input checks, a
@@ -34,7 +35,7 @@ import torch
 from transformer_transducer_tpu_torch.models.attention import (
     rel_attention_scores, slice_pos_table)
 from transformer_transducer_tpu_torch.ops import rnnt_loss, rnnt_loss_pruned
-from transformer_transducer_tpu_torch.ops.cuda import band_kernel
+from transformer_transducer_tpu_torch.ops.cuda import band_kernel, rnnt_kernel
 from transformer_transducer_tpu_torch.ops.cuda.band_kernel import (
     band_alpha, band_alpha_plain, band_alpha_plan, band_beta, band_beta_plain)
 from transformer_transducer_tpu_torch.ops.cuda.logz_kernel import (
@@ -355,21 +356,76 @@ def test_one_layer_model_gradients_through_the_kernels(gen, flash):
         _grad_close(g, grads[1][name], name)
 
 
-@pytest.mark.parametrize("b,tlen,u", [(4, 410, 42), (2, 1, 0), (3, 37, 1), (2, 37, 42)])
+def _lattice_inputs(gen, b, tlen, u, offset=0):
+    """``chip_smoke.lattice_inputs``'s grids (row 0 full length, row 1 with
+    no frames, the rest ragged), as views ``offset`` floats into their
+    storage: at an odd offset every row of the kernels' staged spans starts
+    off its 16-byte alignment."""
+    from chip_smoke import lattice_inputs
+    grids = lattice_inputs(b, tlen, u, gen)
+    if not offset:
+        return grids
+    out = []
+    for g in grids:
+        flat = torch.empty(g.numel() + offset, device="cuda")
+        flat[offset:] = g.reshape(-1)
+        out.append(flat[offset:].view(g.shape))
+    return out
+
+
+# U1 around one warp's 32 lanes of K = 1, 2 and 4 cells, past it (several
+# warps) and at the most the kernels take
+@pytest.mark.parametrize("b,tlen,u", [(4, 410, 42), (2, 1, 0), (3, 37, 1), (2, 37, 42),
+                                      (3, 37, 30), (3, 37, 31), (3, 37, 32), (3, 37, 63),
+                                      (3, 37, 64), (3, 37, 127), (3, 37, 128), (2, 37, 1023)])
 def test_lattice_kernels_match_plain(gen, b, tlen, u):
+    """Full-length rows with the inject on the last cell, then the loss's
+    ragged rows (a zero-length one among them) at every float offset."""
     lp_b = -torch.rand(b, tlen, u + 1, generator=gen, device="cuda") * 5
     lp_l = -torch.rand(b, tlen, u + 1, generator=gen, device="cuda") * 5
     sb = rnnt_loss._skew(lp_b).contiguous()
     sl = rnnt_loss._skew(lp_l).contiguous()
     inject = torch.full_like(sb, rnnt_loss.NEG)
     inject[:, -1, -1] = sb[:, -1, -1]
-    before = (alpha_scan.launches, beta_scan.launches)
-    alpha, beta = alpha_scan(sb, sl), beta_scan(sb, sl, inject)
-    torch.cuda.synchronize()
-    assert (alpha_scan.launches, beta_scan.launches) == (before[0] + 1, before[1] + 1)
+    cases = [(sb, sl, inject)] + [_lattice_inputs(gen, b, tlen, u, offset)
+                                  for offset in range(4)]
     tol = dict(rtol=1e-5, atol=1e-3)
-    torch.testing.assert_close(alpha, alpha_scan_plain(sb, sl), **tol)
-    torch.testing.assert_close(beta, beta_scan_plain(sb, sl, inject), **tol)
+    for sb, sl, inject in cases:
+        before = (alpha_scan.launches, beta_scan.launches)
+        alpha, beta = alpha_scan(sb, sl), beta_scan(sb, sl, inject)
+        torch.cuda.synchronize()
+        assert (alpha_scan.launches, beta_scan.launches) == (before[0] + 1, before[1] + 1)
+        torch.testing.assert_close(alpha, alpha_scan_plain(sb, sl), **tol)
+        torch.testing.assert_close(beta, beta_scan_plain(sb, sl, inject), **tol)
+
+
+def test_lattice_log1p_is_log1pf_to_the_bit(gen):
+    """The sweeps' branch-free log1p equals log1pf on every float in
+    [0, 1], the values exp(-|a - b|) takes."""
+    assert rnnt_kernel.log1p_mismatches() == 0
+
+
+@pytest.mark.parametrize("u", [42, 128, 1023])
+@pytest.mark.parametrize("sweep", ["alpha", "beta"])
+def test_lattice_sweeps_are_deterministic_and_graph_safe(gen, sweep, u):
+    """Two launches of a lattice sweep agree to the bit, and a CUDA graph's
+    replay gives the eager call's result."""
+    sb, sl, inject = _lattice_inputs(gen, 4, 410 if u < 1023 else 37, u, offset=1)
+    run = {"alpha": lambda: alpha_scan(sb, sl),
+           "beta": lambda: beta_scan(sb, sl, inject)}[sweep]
+    first, again = run(), run()
+    assert torch.equal(first, again)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, first)
 
 
 def test_loss_on_the_card_matches_the_cpu(gen):

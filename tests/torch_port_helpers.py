@@ -267,3 +267,38 @@ def boundaries(e0, transfer, n_chunks):
             ends.append(e)
         ends.append(starts[g + 1])
     return ends
+
+
+# ---------------------------------------------------------------------------
+# The lattice sweeps' warp schedule (tests/test_torch_port_lattice_warp.py)
+# ---------------------------------------------------------------------------
+
+def lattice_problem(tlen, u1, seed=0, b=4):
+    """(sb, sl, terminal, inject) for ``b`` sequences as the loss builds them
+    (the port's ``lattice_grids`` and ``terminal_inject``) from log-probs
+    drawn with numpy: sequence 0 at full length, sequence 1 with no frames,
+    the rest of random lengths."""
+    from transformer_transducer_tpu_torch.ops import rnnt_loss
+    r = np.random.RandomState(seed + 1000 * tlen + u1)
+    logits = r.randn(b, tlen, u1, 8).astype(np.float32) * 2
+    logp = logits - np.log(np.exp(logits).sum(-1, keepdims=True))
+    t_len = r.randint(1, tlen + 1, b)
+    u_len = r.randint(0, u1, b)
+    t_len[0], u_len[0] = tlen, u1 - 1
+    t_len[1] = 0
+    sb, sl, t_len, u_len = rnnt_loss.lattice_grids(t(logp[..., 0]), t(logp[..., 1]),
+                                                   t(t_len), t(u_len))
+    terminal, inject = rnnt_loss.terminal_inject(sb, t_len, u_len)
+    return sb, sl, terminal, inject
+
+
+def copy_items(n, shift):
+    """The kernel's ``copy_span`` of ``n`` floats from a source at float
+    index ``shift`` mod 4: its work items in order, each (first float,
+    floats), 1 up to the first 16-byte boundary and after the last, 4
+    between."""
+    head = min((4 - shift) & 3, n)
+    n16 = (n - head) >> 2
+    return [(head + 4 * (k - head), 4) if head <= k < head + n16
+            else (k if k < head else k + 3 * n16, 1)
+            for k in range(n - 3 * n16)]

@@ -104,6 +104,12 @@ def library() -> ctypes.CDLL:
             "ttx_rnnt_alpha": [ptr, ptr, ptr, i32, i32, i32, ptr],
             # sb, sl, inject, beta, B, D, U1, stream
             "ttx_rnnt_beta": [ptr, ptr, ptr, ptr, i32, i32, i32, ptr],
+            # U1, beta, out (K, warps, diagonals a stage, shared bytes)
+            "ttx_rnnt_plan": [i32, i32, ctypes.POINTER(i32)],
+            # (x0, c, y), out, steps, stream
+            "ttx_rnnt_lae_chain": [ptr, ptr, i32, ptr],
+            # count of mismatches (uint64), stream
+            "ttx_rnnt_log1p_check": [ptr, ptr],
             # A, L, logZ, workspace, B, T, U1, V, stream
             "ttx_additive_logz": [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr],
             # lp_b, lp_l, d, alpha, work, B, T, S, chunks, stream

@@ -11,10 +11,14 @@ recurrences, the bound and the design.
 Dispatch: a CPU tensor takes :func:`alpha_scan_plain` /
 :func:`beta_scan_plain` (the eager scans of the JAX module); a CUDA tensor
 launches the kernel or raises.  ``alpha_scan.launches`` and
-``beta_scan.launches`` count kernel launches.
+``beta_scan.launches`` count kernel launches.  :func:`plan` reads a
+sweep's launch shape, :func:`lae_chain` times the chain's step alone and
+:func:`log1p_mismatches` checks the kernels' branch-free log1p.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -120,3 +124,43 @@ def beta_scan(skew_b: torch.Tensor, skew_l: torch.Tensor,
 
 alpha_scan.launches = 0
 beta_scan.launches = 0
+
+
+def plan(u1: int, beta: bool) -> dict:
+    """The sweep's launch at ``u1`` (``ttx_rnnt_plan``): cells a lane,
+    warps a sequence, diagonals a stage of the ring, shared bytes a block."""
+    out = (ctypes.c_int * 4)()
+    lib = build.library()
+    build.check(lib.ttx_rnnt_plan(u1, int(beta), out), "ttx_rnnt_plan")
+    return dict(zip(("cells_a_lane", "warps", "diagonals_a_stage", "shared_bytes"), out))
+
+
+def lae_chain(cy: torch.Tensor, n: int) -> torch.Tensor:
+    """x after ``n`` dependent steps ``x = lae(x + c, y)`` from ``cy`` =
+    (x0, c, y) float32, run by one thread on the card
+    (``ttx_rnnt_lae_chain``): the sweeps' chain step alone, their bound."""
+    if cy.device.type == "cpu":
+        x, c, y = cy.unbind()
+        for _ in range(n):
+            x = logaddexp(x + c, y)
+        return x.reshape(1)
+    lib = build.library()
+    cy = cy.contiguous()
+    out = torch.empty(1, device=cy.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(cy.device).cuda_stream
+    build.check(lib.ttx_rnnt_lae_chain(cy.data_ptr(), out.data_ptr(), n, stream),
+                "ttx_rnnt_lae_chain")
+    return out
+
+
+def log1p_mismatches(device="cuda") -> int:
+    """The floats x in [0, 1] on which the kernels' branch-free log1p
+    differs from the CUDA library's log1pf in any bit
+    (``ttx_rnnt_log1p_check``): 0, or the sweeps' log-adds are not the
+    accurate ones."""
+    lib = build.library()
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    build.check(lib.ttx_rnnt_log1p_check(
+        bad.data_ptr(), torch.cuda.current_stream(bad.device).cuda_stream),
+        "ttx_rnnt_log1p_check")
+    return int(bad.item())

@@ -11,7 +11,13 @@ randn * 3, as ``chip_smoke.py`` draws them.  With ``--pass alpha`` or
 is then B,T,S and the inputs are drawn as ``chip_smoke.py::band_inputs``
 draws them (the first sequence T frames long), and ``--chunks N ...`` also
 times the kernel at those of the chunk counts that the plan may pick (at
-most ``MAX_STARTS`` start vectors), beside the plan's.  Each checkout given
+most ``MAX_STARTS`` start vectors), beside the plan's.  With ``--pass
+lattice_alpha`` or ``--pass lattice_beta`` it times an RNN-T lattice sweep
+(``ttx_rnnt_alpha``, ``ttx_rnnt_beta``); a shape is then B,T,U (U1 = U + 1)
+and the inputs are ``chip_smoke.py::lattice_inputs``'s, the first sequence
+full length; with several checkouts each also saves its outputs, and the
+largest |difference| of every checkout's from the first's is printed after
+them.  Each checkout given
 runs in its own process (the packages share a name), builds its own kernels
 into its own ``build/`` and is timed at every shape; the checkouts run in
 the order given, so ``--roots old new new old`` compares two versions on
@@ -22,8 +28,9 @@ one card in one run.
         --shapes 4,410,8,64 4,410,8,32 4,48,2,32 --band 10 2
 
 A shape is B,T,H,Dh (inputs fp32, drawn from a seed), B,T,U1,V for
-``--pass logz`` or B,T,S for ``--pass alpha`` and ``--pass beta``.  Prints
-one line a checkout and shape, then the card's name and power limit.
+``--pass logz``, B,T,S for ``--pass alpha`` and ``--pass beta`` or B,T,U
+for the lattice passes.  Prints one line a checkout and shape, then the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -33,22 +40,41 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(os.path.dirname(HERE))
 
 
-def time_one(root: str, shapes, band, which: str, chunks=()) -> None:
-    """Time the ``which`` pass ("fwd", "bwd", "logz", "alpha" or "beta") of
-    the package under ``root`` at each shape."""
+LATTICE = ("lattice_alpha", "lattice_beta")
+
+
+def time_one(root: str, shapes, band, which: str, chunks=(), save=None) -> None:
+    """Time the ``which`` pass ("fwd", "bwd", "logz", "alpha", "beta" or a
+    lattice sweep) of the package under ``root`` at each shape; a lattice
+    sweep's outputs go to ``save``, if given."""
     sys.path.insert(0, REPO)
     import torch
-    from chip_smoke import band_inputs, graph_ms   # this checkout's, for every root
+    from chip_smoke import band_inputs, graph_ms, lattice_inputs   # this checkout's
     sys.path.insert(0, os.path.abspath(root))
     from transformer_transducer_tpu_torch.ops.cuda import common
     from transformer_transducer_tpu_torch.ops.cuda.banded_attention import (
         banded_attention, banded_attention_backward)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if which in LATTICE:
+        from transformer_transducer_tpu_torch.ops.cuda.rnnt_kernel import (
+            alpha_scan, beta_scan)
+        outputs = {}
+        for b, t, u in shapes:
+            sb, sl, inject = lattice_inputs(b, t, u, gen, with_empty=False)
+            run = ((lambda: alpha_scan(sb, sl)) if which == "lattice_alpha"
+                   else (lambda: beta_scan(sb, sl, inject)))
+            outputs[f"{b},{t},{u}"] = run().cpu()
+            print(json.dumps({"root": root, "pass": which, "B": b, "T": t, "U1": u + 1,
+                              "ms": graph_ms(run)}), flush=True)
+        if save:
+            torch.save(outputs, save)
+        return
     if which == "logz":
         from transformer_transducer_tpu_torch.ops.cuda.logz_kernel import additive_logz
         for b, t, u1, v in shapes:
@@ -100,31 +126,47 @@ def main() -> int:
     ap.add_argument("--roots", nargs="+", default=["."],
                     help="checkouts whose port package is timed, in this order")
     ap.add_argument("--pass", dest="which",
-                    choices=("fwd", "bwd", "logz", "alpha", "beta"), default="bwd",
-                    help="the wrapper timed: the banded forward or backward, the logZ "
-                    "or a band sweep")
+                    choices=("fwd", "bwd", "logz", "alpha", "beta") + LATTICE,
+                    default="bwd",
+                    help="the wrapper timed: the banded forward or backward, the logZ, "
+                    "a band sweep or a lattice sweep")
     ap.add_argument("--shapes", nargs="+", default=["4,410,8,64"],
-                    help="B,T,H,Dh (B,T,U1,V for logz, B,T,S for alpha and beta)")
+                    help="B,T,H,Dh (B,T,U1,V for logz, B,T,S for alpha and beta, B,T,U "
+                    "for the lattice sweeps)")
     ap.add_argument("--band", nargs=2, type=int, default=[10, 2], metavar=("LEFT", "RIGHT"))
     ap.add_argument("--chunks", nargs="*", type=int, default=[],
                     help="with --pass alpha or beta, also time these chunk counts and "
                     "the plan's (a checkout whose band_kernel has that chunked kernel)")
     ap.add_argument("--one", help=argparse.SUPPRESS)
+    ap.add_argument("--save", help=argparse.SUPPRESS)
     a = ap.parse_args()
     shapes = [tuple(int(x) for x in s.split(",")) for s in a.shapes]
     if a.one:
-        time_one(a.one, shapes, tuple(a.band), a.which, a.chunks)
+        time_one(a.one, shapes, tuple(a.band), a.which, a.chunks, a.save)
         return 0
     import torch
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
-    for root in a.roots:
-        cmd = [sys.executable, os.path.abspath(__file__), "--one", root, "--pass",
-               a.which, "--shapes", *a.shapes, "--band", *map(str, a.band),
-               "--chunks", *map(str, a.chunks)]
-        if subprocess.run(cmd).returncode != 0:
-            return 1
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        saved = []
+        for i, root in enumerate(a.roots):
+            cmd = [sys.executable, os.path.abspath(__file__), "--one", root, "--pass",
+                   a.which, "--shapes", *a.shapes, "--band", *map(str, a.band),
+                   "--chunks", *map(str, a.chunks)]
+            if a.which in LATTICE and len(a.roots) > 1:
+                saved.append(os.path.join(tmp, f"{i}.pt"))
+                cmd += ["--save", saved[-1]]
+            if subprocess.run(cmd).returncode != 0:
+                return 1
+        if saved:       # every checkout's outputs against the first's
+            first = torch.load(saved[0])
+            for root, path in zip(a.roots[1:], saved[1:]):
+                out = torch.load(path)
+                print(json.dumps({"root": root, "against": a.roots[0], "pass": a.which,
+                                  "max_abs_diff": {k: (out[k] - first[k]).abs().max().item()
+                                                   for k in first}}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
