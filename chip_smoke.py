@@ -40,6 +40,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    95-97; the banded forward's row log-sum-exp against the band-masked
    logsumexp of the plain scores at bands (10, 2), (0, 0), (3, 64),
    (64, 0), (64, 64), as the flash forward's against the full one; the
+   banded forward also at the streaming sessions' shape, T = 256 (the
+   pinned window) with B = 1 and 16 at band (10, 2); the
    four attention kernels at head width 32 as well as 64;
 4. the slice at full width: ``configs/joint_streaming.yaml`` (18 layers,
    d_model 512, V 6485) with seeded random weights, 8 synthetic utterances
@@ -96,7 +98,28 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    ``--banded`` and dense attention, end to end and split into phases (encoder forward, loss
    forward, backward, optimizer; for the pruned loss the simple stage,
    bounds, banded joint and band DP in place of the loss forward), with the
-   device's idle share and peak memory.
+   device's idle share and peak memory;
+9. streaming at full width: the same config and weights with phase 4's
+   blank bias, two synthetic waves (410 frames, 12.27 s, and 60 frames) fed
+   100 ms a call and, again, whole in one call, each then finalized,
+   through a window session (windows padded to 256 rows, the ready ones
+   encoded together by ``encode_banded``: 18 banded launches a group, read
+   from the counters; the long wave whole in one call must take fewer
+   groups than windows), a trapezoid session (one window a group) and an
+   incremental session (no kernel: its 18 layers a chunk are plain tensor
+   code), then the same through the plain versions; tokens identical, or
+   the first frame decided differently a tie (top-2 logit gap <= 1e-3,
+   replayed from the encoder rows each session decoded there under the
+   label state both share), the incremental stream equal to the window
+   stream and the window session's whole-file stream equal to its 100 ms
+   one likewise, at most one host read an emission plus one a window, and
+   ``chunked_encode`` within 1e-3 of one ``encode_banded`` over the
+   sequence padded to 512; then, on the long wave, the latency of
+   each ``accept_waveform`` that decoded (host clock, median and p90), the
+   whole file in one call (median of 5, warm) as a real-time factor with
+   the device's idle share (``torch.profiler``), host reads a window, and
+   the banded forward alone under a CUDA graph at (1, 256) and (16, 256)
+   with its bound; a JSON line of these before the kernels' line.
 
 Kernel checks in phase 3: each forward against its plain version (atol
 1e-4, rtol 1e-4); the attention backward against autograd through the
@@ -151,6 +174,8 @@ GRAD_FLOOR = 1e-5        # for gradients that are 0 in exact arithmetic (T = 1)
 B_TRAIN = 4              # configs/joint_streaming.yaml data.batch_size
 LOSS_RTOL, NORM_RTOL = 1e-4, 1e-3
 S_RANGE = 5              # the pruned loss's band (--pruned-range 5)
+STREAM_T = 256           # the streaming window_len at the flagship's band
+STREAM_CHUNK = 1600      # 100 ms of 16 kHz audio an accept_waveform call
 
 
 def log(*args):
@@ -925,6 +950,27 @@ def train_three_steps(model_cfg, optim_cfg, state, mode, batch, device, plain,
     return out
 
 
+def check_streaming_shapes(gen) -> float:
+    """The banded forward against its plain version at the streaming
+    sessions' shape: T pinned at STREAM_T, one window or a group of 16;
+    returns the largest abs error."""
+    import torch
+    from transformer_transducer_tpu_torch.ops.cuda.banded_attention import (
+        banded_attention, banded_attention_plain)
+    worst = 0.0
+    for b in (1, 16):
+        args = attention_inputs(STREAM_T, 410, gen, b=b)
+        got = banded_attention(*args, *BAND)
+        ref = banded_attention_plain(*args, *BAND)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        log(f"  banded Dh={DH} B={b} T={STREAM_T} band=({BAND[0]},{BAND[1]}): max|err| "
+            f"{err:.3e}")
+        torch.testing.assert_close(got, ref, **KERNEL_TOL)
+        worst = max(worst, err)
+    return worst
+
+
 def check_kernels(gen):
     """Phase 3: the attention forward kernels against their plain versions,
     with their row log-sum-exps against the logsumexp of the plain scores
@@ -963,6 +1009,7 @@ def check_kernels(gen):
                 require(torch.equal(got, with_lse),
                         f"banded T={tlen} band={band}: the output moved with the lse")
                 errs["banded"] = max(errs["banded"], err, err_lse)
+    errs["banded"] = max(errs["banded"], check_streaming_shapes(gen))
     # the flash forward (on the tensor cores) at the edges of its 128-row
     # query tiles and 32-key chunks, with its row log-sum-exp; 513 > k_len:
     # front pad
@@ -1054,6 +1101,227 @@ def load_config(*path):
 def load_flagship():
     """``configs/joint_streaming.yaml`` as a port ``Config``."""
     return load_config("configs", "joint_streaming.yaml")
+
+
+def feed_stream(session, wave, chunk=STREAM_CHUNK):
+    """Feed ``wave`` to ``session`` ``chunk`` samples a call (all of it in
+    one call where ``chunk`` is None), then finalize; the host ms around
+    each ``accept_waveform`` that decoded a window, and the tokens each of
+    those calls emitted."""
+    import torch
+    lat, emitted = [], []
+    chunk = chunk or len(wave)
+    for i in range(0, len(wave), chunk):
+        before = session.windows
+        start = time.perf_counter()
+        new = session.accept_waveform(wave[i:i + chunk])
+        torch.cuda.synchronize()
+        if session.windows > before:
+            lat.append((time.perf_counter() - start) * 1e3)
+            emitted.append(len(new))
+    session.finalize()
+    torch.cuda.synchronize()
+    return lat, emitted
+
+
+def record_windows(session):
+    """Have ``session`` keep the encoder rows its frame decoder is given,
+    as (first absolute frame, rows) in ``session.window_rows``, so that a
+    tie can be replayed after the stream."""
+    rows = session.window_rows = []
+    decode = session._frame_decode
+
+    def recorded(enc_eff, abs_start):
+        rows.append((abs_start, enc_eff.clone()))
+        return decode(enc_eff, abs_start)
+    session._frame_decode = recorded
+    return session
+
+
+def replay_gap(session, tokens, frame) -> float:
+    """The top-2 logit gap at absolute ``frame`` of ``session``'s stream,
+    from the encoder row its frame decoder was given there (the last, if
+    more than one) under the label state of ``tokens``: the seed and the
+    last ``label_history`` of them, as the session's ring holds them."""
+    import torch
+    from transformer_transducer_tpu_torch.decoding.greedy import predict_last_state
+    from transformer_transducer_tpu_torch.ops.masks import look_ahead_mask
+    model, cfg = session.model, session.cfg
+    start, rows = next((a, r) for a, r in reversed(session.window_rows)
+                       if a <= frame < a + r.shape[0])
+    cap = cfg.label_history + 1
+    hist = [cfg.seed_token] + tokens[len(tokens) - min(len(tokens), cfg.label_history):]
+    buf = torch.zeros((1, cap), dtype=torch.long, device=rows.device)
+    buf[0, :len(hist)] = torch.tensor(hist, device=rows.device)
+    with torch.no_grad():
+        dec = predict_last_state(model, buf, len(hist), look_ahead_mask(cap, device=rows.device))
+        top = model.joint_logits(rows[frame - start][None], dec)[0].topk(2).values
+    return float(top[0] - top[1])
+
+
+def compare_streams(name, got, ref):
+    """Two sessions' token streams must be identical; where they are not,
+    the first frame they decide differently must be a tie under the label
+    state both still share (top-2 logit gap <= GAP_TOL in either, replayed
+    from the rows each decoded there), else the run fails."""
+    a = list(zip(got.timestamps, got.result))
+    b = list(zip(ref.timestamps, ref.result))
+    if a == b:
+        log(f"  {name}: tokens identical ({len(a)} tokens, {len(got.segments)} segments)")
+        return
+    u = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+    frame = min(s[u][0] for s in (a, b) if u < len(s))
+    gap = max(replay_gap(s, s.result[:u], frame) for s in (got, ref))
+    log(f"  {name}: token {u} first differs at frame {frame}, top-2 logit gap {gap:.3e}")
+    require(gap <= GAP_TOL, f"{name}: streams diverge at frame {frame} (gap {gap:.3e})")
+
+
+def check_streaming(cfg, state, offset, device, smi, gen):
+    """Phase 9: the streaming sessions at full width.  Returns the kernel
+    record's additions for kernel 6 and the phase's summary."""
+    import numpy as np
+    import torch
+    from transformer_transducer_tpu_torch.models.transducer import build_transducer
+    from transformer_transducer_tpu_torch.ops.cuda.banded_attention import (
+        banded_attention, banded_attention_plain)
+    from transformer_transducer_tpu_torch.streaming.session import (
+        StreamingConfig, StreamingSession, TrapezoidStreamingSession, chunked_encode)
+    model = build_transducer(cfg.model, device=device)
+    model.load_state_dict(state)
+    with torch.no_grad():
+        model.joint.project_layer.bias[0] += offset       # phase 4's bias
+    n_layer = cfg.model.enc.n_layer
+    left, right = cfg.model.enc.left_context, cfg.model.enc.right_context
+    all_waves = synthetic_waves(8, seed=0)
+    waves = {"long": all_waves[-1], "short": all_waves[0]}
+    feeds = {"100 ms": STREAM_CHUNK, "whole file": None}
+    modes = ("window", "trapezoid", "incremental")
+
+    def session(mode, keep=False):
+        scfg = StreamingConfig.from_config(cfg)
+        if mode == "trapezoid":
+            return TrapezoidStreamingSession(model, scfg, device=device)
+        return StreamingSession(model, scfg, device=device, keep_features=keep,
+                                incremental=mode == "incremental")
+
+    scfg = StreamingConfig.from_config(cfg)
+    scfg.ensure_lengths()
+    log(f"streaming sessions at full width, {STREAM_CHUNK * 1000 // 16000} ms a call "
+        f"and the whole file in one call (window_len {scfg.window_len}, chunk_len "
+        f"{scfg.chunk_len}):")
+    # the main path, each wave, feed and mode with the counts from 0; then
+    # the same sessions through the plain versions
+    kern, plain, stream_launches = {}, {}, 0
+    for wname, wave in waves.items():
+        for fname, chunk in feeds.items():
+            for mode in modes:
+                s = record_windows(session(mode, keep=mode == "window"))
+                reset_counts()
+                feed_stream(s, wave, chunk)
+                counts = read_counts()
+                want = dict.fromkeys(counts, 0)
+                if mode != "incremental":
+                    want["banded_fwd"] = n_layer * s.window_groups
+                what = f"{mode}, {wname} ({len(wave) / 16000:.2f} s), {fname}"
+                log(f"  {what}: {len(s.result)} tokens, {len(s.segments)} segments, "
+                    f"{s.windows} windows in {s.window_groups} groups, {s.host_reads} host "
+                    f"reads ({s.host_reads / s.windows:.2f} a window); launches {counts}")
+                require(counts == want, f"{what}: launches {counts}, want {want}")
+                require(s.host_reads <= len(s.result) + s.windows,
+                        f"{what}: {s.host_reads} host reads")
+                require(s.result and 0 not in s.result and len(s.timestamps) == len(s.result)
+                        and all(np.isfinite(s.confidences)), f"{what}: malformed output")
+                if mode == "window" and chunk is None and wname == "long":
+                    # the windows one call finds ready are encoded together
+                    require(s.window_groups < s.windows,
+                            f"{what}: {s.windows} windows in {s.window_groups} groups")
+                stream_launches += counts["banded_fwd"]
+                kern[wname, fname, mode] = s
+            with plain_versions():
+                for mode in modes:
+                    s = record_windows(session(mode))
+                    reset_counts()
+                    feed_stream(s, wave, chunk)
+                    require(not any(read_counts().values()), f"plain {mode} launched")
+                    plain[wname, fname, mode] = s
+            for mode in modes:
+                compare_streams(f"{mode}, {wname}, {fname}, kernel vs plain",
+                                kern[wname, fname, mode], plain[wname, fname, mode])
+            compare_streams(f"incremental vs window, {wname}, {fname}",
+                            kern[wname, fname, "incremental"], kern[wname, fname, "window"])
+        compare_streams(f"window, {wname}, whole file vs 100 ms",
+                        kern[wname, "whole file", "window"], kern[wname, "100 ms", "window"])
+
+    # chunked_encode against one encode_banded over the padded sequence
+    feats = kern["long", "100 ms", "window"].feature_log
+    fixed = 512
+    padded = torch.zeros((1, fixed, feats.shape[1]), device=device)
+    padded[0, :len(feats)] = torch.from_numpy(feats)
+    with torch.no_grad():
+        full = model.encode_banded(padded, left, right)[0, :len(feats)].cpu().numpy()
+    chunked = chunked_encode(model, feats, scfg, fixed_len=fixed)
+    require(chunked.shape == full.shape and np.isfinite(chunked).all(),
+            "chunked_encode: wrong shape or not finite")
+    err = float(np.abs(chunked - full).max())
+    log(f"  chunked_encode ({len(feats)} frames, windows padded to {fixed}) vs "
+        f"encode_banded over the padded sequence: max|err| {err:.3e} (tolerance {ENC_TOL})")
+    require(err <= ENC_TOL, f"chunked_encode differs by {err}")
+
+    # timings: latency per decoding call at 100 ms a call, the whole file
+    # in one call (median of 5, warm), the device's idle share of that
+    log(f"streaming timings on {smi}:")
+    summary = {}
+    wave = waves["long"]
+    audio_s = len(wave) / 16000.0
+    for mode in modes:
+        s = session(mode)
+        feed_stream(s, wave)                                    # warm-up
+        s.reset()
+        lat, emitted = feed_stream(s, wave)
+
+        def whole(s=s):
+            s.reset()
+            s.accept_waveform(wave)
+            s.finalize()
+        ms = host_ms({mode: whole}, samples=5)[mode]
+        med = statistics.median(ms)
+        busy = device_busy_ms(whole)
+        checked, at_once = kern["long", "100 ms", mode], kern["long", "whole file", mode]
+        summary[mode] = {
+            "latency_ms_median": statistics.median(lat),
+            "latency_ms_p90": float(np.percentile(lat, 90)), "decoding_calls": len(lat),
+            "latency_ms_calls": [round(x, 2) for x in lat], "tokens_calls": emitted,
+            "whole_file_ms": med, "rtf": med / 1e3 / audio_s,
+            "device_busy_ms": busy, "idle_share": 1 - busy / med if busy > 0 else None,
+            "host_reads_per_window": checked.host_reads / checked.windows,
+            "windows": checked.windows, "groups": checked.window_groups,
+            "windows_whole_file": at_once.windows, "groups_whole_file": at_once.window_groups}
+        r = summary[mode]
+        share = (f"{100 * r['idle_share']:.1f} %" if busy > 0
+                 else "not measured (the profiler saw no device time)")
+        log(f"  {mode}: latency per decoding call median {r['latency_ms_median']:.2f} ms, "
+            f"p90 {r['latency_ms_p90']:.2f} ms (calls {r['latency_ms_calls']}, tokens "
+            f"{emitted}); whole file "
+            f"({audio_s:.2f} s) in one call {spread(ms)}, real-time factor {r['rtf']:.5f}; "
+            f"device busy {busy:.2f} ms, idle share {share}; host reads a window "
+            f"{r['host_reads_per_window']:.2f}; the whole file's {at_once.windows} windows "
+            f"in {at_once.window_groups} groups")
+    # kernel 6 alone at the window length, one window and a group of 16
+    rec = {"streaming_launches": stream_launches}
+    for b in (1, 16):
+        args = attention_inputs(STREAM_T, 410, gen, b=b)
+        with torch.no_grad():
+            ms = graph_ms(lambda: banded_attention(*args, left, right))
+        plain_ms = cuda_ms(lambda: banded_attention_plain(*args, left, right))
+        bound_ms, by = bound(STREAM_T, band_cells(STREAM_T, left, right), b=b)
+        rec.update({f"ms_t{STREAM_T}_b{b}": ms, f"plain_ms_t{STREAM_T}_b{b}": plain_ms,
+                    f"bound_t{STREAM_T}_b{b}_ms": bound_ms})
+        log(f"  banded_attention_fwd (B={b}, T={STREAM_T}): kernel {ms:.4f} ms (alone, CUDA "
+            f"graph), plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({by}), "
+            f"{100 * bound_ms / ms:.1f} % of bound")
+    del model
+    torch.cuda.empty_cache()
+    return rec, summary
 
 
 def check_head_width_32(device):
@@ -2017,6 +2285,11 @@ def main() -> int:
             log(f"    most device time in one step: {device_top(run)}")
         del model, opt, step, run
         torch.cuda.empty_cache()
+
+    # ---- 9. streaming at full width
+    stream_rec, streaming = check_streaming(cfg, state, offset, device, smi, gen)
+    next(r for r in records if r["name"] == "banded_attention_fwd").update(stream_rec)
+    log(json.dumps({"streaming": streaming}))
 
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

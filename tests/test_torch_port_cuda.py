@@ -8,8 +8,10 @@ logits that its exact pass takes, bit-identical and under a CUDA graph,
 and band sweeps up to S = 128),
 the launch counters, the wrappers' input checks, a
 small encoder through the attention kernels against the dense path,
-gradients of whole models through the kernels against the plain path, and
-the pruned loss on the card against the CPU.
+gradients of whole models through the kernels against the plain path,
+the pruned loss on the card against the CPU, the banded forward at the
+streaming window (T = 256, B = 1 and 16), and the streaming sessions on the
+card against the same sessions through the plain version.
 
 A CUDA kernel has no CPU mode, so every test here needs an NVIDIA card and
 skips without one.  On a machine with a card:
@@ -692,3 +694,79 @@ def test_pruned_wrappers_reject_what_the_kernels_do_not_take(gen):
         band_alpha(x[..., :4], x[..., :4], d.cpu(), 4)
     with pytest.raises(ValueError, match="empty vocabulary"):
         additive_logz(torch.zeros(1, 2, 0, device="cuda"), torch.zeros(1, 65, 0, device="cuda"))
+
+
+# the streaming window: T pinned at 256 (18 x 10 + 36 + 18 x 2, rounded up
+# to 64), one window or a group of 16, tables of the flagship's 410 rows
+@pytest.mark.parametrize("b", [1, 16])
+def test_banded_kernel_at_the_streaming_window(gen, b):
+    mk = lambda *s: torch.randn(*s, generator=gen, device="cuda") * 0.5
+    q, k, v = mk(b, 256, 3, 8, DH).unbind(2)
+    args = (q, k, v, slice_pos_table(mk(410, 8, DH), 256), mk(8, DH),
+            slice_pos_table(mk(410, 8), 256))
+    before = banded_attention.launches
+    got = banded_attention(*args, 10, 2)
+    assert banded_attention.launches == before + 1
+    torch.testing.assert_close(got, banded_attention_plain(*args, 10, 2), **TOL)
+
+
+def _streaming_model(gen):
+    """Two layers of 2 heads x 64 on the card (32 mels x 4 stacked frames =
+    d_model 128), the blank logit biased so that some frames emit."""
+    layer = {"n_layer": 2, "n_head": 2, "d_model": 128, "d_head": DH, "d_inner": 256}
+    cfg = Config({"enc": dict(layer, max_input_length=410, left_context=10,
+                              right_context=2),
+                  "dec": dict(layer, max_target_length=42),
+                  "joint": {"inner_size": 96}, "vocab_size": 40})
+    model = build_transducer(cfg, device="cuda")
+    model.load_state_dict(from_jax_params(random_jax_params(cfg, seed=3)))
+    x = torch.randn(1, 200, 128, generator=gen, device="cuda")
+    with torch.no_grad():
+        logits = model.joint_logits(model.encode_banded(x, 10, 2),
+                                    model.predict(torch.zeros((1, 1), dtype=torch.long,
+                                                              device="cuda")))[0, :, 0]
+        margin = logits[:, 1:].max(-1).values - logits[:, 0]
+        model.joint.project_layer.bias[0] += torch.quantile(margin, 0.8)
+    return model
+
+
+def test_streaming_sessions_on_the_card_match_the_plain_versions(gen, monkeypatch):
+    """Window, trapezoid and incremental sessions on the card: the window
+    modes launch the banded kernel once a layer for each window group, and
+    give the tokens of the same sessions through the plain version; the
+    incremental session gives the window session's."""
+    import numpy as np
+    from transformer_transducer_tpu_torch.ops.cuda import banded_attention as ba
+    from transformer_transducer_tpu_torch.streaming.session import (
+        StreamingConfig, StreamingSession, TrapezoidStreamingSession)
+    model = _streaming_model(gen)
+    rng = np.random.RandomState(0)
+    n = 48000
+    wav = ((np.sin(np.arange(n) * 0.03) * 9000 + rng.randn(n) * 1500)
+           * (np.sin(2 * np.pi * np.arange(n) / 12000) > -0.2)).astype(np.int16)
+
+    def run(kind):
+        cfg = StreamingConfig(n_layer=2, feature_dim=32, blank_split=4)
+        session = (TrapezoidStreamingSession(model, cfg, device="cuda") if kind == "trapezoid"
+                   else StreamingSession(model, cfg, device="cuda",
+                                         incremental=kind == "incremental"))
+        before = banded_attention.launches      # the wrapper's own counter
+        for i in range(0, n, 1600):
+            session.accept_waveform(wav[i:i + 1600])
+        session.finalize()
+        torch.cuda.synchronize()
+        return session, banded_attention.launches - before
+
+    kern = {kind: run(kind) for kind in ("window", "trapezoid", "incremental")}
+    for kind, (session, launches) in kern.items():
+        assert session.host_reads <= len(session.result) + session.windows
+        want = 0 if kind == "incremental" else 2 * session.window_groups
+        assert launches == want, (kind, launches, want)
+    assert kern["window"][0].result, "degenerate test: nothing emitted"
+    assert kern["incremental"][0].result == kern["window"][0].result
+    monkeypatch.setattr(ba, "banded_attention", ba.banded_attention_plain)
+    for kind in ("window", "trapezoid"):
+        session, launches = run(kind)
+        assert launches == 0
+        assert session.result == kern[kind][0].result
+        assert session.timestamps == kern[kind][0].timestamps

@@ -63,13 +63,22 @@ def test_importing_every_module_leaves_jax_out():
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
-    from transformer_transducer_tpu_torch.apps import predict, train
+    from transformer_transducer_tpu_torch.apps import predict, stream_demo, train
     from transformer_transducer_tpu_torch.models.transducer import build_transducer
+    from transformer_transducer_tpu_torch.streaming.session import (
+        StreamingConfig, StreamingSession, TrapezoidStreamingSession)
     from transformer_transducer_tpu_torch.utils.config import Config
     from transformer_transducer_tpu_torch.utils.device import resolve_device
     from torch_port_helpers import tiny_model_cfg
 
+    model = build_transducer(Config(tiny_model_cfg()), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for session, kw in ((StreamingSession, {}), (StreamingSession, {"incremental": True}),
+                        (TrapezoidStreamingSession, {})):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            session(model, StreamingConfig(n_layer=2, feature_dim=16), **kw)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        stream_demo.main(["--config", "x.yaml", "--wav", "a.wav"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device()
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -110,6 +110,24 @@ def test_tied_projection_matches_jax():
     np.testing.assert_allclose(got, ref, **TOL)
 
 
+@pytest.mark.parametrize("share", [False, True])
+def test_joint_halves_match_jax_joint_logits(share):
+    """The joint's first layer taken in halves (``project_enc`` +
+    ``project_dec``, then ``joint_logits_from``: the streaming frame
+    decoder's form) against the JAX ``joint_logits`` on the same rows."""
+    cfg = tiny_model_cfg(share_embedding=share)
+    jm, variables = jax_model(cfg, seed=3)
+    pm = port_model(cfg, variables)
+    rng = np.random.RandomState(9)
+    enc, dec = rng.randn(5, 64).astype(np.float32), rng.randn(1, 64).astype(np.float32)
+    ref = jm.apply(variables, jnp.asarray(enc), jnp.asarray(np.repeat(dec, 5, 0)),
+                   method="joint_logits")
+    with torch.no_grad():
+        got = pm.joint_logits_from(pm.joint.project_enc(t(enc))
+                                   + pm.joint.project_dec(t(dec))).numpy()
+    np.testing.assert_allclose(got, np.asarray(ref), **TOL)
+
+
 def test_weights_round_trip_through_torch_convert(models):
     """from_jax_params, then the JAX package's torch_convert.transducer_params
     on the port's component state dicts, gives back the JAX tree exactly."""

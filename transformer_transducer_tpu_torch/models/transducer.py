@@ -89,7 +89,26 @@ class JointNetwork(nn.Module):
             t, u = enc_state.shape[1], dec_state.shape[1]
             enc_state = enc_state[:, :, None, :].expand(-1, -1, u, -1)
             dec_state = dec_state[:, None, :, :].expand(-1, t, -1, -1)
-        h = torch.tanh(self.forward_layer(torch.cat([enc_state, dec_state], -1)))
+        return self.logits_from(self.forward_layer(torch.cat([enc_state, dec_state], -1)),
+                                tied_projection)
+
+    # forward_layer(cat(e, d)) == project_enc(e) + project_dec(d): a decoder
+    # that holds one side fixed applies that side's half once
+    def project_enc(self, enc_state: torch.Tensor) -> torch.Tensor:
+        """The first layer's encoder half, with its bias."""
+        w = self.forward_layer.weight
+        return nn.functional.linear(enc_state, w[:, :enc_state.shape[-1]],
+                                    self.forward_layer.bias)
+
+    def project_dec(self, dec_state: torch.Tensor) -> torch.Tensor:
+        """The first layer's label half, no bias."""
+        w = self.forward_layer.weight
+        return dec_state @ w[:, w.shape[1] - dec_state.shape[-1]:].t()
+
+    def logits_from(self, pre: torch.Tensor,
+                    tied_projection: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Logits from the first layer's pre-activation."""
+        h = torch.tanh(pre)
         if tied_projection is not None:
             return h @ tied_projection.t() + self.project_bias
         return self.project_layer(h)
@@ -148,10 +167,14 @@ class Transducer(nn.Module):
 
     def joint_logits(self, enc_state: torch.Tensor,
                      dec_state: torch.Tensor) -> torch.Tensor:
-        if self.share_embedding:
-            return self.joint(enc_state, dec_state,
-                              tied_projection=self.decoder.dec_embedding.weight)
-        return self.joint(enc_state, dec_state)
+        return self.joint(enc_state, dec_state, tied_projection=self._tied_projection())
+
+    def joint_logits_from(self, pre: torch.Tensor) -> torch.Tensor:
+        """Joint logits from ``joint.project_enc(e) + joint.project_dec(d)``."""
+        return self.joint.logits_from(pre, self._tied_projection())
+
+    def _tied_projection(self) -> Optional[torch.Tensor]:
+        return self.decoder.dec_embedding.weight if self.share_embedding else None
 
 
 def build_transducer(model_cfg, flash: bool = False, device=None,
