@@ -119,7 +119,28 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    whole file in one call (median of 5, warm) as a real-time factor with
    the device's idle share (``torch.profiler``), host reads a window, and
    the banded forward alone under a CUDA graph at (1, 256) and (16, 256)
-   with its bound; a JSON line of these before the kernels' line.
+   with its bound; a JSON line of these before the kernels' line;
+10. multi-stream serving at full width: the same weights and blank bias;
+   the main path is the serve CLI (``apps/serve.py --json``) on 4 synthetic
+   waves of 1.8-12.3 s, with the counts from 0: 18 kernel-6 launches an
+   encoder call, its tokens those of a ``BatchedStreamingSession`` drained
+   over the same waves, which must equal the solo window sessions'; the
+   incremental rounds equal to the window rounds, round by round equal to
+   the drain (each round reading the card at most 1 + the most emissions
+   of one stream in it), ``serve_files`` with 5 utterances through 2 slots
+   in both modes equal to solo sessions, and the plain versions' drain
+   equal to the kernel's (tokens identical, or the first frame decided
+   differently a tie, replayed from the recorded encoder rows as in phase
+   9); kernel 6 against its plain version at (8, 256) and (128, 256), two
+   launches to the bit, and alone under a CUDA graph with its bound; then
+   timings: 8 live streams fed one audio step (15,519 samples) a round,
+   one ``process()`` a round, 30 rounds after 3 of warm-up (round latency
+   p50/p95/p99, both modes), a drain of 8 x 30 s (best of 2: x real time,
+   the idle share, and the host time split into features, encoder and
+   decoder), and continuous against gang batching of 2 groups of one 30 s
+   and seven 8 s utterances through 8 slots (x real time, utterances a
+   second, the share of slot-rounds with a window, ``slot_utilization``);
+   a JSON line of these before the kernels' line.
 
 Kernel checks in phase 3: each forward against its plain version (atol
 1e-4, rtol 1e-4); the attention backward against autograd through the
@@ -142,6 +163,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import functools
+import io
 import json
 import os
 import re
@@ -1031,14 +1053,16 @@ def check_kernels(gen):
     return errs
 
 
-def synthetic_waves(n_utts, seed):
-    """int16 waves of 60..410 frames after the frontend (about 1.8-12.3 s):
-    voiced chirps with pauses and noise."""
+def synthetic_waves(n_utts, seed, frames=None):
+    """int16 waves of 60..410 frames after the frontend (about 1.8-12.3 s),
+    or of the given ``frames`` each: voiced chirps with pauses and noise."""
     import numpy as np
     rng = np.random.default_rng(seed)
     waves = []
-    for frames in np.linspace(60, T_MAIN, n_utts).astype(int):
-        n = 480 * (frames - 1)            # hop 160, subsample 3
+    if frames is None:
+        frames = np.linspace(60, T_MAIN, n_utts).astype(int)
+    for n_frames in frames:
+        n = 480 * (int(n_frames) - 1)     # hop 160, subsample 3
         tt = np.arange(n) / 16000.0
         f0 = rng.uniform(100, 300)
         sig = sum(np.sin(2 * np.pi * f0 * m * tt * (1 + 0.1 * np.sin(3 * tt))) / m
@@ -1319,6 +1343,338 @@ def check_streaming(cfg, state, offset, device, smi, gen):
         log(f"  banded_attention_fwd (B={b}, T={STREAM_T}): kernel {ms:.4f} ms (alone, CUDA "
             f"graph), plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({by}), "
             f"{100 * bound_ms / ms:.1f} % of bound")
+    del model
+    torch.cuda.empty_cache()
+    return rec, summary
+
+
+def record_rounds(session):
+    """Have a batched ``session`` keep the encoder rows its frame decoder is
+    given, by utterance (each ``accept_waveform`` call starts one, as a
+    whole-file feed or ``serve_files`` admits them), as (first absolute
+    frame, rows) lists in ``session.utt_rows``."""
+    rows = session.utt_rows = []
+    owner = list(range(session.n))
+    accept, decode = session.accept_waveform, session._decode_round
+
+    def accepted(slot, samples):
+        owner[slot] = len(rows)
+        rows.append([])
+        return accept(slot, samples)
+
+    def recorded(flat, segs):
+        base = 0
+        for slot, n, abs_start in segs:
+            rows[owner[slot]].append((abs_start, flat[base:base + n].clone()))
+            base += n
+        return decode(flat, segs)
+    session.accept_waveform, session._decode_round = accepted, recorded
+    return session
+
+
+def utterance_views(session, results=None, meta=None):
+    """Each utterance a recorded batched ``session`` decoded as an object
+    ``compare_streams`` and ``replay_gap`` take: its tokens, timestamps and
+    segments (of its stream, or from ``serve_files``' ``results`` and
+    ``last_meta``) and the encoder rows it was decoded from."""
+    import types
+    if results is None:
+        results = [st.result for st in session.streams]
+        meta = [{"timestamps": st.timestamps, "segments": st.segments}
+                for st in session.streams]
+    return [types.SimpleNamespace(result=r, timestamps=m["timestamps"],
+                                  segments=m["segments"], window_rows=rows,
+                                  model=session.model, cfg=session.cfg)
+            for r, m, rows in zip(results, meta, session.utt_rows)]
+
+
+def serving_split(session, run) -> dict:
+    """Host ms of one ``run`` of a batched ``session`` in its parts, each
+    ended by a synchronise: the rounds' gathering (log-mel features and
+    window geometry), the encoder calls and the frame decoder."""
+    import torch
+    parts = dict.fromkeys(("features", "encoder", "decoder"), 0.0)
+    names = {"features": "_gather_chunk_round" if session.incremental else "_gather_round",
+             "encoder": "_encode_chunks" if session.incremental else "_encode_windows",
+             "decoder": "_decode_round"}
+    for part, name in names.items():
+        fn = getattr(session, name)
+
+        def timed(*args, fn=fn, part=part):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            parts[part] += (time.perf_counter() - start) * 1e3
+            return out
+        setattr(session, name, timed)
+    start = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    parts["total"] = (time.perf_counter() - start) * 1e3
+    for name in names.values():
+        delattr(session, name)
+    return parts
+
+
+def check_serving(cfg, state, offset, device, smi, gen):
+    """Phase 10: multi-stream serving at full width.  Returns the kernel
+    record's additions for kernel 6 and the phase's summary."""
+    import numpy as np
+    import torch
+    from transformer_transducer_tpu_torch.apps import serve
+    from transformer_transducer_tpu_torch.data.wav import write_wave
+    from transformer_transducer_tpu_torch.models.transducer import build_transducer
+    from transformer_transducer_tpu_torch.ops.cuda.banded_attention import (
+        banded_attention, banded_attention_plain)
+    from transformer_transducer_tpu_torch.streaming.batched import BatchedStreamingSession
+    from transformer_transducer_tpu_torch.streaming.session import (
+        StreamingConfig, StreamingSession)
+    from transformer_transducer_tpu_torch.utils.config import dump_config
+    from transformer_transducer_tpu_torch.utils.vocab import Vocabulary
+    model = build_transducer(cfg.model, device=device)
+    model.load_state_dict(state)
+    with torch.no_grad():
+        model.joint.project_layer.bias[0] += offset       # phase 4's bias
+    n_layer = cfg.model.enc.n_layer
+    left, right = cfg.model.enc.left_context, cfg.model.enc.right_context
+    scfg = lambda: StreamingConfig.from_config(cfg)
+    waves = synthetic_waves(4, seed=1)                    # 60-410 frames, 1.8-12.3 s
+
+    def batched(n, incremental=False):
+        return record_rounds(BatchedStreamingSession(model, scfg(), n, device=device,
+                                                     incremental=incremental))
+
+    def fed(session, wavs):
+        for i, w in enumerate(wavs):
+            session.accept_waveform(i, w)
+            session.finalize(i)
+        return session
+
+    def solo(wave):
+        s = record_windows(StreamingSession(model, scfg(), device=device))
+        feed_stream(s, wave, None)
+        return s
+
+    def drained(what, session):
+        """Drain ``session`` with the counts from 0: 18 kernel-6 launches an
+        encoder call (none in the incremental rounds) and nothing else."""
+        reset_counts()
+        session.run_to_completion()
+        torch.cuda.synchronize()
+        got = read_counts()
+        want = dict.fromkeys(got, 0)
+        want["banded_fwd"] = 0 if session.incremental else n_layer * session.encode_calls
+        require(got == want, f"{what}: launches {got}, want {want}")
+        require(session.host_reads <= session.read_bound,
+                f"{what}: {session.host_reads} host reads, bound {session.read_bound}")
+        require(sum(len(st.result) for st in session.streams) > 0, f"{what}: no tokens")
+        for st in session.streams:
+            require(0 not in st.result and len(st.timestamps) == len(st.result)
+                    and all(np.isfinite(st.confidences)), f"{what}: malformed output")
+        log(f"  {what}: {[len(st.result) for st in session.streams]} tokens, "
+            f"{session.rounds} rounds, {session.windows} windows in {session.encode_calls} "
+            f"encoder calls, {session.host_reads} host reads (bound {session.read_bound})")
+        return session
+
+    scfg_full = scfg()
+    scfg_full.ensure_lengths()
+    log(f"multi-stream serving at full width (window_len {scfg_full.window_len}, chunk_len "
+        f"{scfg_full.chunk_len}, {len(waves)} streams of "
+        f"{', '.join(f'{len(w) / 16000:.2f}' for w in waves)} s):")
+
+    # the main path: the serving CLI over the 4 waves, the counts from 0
+    with tempfile.TemporaryDirectory() as tmp:
+        vocab_path = os.path.join(tmp, "vocab.txt")
+        Vocabulary.from_symbols([chr(0x4E00 + i) for i in range(cfg.model.vocab_size - 2)]
+                                + ["<unk>"]).save(vocab_path)
+        cli_cfg = load_flagship()
+        cli_cfg.override("data.vocab", vocab_path)
+        cfg_path = os.path.join(tmp, "config.yaml")
+        dump_config(cli_cfg, cfg_path)
+        torch.save(model.state_dict(), os.path.join(tmp, "model.pt"))
+        paths = []
+        for i, w in enumerate(waves):
+            paths.append(os.path.join(tmp, f"utt{i}.wav"))
+            write_wave(paths[-1], w)
+        out = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(out):
+            serve.main(["--config", cfg_path, "--checkpoint", os.path.join(tmp, "model.pt"),
+                        "--wavs", *paths, "--streams", str(len(paths)), "--json",
+                        "--device", str(device)])
+        torch.cuda.synchronize()
+        cli_counts = read_counts()
+    cli = [json.loads(line) for line in out.getvalue().splitlines() if line.strip()]
+    log(f"  serve CLI (--streams {len(paths)} --json): {[len(r['tokens']) for r in cli]} "
+        f"tokens; launches {cli_counts}")
+
+    # the same through the library: 18 kernel-6 launches an encoder call
+    window = drained("window rounds, drained", fed(batched(4), waves))
+    want = dict.fromkeys(cli_counts, 0)
+    want["banded_fwd"] = n_layer * window.encode_calls
+    require(cli_counts == want and want["banded_fwd"] > 0,
+            f"serve CLI: launches {cli_counts}, want {want}")
+    require([r["tokens"] for r in cli] == [st.result for st in window.streams],
+            "serve CLI: tokens differ from the batched session's on the same waves")
+    views = utterance_views(window)
+    solos = [solo(w) for w in waves]
+    for i, (got, ref) in enumerate(zip(views, solos)):
+        compare_streams(f"stream {i}, batched window vs solo window", got, ref)
+    inc = drained("incremental rounds, drained", fed(batched(4, incremental=True), waves))
+    for i, (got, ref) in enumerate(zip(utterance_views(inc), views)):
+        compare_streams(f"stream {i}, batched incremental vs batched window", got, ref)
+    # round by round against the drain, with the reads of each round
+    for incremental, drain in ((False, window), (True, inc)):
+        s = fed(batched(4, incremental), waves)
+        worst = 0
+        while True:
+            reads, rounds = s.host_reads, s.rounds
+            new = s.process()
+            if s.rounds == rounds:
+                break
+            worst = max(worst, s.host_reads - reads - 1 - max(map(len, new)))
+        mode = "incremental" if incremental else "window"
+        log(f"  {mode}, round by round: {s.rounds} rounds, {s.encode_calls} encoder calls, "
+            f"host reads a round - (1 + the most emissions of one stream) at most {worst}")
+        require(worst <= 0, f"{mode} round by round: a round read the card {worst} times "
+                            "more than 1 + its most emissions of one stream")
+        for i, (got, ref) in enumerate(zip(utterance_views(s), utterance_views(drain))):
+            compare_streams(f"stream {i}, {mode} round by round vs drained", got, ref)
+    # continuous batching: 5 utterances through 2 slots against solo sessions
+    utts = synthetic_waves(5, seed=2)
+    utt_solos = [solo(w) for w in utts]
+    for incremental in (False, True):
+        s = batched(2, incremental)
+        results = s.serve_files(utts)
+        mode = "incremental" if incremental else "window"
+        log(f"  serve_files, {mode}: 5 utterances through 2 slots, {s.last_stats['rounds']} "
+            f"rounds, slot utilization {s.last_stats['slot_utilization']:.3f}")
+        for k, (got, ref) in enumerate(zip(utterance_views(s, results, s.last_meta),
+                                           utt_solos)):
+            compare_streams(f"utterance {k}, serve_files ({mode}) vs solo window", got, ref)
+    # the plain versions on the same streams
+    with plain_versions():
+        reset_counts()
+        s = fed(batched(4), waves)
+        s.run_to_completion()
+        require(not any(read_counts().values()), "plain batched session launched")
+    for i, (got, ref) in enumerate(zip(views, utterance_views(s))):
+        compare_streams(f"stream {i}, batched window kernel vs plain", got, ref)
+    stream_launches = cli_counts["banded_fwd"]
+
+    # kernel 6 at the shapes of a round (8 windows) and of a drain group
+    # (16 rounds of 8): against its plain version, two launches to the bit
+    rec, worst = {"serving_launches": stream_launches}, 0.0
+    for b in (8, 128):
+        args = attention_inputs(STREAM_T, 410, gen, b=b)
+        with torch.no_grad():
+            got = banded_attention(*args, left, right)
+            again = banded_attention(*args, left, right)
+            ref = banded_attention_plain(*args, left, right)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        torch.testing.assert_close(got, ref, **KERNEL_TOL)
+        require(torch.equal(got, again), f"banded B={b} T={STREAM_T}: two launches differ")
+        worst = max(worst, err)
+        with torch.no_grad():
+            ms = graph_ms(lambda: banded_attention(*args, left, right))
+        plain_ms = cuda_ms(lambda: banded_attention_plain(*args, left, right))
+        bound_ms, by = bound(STREAM_T, band_cells(STREAM_T, left, right), b=b)
+        rec.update({f"ms_t{STREAM_T}_b{b}": ms, f"plain_ms_t{STREAM_T}_b{b}": plain_ms,
+                    f"bound_t{STREAM_T}_b{b}_ms": bound_ms})
+        log(f"  banded_attention_fwd (B={b}, T={STREAM_T}): max|err| {err:.3e}, two launches "
+            f"bit-identical; kernel {ms:.4f} ms (alone, CUDA graph), plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.5f} ms ({by}), {100 * bound_ms / ms:.1f} % of bound")
+    rec["max_abs_err_serving"] = worst
+
+    # timings (host clock around work that ends in a synchronise)
+    log(f"serving timings on {smi}:")
+    summary = {}
+    step = scfg_full.audio_step
+    live = synthetic_waves(8, seed=3, frames=[1100] * 8)          # 33 s each
+    for incremental in (False, True):
+        mode = "incremental" if incremental else "window"
+        s = BatchedStreamingSession(model, scfg(), 8, incremental=incremental, device=device)
+        lat, busy_rounds = [], 0
+        for r in range(33):
+            for i, w in enumerate(live):
+                s.accept_waveform(i, w[r * step:(r + 1) * step])
+            torch.cuda.synchronize()
+            rounds, start = s.rounds, time.perf_counter()
+            s.process()
+            torch.cuda.synchronize()
+            if r >= 3:                                            # 3 rounds of warm-up
+                lat.append((time.perf_counter() - start) * 1e3)
+                busy_rounds += s.rounds > rounds
+        p50, p95, p99 = (float(np.percentile(lat, q)) for q in (50, 95, 99))
+        summary[f"live_{mode}"] = {"round_ms_p50": p50, "round_ms_p95": p95,
+                                   "round_ms_p99": p99, "rounds_timed": len(lat),
+                                   "rounds_with_work": busy_rounds,
+                                   "round_ms": [round(x, 2) for x in lat]}
+        log(f"  live cadence, {mode}: 8 streams, one audio step ({step} samples) each a "
+            f"round, {len(lat)} rounds timed ({busy_rounds} decoded): round latency p50 "
+            f"{p50:.2f} ms, p95 {p95:.2f} ms, p99 {p99:.2f} ms")
+    long = synthetic_waves(8, seed=4, frames=[1001] * 8)          # 30 s each
+    long_s = sum(len(w) for w in long) / 16000.0
+    for incremental in (False, True):
+        mode = "incremental" if incremental else "window"
+        s = BatchedStreamingSession(model, scfg(), 8, incremental=incremental, device=device)
+
+        def drain(s=s):
+            s.reset()
+            fed(s, long).run_to_completion()
+        ms = host_ms({mode: drain}, samples=2)[mode]
+        best = min(ms)
+        busy = device_busy_ms(drain)
+        parts = serving_split(s, drain)
+        summary[f"drain_{mode}"] = {
+            "best_ms": best, "ms": ms, "x_realtime": long_s / (best / 1e3),
+            "device_busy_ms": busy, "idle_share": 1 - busy / best if busy > 0 else None,
+            "rounds": s.rounds, "encode_calls": s.encode_calls,
+            "host_reads": s.host_reads, "read_bound": s.read_bound, "split_ms": parts}
+        share = (f"{100 * (1 - busy / best):.1f} %" if busy > 0
+                 else "not measured (the profiler saw no device time)")
+        log(f"  drain, {mode}: 8 streams x 30 s ({long_s:.2f} s) in {best:.2f} ms (best of "
+            f"2, {[round(x, 2) for x in ms]}), {long_s / (best / 1e3):.1f}x real time; device "
+            f"busy {busy:.2f} ms, idle share {share}; {s.rounds} rounds, {s.encode_calls} "
+            f"encoder calls, {s.host_reads} host reads; split (synchronised) "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in parts.items()))
+    # continuous batching against gang scheduling: per group of 8, one 30 s
+    # utterance and seven 8 s ones
+    skewed = synthetic_waves(16, seed=5, frames=([1001] + [268] * 7) * 2)
+    skewed_s = sum(len(w) for w in skewed) / 16000.0
+    s = BatchedStreamingSession(model, scfg(), 8, device=device)
+    use = {}
+
+    def gang():
+        rounds = windows = 0
+        for base in range(0, len(skewed), 8):
+            s.reset()
+            fed(s, skewed[base:base + 8]).run_to_completion()
+            rounds, windows = rounds + s.rounds, windows + s.windows
+        use["gang"] = windows / (rounds * 8)
+
+    def continuous():
+        s.serve_files(skewed)
+        use["continuous"] = s.windows / (s.rounds * 8)
+        use["continuous_slots"] = s.last_stats["slot_utilization"]
+    times = host_ms({"gang": gang, "continuous": continuous}, samples=2)
+    for name, run in (("gang", gang), ("continuous", continuous)):
+        best = min(times[name])
+        parts = serving_split(s, run)
+        summary[name] = {"best_ms": best, "ms": times[name],
+                         "x_realtime": skewed_s / (best / 1e3),
+                         "utterances_per_s": len(skewed) / (best / 1e3),
+                         "stream_rounds_with_work": use[name], "split_ms": parts}
+        log(f"  {name}: 16 utterances ({skewed_s:.2f} s) through 8 slots in {best:.2f} ms "
+            f"(best of 2), {skewed_s / (best / 1e3):.1f}x real time, "
+            f"{len(skewed) / (best / 1e3):.2f} utterances/s; share of slot-rounds with a "
+            f"window {use[name]:.3f}; split (synchronised) "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in parts.items()))
+    summary["continuous"]["slot_utilization"] = use["continuous_slots"]
+    log(f"  continuous slot_utilization (serve_files, 4 rounds a call) "
+        f"{use['continuous_slots']:.3f}")
     del model
     torch.cuda.empty_cache()
     return rec, summary
@@ -2290,6 +2646,11 @@ def main() -> int:
     stream_rec, streaming = check_streaming(cfg, state, offset, device, smi, gen)
     next(r for r in records if r["name"] == "banded_attention_fwd").update(stream_rec)
     log(json.dumps({"streaming": streaming}))
+
+    # ---- 10. multi-stream serving at full width
+    serve_rec, serving = check_serving(cfg, state, offset, device, smi, gen)
+    next(r for r in records if r["name"] == "banded_attention_fwd").update(serve_rec)
+    log(json.dumps({"serving": serving}))
 
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,8 @@ small encoder through the attention kernels against the dense path,
 gradients of whole models through the kernels against the plain path,
 the pruned loss on the card against the CPU, the banded forward at the
 streaming window (T = 256, B = 1 and 16), and the streaming sessions on the
-card against the same sessions through the plain version.
+card against the same sessions through the plain version, and the batched
+session on the card against solo sessions.
 
 A CUDA kernel has no CPU mode, so every test here needs an NVIDIA card and
 skips without one.  On a machine with a card:
@@ -770,3 +771,41 @@ def test_streaming_sessions_on_the_card_match_the_plain_versions(gen, monkeypatc
         assert launches == 0
         assert session.result == kern[kind][0].result
         assert session.timestamps == kern[kind][0].timestamps
+
+
+def test_batched_session_on_the_card_matches_solo_sessions(gen):
+    """Three streams through the batched session on the card, window and
+    cached-encoder rounds: each stream's tokens and timestamps equal a solo
+    session's; the window drain launches the banded kernel once a layer an
+    encoder call, the incremental rounds never."""
+    import numpy as np
+    from transformer_transducer_tpu_torch.streaming.batched import BatchedStreamingSession
+    from transformer_transducer_tpu_torch.streaming.session import (
+        StreamingConfig, StreamingSession)
+    model = _streaming_model(gen)
+    rng = np.random.RandomState(1)
+    wavs = [((np.sin(np.arange(n) * f) * 9000 + rng.randn(n) * 1500)
+             * (np.sin(2 * np.pi * np.arange(n) / 12000) > -0.2)).astype(np.int16)
+            for n, f in ((48000, 0.03), (30000, 0.04), (64000, 0.025))]
+    for incremental in (False, True):
+        cfg = lambda: StreamingConfig(n_layer=2, feature_dim=32, blank_split=4)
+        solo = []
+        for w in wavs:
+            s = StreamingSession(model, cfg(), device="cuda", incremental=incremental)
+            s.accept_waveform(w)
+            s.finalize()
+            solo.append(s)
+        batched = BatchedStreamingSession(model, cfg(), len(wavs), incremental=incremental,
+                                          device="cuda")
+        for i, w in enumerate(wavs):
+            batched.accept_waveform(i, w)
+            batched.finalize(i)
+        before = banded_attention.launches
+        results = batched.run_to_completion()
+        torch.cuda.synchronize()
+        launches = banded_attention.launches - before
+        assert any(results), "degenerate test: nothing emitted"
+        assert results == [s.result for s in solo]
+        assert [st.timestamps for st in batched.streams] == [s.timestamps for s in solo]
+        assert launches == (0 if incremental else 2 * batched.encode_calls)
+        assert batched.host_reads <= batched.read_bound

@@ -63,8 +63,9 @@ def test_importing_every_module_leaves_jax_out():
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
-    from transformer_transducer_tpu_torch.apps import predict, stream_demo, train
+    from transformer_transducer_tpu_torch.apps import predict, serve, stream_demo, train
     from transformer_transducer_tpu_torch.models.transducer import build_transducer
+    from transformer_transducer_tpu_torch.streaming.batched import BatchedStreamingSession
     from transformer_transducer_tpu_torch.streaming.session import (
         StreamingConfig, StreamingSession, TrapezoidStreamingSession)
     from transformer_transducer_tpu_torch.utils.config import Config
@@ -77,8 +78,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                         (TrapezoidStreamingSession, {})):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             session(model, StreamingConfig(n_layer=2, feature_dim=16), **kw)
+    for incremental in (False, True):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            BatchedStreamingSession(model, StreamingConfig(n_layer=2, feature_dim=16), 2,
+                                    incremental=incremental)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         stream_demo.main(["--config", "x.yaml", "--wav", "a.wav"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--config", "x.yaml", "--checkpoint", "m.pt", "--wavs", "a.wav"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device()
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -297,7 +297,7 @@ def test_host_reads_at_most_emissions_plus_windows(models, incremental):
 
 
 @pytest.mark.parametrize("incremental", [False, True])
-def test_stream_demo_cli_on_cpu(tmp_path, capsys, models, incremental):
+def test_stream_demo_cli_on_cpu(tmp_path, capsys, monkeypatch, models, incremental):
     """``stream_demo --device cpu`` on a generated wav with a port
     checkpoint: its text is the session's tokens through the vocabulary."""
     _, _, pm = models
@@ -326,6 +326,23 @@ def test_stream_demo_cli_on_cpu(tmp_path, capsys, models, incremental):
     assert ref.result and text == "".join(chr(0x4e00 + i) for i in ref.result)
     assert f"final: {text}" in printed and "RTF" in printed
     assert printed.count("p=") == len(ref.result)
-    for flag in ("--int8", "--gui"):
-        with pytest.raises(NotImplementedError):
-            stream_demo.main(argv + [flag])
+    with pytest.raises(NotImplementedError):
+        stream_demo.main(argv + ["--int8"])
+    # --gui hands the session to the Tk window (apps/gui.py), fed from the file
+    from transformer_transducer_tpu_torch.apps import gui
+    opened = []
+
+    class Window:
+        def __init__(self, session, vocab):
+            opened.append(session)
+
+        def set_wav_source(self, path, chunk_ms):
+            opened.append((path, chunk_ms))
+
+        def run(self):
+            opened.append("run")
+
+    monkeypatch.setattr(gui, "StreamGui", Window)
+    stream_demo.main(argv + ["--gui"])
+    assert isinstance(opened[0], StreamingSession)
+    assert opened[1:] == [(str(tmp_path / "a.wav"), 250), "run"]

@@ -6,7 +6,7 @@ and ``test.py``).
 A wav file is fed to a streaming session in chunks of ``--chunk-ms``
 (paced at real time with ``--realtime``), and tokens print as they decode.
 ``--mic`` reads the microphone instead (needs ``pyaudio``, imported only
-then).
+then); ``--gui`` opens the Tk window (``apps/gui.py``) on either source.
 
     python -m transformer_transducer_tpu_torch.apps.stream_demo \\
         --config configs/joint_streaming.yaml \\
@@ -123,13 +123,19 @@ def main(argv=None) -> str:
     if args.int8:
         raise NotImplementedError("int8 serving (ops/quant.py) is ported in a "
                                   "later slice of the PyTorch port")
-    if args.gui:
-        raise NotImplementedError("the Tk window (apps/gui.py) is ported in a "
-                                  "later slice of the PyTorch port")
     if not (args.mic or args.wav):
         sys.exit("need --wav or --mic")
 
     session, vocab = build_session(args)
+    if args.gui:
+        from transformer_transducer_tpu_torch.apps import gui as gui_app
+        window = gui_app.StreamGui(session, vocab)
+        if args.mic:
+            window.set_mic_source()
+        else:
+            window.set_wav_source(args.wav, args.chunk_ms)
+        window.run()
+        return "".join(vocab.decode(session.result))
     if args.mic:
         result = stream_mic(session, args.seconds)
     else:

@@ -35,6 +35,12 @@ cells are scored (windows of the keys, ``unfold``), where the JAX step
 scores every key and masks those outside the band: the masked cells add
 exact zeros to the softmax, so the values agree to float32 rounding.
 
+``batched_encode_step`` advances N streams at once (the batched session's
+rounds): a chunk of C rows a stream, the first ``n_new[i]`` of stream i
+valid, each stream's frontier ``n_in`` and ``key_limit`` tensors, so the
+key range of every stream and layer is a mask computed on the device;
+stream by stream it is ``incremental_encode_step`` on the valid rows.
+
 The layer norms are the port's ``nn.LayerNorm`` modules (two-pass
 variance), the formula of the port's window path; the JAX step uses
 flax's fast variance, ``max(0, E[x^2] - mu^2)``, which agrees with it to
@@ -183,6 +189,103 @@ def incremental_encode_step(layers: List[Dict], cache: Dict, x_new: torch.Tensor
         bufs.append(buf)
     new_cache = {"bufs": torch.stack(bufs), "n_in": n_in + C}
     return new_cache, x, n_in - len(layers) * right
+
+
+def init_batched_cache(n_streams: int, n_layer: int, left: int, right: int,
+                       d_model: int, device=None) -> Dict:
+    """Fresh state of ``n_streams`` streams: (N, n_layer, L+R, D) input
+    rings and the per-stream feature frontier ``n_in`` (N,), on the device."""
+    return {"bufs": torch.zeros((n_streams, n_layer, left + right, d_model),
+                                dtype=torch.float32, device=device),
+            "n_in": torch.zeros((n_streams,), dtype=torch.long, device=device)}
+
+
+def _batched_layer_step(p: Dict, buf: torch.Tensor, x_new: torch.Tensor,
+                        n_new: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                        band_keys: torch.Tensor, *, left: int,
+                        right: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_layer_step`` over N streams at once (the JAX step ``vmap``ped).
+
+    Args:
+      buf: (N, L+R, D) cached input rows of each stream.
+      x_new: (N, C, D) new input rows; stream i's first ``n_new[i]`` valid.
+      n_new: (N,) valid new rows a stream.
+      lo, hi: (N,) stream i's rows ``[lo, hi)`` of ``cat([buf, x_new])``
+          hold keys: positions in ``[0, key_limit)`` among its first
+          ``L + R + n_new`` rows.
+      band_keys: (C, L+R+1) as in ``_layer_step``.
+
+    Returns ``(new_buf, out)``: new_buf[i] the rows ``n_new[i] ..
+    n_new[i] + L + R`` of stream i's concat, out (N, C, D) whose rows past
+    ``n_new[i]`` are flush rows for the caller to skip.
+    """
+    L, R = left, right
+    layer = p["layer"]
+    attn = layer.MultiHeadAttention.dec_attn
+    H, dh = attn.n_head, attn.d_head
+    N, C, D = x_new.shape
+    K, W = L + R + C, L + R + 1
+    rows = torch.arange(K, device=x_new.device)
+    row_ok = (rows >= lo[:, None]) & (rows < hi[:, None])                  # (N, K)
+    # invalid rows are zeroed before any product (0 * NaN is NaN)
+    concat = torch.where(row_ok[..., None], torch.cat([buf, x_new], dim=1), 0.0)
+
+    q, k, v = attn.qkv_net(concat).view(N, K, 3, H, dh).unbind(2)
+    qm = q[:, L:L + C]                                                     # (N, C, H, dh)
+    ac = torch.matmul((qm + layer.r_w_bias)[..., None, :], k.unfold(1, W, 1))[..., 0, :]
+    parts = [torch.matmul(qm.transpose(1, 2), p["re_main"]) + p["rb_main"]]
+    if R >= 1:
+        parts.append(qm.new_zeros((N, H, C, 1)))
+    if R >= 2:
+        parts.append(torch.matmul(q[:, L + 1:L + C + 1].transpose(1, 2), p["re_wrap"])
+                     + p["rb_wrap"])
+    score = (ac + torch.cat(parts, dim=-1).transpose(1, 2)) * (1.0 / dh ** 0.5)
+    invalid = (band_keys < lo[:, None, None]) | (band_keys >= hi[:, None, None])
+    score = score.masked_fill(invalid[:, :, None, :], NEG_INF)            # (N, C, H, W)
+    prob = torch.softmax(score, dim=-1)
+    vec = torch.matmul(prob[..., None, :], v.unfold(1, W, 1).transpose(-1, -2))
+    y = attn.layer_norm(concat[:, L:L + C] + attn.o_net(vec.reshape(N, C, H * dh)))
+    y = layer.MultiHeadAttention.pos_ff(y)
+    keep = (n_new[:, None] + torch.arange(L + R, device=x_new.device))[..., None]
+    return concat.gather(1, keep.expand(-1, -1, D)), y
+
+
+def batched_encode_step(layers: List[Dict], cache: Dict, x_new: torch.Tensor,
+                        n_new: torch.Tensor, key_limit: torch.Tensor, *, left: int,
+                        right: int) -> Tuple[Dict, torch.Tensor, torch.Tensor]:
+    """Advance N streams' encoders by one chunk each.
+
+    Args:
+      layers: ``prepare_layers``'s list.
+      cache: ``init_batched_cache`` state of the N streams.
+      x_new: (N, C, D) new feature rows; stream i's first ``n_new[i]`` valid.
+      n_new: (N,) long, valid rows a stream (0: the stream does not move).
+      key_limit: (N,) long, stream i's keys at positions >= it do not exist
+          (``_BIG`` while streaming).
+
+    Returns ``(new_cache, out, out_start)``: out (N, C, D), row j of stream
+    i the output for position ``out_start[i] + j`` for j < ``n_new[i]``,
+    ``out_start = n_in - n_layer*right`` (rows at negative positions or past
+    the content are flush rows for the caller to skip).  Stream by stream
+    this is ``incremental_encode_step`` on the first ``n_new[i]`` rows.
+    The key range of each stream and layer is a tensor: no host value is
+    read.
+    """
+    n_in, C = cache["n_in"], x_new.shape[1]
+    L, R = left, right
+    K, dev = L + R + C, x_new.device
+    band_keys = (torch.arange(C, device=dev)[:, None]
+                 + torch.arange(L + R + 1, device=dev)[None])
+    x, bufs = x_new, []
+    for k, p in enumerate(layers):
+        pos0 = n_in - k * R                     # each layer's input frontier
+        lo = (L + R - pos0).clamp(0, K)
+        hi = torch.maximum(lo, torch.minimum(key_limit - pos0, n_new) + (L + R))
+        buf, x = _batched_layer_step(p, cache["bufs"][:, k], x, n_new, lo, hi, band_keys,
+                                     left=L, right=R)
+        bufs.append(buf)
+    new_cache = {"bufs": torch.stack(bufs, dim=1), "n_in": n_in + n_new}
+    return new_cache, x, n_in - len(layers) * R
 
 
 def make_incremental_encoder(model, cfg):
