@@ -140,7 +140,30 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    decoder), and continuous against gang batching of 2 groups of one 30 s
    and seven 8 s utterances through 8 slots (x real time, utterances a
    second, the share of slot-rounds with a window, ``slot_utilization``);
-   a JSON line of these before the kernels' line.
+   a JSON line of these before the kernels' line;
+11. what the JAX package trained, at full width: (a) phase 4's weights
+   and blank bias written as a JAX checkpoint directory (flax's msgpack,
+   from this script's own writer, one LayerNorm scale as a bfloat16 leaf),
+   which ``load_family`` must read as phase 4's weights; ``apps/predict.py
+   --checkpoint <that dir>`` on two of phase 4's waves (410 and 60 frames),
+   under the band and with ``--full-context``: the text of phase 4's
+   models on the same wave alone, 18 launches of kernel 6 or of kernel 8 a
+   call and nothing else, and on the 410-frame wave phase 4's batch tokens
+   (or a tie); then ``apps/train.py --flash -mode continue`` from a
+   JAX-format ``epoch_0`` holding an SGD momentum trace (count 4): epoch 1,
+   step 8, optimizer count 8, a finite CER; (b) the on-device log-mel
+   (``ops/features.py::extract_batch_padded``) of phase 4's 8 waves,
+   int16 and float32, against the host ``features_np`` pipeline (rtol =
+   atol = 2e-3, ``t_len`` exact), timed with CUDA events beside the host
+   pipeline's time; (c) 3 ``--flash`` steps at B 4, dropout 0, on raw
+   waves featurized in the step against the same steps on host features
+   (losses within 2e-3, relative; 18 + 18 flash and 1 + 1 lattice launches a
+   step), then one epoch of ``apps/train.py --flash --augment --set
+   data.on_device_features=true``: a checkpoint and a finite CER; a JSON
+   line of these before the kernels' line, whose launches count this
+   phase's main paths too (``phase11_launches``).
+
+Each phase logs the seconds since the run began.
 
 Kernel checks in phase 3: each forward against its plain version (atol
 1e-4, rtol 1e-4); the attention backward against autograd through the
@@ -168,6 +191,7 @@ import json
 import os
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -435,23 +459,35 @@ def ptxas_entries(text: str, symbol: str):
     return out
 
 
-def sass_opcodes(lib_path, symbol: str) -> collections.Counter:
-    """The static count of each opcode in the SASS of the kernels whose
-    mangled names hold a match of the pattern ``symbol`` (``cuobjdump
-    -sass`` on the built library; a predicate guard is skipped)."""
+@functools.lru_cache(maxsize=None)
+def sass_by_function(lib_path) -> dict:
+    """The static count of each opcode in each kernel's SASS (``cuobjdump
+    -sass`` on the built library, run once; a predicate guard is skipped),
+    keyed by the kernel's ``Function :`` line."""
     from transformer_transducer_tpu_torch.ops.cuda import build
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    count, inside = collections.Counter(), False
+    out, count = {}, None
+    op_re = re.compile(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)")
     for line in sass.splitlines():
         if "Function :" in line:
-            inside = re.search(symbol, line) is not None
-        elif inside:
-            op = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)", line)
+            count = out.setdefault(line, collections.Counter())
+        elif count is not None:
+            op = op_re.match(line)
             if op:
                 count[op.group(1)] += 1
-    return count
+    return out
+
+
+def sass_opcodes(lib_path, symbol: str) -> collections.Counter:
+    """The static count of each opcode in the SASS of the kernels whose
+    mangled names hold a match of the pattern ``symbol``."""
+    total = collections.Counter()
+    for line, count in sass_by_function(lib_path).items():
+        if re.search(symbol, line):
+            total += count
+    return total
 
 
 def lattice_bound(b, d_total, u1, n_grids):
@@ -904,38 +940,51 @@ def read_counts():
     return {name: fn.launches for name, fn in counters().items()}
 
 
-def training_batch(cfg, device, seed):
+def training_batch(cfg, device, seed, raw=False):
     """B_TRAIN synthetic utterances of 60-410 frames through the dataset's
     host frontend (log-mel eps, stack, subsample), padded to
-    max_input_length, with 5-42 random targets; and its seconds of audio."""
+    max_input_length, with 5-42 random targets; and its seconds of audio.
+    With ``raw`` the same waves and targets as ``data.on_device_features``
+    ships them: padded int16 waves and their sample counts."""
     import numpy as np
+    from transformer_transducer_tpu_torch.data.dataset import pad_raw_wave
     from transformer_transducer_tpu_torch.ops import features_np as F
+    from transformer_transducer_tpu_torch.ops.features import padded_wave_samples
     from transformer_transducer_tpu_torch.training.train_step import batch_to_device
     from transformer_transducer_tpu_torch.utils.config import (
         stack_context, subsample_factor)
     waves = synthetic_waves(B_TRAIN, seed)
     left, right = stack_context(cfg.data)
-    feats = [F.subsample(F.stack_frames(F.logmel_eps(w, 16000, cfg.data.feature_dim),
-                                        left, right), subsample_factor(cfg.data))
-             for w in waves]
     t_max, u_max = cfg.data.max_input_length, cfg.data.max_target_length
-    x = np.zeros((B_TRAIN, t_max, feats[0].shape[1]), np.float32)
-    for i, f in enumerate(feats):
-        x[i, :min(len(f), t_max)] = f[:t_max]
+    if raw:
+        padded = [pad_raw_wave(w, *padded_wave_samples(t_max, subsample_factor(cfg.data)))
+                  for w in waves]
+        x = np.stack([p[0] for p in padded])
+        x_len = np.array([p[1] for p in padded])
+    else:
+        feats = [F.subsample(F.stack_frames(F.logmel_eps(w, 16000, cfg.data.feature_dim),
+                                            left, right), subsample_factor(cfg.data))
+                 for w in waves]
+        x = np.zeros((B_TRAIN, t_max, feats[0].shape[1]), np.float32)
+        for i, f in enumerate(feats):
+            x[i, :min(len(f), t_max)] = f[:t_max]
+        x_len = np.array([min(len(f), t_max) for f in feats])
     rng = np.random.default_rng(seed)
     u_len = np.linspace(5, u_max, B_TRAIN).astype(np.int64)
     targets = np.zeros((B_TRAIN, u_max), np.int64)
     for i, n in enumerate(u_len):
         targets[i, :n] = rng.integers(1, cfg.model.vocab_size, n)
-    batch = {"inputs": x, "inputs_length": np.array([min(len(f), t_max) for f in feats]),
-             "targets": targets, "targets_length": u_len}
+    batch = {"inputs": x, "inputs_length": x_len, "targets": targets,
+             "targets_length": u_len}
     return batch_to_device(batch, device), sum(len(w) for w in waves) / 16000.0
 
 
-def make_trainee(model_cfg, optim_cfg, state, mode, device, pruned_range=None):
+def make_trainee(model_cfg, optim_cfg, state, mode, device, pruned_range=None,
+                 frontend=None):
     """A model in train mode with ``state``, its SGD optimizer (momentum,
     clip 200 as the trainer builds it) and its train step (SpecAugment on;
-    the pruned loss with simple scale 0.25 when ``pruned_range``)."""
+    the pruned loss with simple scale 0.25 when ``pruned_range``; the
+    on-device log-mel of raw waves with a ``frontend`` tuple)."""
     from transformer_transducer_tpu_torch.models.transducer import build_transducer
     from transformer_transducer_tpu_torch.training.optim import build_optimizer
     from transformer_transducer_tpu_torch.training.train_step import (
@@ -945,18 +994,18 @@ def make_trainee(model_cfg, optim_cfg, state, mode, device, pruned_range=None):
     model.load_state_dict(state)
     model.train()
     opt = build_optimizer(optim_cfg, list(model.parameters()), max_grad_norm=200.0)
-    cfg = TrainStepConfig(loss_pruned_range=pruned_range)
+    cfg = TrainStepConfig(loss_pruned_range=pruned_range, frontend=frontend)
     return model, opt, make_train_step(model, opt, cfg)
 
 
 def train_three_steps(model_cfg, optim_cfg, state, mode, batch, device, plain,
-                      pruned_range=None, hooks=()):
-    """Phases 6 and 6b: 3 steps from ``state`` with the SpecAugment stream
-    seeded alike, inside the contexts ``hooks``; per step (loss, raw
+                      pruned_range=None, hooks=(), frontend=None):
+    """Phases 6, 6b and 11: 3 steps from ``state`` with the SpecAugment
+    stream seeded alike, inside the contexts ``hooks``; per step (loss, raw
     gradient norm, launch counts)."""
     import torch
     model, opt, step = make_trainee(model_cfg, optim_cfg, state, mode, device,
-                                    pruned_range)
+                                    pruned_range, frontend)
     gen = torch.Generator().manual_seed(0)
     out = []
     with contextlib.ExitStack() as stack:
@@ -1886,6 +1935,367 @@ def split_pruned_step(model, opt, batch, gen, samples: int = 5) -> dict:
     return {n: statistics.median(v) for n, v in times.items()}
 
 
+# ---- a msgpack writer in flax's format (the card's machine has no flax)
+
+def _msgpack_head(out, n, fixed, fix_limit, sized):
+    """A container or string header: the fix form below ``fix_limit``, else
+    the first of ``sized`` ((type byte, struct format, limit), ...) that
+    holds ``n``."""
+    if fixed is not None and n < fix_limit:
+        out.append(bytes([fixed | n]))
+        return
+    for code, fmt, limit in sized:
+        if n < limit:
+            out.append(bytes([code]) + struct.pack(fmt, n))
+            return
+    raise ValueError(f"msgpack length {n} too large")
+
+
+def _msgpack_ext(out, code, payload):
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if len(payload) in fixext:
+        out.append(bytes([fixext[len(payload)], code]))
+    else:
+        _msgpack_head(out, len(payload), None, 0,
+                      ((0xC7, ">B", 1 << 8), (0xC8, ">H", 1 << 16), (0xC9, ">I", 1 << 32)))
+        out.append(bytes([code]))
+    out.append(payload)
+
+
+def _msgpack_array_payload(arr) -> bytes:
+    """flax's ndarray payload ``(shape, dtype name, C-order bytes)``; a
+    ``torch.bfloat16`` tensor is written as flax writes a JAX bfloat16 leaf."""
+    import numpy as np
+    if type(arr).__module__.startswith("torch"):
+        import torch
+        if arr.dtype != torch.bfloat16:
+            raise TypeError(f"only bfloat16 tensors are written, not {arr.dtype}")
+        bits = arr.detach().cpu().contiguous().view(torch.int16).numpy()
+        return msgpack_bytes([list(bits.shape), "bfloat16", bits.tobytes("C")])
+    arr = np.asarray(arr)
+    return msgpack_bytes([list(arr.shape), arr.dtype.name, arr.tobytes("C")])
+
+
+def _msgpack_pack(obj, out) -> None:
+    import numpy as np
+    kind = type(obj)
+    if kind is int:
+        if 0 <= obj < 0x80 or -32 <= obj < 0:
+            out.append(struct.pack(">b" if obj < 0 else ">B", obj))
+        else:
+            forms = ((0xCC, ">B", 0, 1 << 8), (0xCD, ">H", 0, 1 << 16),
+                     (0xCE, ">I", 0, 1 << 32), (0xCF, ">Q", 0, 1 << 64)) if obj > 0 else \
+                    ((0xD0, ">b", -(1 << 7), 0), (0xD1, ">h", -(1 << 15), 0),
+                     (0xD2, ">i", -(1 << 31), 0), (0xD3, ">q", -(1 << 63), 0))
+            code, fmt = next((c, f) for c, f, lo, hi in forms if lo <= obj < hi)
+            out.append(bytes([code]) + struct.pack(fmt, obj))
+    elif kind is str:
+        raw = obj.encode("utf-8")
+        _msgpack_head(out, len(raw), 0xA0, 32,
+                      ((0xD9, ">B", 1 << 8), (0xDA, ">H", 1 << 16), (0xDB, ">I", 1 << 32)))
+        out.append(raw)
+    elif kind is bytes:
+        _msgpack_head(out, len(obj), None, 0,
+                      ((0xC4, ">B", 1 << 8), (0xC5, ">H", 1 << 16), (0xC6, ">I", 1 << 32)))
+        out.append(obj)
+    elif kind in (list, tuple):
+        _msgpack_head(out, len(obj), 0x90, 16, ((0xDC, ">H", 1 << 16), (0xDD, ">I", 1 << 32)))
+        for x in obj:
+            _msgpack_pack(x, out)
+    elif kind is dict:
+        _msgpack_head(out, len(obj), 0x80, 16, ((0xDE, ">H", 1 << 16), (0xDF, ">I", 1 << 32)))
+        for key, value in obj.items():
+            _msgpack_pack(key, out)
+            _msgpack_pack(value, out)
+    elif isinstance(obj, np.ndarray) or kind.__module__.startswith("torch"):
+        _msgpack_ext(out, 1, _msgpack_array_payload(obj))
+    else:
+        raise TypeError(f"no msgpack form for {kind.__name__}")
+
+
+def msgpack_bytes(tree) -> bytes:
+    """``flax.serialization.to_bytes`` of a state dict (nested dicts with
+    string keys; numpy arrays, 0-d ones too, ``torch.bfloat16`` tensors,
+    ints, str, bytes, lists): the same bytes, from a pure-Python msgpack
+    writer.  Leaves over 2**30 bytes (which flax chunks) are not written."""
+    out = []
+    _msgpack_pack(tree, out)
+    return b"".join(out)
+
+
+def write_jax_checkpoint(path, params, opt_state=None, meta=None) -> str:
+    """A checkpoint directory as the JAX package's ``save_checkpoint``
+    writes it: ``{encoder,decoder,joint}.msgpack``, optionally
+    ``optimizer.msgpack``, and ``meta.json``."""
+    os.makedirs(path, exist_ok=True)
+    files = {f"{comp}.msgpack": params[comp] for comp in ("encoder", "decoder", "joint")}
+    if opt_state is not None:
+        files["optimizer.msgpack"] = opt_state
+    for name, tree in files.items():
+        with open(os.path.join(path, name), "wb") as fh:
+            fh.write(msgpack_bytes(tree))
+    with open(os.path.join(path, "meta.json"), "w") as fh:
+        json.dump({"epoch": 0, "step": 0, **(meta or {})}, fh)
+    return path
+
+
+def sgd_state(params, lr, count, momentum_scale, seed):
+    """The optax state tree (as flax saves it) of the JAX trainer's SGD
+    with momentum and a clip: ``chain(clip, inject_hyperparams(chain(
+    identity, trace, scale)))``, the trace seeded random of the
+    parameters' layout."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+
+    def trace(node):
+        if isinstance(node, dict):
+            return {k: trace(v) for k, v in node.items()}
+        return (rng.standard_normal(node.shape) * momentum_scale).astype(np.float32)
+
+    return {"0": {}, "1": {"count": np.asarray(count, np.int32),
+                           "hyperparams": {"learning_rate": np.asarray(lr, np.float32)},
+                           "hyperparams_states": {},
+                           "inner_state": {"0": {}, "1": {"trace": trace(params)},
+                                           "2": {}}}}
+
+
+def check_slice_6a(cfg, state, offset, phase4, device, smi):
+    """Phase 11: what the JAX package trained, on the card.  (a) A
+    flagship checkpoint in the JAX package's msgpack format through
+    ``apps/predict.py`` (band and full context) and a ``-mode continue``
+    epoch from a JAX ``epoch_0`` with an SGD momentum trace; (b) the
+    on-device log-mel against the host pipeline, and its time; (c) 3
+    ``--flash`` steps on raw waves against the host-feature steps, and an
+    epoch of ``--flash --augment`` with ``data.on_device_features``.
+    ``phase4`` holds phase 4's batch ``x`` and its tokens by mode.  Returns
+    the launches of its main paths by kernel and the summary."""
+    import numpy as np
+    import torch
+    from transformer_transducer_tpu_torch.apps import predict as predict_app
+    from transformer_transducer_tpu_torch.apps import train as train_app
+    from transformer_transducer_tpu_torch.data.dataset import pad_raw_wave
+    from transformer_transducer_tpu_torch.data.wav import write_wave
+    from transformer_transducer_tpu_torch.decoding.greedy import recognize
+    from transformer_transducer_tpu_torch.models.factory import load_family
+    from transformer_transducer_tpu_torch.models.transducer import build_transducer
+    from transformer_transducer_tpu_torch.ops import features_np as F
+    from transformer_transducer_tpu_torch.ops.features import (
+        extract_batch_padded, padded_wave_samples)
+    from transformer_transducer_tpu_torch.utils.config import (
+        Config, load_config as load_cfg_file, stack_context, subsample_factor)
+    from transformer_transducer_tpu_torch.utils.convert import random_jax_params
+    from transformer_transducer_tpu_torch.utils.vocab import Vocabulary
+    n_layer = cfg.model.enc.n_layer
+    n_mels = cfg.data.feature_dim
+    left, right = stack_context(cfg.data)
+    factor = subsample_factor(cfg.data)
+    band = (cfg.model.enc.left_context, cfg.model.enc.right_context)
+    max_tokens = cfg.data.max_target_length + 1
+    launches = collections.Counter()
+    summary = {"card": smi}
+    waves = synthetic_waves(8, seed=0)                  # phase 4's
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path = write_corpus(tmp, cfg)
+        vocab = Vocabulary.from_file(load_cfg_file(cfg_path).data.vocab)
+
+        # (a) phase 4's weights and blank bias as the JAX package saves them;
+        # a LayerNorm scale (ones, exact in bfloat16) as a bfloat16 leaf
+        start = time.perf_counter()
+        tree = random_jax_params(cfg.model, seed=0)
+        tree["joint"]["project_layer"]["bias"][0] += offset
+        ln = tree["encoder"]["layer_0"]["attn"]["ln"]
+        ln["scale"] = torch.from_numpy(ln["scale"]).to(torch.bfloat16)
+        ckpt = write_jax_checkpoint(os.path.join(tmp, "jax_epoch"), tree,
+                                    meta={"epoch": 0, "step": 0})
+        size = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt))
+        write_s = time.perf_counter() - start
+        models = {}
+        for flash in (False, True):
+            models[flash] = build_transducer(cfg.model, flash=flash, device=device).eval()
+            models[flash].load_state_dict(state)
+            with torch.no_grad():
+                models[flash].joint.project_layer.bias[0] += offset
+        start = time.perf_counter()
+        loaded = load_family(load_cfg_file(cfg_path), n_mels * (1 + left + right), ckpt,
+                             device=device)
+        load_s = time.perf_counter() - start
+        require(all(torch.equal(a, b) for a, b in zip(models[False].state_dict().values(),
+                                                       loaded.state_dict().values())),
+                "the JAX-format checkpoint did not restore phase 4's weights")
+        del loaded
+        log(f"JAX-format checkpoint ({size / 2 ** 20:.1f} MiB, one bfloat16 leaf): written "
+            f"in {write_s:.1f} s, read by load_family in {load_s:.2f} s; the weights are "
+            "phase 4's")
+        predict_ms = []
+        for u in (len(waves) - 1, 0):                   # 410 and 60 frames
+            wav = os.path.join(tmp, f"phase4_{u}.wav")
+            write_wave(wav, waves[u])
+            feats = F.subsample(F.stack_frames(F.logmel_masked(waves[u], 16000, n_mels),
+                                               left, right), factor)
+            x = torch.from_numpy(feats[None]).to(device)
+            for name, flash, kernel in (("band", False, "banded_fwd"),
+                                        ("full-context", True, "flash_fwd")):
+                reset_counts()
+                start = time.perf_counter()
+                text = predict_app.main(["--config", cfg_path, "--checkpoint", ckpt,
+                                         "--wav", wav] + (["--full-context"] if flash else []))
+                torch.cuda.synchronize()
+                predict_ms.append(1e3 * (time.perf_counter() - start))
+                counts = read_counts()
+                want = recognize(models[flash], x, [feats.shape[0]],
+                                 band=None if flash else band, max_tokens=max_tokens)[0]
+                log(f"  apps/predict.py --checkpoint <JAX dir> ({name}), utterance {u} "
+                    f"({feats.shape[0]} frames): {len(text)} characters, launches {counts}")
+                require(text == "".join(vocab.decode(want)),
+                        f"{name}: predict gave {text!r}, phase 4's model "
+                        f"{''.join(vocab.decode(want))!r}")
+                require(counts[kernel] == n_layer and sum(counts.values()) == n_layer,
+                        f"{name}: predict launched {counts}, want {n_layer} {kernel}")
+                launches[kernel] += counts[kernel]
+                if u == len(waves) - 1:                 # unpadded in phase 4's batch
+                    # B 1 against phase 4's B 8: the same tokens, or a tie
+                    encode = (models[True].encode if flash else
+                              functools.partial(models[False].encode_banded, left=band[0],
+                                                right=band[1]))
+                    with torch.no_grad():
+                        enc_1, enc_8 = encode(x), encode(phase4["x"])[u:u + 1]
+                    compare_tokens(f"{name}, B 1 against phase 4's batch", [want],
+                                   [phase4[name][u]], models[False], enc_1, enc_8,
+                                   [feats.shape[0]], max_tokens)
+        summary["predict_ms"] = predict_ms
+        del models
+        torch.cuda.empty_cache()
+
+        # a -mode continue epoch from a JAX epoch_0 with a momentum trace
+        exp = os.path.join(tmp, "egs", cfg.data.name, "jax_format")
+        params = random_jax_params(cfg.model, seed=0)
+        opt = sgd_state(params, cfg.optim.lr, 4, 1e-4, seed=5)
+        write_jax_checkpoint(os.path.join(exp, "epoch_0"), params, opt,
+                             {"epoch": 0, "step": 4, "lr": cfg.optim.lr})
+        del params, opt
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            reset_counts()
+            start = time.perf_counter()
+            cont = train_app.main(["-config", cfg_path, "--flash", "-mode", "continue",
+                                   "--epochs", "2", "--set", "training.save_model=jax_format"])
+            torch.cuda.synchronize()
+            cont_s = time.perf_counter() - start
+            counts = read_counts()
+        finally:
+            os.chdir(cwd)
+        with open(os.path.join(exp, "metrics.jsonl"), encoding="utf-8") as fh:
+            cers = [r["value"] for r in map(json.loads, fh) if r["tag"] == "cer"]
+        log(f"apps/train.py --flash -mode continue from a JAX-format epoch_0 (SGD trace, "
+            f"count 4): epoch 1 in {cont_s:.1f} s, step {cont.global_step}, optimizer "
+            f"count {cont.optimizer.count}, CER {cers}, launches {counts}")
+        require(cont.start_epoch == 1 and cont.global_step == 8 and cont.optimizer.count == 8,
+                f"continue from the JAX format: epoch {cont.start_epoch}, step "
+                f"{cont.global_step}, count {cont.optimizer.count}")
+        require(len(cers) == 1 and all(np.isfinite(cers))
+                and os.path.exists(os.path.join(exp, "epoch_1", "model.pt")),
+                f"continue from the JAX format: CER {cers}, or no epoch_1")
+        require(counts["flash_bwd"] == 4 * n_layer and counts["alpha"] > 0
+                and counts["banded_fwd"] == 0, f"continue launched {counts}")
+        summary.update(continue_s=cont_s, continue_cer=cers[0])
+        launches.update(counts)
+        del cont
+        torch.cuda.empty_cache()
+
+        # (b) the on-device log-mel of phase 4's 8 waves against the host
+        cap, total = padded_wave_samples(cfg.data.max_input_length, factor)
+        t_max = cfg.data.max_input_length
+        start = time.perf_counter()
+        host = [F.subsample(F.stack_frames(F.logmel_eps(w, 16000, n_mels), left, right),
+                            factor)[:t_max] for w in waves]
+        host_ms = 1e3 * (time.perf_counter() - start)
+        frontend = {"host_ms": host_ms}
+        for dtype in ("int16", "float32"):
+            padded = [pad_raw_wave(w.astype(dtype), cap, total) for w in waves]
+            x = torch.from_numpy(np.stack([p[0] for p in padded])).to(device)
+            n = torch.tensor([int(p[1]) for p in padded], device=device)
+            run = functools.partial(extract_batch_padded, x, n, t_max, n_mels=n_mels,
+                                    left=left, right=right, factor=factor)
+            feats, t_len = run()
+            ms = cuda_ms(run)
+            err, ok = 0.0, True
+            for i, ref in enumerate(host):
+                require(int(t_len[i]) == len(ref), f"{dtype}: t_len {int(t_len[i])} != "
+                        f"{len(ref)} for utterance {i}")
+                got = feats[i, :len(ref)].cpu().numpy()
+                err = max(err, float(np.abs(got - ref).max()))
+                ok &= bool(np.allclose(got, ref, rtol=2e-3, atol=2e-3))
+                ok &= not bool(feats[i, len(ref):].any())
+            log(f"  extract_batch_padded on the card, 8 {dtype} waves ({x.shape[1]} samples "
+                f"each): {ms:.3f} ms (CUDA events), host pipeline {host_ms:.1f} ms for the "
+                f"same batch; max|err| {err:.3e} against features_np (rtol = atol = 2e-3), "
+                f"t_len exact")
+            require(ok, f"{dtype}: the on-device frontend differs from the host's ({err})")
+            frontend[f"{dtype}_ms"], frontend[f"{dtype}_max_abs_err"] = ms, err
+        summary["frontend"] = frontend
+        del x, feats
+
+        # (c) 3 --flash steps on raw waves against the host-feature steps
+        model_cfg0 = load_flagship().model
+        model_cfg0.override("dropout", 0.0)
+        optim_cfg = Config({"type": "sgd", "lr": cfg.optim.lr, "momentum": 0.9})
+        raw_batch, _ = training_batch(cfg, device, seed=1, raw=True)
+        host_batch, _ = training_batch(cfg, device, seed=1)
+        fe = (n_mels, left, right, factor, t_max, "eps")
+        odf = train_three_steps(model_cfg0, optim_cfg, state, "flash", raw_batch, device,
+                                plain=False, frontend=fe)
+        ref = train_three_steps(model_cfg0, optim_cfg, state, "flash", host_batch, device,
+                                plain=False)
+        want = dict.fromkeys(read_counts(), 0)
+        want.update(flash_fwd=n_layer, flash_bwd=n_layer, alpha=1, beta=1)
+        rels = []
+        for i, ((lo, no, co), (lh, nh, _)) in enumerate(zip(odf, ref)):
+            rel = abs(lo - lh) / abs(lh)
+            rels.append(rel)
+            log(f"  on-device features step {i + 1}: loss {lo:.6f} / host features "
+                f"{lh:.6f} (rel {rel:.2e}, tolerance 2e-3), grad norm {no:.5f} / "
+                f"{nh:.5f}; launches {co}")
+            require(co == want, f"on-device features step {i + 1}: launches {co}")
+            require(rel <= 2e-3, f"on-device features step {i + 1}: losses differ by {rel}")
+            launches.update(co)
+        summary["odf_loss_rel"] = rels
+        torch.cuda.empty_cache()
+
+        # an epoch of --flash --augment on raw waves through the entry point
+        os.chdir(tmp)
+        try:
+            reset_counts()
+            start = time.perf_counter()
+            aug = train_app.main(["-config", cfg_path, "--flash", "--augment", "--epochs",
+                                  "1", "--set", "data.on_device_features=true",
+                                  "--set", "training.save_model=augment_odf"])
+            torch.cuda.synchronize()
+            aug_s = time.perf_counter() - start
+            counts = read_counts()
+        finally:
+            os.chdir(cwd)
+        exp = os.path.join(tmp, aug.exp_dir)
+        with open(os.path.join(exp, "metrics.jsonl"), encoding="utf-8") as fh:
+            rows = [r for r in map(json.loads, fh)]
+        cers = [r["value"] for r in rows if r["tag"] == "cer"]
+        losses = [r["value"] for r in rows if r["tag"] == "train_loss"]
+        log(f"apps/train.py --flash --augment, data.on_device_features: 1 epoch in "
+            f"{aug_s:.1f} s, {aug.global_step} steps, losses {losses}, CER {cers}, "
+            f"launches {counts}")
+        require(aug.frontend is not None and aug.global_step == 4
+                and os.path.exists(os.path.join(exp, "epoch_0", "model.pt"))
+                and len(cers) == 1 and all(np.isfinite(cers + losses)),
+                f"--augment on raw waves: {aug.global_step} steps, CER {cers}")
+        require(counts["flash_bwd"] == 4 * n_layer and counts["banded_fwd"] == 0,
+                f"--augment on raw waves launched {counts}")
+        summary.update(augment_s=aug_s, augment_cer=cers[0])
+        launches.update(counts)
+        del aug
+    torch.cuda.empty_cache()
+    return dict(launches), summary
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1914,6 +2324,7 @@ def main() -> int:
     from transformer_transducer_tpu_torch.utils.device import resolve_device
 
     # ---- 1. device
+    run_start = time.perf_counter()
     device = resolve_device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
@@ -1923,6 +2334,7 @@ def main() -> int:
     log(f"nvidia-smi: {smi}")
     log(f"torch {torch.__version__} (CUDA {torch.version.cuda}); nvcc: {nvcc}")
 
+    log(f"[{time.perf_counter() - run_start:.1f} s] phase 2")
     # ---- 2. build
     start = time.perf_counter()
     lib_path = build.build()
@@ -2017,6 +2429,7 @@ def main() -> int:
         f"{bad} differ")
     require(bad == 0, f"the lattice sweeps' log1p differs from log1pf on {bad} floats")
 
+    log(f"[{time.perf_counter() - run_start:.1f} s] phase 3")
     # ---- 3. kernels vs plain versions
     log("kernels vs plain versions (atol 1e-4, rtol 1e-4):")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2024,6 +2437,7 @@ def main() -> int:
     errs.update(check_training_kernels(gen))
     errs.update(check_pruned_kernels(gen))
 
+    log(f"[{time.perf_counter() - run_start:.1f} s] phase 4")
     # ---- 4. the slice at full width
     cfg = load_flagship()
     left_ctx, right_ctx = stack_context(cfg.data)
@@ -2119,6 +2533,7 @@ def main() -> int:
     compare_tokens("full-context", tok_full, tok_full_p, model, enc_full_k,
                    enc_full_p, t_len, max_tokens)
 
+    log(f"[{time.perf_counter() - run_start:.1f} s] phase 5")
     # ---- 5. timings at the flagship shape (B=8, T=410, H=8, Dh=64)
     from transformer_transducer_tpu_torch.ops.cuda import common
     log(f"timings on {smi}:")
@@ -2227,6 +2642,7 @@ def main() -> int:
             f"call, encode {enc_ms:.2f} ms + greedy loop {dec_ms:.2f} ms (host "
             f"clock); device busy {busy:.2f} ms of one recognize, idle share "
             f"{share} of the median recognize")
+    log(f"[{time.perf_counter() - run_start:.1f} s] phase 6")
     # ---- 6. training at full width: kernels, then the plain versions
     del models, model, model_flash, enc, dec, logits, enc_band_k, enc_band_p, \
         enc_full_k, enc_full_p
@@ -2263,6 +2679,7 @@ def main() -> int:
         log(f"  {mode}: step 1 grad norm rel diff {rel:.2e} (tolerance {NORM_RTOL})")
         require(rel <= NORM_RTOL, f"{mode}: step 1 grad norms differ by {rel:.2e}")
 
+    log(f"[{time.perf_counter() - run_start:.1f} s] phase 6b")
     # ---- 6b. the pruned loss at full width (--flash --pruned-range 5): the
     # kernels, then the plain versions handed the kernel run's band starts
     rs_kern, rs_plain, pruned_marks = [], [], []
@@ -2300,9 +2717,11 @@ def main() -> int:
             "the band starts break their invariants")
     del rs_kern, rs_plain
 
+    log(f"[{time.perf_counter() - run_start:.1f} s] phase 6c")
     # ---- 6c. head width 32 end to end
     check_head_width_32(device)
 
+    log(f"[{time.perf_counter() - run_start:.1f} s] phase 7")
     # ---- 7. the training entry point: one epoch, then -mode continue
     from transformer_transducer_tpu_torch.apps import train as train_app
     with tempfile.TemporaryDirectory() as tmp:
@@ -2404,6 +2823,7 @@ def main() -> int:
         del first, second, third
     torch.cuda.empty_cache()
 
+    log(f"[{time.perf_counter() - run_start:.1f} s] phase 8")
     # ---- 8. training timings (B=4, T=410, H=8, Dh=64)
     from transformer_transducer_tpu_torch.ops.cuda.banded_attention import (
         banded_attention_backward)
@@ -2642,16 +3062,36 @@ def main() -> int:
         del model, opt, step, run
         torch.cuda.empty_cache()
 
+    log(f"[{time.perf_counter() - run_start:.1f} s] phase 9")
     # ---- 9. streaming at full width
     stream_rec, streaming = check_streaming(cfg, state, offset, device, smi, gen)
     next(r for r in records if r["name"] == "banded_attention_fwd").update(stream_rec)
     log(json.dumps({"streaming": streaming}))
 
+    log(f"[{time.perf_counter() - run_start:.1f} s] phase 10")
     # ---- 10. multi-stream serving at full width
     serve_rec, serving = check_serving(cfg, state, offset, device, smi, gen)
     next(r for r in records if r["name"] == "banded_attention_fwd").update(serve_rec)
     log(json.dumps({"serving": serving}))
 
+    log(f"[{time.perf_counter() - run_start:.1f} s] phase 11")
+    # ---- 11. what the JAX package trained: its checkpoints, the on-device
+    # log-mel, augmentation
+    start = time.perf_counter()
+    jax_launches, slice_6a = check_slice_6a(
+        cfg, state, offset, {"x": x, "band": tok_band, "full-context": tok_full},
+        device, smi)
+    slice_6a["phase_s"] = time.perf_counter() - start
+    for rec in records:
+        key = {"banded_attention_fwd": "banded_fwd", "flash_rel_attention_fwd": "flash_fwd",
+               "banded_attention_bwd": "banded_bwd", "flash_rel_attention_bwd": "flash_bwd",
+               "rnnt_alpha": "alpha", "rnnt_beta": "beta", "additive_logz": "logz",
+               "band_alpha": "band_alpha", "band_beta": "band_beta"}[rec["name"]]
+        rec["phase11_launches"] = jax_launches.get(key, 0)
+        rec["launches"] += rec["phase11_launches"]
+    log(json.dumps({"slice_6a": slice_6a}))
+
+    log(f"[{time.perf_counter() - run_start:.1f} s] all phases passed")
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

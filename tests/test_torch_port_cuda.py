@@ -809,3 +809,77 @@ def test_batched_session_on_the_card_matches_solo_sessions(gen):
         assert [st.timestamps for st in batched.streams] == [s.timestamps for s in solo]
         assert launches == (0 if incremental else 2 * batched.encode_calls)
         assert batched.host_reads <= batched.read_bound
+
+
+@pytest.mark.parametrize("dtype", ["int16", "float32"])
+def test_on_device_frontend_on_the_card_matches_features_np(gen, dtype):
+    """``ops/features.py::extract_batch_padded`` on the card against the
+    host pipeline (``features_np``: log-mel eps, stack, subsample) on the
+    same waves, padded as ``data.on_device_features`` ships them: within
+    rtol = atol = 2e-3 (the JAX package's tolerance for this path), t_len
+    exact, pad rows zero."""
+    import numpy as np
+    from transformer_transducer_tpu_torch.data.dataset import pad_raw_wave
+    from transformer_transducer_tpu_torch.ops import features_np as F
+    from transformer_transducer_tpu_torch.ops.features import (
+        extract_batch_padded, padded_wave_samples)
+    cap, total = padded_wave_samples(60, 3)
+    rng = np.random.RandomState(2)
+    waves = []
+    for n in (3000, 9000, 20000, cap):
+        tt = np.arange(n) / 16000.0
+        waves.append((np.sin(2 * np.pi * 180 * tt) * 5000 + rng.randn(n) * 300).astype(dtype))
+    padded = [pad_raw_wave(w, cap, total) for w in waves]
+    x = torch.from_numpy(np.stack([p[0] for p in padded])).cuda()
+    n = torch.tensor([int(p[1]) for p in padded], device="cuda")
+    feats, t_len = extract_batch_padded(x, n, 60, n_mels=80)
+    torch.cuda.synchronize()
+    assert feats.is_cuda and feats.shape == (4, 60, 320)
+    for i, w in enumerate(waves):
+        ref = F.subsample(F.stack_frames(F.logmel_eps(w, 16000, 80), 3, 0), 3)[:60]
+        tl = int(t_len[i])
+        assert tl == len(ref)
+        end = tl - 1 if len(w) >= cap else tl
+        torch.testing.assert_close(feats[i, :end].cpu(), torch.from_numpy(ref[:end]),
+                                   rtol=2e-3, atol=2e-3)
+        assert not feats[i, tl:].any()
+
+
+def test_jax_checkpoint_round_trip_on_the_card(gen, tmp_path):
+    """A checkpoint in the JAX package's msgpack format (``chip_smoke.py``'s
+    writer: weights with a bfloat16 leaf, an SGD momentum trace) loads onto
+    the card through ``load_family`` and ``load_checkpoint``: the weights
+    and the trace equal the tree's, and ``recognize`` gives the tokens of the
+    model loaded from the same weights directly."""
+    from chip_smoke import sgd_state, write_jax_checkpoint
+    from transformer_transducer_tpu_torch.decoding.greedy import recognize
+    from transformer_transducer_tpu_torch.models.factory import load_family
+    from transformer_transducer_tpu_torch.utils import checkpoint as ckpt_lib
+    layer = {"n_layer": 2, "n_head": 2, "d_model": 128, "d_head": DH, "d_inner": 256}
+    model_cfg = {"enc": dict(layer, max_input_length=410, left_context=10, right_context=2),
+                 "dec": dict(layer, max_target_length=42),
+                 "joint": {"inner_size": 96}, "vocab_size": 40}
+    cfg = Config({"model": model_cfg})
+    params = random_jax_params(cfg.model, seed=4)
+    written = dict(params, encoder=dict(params["encoder"]))
+    ln = params["encoder"]["layer_0"]["attn"]["ln"]
+    written["encoder"]["layer_0"] = dict(params["encoder"]["layer_0"], attn=dict(
+        params["encoder"]["layer_0"]["attn"],
+        ln={"scale": torch.from_numpy(ln["scale"]).to(torch.bfloat16), "bias": ln["bias"]}))
+    opt = sgd_state(params, 0.01, 3, 1e-3, seed=1)
+    path = write_jax_checkpoint(str(tmp_path / "epoch_0"), written, opt, {"step": 3})
+    model = load_family(cfg, 128, path, device="cuda")
+    direct = build_transducer(cfg.model, device="cuda")
+    direct.load_state_dict(from_jax_params(params))
+    names = [n for n, _ in model.named_parameters()]
+    for (name, a), b in zip(model.named_parameters(), direct.parameters()):
+        assert a.is_cuda and torch.equal(a, b), name
+    state = ckpt_lib.load_checkpoint(path, "cuda", param_names=names)
+    trace = from_jax_params(opt["1"]["inner_state"]["1"]["trace"])
+    assert state["optimizer"]["count"] == 3
+    for name, t in zip(names, state["optimizer"]["state"]["trace"]):
+        assert torch.equal(t.cpu(), trace[name]), name
+    x = torch.randn(2, 120, 128, generator=gen, device="cuda")
+    band = (10, 2)
+    assert (recognize(model, x, [120, 77], band=band)
+            == recognize(direct, x, [120, 77], band=band))

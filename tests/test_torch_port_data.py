@@ -82,11 +82,15 @@ def test_read_manifest_keeps_a_headerless_first_row(tmp_path):
 
 
 def test_later_slices_raise(corpus):
+    """Augmentation, on-device features and CMVN are ported (slice 6a); what
+    still raises is what the JAX package rejects too: CMVN together with
+    on-device features."""
     _, cfg = corpus
     vocab = Vocabulary.from_file(cfg.data.vocab)
     for kw in ({"augment": True}, {"on_device_features": True}, {"cmvn": object()}):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            AudioDataset(cfg.data, "train", vocab, **kw)
+        assert len(AudioDataset(cfg.data, "train", vocab, **kw)) > 0
+    with pytest.raises(NotImplementedError, match="CMVN"):
+        AudioDataset(cfg.data, "train", vocab, on_device_features=True, cmvn=object())
 
 
 def test_spec_augment_stripes_are_shared_and_bounded():

@@ -1,5 +1,6 @@
-"""PyTorch port: the package and ``chip_smoke.py`` import no JAX, no flax and
-nothing of the JAX package, and entry points never fall back to the CPU."""
+"""PyTorch port: the package and ``chip_smoke.py`` import no JAX, no flax,
+no optax, no msgpack (the card's machine has none of them) and nothing of
+the JAX package, and entry points never fall back to the CPU."""
 
 import ast
 import os
@@ -11,7 +12,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "transformer_transducer_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "transformer_transducer_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "transformer_transducer_tpu")
 
 torch.set_num_threads(1)
 

@@ -200,7 +200,7 @@ def test_load_model_and_components(corpus, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--bf16"], ["--remat"], ["--augment"], ["--zero"], ["--n_model", "2"], ["--n_data", "2"], ["--n_pipe", "2"],
+    ["--bf16"], ["--remat"], ["--zero"], ["--n_model", "2"], ["--n_data", "2"], ["--n_pipe", "2"],
     ["--pipe-micro", "2"], ["--n_seq", "2"], ["--profile", "trace"]])
 def test_flags_of_later_slices_raise(flag):
     with pytest.raises(NotImplementedError, match="later slice"):

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Offline single-wav recognition on the card (port of ``apps/predict.py``).
 
-Loads a config + a port checkpoint (a trainer's ``epoch_N`` directory, its
-``model.pt``, or a flat ``state_dict`` file written with ``torch.save``), extracts
+Loads a config + a checkpoint (a port trainer's ``epoch_N`` directory, its
+``model.pt``, a flat ``state_dict`` file written with ``torch.save``, or an
+``epoch_N`` / ``step_N`` directory the JAX package's ``train.py`` wrote), extracts
 features, encodes under the streaming band through the banded kernel (or
 full-context through the flash kernel), greedy-decodes and reports CER
 against an optional reference transcript.
@@ -24,9 +25,10 @@ def main(argv=None) -> str:
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", required=True)
     ap.add_argument("--checkpoint", required=True,
-                    help="a port checkpoint directory written by the trainer "
-                         "(epoch_N), its model.pt, or a flat state_dict file "
-                         "written with torch.save")
+                    help="a checkpoint directory written by the port's trainer "
+                         "(epoch_N), its model.pt, a flat state_dict file "
+                         "written with torch.save, or a JAX package checkpoint "
+                         "directory (msgpack)")
     ap.add_argument("--wav", required=True)
     ap.add_argument("--truth", default=None)
     ap.add_argument("--beam", action="store_true", help="width-5 beam search")

@@ -42,9 +42,10 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", required=True)
     ap.add_argument("--checkpoint", required=True,
-                    help="a port checkpoint directory written by the trainer "
-                         "(epoch_N), its model.pt, or a flat state_dict file "
-                         "written with torch.save")
+                    help="a checkpoint directory written by the port's trainer "
+                         "(epoch_N), its model.pt, a flat state_dict file "
+                         "written with torch.save, or a JAX package checkpoint "
+                         "directory (msgpack)")
     ap.add_argument("--wavs", nargs="+", required=True)
     ap.add_argument("--streams", type=int, default=None,
                     help="concurrent streams per round (default: min(len(wavs), 8))")

@@ -95,9 +95,10 @@ def main(argv=None) -> str:
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", required=True)
     ap.add_argument("--checkpoint", default=None,
-                    help="a port checkpoint directory written by the trainer "
-                         "(epoch_N), its model.pt, or a flat state_dict file "
-                         "written with torch.save; random weights without it")
+                    help="a checkpoint directory written by the port's trainer "
+                         "(epoch_N), its model.pt, a flat state_dict file "
+                         "written with torch.save, or a JAX package checkpoint "
+                         "directory (msgpack); random weights without it")
     ap.add_argument("--wav", default=None)
     ap.add_argument("--mic", action="store_true")
     ap.add_argument("--seconds", type=int, default=15)

@@ -4,7 +4,7 @@
     python -m transformer_transducer_tpu_torch.apps.train \\
         -config configs/joint_streaming.yaml -log train.log \\
         -mode retrain|continue [--flash | --banded] [--pruned-range N]
-        [--device cpu]
+        [--augment] [--device cpu]
 
 ``--flash`` trains the unmasked encoder through the flash rel-attention
 kernels (forward and backward), ``--banded`` under the streaming band
@@ -12,6 +12,11 @@ through the banded kernels; with neither, the dense attention path.  The
 RNN-T lattice sweeps run on their kernels in every mode.  ``--pruned-range
 N`` trains the pruned loss (the joint on a width-N label band, with the
 logZ and band-sweep kernels); it combines with either attention mode.
+``--augment`` runs the waveform augmentation chain (``ops/augment.py``) on
+the training set; ``--set data.on_device_features=true`` ships raw waves
+and runs the log-mel on the card.  ``-mode continue`` also resumes from the
+JAX package's checkpoints (``epoch_*`` or ``step_*`` directories with
+msgpack files) in the experiment directory or at ``training.load_model``.
 Checkpoints, logs and decode dumps go to
 ``egs/<data.name>/<training.save_model>/``.
 """
@@ -24,7 +29,6 @@ import argparse
 _LATER = {
     "bf16": "bfloat16 training (--bf16)",
     "remat": "encoder rematerialisation (--remat)",
-    "augment": "waveform augmentation (ops/augment.py, --augment)",
     "n_model": "tensor parallelism (--n_model)",
     "n_data": "data parallelism (--n_data)",
     "n_pipe": "pipeline parallelism (--n_pipe)",
@@ -61,7 +65,9 @@ def parse_args(argv=None):
                     help="config override (dotted key)")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; pass cpu to run there)")
-    for flag in ("--bf16", "--remat", "--augment", "--zero"):
+    ap.add_argument("--augment", action="store_true",
+                    help="waveform augmentation chain on the training set")
+    for flag in ("--bf16", "--remat", "--zero"):
         ap.add_argument(flag, action="store_true", default=None)
     ap.add_argument("--pruned-range", type=int, default=None, metavar="N",
                     help="pruned transducer loss with a width-N label band "
@@ -99,7 +105,7 @@ def main(argv=None):
     trainer = Trainer(cfg, mode=args.mode, log_file=args.log, flash=args.flash,
                       banded=args.banded, device=args.device)
     trainer.logger.info("device: %s", trainer.device)
-    trainer.fit(epochs=args.epochs)
+    trainer.fit(epochs=args.epochs, augment=args.augment)
     return trainer
 
 

@@ -47,6 +47,9 @@ class DataLoader:
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         order = self._order()
         self.epoch += 1
+        # a new augmentation draw each epoch (AudioDataset.loader_epoch)
+        if hasattr(self.dataset, "loader_epoch"):
+            self.dataset.loader_epoch = self.epoch
         n_batches = len(self)
         first_batch = min(self.start_batch, n_batches)
         self.start_batch = 0

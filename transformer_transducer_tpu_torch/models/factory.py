@@ -29,8 +29,10 @@ def load_family(cfg, d_in: int, checkpoint=None, device=None,
                 flash: bool = False):
     """``build_family`` + optional weights from ``checkpoint``: a checkpoint
     directory the trainer wrote (``utils/checkpoint.py::save_checkpoint``,
-    e.g. ``egs/<name>/<save_model>/epoch_19``), its ``model.pt``, or a flat
-    ``state_dict`` file written with ``torch.save(model.state_dict(), path)``.
+    e.g. ``egs/<name>/<save_model>/epoch_19``), its ``model.pt``, a flat
+    ``state_dict`` file written with ``torch.save(model.state_dict(), path)``,
+    or a checkpoint directory of the JAX package (told apart by its
+    ``encoder.msgpack``; the JAX ``train.py``'s ``epoch_*`` and ``step_*``).
     A file is told apart by its keys: a trainer's dict holds the split
     ``encoder``, ``decoder`` and ``joint`` state dicts."""
     model = build_family(cfg, d_in, device=device, flash=flash)

@@ -13,11 +13,12 @@ the pruned loss (``ops/rnnt_loss_pruned.rnnt_loss_pruned``), so no
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from transformer_transducer_tpu_torch.ops.features import extract_batch_padded
 from transformer_transducer_tpu_torch.ops.rnnt_loss import (
     joint_params, rnnt_loss_fused)
 from transformer_transducer_tpu_torch.ops.rnnt_loss_pruned import rnnt_loss_pruned
@@ -45,33 +46,56 @@ class TrainStepConfig:
     # a non-finite loss or gradient norm leaves the parameters and the
     # optimizer state untouched and is reported as metrics["skipped"]
     nan_guard: bool = False
+    # data.on_device_features: (n_mels, left, right, factor, max_frames,
+    # log_variant); batch["inputs"] holds padded raw waves and
+    # batch["inputs_length"] sample counts, featurized on the batch's device
+    # (ops/features.py::extract_batch_padded) before SpecAugment.  None: the
+    # host features.
+    frontend: Optional[Tuple] = None
 
 
 def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """A loader batch (numpy) as tensors on ``device``: float32 inputs,
-    int64 lengths and targets."""
+    """A loader batch (numpy) as tensors on ``device``: float32 inputs
+    (int16 raw waves stay int16, half the bytes to copy), int64 lengths and
+    targets."""
     out = {}
     for key, value in batch.items():
         x = torch.as_tensor(np.asarray(value))
-        out[key] = x.to(device, torch.float32 if key == "inputs" else torch.long)
+        if key != "inputs":
+            dtype = torch.long
+        else:
+            dtype = torch.int16 if x.dtype == torch.int16 else torch.float32
+        out[key] = x.to(device, dtype)
     return out
 
 
+def featurize(batch: Dict[str, torch.Tensor], frontend: Optional[Tuple]):
+    """``(inputs, inputs_length)`` of a batch: as they are, or with a
+    ``frontend`` tuple the features and frame counts of its raw waves."""
+    if frontend is None:
+        return batch["inputs"], batch["inputs_length"]
+    n_mels, left, right, factor, max_frames, variant = frontend
+    return extract_batch_padded(batch["inputs"], batch["inputs_length"], max_frames,
+                                n_mels=n_mels, left=left, right=right,
+                                factor=factor, log_variant=variant)
+
+
 def make_loss_fn(model, cfg: TrainStepConfig, reduction: str = "mean") -> Callable:
-    """``loss_fn(batch, gen, train=True)``: SpecAugment (training only, from
-    the ``torch.Generator`` ``gen``), ``encode_both``, then the fused or,
-    with ``loss_pruned_range``, the pruned loss.
+    """``loss_fn(batch, gen, train=True)``: the on-device frontend (with
+    ``cfg.frontend``), SpecAugment (training only, from the
+    ``torch.Generator`` ``gen``), ``encode_both``, then the fused or, with
+    ``loss_pruned_range``, the pruned loss.
     The caller sets the model's train/eval mode (dropout)."""
 
     def loss_fn(batch: Dict[str, torch.Tensor], gen: Optional[torch.Generator],
                 train: bool = True) -> torch.Tensor:
-        inputs = batch["inputs"]
+        inputs, t_len = featurize(batch, cfg.frontend)
         if train and cfg.specaug:
             inputs = spec_augment(gen, inputs, cfg.max_mask_time,
                                   cfg.max_mask_frequency, cfg.mask_num)
         enc, dec = model.encode_both(inputs, batch["targets"])
         args = (enc, dec, joint_params(model), batch["targets"],
-                batch["inputs_length"], batch["targets_length"])
+                t_len, batch["targets_length"])
         kw = dict(chunk_size=cfg.loss_chunk_size, reduction=reduction,
                   remat=cfg.loss_remat and torch.is_grad_enabled())
         if cfg.loss_pruned_range:

@@ -9,9 +9,15 @@ log and, with ``training.visualization``, to ``metrics.jsonl``.
 
 Mid-epoch ``step_*`` checkpoints (``training.save_every_steps``) carry the
 data position and the random generators, so ``-mode continue`` resumes
-step for step.  The JAX package's mesh, pipeline, sequence-parallel and
-ZeRO paths, the espnet family and the profiler come in later slices and
-raise ``NotImplementedError`` here.
+step for step.  ``-mode continue``, ``training.load_model``,
+``load_encoder`` and ``load_decoder`` also take the JAX package's
+checkpoint directories (msgpack): the weights, the optimizer state and the
+counters carry over; a JAX step checkpoint's random key does not, so
+dropout and SpecAugment then draw from ``training.seed``.  With
+``data.on_device_features`` the loaders ship raw waves and the log-mel
+runs on the card inside the step and the evaluation.  The JAX package's
+mesh, pipeline, sequence-parallel and ZeRO paths, the espnet family and the
+profiler come in later slices and raise ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -29,9 +35,11 @@ from transformer_transducer_tpu_torch.decoding.greedy import (
 from transformer_transducer_tpu_torch.models.transducer import build_transducer
 from transformer_transducer_tpu_torch.training import optim as optim_lib
 from transformer_transducer_tpu_torch.training.train_step import (
-    TrainStepConfig, batch_to_device, make_eval_loss_step, make_train_step)
+    TrainStepConfig, batch_to_device, featurize, make_eval_loss_step,
+    make_train_step)
 from transformer_transducer_tpu_torch.utils import checkpoint as ckpt_lib
-from transformer_transducer_tpu_torch.utils.config import Config, dump_config
+from transformer_transducer_tpu_torch.utils.config import (
+    Config, dump_config, stack_context, subsample_factor)
 from transformer_transducer_tpu_torch.utils.device import resolve_device
 from transformer_transducer_tpu_torch.utils.logging import MetricsWriter, init_logger
 from transformer_transducer_tpu_torch.utils.metrics import batch_cer
@@ -98,10 +106,19 @@ class Trainer:
         self._maybe_load()
 
         tcfg = config.training
+        # data.on_device_features: the loaders ship raw padded waves and the
+        # log-mel, stack and subsample run on the card in the train step and
+        # the evaluation (ops/features.py::extract_batch_padded)
+        dcfg = config.data
+        self.frontend = None
+        if dcfg.on_device_features:
+            self.frontend = (dcfg.feature_dim or 128, *stack_context(dcfg),
+                             subsample_factor(dcfg), int(dcfg.max_input_length), "eps")
         # training.loss_pruned_range: band width N > 0 selects the pruned
         # loss (ops/rnnt_loss_pruned.py), absent the full loss;
         # training.loss_simple_scale defaults to 0.25
         self.step_cfg = TrainStepConfig(
+            frontend=self.frontend,
             specaug=True if tcfg.specaug is None else bool(tcfg.specaug),
             loss_remat=True if tcfg.loss_remat is None else bool(tcfg.loss_remat),
             loss_pruned_range=int(tcfg.loss_pruned_range) if tcfg.loss_pruned_range
@@ -143,7 +160,8 @@ class Trainer:
             path = ckpt_lib.latest_checkpoint(self.exp_dir) or tcfg.load_model
             if not path:
                 raise FileNotFoundError("continue mode but no checkpoint found")
-            state = ckpt_lib.load_checkpoint(path, self.device)
+            names = [n for n, _ in self.model.named_parameters()]
+            state = ckpt_lib.load_checkpoint(path, self.device, param_names=names)
             self._load_components(state, ckpt_lib.COMPONENTS)
             if state.get("optimizer") is not None:
                 self.optimizer.load_state_dict(state["optimizer"])
@@ -153,7 +171,13 @@ class Trainer:
             if "mid_epoch" in state:   # step_* checkpoint: resume in-epoch
                 self.start_epoch = int(state["mid_epoch"])
                 self._resume_batches = int(state.get("batches_done", 0))
-                self._set_rng_state(state["rng"])
+                if isinstance(state.get("rng"), dict):
+                    self._set_rng_state(state["rng"])
+                else:
+                    self.logger.info(
+                        "%s holds a JAX random key, which torch cannot use: "
+                        "dropout and SpecAugment are re-seeded from "
+                        "training.seed (%d)", path, self.config.training.seed or 1)
                 self._last_step_save = self.global_step
                 self.logger.info(
                     "Continue mid-epoch from %s (epoch %d, batch %d, step %d)",
@@ -299,9 +323,9 @@ class Trainer:
                     loss_utts += len(losses)
                 self.model.eval()
                 with torch.no_grad():
-                    enc = self.model.encode(dev_batch["inputs"])
-                tokens, counts = greedy_decode(self.model, enc,
-                                               dev_batch["inputs_length"],
+                    inputs, t_len = featurize(dev_batch, self.frontend)
+                    enc = self.model.encode(inputs)
+                tokens, counts = greedy_decode(self.model, enc, t_len,
                                                max_tokens=max_tokens)
                 preds = tokens_to_lists(tokens.cpu().numpy(), counts.cpu().numpy())
                 refs = [list(batch["targets"][i][:batch["targets_length"][i]])

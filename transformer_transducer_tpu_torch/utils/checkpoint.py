@@ -1,5 +1,5 @@
-"""Split checkpoints (port of ``utils/checkpoint.py``, in the port's own
-format).
+"""Split checkpoints (port of ``utils/checkpoint.py``): the port's own
+format, and the JAX package's, read.
 
 The reference saves one ``torch.save`` dict per epoch with the split state
 dicts ``{encoder, decoder, joint, optimizer, epoch, step}``
@@ -8,8 +8,14 @@ alone (``train.py:196-212``).  A port checkpoint is a directory holding that
 dict as ``model.pt`` (plus ``lr``, and for mid-epoch ``step_*`` checkpoints
 ``mid_epoch``, ``batches_done`` and the random generators' states) and a
 ``meta.json`` with the scalar fields, so finding the newest checkpoint reads
-no weights.  Reading the JAX package's msgpack checkpoints comes in a later
-slice.
+no weights.
+
+A JAX checkpoint is a directory with one ``flax.serialization`` msgpack
+file a component (``{encoder,decoder,joint}.msgpack``), optionally
+``optimizer.msgpack`` (the optax state) and ``meta.json``; a partial one
+(``save_partial_checkpoint``) lists its components in ``meta["components"]``.
+:func:`load_checkpoint` and :func:`load_component` read both formats into
+the same dict, through ``utils/flax_msgpack.py`` and ``utils/convert.py``.
 """
 
 from __future__ import annotations
@@ -17,12 +23,15 @@ from __future__ import annotations
 import json
 import os
 import shutil
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 
-COMPONENTS = ("encoder", "decoder", "joint")
+from transformer_transducer_tpu_torch.utils import convert, flax_msgpack
+
+COMPONENTS = convert.COMPONENTS
 MODEL_FILE = "model.pt"
+OPTIMIZER_FILE = "optimizer.msgpack"
 
 
 def save_checkpoint(path: str, model, optimizer=None, epoch: int = 0,
@@ -43,16 +52,75 @@ def save_checkpoint(path: str, model, optimizer=None, epoch: int = 0,
     return path
 
 
-def load_checkpoint(path: str, device=None) -> Dict[str, Any]:
+def is_jax_checkpoint(path: str) -> bool:
+    """Whether ``path`` is a checkpoint directory of the JAX package (one
+    msgpack file a component)."""
+    return os.path.isdir(path) and any(
+        os.path.exists(os.path.join(path, f"{comp}.msgpack")) for comp in COMPONENTS)
+
+
+def _jax_meta(path: str) -> Dict[str, Any]:
+    meta_path = os.path.join(path, "meta.json")
+    meta = {}
+    if os.path.exists(meta_path):
+        with open(meta_path) as fh:
+            meta = json.load(fh)
+    if meta.get("quant") is not None:
+        raise NotImplementedError(
+            f"{path} is an int8-baked checkpoint (tools/quantize_checkpoint.py, "
+            f"meta quant={meta['quant']!r}); int8 serving is Queue 1 item 9 of "
+            "the PyTorch port, ported in a later slice")
+    return meta
+
+
+def _jax_component(path: str, comp: str, device=None) -> Dict[str, torch.Tensor]:
+    file = os.path.join(path, f"{comp}.msgpack")
+    if not os.path.exists(file):
+        raise FileNotFoundError(f"JAX checkpoint {path} has no {comp}.msgpack")
+    state = convert.component_state(comp, flax_msgpack.read_file(file))
+    return {k: v.to(device) for k, v in state.items()} if device is not None else state
+
+
+def _load_jax_checkpoint(path: str, device=None,
+                        param_names: Optional[Sequence[str]] = None) -> Dict[str, Any]:
+    """A JAX checkpoint directory as the dict :func:`load_checkpoint`
+    returns: each component as a state dict, the fields of
+    ``meta.json``, and under ``optimizer`` the optax state in the port's
+    ``Optimizer.state_dict()`` layout when ``param_names`` (the model's
+    ``named_parameters()`` order) is given and ``optimizer.msgpack`` exists
+    (else None).  A step checkpoint's JAX random key stays under ``rng`` as
+    a list; the port cannot use it."""
+    state: Dict[str, Any] = dict(_jax_meta(path))
+    for comp in COMPONENTS:
+        state[comp] = _jax_component(path, comp, device)
+    state["optimizer"] = None
+    opt_path = os.path.join(path, OPTIMIZER_FILE)
+    if param_names is not None and os.path.exists(opt_path):
+        state["optimizer"] = convert.optimizer_from_jax(
+            flax_msgpack.read_file(opt_path), list(param_names))
+    return state
+
+
+def load_checkpoint(path: str, device=None,
+                    param_names: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     """The checkpoint dict of a directory written by :func:`save_checkpoint`
-    (or of its ``model.pt`` given directly), tensors on ``device``."""
+    (or of its ``model.pt`` given directly), tensors on ``device``; of a
+    JAX checkpoint directory: its components, the fields of ``meta.json``
+    and, with ``param_names``, its optimizer state (see
+    :func:`_load_jax_checkpoint`)."""
+    if is_jax_checkpoint(path):
+        return _load_jax_checkpoint(path, device, param_names)
     if os.path.isdir(path):
         path = os.path.join(path, MODEL_FILE)
     return torch.load(path, map_location=device, weights_only=True)
 
 
 def load_component(path: str, comp: str, device=None) -> Dict[str, torch.Tensor]:
-    """One component's state dict (``encoder``, ``decoder`` or ``joint``)."""
+    """One component's state dict (``encoder``, ``decoder`` or ``joint``),
+    from either format, a JAX partial checkpoint included."""
+    if is_jax_checkpoint(path):
+        _jax_meta(path)
+        return _jax_component(path, comp, device)
     return load_checkpoint(path, device)[comp]
 
 

@@ -9,18 +9,34 @@ package's ``utils/torch_convert.py::transducer_params`` maps the port's
 Layout rules: torch ``Linear.weight`` is (out, in), the transpose of a flax
 kernel; ``qkv``/``out`` have no bias while ``fc1``/``fc2`` do; the FFN's one
 LayerNorm (``ff/ln``) is the single ``pos_ff.layer_norm``.
+
+:func:`optimizer_from_jax` maps the optax state that the JAX trainer saves
+(``optimizer.msgpack``) into the port's ``Optimizer.state_dict()``: a
+momentum or moment tree has the parameter tree's layout, so it goes through
+the same key map and transposes.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
 
+COMPONENTS = ("encoder", "decoder", "joint")
+
 
 def _t(x) -> torch.Tensor:
+    """A float32 tensor that owns its memory (a numpy leaf, possibly a
+    read-only view of a checkpoint's bytes, or a bfloat16 tensor)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(torch.float32, copy=True)
     return torch.from_numpy(np.array(x, dtype=np.float32))   # a writable copy
+
+
+def _kernel(p: Mapping) -> torch.Tensor:
+    """A flax Dense kernel (in, out) as a torch ``Linear.weight`` (out, in)."""
+    return _t(p["kernel"]).t().contiguous()
 
 
 def _layer_state(lp: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
@@ -30,15 +46,15 @@ def _layer_state(lp: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
         prefix + "r_emb": _t(lp["r_emb"]),
         prefix + "r_w_bias": _t(lp["r_w_bias"]),
         prefix + "r_bias": _t(lp["r_bias"]),
-        mha + "dec_attn.qkv_net.weight": _t(np.asarray(attn["qkv"]["kernel"]).T),
-        mha + "dec_attn.o_net.weight": _t(np.asarray(attn["out"]["kernel"]).T),
+        mha + "dec_attn.qkv_net.weight": _kernel(attn["qkv"]),
+        mha + "dec_attn.o_net.weight": _kernel(attn["out"]),
         mha + "dec_attn.layer_norm.weight": _t(attn["ln"]["scale"]),
         mha + "dec_attn.layer_norm.bias": _t(attn["ln"]["bias"]),
         mha + "pos_ff.layer_norm.weight": _t(ff["ln"]["scale"]),
         mha + "pos_ff.layer_norm.bias": _t(ff["ln"]["bias"]),
-        mha + "pos_ff.CoreNet.0.weight": _t(np.asarray(ff["fc1"]["kernel"]).T),
+        mha + "pos_ff.CoreNet.0.weight": _kernel(ff["fc1"]),
         mha + "pos_ff.CoreNet.0.bias": _t(ff["fc1"]["bias"]),
-        mha + "pos_ff.CoreNet.3.weight": _t(np.asarray(ff["fc2"]["kernel"]).T),
+        mha + "pos_ff.CoreNet.3.weight": _kernel(ff["fc2"]),
         mha + "pos_ff.CoreNet.3.bias": _t(ff["fc2"]["bias"]),
     }
 
@@ -48,25 +64,101 @@ def _layers(tree: Mapping) -> list:
     return sorted(names, key=lambda s: int(s.split("_")[1]))
 
 
+def component_state(comp: str, tree: Mapping) -> Dict[str, torch.Tensor]:
+    """One component's subtree (``encoder``, ``decoder`` or ``joint``) as
+    that module's ``state_dict`` (keys without the component's prefix)."""
+    sd: Dict[str, torch.Tensor] = {}
+    if comp in ("encoder", "decoder"):
+        for i, name in enumerate(_layers(tree)):
+            sd.update(_layer_state(tree[name], f"layers.{i}."))
+        if comp == "decoder":
+            sd["dec_embedding.weight"] = _t(tree["embedding"]["embedding"])
+    elif comp == "joint":
+        sd["forward_layer.weight"] = _kernel(tree["forward_layer"])
+        sd["forward_layer.bias"] = _t(tree["forward_layer"]["bias"])
+        if "project_bias" in tree:     # tied projection: the weight is the embedding
+            sd["project_bias"] = _t(tree["project_bias"])
+        else:
+            sd["project_layer.weight"] = _kernel(tree["project_layer"])
+            sd["project_layer.bias"] = _t(tree["project_layer"]["bias"])
+    else:
+        raise ValueError(f"unknown component {comp!r}; expected one of {COMPONENTS}")
+    return sd
+
+
 def from_jax_params(tree: Mapping) -> Dict[str, torch.Tensor]:
     """JAX parameter tree (``variables["params"]`` or ``variables``) -> the
     port's :class:`~models.transducer.Transducer` ``state_dict``."""
     tree = tree.get("params", tree)
     sd: Dict[str, torch.Tensor] = {}
-    enc, dec, joint = tree["encoder"], tree["decoder"], tree["joint"]
-    for i, name in enumerate(_layers(enc)):
-        sd.update(_layer_state(enc[name], f"encoder.layers.{i}."))
-    sd["decoder.dec_embedding.weight"] = _t(dec["embedding"]["embedding"])
-    for i, name in enumerate(_layers(dec)):
-        sd.update(_layer_state(dec[name], f"decoder.layers.{i}."))
-    sd["joint.forward_layer.weight"] = _t(np.asarray(joint["forward_layer"]["kernel"]).T)
-    sd["joint.forward_layer.bias"] = _t(joint["forward_layer"]["bias"])
-    if "project_bias" in joint:     # tied projection: the weight is the embedding
-        sd["joint.project_bias"] = _t(joint["project_bias"])
-    else:
-        sd["joint.project_layer.weight"] = _t(np.asarray(joint["project_layer"]["kernel"]).T)
-        sd["joint.project_layer.bias"] = _t(joint["project_layer"]["bias"])
+    for comp in COMPONENTS:
+        for key, value in component_state(comp, tree[comp]).items():
+            sd[f"{comp}.{key}"] = value
     return sd
+
+
+def _aligned(tree: Mapping, names: Sequence[str], what: str) -> List[torch.Tensor]:
+    """A parameter-shaped tree as tensors in the order of ``names``."""
+    try:
+        sd = from_jax_params(tree)
+    except (KeyError, TypeError) as e:
+        raise ValueError(f"the optimizer's {what} tree is not laid out like "
+                         f"the parameters: {e!r}") from e
+    if set(sd) != set(names):
+        raise ValueError(f"the optimizer's {what} tree holds {len(sd)} leaves, "
+                         f"the model {len(names)} parameters; they differ in "
+                         f"{sorted(set(sd) ^ set(names))[:4]}")
+    return [sd[n] for n in names]
+
+
+def _count(x) -> int:
+    return int(np.asarray(x))
+
+
+def optimizer_from_jax(tree: Mapping, names: Sequence[str]) -> dict:
+    """The JAX trainer's optax state (``training/optim.py``: ``chain(
+    clip_by_global_norm, inject_hyperparams(chain(decay, trace | adam |
+    adadelta, scale)))``, the clip absent without ``max_grad_norm``,
+    optionally inside ``MultiSteps``) as the port's
+    ``Optimizer.state_dict()``, the moments aligned with the parameters
+    ``names`` (``model.named_parameters()`` order).  A state of another
+    layout raises ``ValueError``."""
+    mini_step, acc = 0, None
+    if "inner_opt_state" in tree:              # optax MultiSteps
+        mini_step = _count(tree["mini_step"])
+        acc = _aligned(tree["acc_grads"], names, "accumulated gradients")
+        tree = tree["inner_opt_state"]
+    if "hyperparams" not in tree:              # the clip's chain: ({}, inject)
+        if not (set(tree) == {"0", "1"} and tree["0"] == {}):
+            raise ValueError(f"not an optax state of the JAX trainer's "
+                             f"optimizer: keys {sorted(tree)}")
+        tree = tree["1"]
+    try:
+        inner = tree["inner_state"]
+        lr = float(np.asarray(tree["hyperparams"]["learning_rate"]))
+        count = _count(tree["count"])
+        middle = inner["1"]
+    except KeyError as e:
+        raise ValueError(f"not an inject_hyperparams state: missing {e}") from e
+    keys = set(middle)
+    if keys == {"trace"}:
+        kind, state = "sgd", {"trace": _aligned(middle["trace"], names, "trace")}
+    elif keys == {"count", "mu", "nu"}:
+        kind = "adam"
+        state = {k: _aligned(middle[k], names, k) for k in ("mu", "nu")}
+    elif keys == {"e_g", "e_x"}:
+        kind = "adadelta"
+        state = {k: _aligned(middle[k], names, k) for k in ("e_g", "e_x")}
+    elif not keys:
+        kind, state = "sgd", {}                # sgd without momentum
+    else:
+        raise ValueError(f"an optimizer state with {sorted(keys)} has no "
+                         "counterpart in the port (sgd trace, adam mu/nu, "
+                         "adadelta e_g/e_x)")
+    if acc is not None:
+        state["acc"] = acc
+    return {"kind": kind, "count": count, "mini_step": mini_step, "lr": lr,
+            "last_lr": lr, "state": state}
 
 
 def random_jax_params(model_cfg, seed: int = 0) -> Dict:
