@@ -161,7 +161,35 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    step), then one epoch of ``apps/train.py --flash --augment --set
    data.on_device_features=true``: a checkpoint and a finite CER; a JSON
    line of these before the kernels' line, whose launches count this
-   phase's main paths too (``phase11_launches``).
+   phase's main paths too (``phase11_launches``);
+12. the beam search and int8 serving at full width, on phase 4's batch,
+   weights and blank bias: (a) ``recognize_beam`` (width 5) under the band
+   and at full context with the counts from 0 (18 launches of kernel 6 or
+   8 a call, nothing else), against the plain versions and against the
+   recomputed label encoder (tokens identical, or the first iteration the
+   two searches decide differently a near-tie, smallest score gap <=
+   1e-3, replayed through the search's ``observe``), with its iterations
+   and host reads; ``apps/predict.py --beam`` on the 410- and 60-frame
+   waves, band and full context, whose text must be ``beam_search`` at B 1
+   on the same encoder rows; (b) the int8 product (``torch._int_mm``,
+   padded) exact against numpy's int64 product at M 1-40, K 512 and 2048,
+   N 6485; ``QuantLinear`` on the card against the CPU; ``to_quant`` of
+   phase 4's models, int8 ``recognize`` (18 launches) against the int8
+   model through the plain versions: each encoder layer from the same
+   input, kernel against plain, within a mean |error| of 1e-3 (the gate),
+   and the tokens replayed on both paths' encoder rows (the replay must
+   give the plain tokens; each first divergence's top-2 gap and the gaps'
+   percentiles over all decoded frames are logged, not gated: see
+   ``INT8_LAYER_MEAN_TOL``), and against the float tokens (share and CER,
+   not gated); ``recognize_beam``, greedy and int8 greedy ``recognize``
+   timed under the band, median of 5 in turns (the main paths' calls the
+   warm-ups); ``apps/serve.py --int8`` on phase 10's 4 waves against the
+   int8 batched session (identical) and the int8 window sessions through
+   the plain versions (logged); phase 11's JAX-format checkpoint through
+   the port's ``tools/quantize_checkpoint.py`` on the card, read back by
+   ``load_family`` to the bit of ``to_quant`` in memory, with both sizes;
+   ``apps/predict.py --int8`` on it; a JSON line of these before the
+   kernels' line (``phase12_launches``).
 
 Each phase logs the seconds since the run began.
 
@@ -214,6 +242,22 @@ T_MAIN, BAND = 410, (10, 2)
 KERNEL_TOL = dict(atol=1e-4, rtol=1e-4)
 ENC_TOL = 1e-3
 GAP_TOL = 1e-3
+# W8A8 turns the kernels' float32 rounding into whole int8 steps: an
+# activation that moves across a rounding boundary moves its projection by
+# about 1 %, and after 18 layers the int8 encoder states of the kernel and
+# plain paths differ by up to about 0.1, their logits by 3-5e-2 where they
+# first decide differently (an H100): as much as the median top-2 gap of
+# the frames the int8 plain path decodes on random weights (4.8e-2 under
+# the band, 5.4e-2 at full context).  No tie limit parts a tie from a
+# typical frame there, so the int8 kernel-vs-plain tokens are a logged
+# reading (each first divergence's gap beside GAP_TOL, and the gaps'
+# percentiles), and the gate on the kernels under int8 is the layer check:
+# one int8 layer given the same input through the kernel and the plain
+# version: where the attention outputs' rounding moves an activation across
+# a rounding boundary its row moves by whole steps (up to about 3e-2), but
+# 0.5-4 % of the values move by more than 1e-3 and the mean stays at
+# 2e-5-2e-4 (a wrong kernel moves every row)
+INT8_LAYER_MEAN_TOL = 1e-3
 LATTICE_TOL = dict(rtol=1e-5, atol=1e-3)
 GRAD_TOL = 1e-4          # atol GRAD_TOL * max|ref| + GRAD_FLOOR, rtol GRAD_TOL
 GRAD_FLOOR = 1e-5        # for gradients that are 0 in exact arithmetic (T = 1)
@@ -300,13 +344,15 @@ def graph_ms(fn, launches: int = 20, samples: int = 10) -> float:
     return statistics.median(times)
 
 
-def host_ms(fns: dict, samples: int = 10) -> dict:
-    """Wall times (ms) of calls that end in a synchronise, after a warm-up:
-    ``samples`` rounds in which every function runs once, in an order that
-    reverses each round, so drift on a shared host falls on all alike."""
+def host_ms(fns: dict, samples: int = 10, warm_up: bool = True) -> dict:
+    """Wall times (ms) of calls that end in a synchronise, after a warm-up
+    (``warm_up=False`` where each function has just run): ``samples``
+    rounds in which every function runs once, in an order that reverses
+    each round, so drift on a shared host falls on all alike."""
     import torch
-    for fn in fns.values():
-        fn()
+    if warm_up:
+        for fn in fns.values():
+            fn()
     torch.cuda.synchronize()
     times = {name: [] for name in fns}
     for r in range(samples):
@@ -364,17 +410,19 @@ def band_cells(tlen, left, right):
 
 def device_busy_ms(fn):
     """Summed duration of the device activities (kernels, copies) of one
-    call, from ``torch.profiler``; 0.0 when the profiler sees no device."""
+    call of ``fn``, which the caller has warmed up, from ``torch.profiler``;
+    0.0 when the profiler sees no device.  It sums the profiler's raw
+    events: building its Python event tree costs some 80 us an event, tens
+    of seconds for a call of thousands of eager operators."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(e.time_range.end - e.time_range.start for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e3
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA) / 1e6
 
 
 def device_top(fn, n: int = 6, calls: int = 1, unit: str = "ms") -> str:
@@ -1127,26 +1175,27 @@ def greedy_trace(model, enc1, t_len, max_tokens):
     import torch
     from transformer_transducer_tpu_torch.decoding import label_cache as lc
     one = torch.ones(1, dtype=torch.bool, device="cuda")
-    cache = lc.init_cache(model.decoder, 1, max_tokens)
-    dec, cache = lc.step(model.decoder, torch.zeros(1, dtype=torch.long,
-                                                    device="cuda"), cache, one)
-    count, out = 1, []
-    for t in range(t_len):
-        logits = model.joint_logits(enc1[:, t], dec)[0]
-        top = logits.topk(2).values
-        pred = int(logits.argmax())
-        emit = pred != 0 and count < max_tokens
-        out.append((pred if emit else 0, float(top[0] - top[1])))
-        if emit:
-            dec, cache = lc.step(model.decoder, torch.tensor([pred], device="cuda"),
-                                 cache, one)
-            count += 1
+    with torch.no_grad():
+        cache = lc.init_cache(model.decoder, 1, max_tokens)
+        dec, cache = lc.step(model.decoder, torch.zeros(1, dtype=torch.long,
+                                                        device="cuda"), cache, one)
+        count, out = 1, []
+        for t in range(t_len):
+            logits = model.joint_logits(enc1[:, t], dec)[0]
+            top = logits.topk(2).values
+            pred = int(logits.argmax())
+            emit = pred != 0 and count < max_tokens
+            out.append((pred if emit else 0, float(top[0] - top[1])))
+            if emit:
+                dec, cache = lc.step(model.decoder, torch.tensor([pred], device="cuda"),
+                                     cache, one)
+                count += 1
     return out
 
 
-def compare_tokens(name, got, ref, model, enc_k, enc_p, t_len, max_tokens):
+def compare_tokens(name, got, ref, model, enc_k, enc_p, t_len, max_tokens, tol=GAP_TOL):
     """Tokens must be identical; where they are not, the first differing
-    frame must be a tie (top-2 gap <= GAP_TOL), else the run fails."""
+    frame must be a tie (top-2 gap <= ``tol``), else the run fails."""
     if got == ref:
         log(f"  {name}: tokens identical ({sum(map(len, got))} tokens)")
         return
@@ -1159,9 +1208,83 @@ def compare_tokens(name, got, ref, model, enc_k, enc_p, t_len, max_tokens):
         gap = max(ta[frame][1], tb[frame][1])
         log(f"  {name}: utterance {u} first differs at frame {frame}, "
             f"top-2 logit gap {gap:.3e}")
-        if gap > GAP_TOL:
+        if gap > tol:
             raise AssertionError(f"{name}: kernel and plain tokens diverge at "
                                  f"utterance {u}, frame {frame} (gap {gap:.3e})")
+
+
+def paired_trace(model, enc_a, enc_b, t_len, max_tokens):
+    """Batched greedy decode along ``enc_b``'s path, as ``greedy_decode``
+    decides, with the joint also applied to ``enc_a``'s rows under the
+    same label state at every frame; one read of the card at the end.
+    Returns numpy (T, B) arrays: the token each path takes at each frame
+    (0 for none), each path's top-2 logit gap and max|logits_a - logits_b|."""
+    import torch
+    from transformer_transducer_tpu_torch.decoding import label_cache as lc
+    b, t_max = enc_b.shape[:2]
+    dev = enc_b.device
+    t_len = torch.as_tensor(t_len, device=dev)
+    rows = []
+    with torch.no_grad():
+        cache = lc.init_cache(model.decoder, b, max_tokens)
+        dec, cache = lc.step(model.decoder, torch.zeros(b, dtype=torch.long, device=dev), cache,
+                             torch.ones(b, dtype=torch.bool, device=dev))
+        count = torch.ones(b, dtype=torch.long, device=dev)
+        for t in range(t_max):
+            logits = model.joint_logits(torch.cat([enc_a[:, t], enc_b[:, t]]),
+                                        torch.cat([dec, dec]))
+            pred = logits.argmax(-1)
+            top = logits.topk(2, -1).values
+            ok = ((t < t_len) & (count < max_tokens)).repeat(2)
+            tok = torch.where(ok & (pred != 0), pred, 0)
+            rows.append(torch.stack([tok[:b].float(), tok[b:].float(), *(
+                top[:, 0] - top[:, 1]).view(2, b), (logits[:b] - logits[b:]).abs().amax(-1)]))
+            emit = tok[b:] != 0
+            out, cache = lc.step(model.decoder, tok[b:], cache, emit)
+            dec = torch.where(emit[:, None], out, dec)
+            count = count + emit.long()
+    tok_a, tok_b, gap_a, gap_b, delta = torch.stack(rows).cpu().numpy().transpose(1, 0, 2)
+    return tok_a.astype(int), tok_b.astype(int), gap_a, gap_b, delta
+
+
+def compare_int8_tokens(name, got, ref, model, enc_k, enc_p, t_len, max_tokens):
+    """int8 kernel tokens ``got`` against the plain path's ``ref``, replayed
+    by ``paired_trace`` on the two encoders' rows: the replay must give
+    ``ref``, and each utterance whose tokens differ must differ in the
+    replay too.  Where they differ, the first frame the two decide
+    differently is logged with its top-2 gap (the larger of the two
+    paths'), the largest logit difference there and whether the gap is a
+    tie by GAP_TOL; not gated (see INT8_LAYER_MEAN_TOL).  Logs and
+    returns these and the percentiles of the top-2 gap over every frame
+    the plain path decodes."""
+    import numpy as np
+    tok_k, tok_p, gap_k, gap_p, delta = paired_trace(model, enc_k, enc_p, t_len, max_tokens)
+    gaps, firsts = [], []
+    for u, n in enumerate(map(int, t_len)):
+        require([int(v) for v in tok_p[:n, u] if v] == ref[u],
+                f"{name}: the replay of utterance {u} does not give the plain path's tokens")
+        gaps.append(gap_p[:n, u])
+        if got[u] == ref[u]:
+            continue
+        frames = np.flatnonzero(tok_k[:n, u] != tok_p[:n, u])
+        require(len(frames) > 0, f"{name}: utterance {u} differs, the replay nowhere")
+        f = frames[0]
+        gap = float(max(gap_k[f, u], gap_p[f, u]))
+        firsts.append({"utterance": u, "frame": int(f), "gap": gap,
+                       "max_logit_diff": float(delta[f, u])})
+        log(f"  {name}: utterance {u} first differs at frame {f}, top-2 logit gap {gap:.3e} "
+            f"({'a' if gap <= GAP_TOL else 'not a'} tie by {GAP_TOL}), max|logit difference| "
+            f"there {delta[f, u]:.3e}")
+    gaps = np.concatenate(gaps)
+    q = dict(zip(("p1", "p5", "p10", "p25", "median"),
+                 map(float, np.percentile(gaps, [1, 5, 10, 25, 50]))))
+    same = sum(a == b for a, b in zip(got, ref))
+    log(f"  {name}: {same} of {len(got)} utterances' tokens identical (not gated); top-2 "
+        f"logit gap over the {len(gaps)} frames the plain path decodes: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in q.items())
+        + f"; {100 * (gaps <= GAP_TOL).mean():.2f} % of them at or under {GAP_TOL}")
+    return {"identical": same, "first_divergences": firsts, "frame_gap_quantiles": q,
+            "frames": int(len(gaps))}
 
 
 def load_config(*path):
@@ -1232,11 +1355,13 @@ def replay_gap(session, tokens, frame) -> float:
     return float(top[0] - top[1])
 
 
-def compare_streams(name, got, ref):
+def compare_streams(name, got, ref, tol=GAP_TOL):
     """Two sessions' token streams must be identical; where they are not,
     the first frame they decide differently must be a tie under the label
-    state both still share (top-2 logit gap <= GAP_TOL in either, replayed
-    from the rows each decoded there), else the run fails."""
+    state both still share (top-2 logit gap <= ``tol`` in either, replayed
+    from the rows each decoded there), else the run fails.  ``tol=None``
+    logs the gap and gates nothing (the int8 paths; see
+    INT8_LAYER_MEAN_TOL)."""
     a = list(zip(got.timestamps, got.result))
     b = list(zip(ref.timestamps, ref.result))
     if a == b:
@@ -1245,8 +1370,9 @@ def compare_streams(name, got, ref):
     u = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
     frame = min(s[u][0] for s in (a, b) if u < len(s))
     gap = max(replay_gap(s, s.result[:u], frame) for s in (got, ref))
-    log(f"  {name}: token {u} first differs at frame {frame}, top-2 logit gap {gap:.3e}")
-    require(gap <= GAP_TOL, f"{name}: streams diverge at frame {frame} (gap {gap:.3e})")
+    log(f"  {name}: token {u} first differs at frame {frame}, top-2 logit gap {gap:.3e}"
+        + (" (not gated)" if tol is None else ""))
+    require(tol is None or gap <= tol, f"{name}: streams diverge at frame {frame} (gap {gap:.3e})")
 
 
 def check_streaming(cfg, state, offset, device, smi, gen):
@@ -2296,6 +2422,396 @@ def check_slice_6a(cfg, state, offset, phase4, device, smi):
     return dict(launches), summary
 
 
+def beam_gap(step, u, w=5) -> float:
+    """The smallest score gap among the decisions row ``u`` took in one
+    iteration of the beam search (a record of ``beam_search_batched``'s
+    ``observe``): the gate's blank against best non-blank logit at each
+    frame it decided, and where it expanded, the order of the top w + 1
+    tokens of each beam that proposed (the best beam's alone at the first
+    expansion) and of the top w + 1 of the w x w children."""
+    expand = bool(step["expand"][u])
+    n = int(step["emit_t"][u] - step["cur_t"][u]) + expand
+    gaps = []
+    if n > 0:
+        gate = step["gate"][u, :n]
+        gaps.append((gate[:, 1:].max(-1).values - gate[:, 0]).abs().min())
+    if expand:
+        first = bool(step["first"][u])
+        top = step["logp"][u].topk(w + 1, -1).values           # (W, w + 1)
+        if first:
+            top = top[int(step["best"][u])][None]
+        gaps.append((top[:, :-1] - top[:, 1:]).min())
+        if not first:
+            flat = step["flat"][u].topk(w + 1).values
+            gaps.append((flat[:-1] - flat[1:]).min())
+    return min((float(g) for g in gaps), default=float("inf"))
+
+
+def beam_step_key(step, u):
+    """Row ``u``'s decisions in one beam iteration."""
+    if not bool(step["expand"][u]):
+        return False, int(step["emit_t"][u])
+    return (True, int(step["emit_t"][u]), step["parents"][u].tolist(),
+            step["new_toks"][u].tolist())
+
+
+def compare_beams(name, got, ref, runs):
+    """Beam tokens must be identical; where an utterance's are not, the
+    first iteration at which the two searches decided differently must be a
+    near-tie (the smallest score gap of its decisions <= GAP_TOL in both),
+    replayed through ``observe``: ``runs`` are the two searches, each a
+    function of an observer."""
+    if got == ref:
+        log(f"  {name}: tokens identical ({sum(map(len, got))} tokens)")
+        return
+    traces = []
+    for run in runs:
+        steps = []
+        run(steps.append)
+        traces.append(steps)
+    for u, (a, b) in enumerate(zip(got, ref)):
+        if a == b:
+            continue
+        keys = [[beam_step_key(s, u) for s in tr] for tr in traces]
+        i = next((i for i, (p, q) in enumerate(zip(*keys)) if p != q), min(map(len, keys)))
+        gap = max((beam_gap(tr[i], u) for tr in traces if i < len(tr)), default=float("inf"))
+        log(f"  {name}: utterance {u} first decided differently at iteration {i}, "
+            f"smallest score gap {gap:.3e}")
+        require(gap <= GAP_TOL, f"{name}: beams diverge at utterance {u}, iteration {i} "
+                                f"(gap {gap:.3e})")
+
+
+def check_beam_int8(cfg, state, offset, phase4, device, smi):
+    """Phase 12: the width-5 beam search and W8A8 int8 serving at full
+    width.  (a) ``recognize_beam`` on phase 4's batch under the band and at
+    full context against the plain versions and against the recomputed
+    label encoder, timed beside greedy ``recognize``; ``apps/predict.py
+    --beam``.  (b) ``torch._int_mm`` exact, ``QuantLinear`` on the card
+    against the CPU; int8 ``recognize`` against the plain versions and the
+    float tokens; int8 sessions and ``apps/serve.py --int8``; a JAX-format
+    checkpoint through ``tools/quantize_checkpoint.py`` read back to the
+    bit; ``apps/predict.py --int8`` on it.  ``phase4`` holds phase 4's
+    batch ``x``, ``t_len`` and greedy tokens by mode.  Returns the launches
+    of its main paths by kernel and the summary."""
+    import numpy as np
+    import torch
+    from transformer_transducer_tpu_torch.apps import predict as predict_app
+    from transformer_transducer_tpu_torch.apps import serve
+    from transformer_transducer_tpu_torch.data.wav import write_wave
+    from transformer_transducer_tpu_torch.decoding.beam import (
+        beam_search, beam_search_batched, recognize_beam)
+    from transformer_transducer_tpu_torch.decoding.greedy import recognize
+    from transformer_transducer_tpu_torch.models.factory import load_family, to_quant
+    from transformer_transducer_tpu_torch.models.transducer import build_transducer
+    from transformer_transducer_tpu_torch.ops import features_np as F
+    from transformer_transducer_tpu_torch.ops import quant
+    from transformer_transducer_tpu_torch.ops.masks import context_mask
+    from transformer_transducer_tpu_torch.streaming.batched import BatchedStreamingSession
+    from transformer_transducer_tpu_torch.streaming.session import (
+        StreamingConfig, StreamingSession)
+    from transformer_transducer_tpu_torch.tools import quantize_checkpoint
+    from transformer_transducer_tpu_torch.utils.config import (
+        dump_config, stack_context, subsample_factor)
+    from transformer_transducer_tpu_torch.utils.convert import random_jax_params
+    from transformer_transducer_tpu_torch.utils.metrics import batch_cer
+    from transformer_transducer_tpu_torch.utils.vocab import Vocabulary
+    n_layer = cfg.model.enc.n_layer
+    n_mels = cfg.data.feature_dim
+    left, right = stack_context(cfg.data)
+    band = (cfg.model.enc.left_context, cfg.model.enc.right_context)
+    max_tokens = cfg.data.max_target_length + 1
+    x, t_len = phase4["x"], phase4["t_len"]
+    mask = context_mask(x.shape[1], *band, device=device)
+    launches = collections.Counter()
+    summary = {"card": smi}
+    models = {}
+    for flash in (False, True):
+        models[flash] = build_transducer(cfg.model, flash=flash, device=device)
+        models[flash].load_state_dict(state)
+        with torch.no_grad():
+            models[flash].joint.project_layer.bias[0] += offset     # phase 4's bias
+    qmodels = {flash: to_quant(m) for flash, m in models.items()}
+    # mode -> (model flag, the encoder's keyword, its kernel, the plain path's keyword)
+    modes = {"band": (False, {"band": band}, "banded_fwd", {"audio_mask": mask}),
+             "full-context": (True, {}, "flash_fwd", {})}
+
+    def main_path(what, fn, kernel):
+        """``fn`` with the counts from 0: 18 launches of ``kernel``, nothing else."""
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = dict.fromkeys(counts, 0)
+        want[kernel] = n_layer
+        require(counts == want, f"{what}: launches {counts}, want {want}")
+        launches[kernel] += n_layer
+        return out
+
+    def encodings(m, kw, plain_kw):
+        with torch.no_grad():
+            enc_k = m.encode_banded(x, *band) if kw else m.encode(x)
+            with plain_versions():
+                enc_p = m.encode(x, plain_kw.get("audio_mask"))
+        return enc_k, enc_p
+
+    def well_formed(what, toks):
+        require(len(toks) == len(t_len) and all(len(r) < max_tokens and 0 not in r
+                                                for r in toks), f"{what}: malformed tokens")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # a config, a vocabulary and phase 4's weights for the CLIs
+        vocab_path = os.path.join(tmp, "vocab.txt")
+        vocab = Vocabulary.from_symbols([chr(0x4E00 + i)
+                                         for i in range(cfg.model.vocab_size - 2)] + ["<unk>"])
+        vocab.save(vocab_path)
+        cli_cfg = load_flagship()
+        cli_cfg.override("data.vocab", vocab_path)
+        cfg_path = os.path.join(tmp, "config.yaml")
+        dump_config(cli_cfg, cfg_path)
+        ckpt = os.path.join(tmp, "model.pt")
+        torch.save(models[False].state_dict(), ckpt)
+        waves = synthetic_waves(8, seed=0)                  # phase 4's
+        one = {}
+        for u in (len(waves) - 1, 0):                       # 410 and 60 frames
+            wav = os.path.join(tmp, f"phase4_{u}.wav")
+            write_wave(wav, waves[u])
+            feats = F.subsample(F.stack_frames(F.logmel_masked(waves[u], 16000, n_mels),
+                                               left, right), subsample_factor(cfg.data))
+            one[u] = (wav, torch.from_numpy(feats[None]).to(device))
+
+        # ---- (a) the beam
+        log("width-5 beam search at full width (phase 4's batch, weights and blank bias):")
+        beam_summary = {}
+        for name, (flash, kw, kernel, plain_kw) in modes.items():
+            m = models[flash]
+            stats = {}
+            toks = main_path(f"recognize_beam, {name}", lambda: recognize_beam(
+                m, x, t_len, max_tokens=max_tokens, stats=stats, **kw), kernel)
+            well_formed(f"recognize_beam, {name}", toks)
+            require(stats["host_reads"] == stats["iterations"] <= x.shape[1],
+                    f"recognize_beam, {name}: {stats}")
+            enc_k, enc_p = encodings(m, kw, plain_kw)
+            with plain_versions():
+                reset_counts()
+                toks_p = recognize_beam(models[False], x, t_len, max_tokens=max_tokens,
+                                        **plain_kw)
+                require(not any(read_counts().values()), f"plain beam, {name}, launched")
+            run = lambda enc, cache: lambda obs: beam_search_batched(
+                m, enc, t_len, 5, max_tokens, use_cache=cache, observe=obs)
+            compare_beams(f"beam, {name}, kernel vs plain", toks, toks_p,
+                          (run(enc_k, True), run(enc_p, True)))
+            toks_nc = recognize_beam(m, x, t_len, max_tokens=max_tokens, use_cache=False,
+                                     **kw)
+            compare_beams(f"beam, {name}, cached vs recomputed label encoder", toks, toks_nc,
+                          (run(enc_k, True), run(enc_k, False)))
+            n_tok = sum(map(len, toks))
+            same = sum(a == b for a, b in zip(toks, phase4[name]))
+            log(f"  recognize_beam B 8 ({name}): {stats['iterations']} iterations, "
+                f"{stats['host_reads']} host reads; {n_tok} tokens, {same} of 8 utterances "
+                f"equal to greedy's")
+            beam_summary[name] = {"iterations": stats["iterations"],
+                                  "host_reads": stats["host_reads"], "tokens": n_tok,
+                                  "same_as_greedy": same}
+            # the entry point: its text is beam_search at B 1 on the same rows
+            for u, (wav, x1) in one.items():
+                text = main_path(f"predict --beam, {name}, utterance {u}",
+                                 lambda: predict_app.main(
+                                     ["--config", cfg_path, "--checkpoint", ckpt, "--wav", wav,
+                                      "--beam", "--device", str(device)]
+                                     + (["--full-context"] if flash else [])), kernel)
+                with torch.no_grad():
+                    enc1 = m.encode_banded(x1, *band) if kw else m.encode(x1)
+                want = "".join(vocab.decode(beam_search(m, enc1[0], x1.shape[1],
+                                                        max_tokens=max_tokens)))
+                log(f"  apps/predict.py --beam ({name}), utterance {u} ({x1.shape[1]} "
+                    f"frames): {len(text)} characters, beam_search at B 1 "
+                    f"{'agrees' if text == want else 'differs'}")
+                require(text == want, f"predict --beam ({name}): {text!r}, want {want!r}")
+        summary["beam"] = beam_summary
+
+        # ---- (b) int8
+        log("W8A8 int8 serving at full width:")
+        rng = np.random.default_rng(12)
+        for m_ in (1, 5, 16, 17, 40):
+            for k in (512, 2048):
+                a = rng.integers(-127, 128, (m_, k), dtype=np.int8)
+                w = rng.integers(-127, 128, (cfg.model.vocab_size, k), dtype=np.int8)
+                got = quant.int8_matmul(torch.from_numpy(a).to(device),
+                                        torch.from_numpy(w).to(device))
+                ref = a.astype(np.int64) @ w.astype(np.int64).T
+                require(got.dtype == torch.int32 and got.is_cuda
+                        and np.array_equal(got.cpu().numpy(), ref),
+                        f"torch._int_mm at M {m_}, K {k}, N {w.shape[0]} is not exact")
+        log(f"  int8 product (torch._int_mm, padded): exact against numpy's int64 product at "
+            f"M 1, 5, 16, 17, 40, K 512, 2048, N {cfg.model.vocab_size}")
+        layer = torch.nn.Linear(2048, cfg.model.vocab_size)
+        q_cpu = quant.QuantLinear.from_linear(layer)
+        q_dev = quant.QuantLinear.from_linear(layer.to(device))
+        xs = torch.randn(40, 2048) * 2
+        ref, got = q_cpu(xs), q_dev(xs.to(device)).cpu()
+        qerr = (got - ref).abs().max().item()
+        same_w = torch.equal(q_cpu.weight_q, q_dev.weight_q.cpu()) and torch.equal(
+            q_cpu.scale, q_dev.scale.cpu())
+        log(f"  QuantLinear (2048 -> {cfg.model.vocab_size}, M 40) on the card against the "
+            f"CPU: weights {'equal' if same_w else 'differ'}, max|err| {qerr:.3e} "
+            f"(atol 1e-4, rtol 1e-4)")
+        require(same_w and torch.allclose(got, ref, **KERNEL_TOL),
+                f"QuantLinear on the card differs from the CPU ({qerr})")
+        summary["quant_linear_max_abs_err"] = qerr
+
+        int8_summary = {}
+        for name, (flash, kw, kernel, plain_kw) in modes.items():
+            qm = qmodels[flash]
+            toks = main_path(f"int8 recognize, {name}", lambda: recognize(
+                qm, x, t_len, max_tokens=max_tokens, **kw), kernel)
+            well_formed(f"int8 recognize, {name}", toks)
+            with plain_versions():
+                reset_counts()
+                toks_p = recognize(qmodels[False], x, t_len, max_tokens=max_tokens, **plain_kw)
+                require(not any(read_counts().values()), f"plain int8, {name}, launched")
+            enc_k, enc_p = encodings(qm, kw, plain_kw)
+            diff = (enc_k - enc_p).abs()
+            err = diff.max().item()
+            log(f"  int8, {name}: encoder states kernel vs plain max|err| {err:.3e}, mean "
+                f"{diff.mean().item():.3e}, {100 * (diff > 1e-3).float().mean().item():.2f} % "
+                f"over 1e-3 (W8A8 makes rounding whole int8 steps)")
+            # layer by layer from the same inputs, the kernel's share of that:
+            # isolated whole int8 steps, a small mean
+            h, means, maxes, shares = x, [], [], []
+            with torch.no_grad():
+                for layer in qm.encoder.layers:
+                    out_k = layer(h, None, band) if kw else layer(h)
+                    with plain_versions():
+                        out_p = layer(h, plain_kw.get("audio_mask"))
+                    d = (out_k - out_p).abs()
+                    means.append(d.mean().item())
+                    maxes.append(d.max().item())
+                    shares.append((d > 1e-3).float().mean().item())
+                    h = out_k
+            log(f"  int8, {name}: each layer from the same input, kernel vs plain: mean|err| "
+                f"at most {max(means):.3e} (limit {INT8_LAYER_MEAN_TOL}), max|err| at most "
+                f"{max(maxes):.3e}, at most {100 * max(shares):.2f} % of values over 1e-3")
+            require(max(means) <= INT8_LAYER_MEAN_TOL,
+                    f"int8, {name}: a layer's kernel and plain outputs differ by "
+                    f"{max(means):.3e} on average")
+            replay = compare_int8_tokens(f"int8, {name}", toks, toks_p, qm, enc_k, enc_p,
+                                         t_len, max_tokens)
+            flt = phase4[name]
+            same = sum(a == b for a, b in zip(toks, flt))
+            dist, total = batch_cer(toks, flt)
+            log(f"  int8 recognize B 8 ({name}): {same} of 8 utterances' tokens equal to the "
+                f"float model's, CER between them {100.0 * dist / max(total, 1):.2f} % (random "
+                f"weights: not gated)")
+            int8_summary[name] = {"same_as_float": same,
+                                  "cer_vs_float": dist / max(total, 1),
+                                  "encoder_max_abs_err": err,
+                                  "layer_mean_abs_err": max(means),
+                                  "layer_max_abs_err": max(maxes),
+                                  "kernel_vs_plain": replay}
+        # times at the band alone, interleaved: the beam's and int8's main
+        # path calls were their warm-ups, the float greedy's is one call here
+        m, qm, kw = models[False], qmodels[False], modes["band"][1]
+        call = lambda model, decode=recognize: lambda: decode(
+            model, x, t_len, max_tokens=max_tokens, **kw)
+        call(m)()
+        ms = host_ms({"beam": call(m, recognize_beam), "greedy": call(m), "int8": call(qm)},
+                     samples=5, warm_up=False)
+        log(f"  B 8 under the band, on {smi}: recognize_beam {spread(ms['beam'])}, greedy "
+            f"recognize {spread(ms['greedy'])}, int8 greedy recognize {spread(ms['int8'])}")
+        beam_summary["band"].update(beam_ms=statistics.median(ms["beam"]),
+                                    greedy_ms=statistics.median(ms["greedy"]))
+        int8_summary["band"].update(int8_ms=statistics.median(ms["int8"]),
+                                    float_ms=statistics.median(ms["greedy"]))
+        summary["int8"] = int8_summary
+
+        # the int8 sessions: serve --int8 on phase 10's 4 waves, the batched
+        # session on the same waves, solo window sessions through the plain
+        # versions
+        scfg = lambda: StreamingConfig.from_config(cfg)
+        serve_waves = synthetic_waves(4, seed=1)
+        paths = []
+        for i, w in enumerate(serve_waves):
+            paths.append(os.path.join(tmp, f"utt{i}.wav"))
+            write_wave(paths[-1], w)
+        out = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(out):
+            serve.main(["--config", cfg_path, "--checkpoint", ckpt, "--wavs", *paths,
+                        "--streams", str(len(paths)), "--json", "--int8",
+                        "--device", str(device)])
+        torch.cuda.synchronize()
+        cli_counts = read_counts()
+        cli = [json.loads(line) for line in out.getvalue().splitlines() if line.strip()]
+        batched = record_rounds(BatchedStreamingSession(qmodels[False], scfg(), len(paths),
+                                                        device=device))
+        for i, w in enumerate(serve_waves):
+            batched.accept_waveform(i, w)
+            batched.finalize(i)
+        batched.run_to_completion()
+        want = dict.fromkeys(cli_counts, 0)
+        want["banded_fwd"] = n_layer * batched.encode_calls
+        log(f"  serve --int8 (--streams 4 --json): {[len(r['tokens']) for r in cli]} tokens; "
+            f"launches {cli_counts}; the int8 batched session drained: "
+            f"{batched.encode_calls} encoder calls")
+        require(cli_counts == want and want["banded_fwd"] > 0,
+                f"serve --int8: launches {cli_counts}, want {want}")
+        require([r["tokens"] for r in cli] == [st.result for st in batched.streams],
+                "serve --int8: tokens differ from the int8 batched session's")
+        launches["banded_fwd"] += cli_counts["banded_fwd"]
+        reset_counts()
+        solo = record_windows(StreamingSession(qmodels[False], scfg(), device=device))
+        feed_stream(solo, serve_waves[-1], None)
+        counts = read_counts()
+        require(counts["banded_fwd"] == n_layer * solo.window_groups
+                and sum(counts.values()) == counts["banded_fwd"],
+                f"int8 window session: launches {counts}")
+        launches["banded_fwd"] += counts["banded_fwd"]
+        with plain_versions():
+            plain = []
+            for w in serve_waves:
+                s = record_windows(StreamingSession(qmodels[False], scfg(), device=device))
+                feed_stream(s, w, None)
+                plain.append(s)
+        compare_streams("int8 window session, kernel vs plain", solo, plain[-1], None)
+        for i, (got, ref) in enumerate(zip(utterance_views(batched), plain)):
+            compare_streams(f"int8 stream {i}, served vs plain window session", got, ref, None)
+
+        # a JAX-format checkpoint of phase 4's weights through the port's
+        # quantize tool, read back against to_quant in memory
+        tree = random_jax_params(cfg.model, seed=0)
+        tree["joint"]["project_layer"]["bias"][0] += offset
+        jax_dir = write_jax_checkpoint(os.path.join(tmp, "jax_epoch"), tree)
+        del tree
+        int8_dir = os.path.join(tmp, "int8")
+        start = time.perf_counter()
+        sizes = quantize_checkpoint.main([jax_dir, int8_dir, "--device", str(device)])
+        tool_s = time.perf_counter() - start
+        loaded = load_family(cli_cfg, n_mels * (1 + left + right), int8_dir, device=device)
+        ref_sd, got_sd = qmodels[False].state_dict(), loaded.state_dict()
+        same = set(ref_sd) == set(got_sd) and all(
+            got_sd[k].dtype == v.dtype and torch.equal(got_sd[k], v) for k, v in ref_sd.items())
+        log(f"  tools/quantize_checkpoint.py on the JAX-format checkpoint in {tool_s:.1f} s: "
+            f"weights {sizes['weights_in'] / 2 ** 20:.1f} -> {sizes['weights_out'] / 2 ** 20:.1f}"
+            f" MiB, files {sizes['file_in'] / 2 ** 20:.1f} -> {sizes['file_out'] / 2 ** 20:.1f} "
+            f"MiB ({sizes['file_out'] / sizes['file_in']:.3f}); load_family's tensors "
+            f"{'equal' if same else 'differ from'} to_quant's in memory")
+        require(loaded.quant and same, "the int8-baked checkpoint does not read back to the bit")
+        del loaded
+        summary["int8_checkpoint"] = {**sizes, "tool_s": tool_s}
+        wav, x1 = one[len(waves) - 1]
+        text = main_path("predict --int8 on the int8-baked checkpoint", lambda: predict_app.main(
+            ["--config", cfg_path, "--checkpoint", int8_dir, "--wav", wav, "--int8",
+             "--device", str(device)]), "banded_fwd")
+        want = "".join(vocab.decode(recognize(qmodels[False], x1, [x1.shape[1]], band=band,
+                                              max_tokens=max_tokens)[0]))
+        log(f"  apps/predict.py --int8 --checkpoint <int8-baked dir>: {len(text)} characters, "
+            f"the int8 model's recognize {'agrees' if text == want else 'differs'}")
+        require(text == want, f"predict --int8: {text!r}, want {want!r}")
+    del models, qmodels
+    torch.cuda.empty_cache()
+    return dict(launches), summary
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3090,6 +3606,20 @@ def main() -> int:
         rec["phase11_launches"] = jax_launches.get(key, 0)
         rec["launches"] += rec["phase11_launches"]
     log(json.dumps({"slice_6a": slice_6a}))
+
+    log(f"[{time.perf_counter() - run_start:.1f} s] phase 12")
+    # ---- 12. the beam search and int8 serving
+    start = time.perf_counter()
+    beam_launches, slice_7_9 = check_beam_int8(
+        cfg, state, offset, {"x": x, "t_len": t_len, "band": tok_band,
+                             "full-context": tok_full}, device, smi)
+    slice_7_9["phase_s"] = time.perf_counter() - start
+    for rec in records:
+        key = {"banded_attention_fwd": "banded_fwd",
+               "flash_rel_attention_fwd": "flash_fwd"}.get(rec["name"])
+        rec["phase12_launches"] = beam_launches.get(key, 0)
+        rec["launches"] += rec["phase12_launches"]
+    log(json.dumps({"slice_7_9": slice_7_9}))
 
     log(f"[{time.perf_counter() - run_start:.1f} s] all phases passed")
     log(json.dumps({"kernels": records}))

@@ -11,8 +11,11 @@ small encoder through the attention kernels against the dense path,
 gradients of whole models through the kernels against the plain path,
 the pruned loss on the card against the CPU, the banded forward at the
 streaming window (T = 256, B = 1 and 16), and the streaming sessions on the
-card against the same sessions through the plain version, and the batched
-session on the card against solo sessions.
+card against the same sessions through the plain version, the batched
+session on the card against solo sessions, the int8 product
+(``torch._int_mm``, padded) exact at V = 6485, ``QuantLinear`` on the card
+against the CPU, and the width-5 beam search, float and int8, against the
+plain path.
 
 A CUDA kernel has no CPU mode, so every test here needs an NVIDIA card and
 skips without one.  On a machine with a card:
@@ -883,3 +886,57 @@ def test_jax_checkpoint_round_trip_on_the_card(gen, tmp_path):
     band = (10, 2)
     assert (recognize(model, x, [120, 77], band=band)
             == recognize(direct, x, [120, 77], band=band))
+
+
+@pytest.mark.parametrize("m", [1, 5, 16, 17, 40])
+@pytest.mark.parametrize("k", [512, 2048])
+def test_int8_product_on_the_card_is_exact(gen, m, k):
+    """``ops/quant.py::int8_matmul`` (``torch._int_mm`` on operands padded to
+    its shape rules) against numpy's int64 product, at V = 6485."""
+    import numpy as np
+    from transformer_transducer_tpu_torch.ops.quant import int8_matmul
+    rng = np.random.default_rng(m * k)
+    a = rng.integers(-127, 128, (m, k), dtype=np.int8)
+    w = rng.integers(-127, 128, (6485, k), dtype=np.int8)
+    got = int8_matmul(torch.from_numpy(a).cuda(), torch.from_numpy(w).cuda())
+    assert got.is_cuda and got.dtype == torch.int32 and got.shape == (m, 6485)
+    assert np.array_equal(got.cpu().numpy(), a.astype(np.int64) @ w.astype(np.int64).T)
+
+
+@pytest.mark.parametrize("n_in,n_out,bias", [(512, 1536, False), (2048, 512, True),
+                                             (1024, 6485, True), (64, 12, True)])
+def test_quant_linear_on_the_card_matches_the_cpu(gen, n_in, n_out, bias):
+    """A ``QuantLinear`` quantised on the card holds the CPU's int8 weights
+    and scales to the bit, and its output is the CPU's within ``TOL``."""
+    from transformer_transducer_tpu_torch.ops.quant import QuantLinear
+    torch.manual_seed(0)
+    layer = torch.nn.Linear(n_in, n_out, bias=bias)
+    x = torch.randn(5, 7, n_in) * 2
+    on_cpu = QuantLinear.from_linear(layer)
+    on_card = QuantLinear.from_linear(layer.cuda())
+    assert torch.equal(on_card.weight_q.cpu(), on_cpu.weight_q)
+    assert torch.equal(on_card.scale.cpu(), on_cpu.scale)
+    torch.testing.assert_close(on_card(x.cuda()).cpu(), on_cpu(x), **TOL)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_beam_on_the_card_matches_the_plain_path(gen, monkeypatch, int8):
+    """``recognize_beam`` under the band on the card, float and W8A8: one
+    banded launch a layer, one read of the card an iteration, the tokens of
+    the recomputed label encoder and of the plain version."""
+    from transformer_transducer_tpu_torch.decoding.beam import recognize_beam
+    from transformer_transducer_tpu_torch.models.factory import to_quant
+    from transformer_transducer_tpu_torch.ops.cuda import banded_attention as ba
+    model = _streaming_model(gen)
+    if int8:
+        model = to_quant(model)
+    x = torch.randn(3, 150, 128, generator=gen, device="cuda")
+    t_len = [150, 120, 97]
+    stats = {}
+    before = banded_attention.launches
+    got = recognize_beam(model, x, t_len, band=(10, 2), stats=stats)
+    assert banded_attention.launches - before == 2
+    assert any(got) and stats["host_reads"] == stats["iterations"] <= 150
+    assert recognize_beam(model, x, t_len, band=(10, 2), use_cache=False) == got
+    monkeypatch.setattr(ba, "banded_attention", ba.banded_attention_plain)
+    assert recognize_beam(model, x, t_len, band=(10, 2)) == got

@@ -15,6 +15,7 @@ from transformer_transducer_tpu.ops import features_np as jax_F
 from transformer_transducer_tpu.ops.masks import context_mask as jax_context_mask
 from transformer_transducer_tpu_torch.apps import predict as predict_app
 from transformer_transducer_tpu_torch.data.wav import write_wave
+from transformer_transducer_tpu_torch.decoding.beam import beam_search
 from transformer_transducer_tpu_torch.decoding.greedy import (
     greedy_decode, recognize, tokens_to_lists)
 from transformer_transducer_tpu_torch.ops import features_np as F
@@ -143,5 +144,9 @@ def test_predict_cli_on_cpu(tmp_path, batch, full_context):
                        band=None if full_context else (10, 2))[0]
     assert text == "".join(chr(0x4e00 + i) for i in tokens)
     assert len(text) > 0
-    with pytest.raises(NotImplementedError):
-        predict_app.main(argv + ["--beam"])
+    # --beam: the width-5 beam search over the same encoder rows
+    with torch.no_grad():
+        enc = pm.encode(t(feats[None])) if full_context else pm.encode_banded(
+            t(feats[None]), 10, 2)
+    beam = beam_search(pm, enc[0], len(feats), beam_width=5, max_tokens=43)
+    assert predict_app.main(argv + ["--beam"]) == "".join(chr(0x4e00 + i) for i in beam)

@@ -69,6 +69,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from transformer_transducer_tpu_torch.streaming.batched import BatchedStreamingSession
     from transformer_transducer_tpu_torch.streaming.session import (
         StreamingConfig, StreamingSession, TrapezoidStreamingSession)
+    from transformer_transducer_tpu_torch.tools import quantize_checkpoint
     from transformer_transducer_tpu_torch.utils.config import Config
     from transformer_transducer_tpu_torch.utils.device import resolve_device
     from torch_port_helpers import tiny_model_cfg
@@ -96,6 +97,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                       "--wav", "a.wav"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["-config", os.path.join(ROOT, "configs", "joint_streaming.yaml")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        quantize_checkpoint.main(["model.pt", "out"])
     assert resolve_device("cpu").type == "cpu"
 
 

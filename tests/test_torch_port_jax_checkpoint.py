@@ -304,12 +304,20 @@ def test_unknown_optimizer_layout_raises(variables):
 
 
 def test_int8_baked_checkpoint_raises(tmp_path, variables):
+    """The ``quant`` marker is honoured (int8-baked checkpoints load since
+    port item 9, ``tests/test_torch_port_quant.py``): a float tree marked
+    int8 loads into the quantised model and fails on its keys, and a
+    marker other than int8 raises."""
     jax_ckpt.save_checkpoint(str(tmp_path), variables["params"])
     meta = json.load(open(tmp_path / "meta.json"))
     json.dump({**meta, "quant": "int8"}, open(tmp_path / "meta.json", "w"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    assert ckpt_lib.load_checkpoint(str(tmp_path))["quant"] == "int8"
+    with pytest.raises(RuntimeError, match="weight_q"):
+        load_family(Config({"model": tiny_model_cfg()}), 64, str(tmp_path), device="cpu")
+    json.dump({**meta, "quant": "int4"}, open(tmp_path / "meta.json", "w"))
+    with pytest.raises(ValueError, match="int4"):
         ckpt_lib.load_checkpoint(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(ValueError, match="int4"):
         load_family(Config({"model": tiny_model_cfg()}), 64, str(tmp_path), device="cpu")
 
 

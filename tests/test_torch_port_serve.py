@@ -140,10 +140,14 @@ def test_serve_continuous_batching(served, monkeypatch, capsys):
     assert 0 < ul["p50"] <= ul["p95"] <= ul["p99"]
 
 
-def test_serve_int8_waits_for_a_later_slice(served):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        serve.main(["--config", served["cfg"], "--checkpoint", served["port_ckpt"],
-                    "--wavs", "a.wav", "--int8", "--device", "cpu"])
+def test_serve_int8_waits_for_a_later_slice(served, monkeypatch, capsys):
+    """``--int8`` (port item 9): the W8A8 twin serves each file the JAX
+    CLI's int8 tokens."""
+    wavs = _wavs(served["dir"], [16000, 20000])
+    port, ref = _run_both(served, wavs, ["--int8"], monkeypatch, capsys)
+    assert len(port) == 2 and any(r["tokens"] for r in port)
+    assert [r["tokens"] for r in port] == [r["tokens"] for r in ref]
+    assert [r["times_s"] for r in port] == [r["times_s"] for r in ref]
 
 
 def test_record_synth_writes_the_root_scripts_samples(tmp_path):

@@ -22,6 +22,7 @@ from transformer_transducer_tpu.utils.config import load_config as jax_load_conf
 from transformer_transducer_tpu_torch.apps import stream_demo
 from transformer_transducer_tpu_torch.data.wav import write_wave
 from transformer_transducer_tpu_torch.decoding.greedy import greedy_decode, tokens_to_lists
+from transformer_transducer_tpu_torch.models.factory import to_quant
 from transformer_transducer_tpu_torch.ops import features_np as F
 from transformer_transducer_tpu_torch.streaming.session import (
     StreamingConfig, StreamingSession, TrapezoidStreamingSession,
@@ -326,8 +327,12 @@ def test_stream_demo_cli_on_cpu(tmp_path, capsys, monkeypatch, models, increment
     assert ref.result and text == "".join(chr(0x4e00 + i) for i in ref.result)
     assert f"final: {text}" in printed and "RTF" in printed
     assert printed.count("p=") == len(ref.result)
-    with pytest.raises(NotImplementedError):
-        stream_demo.main(argv + ["--int8"])
+    # --int8: the W8A8 twin's session, fed the same
+    text = stream_demo.main(argv + ["--int8"] + (["--incremental"] if incremental else []))
+    capsys.readouterr()
+    ref = feed(StreamingSession(to_quant(pm), StreamingConfig(n_layer=2, feature_dim=N_MELS),
+                                device="cpu", incremental=incremental), wav, 4000)
+    assert ref.result and text == "".join(chr(0x4e00 + i) for i in ref.result)
     # --gui hands the session to the Tk window (apps/gui.py), fed from the file
     from transformer_transducer_tpu_torch.apps import gui
     opened = []

@@ -5,13 +5,17 @@ Loads a config + a checkpoint (a port trainer's ``epoch_N`` directory, its
 ``model.pt``, a flat ``state_dict`` file written with ``torch.save``, or an
 ``epoch_N`` / ``step_N`` directory the JAX package's ``train.py`` wrote), extracts
 features, encodes under the streaming band through the banded kernel (or
-full-context through the flash kernel), greedy-decodes and reports CER
-against an optional reference transcript.
+full-context through the flash kernel), decodes greedily (or, with
+``--beam``, by the width-5 beam search) and reports CER against an
+optional reference transcript.  ``--int8`` serves the W8A8 twin of the
+model (``ops/quant.py``); an int8-baked checkpoint
+(``tools/quantize_checkpoint.py``) is served int8 with or without it.
 
     python -m transformer_transducer_tpu_torch.apps.predict \\
         --config configs/joint_streaming.yaml \\
         --checkpoint egs/<name>/<save_model>/epoch_19 \\
-        --wav path/to/audio.wav [--truth "真实文本"] [--full-context]
+        --wav path/to/audio.wav [--truth "真实文本"] [--full-context] \\
+        [--beam] [--int8]
 """
 
 from __future__ import annotations
@@ -40,14 +44,9 @@ def main(argv=None) -> str:
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; pass cpu to run there)")
     args = ap.parse_args(argv)
-    if args.beam:
-        raise NotImplementedError("beam search (decoding/beam.py) is ported in "
-                                  "a later slice of the PyTorch port")
-    if args.int8:
-        raise NotImplementedError("int8 serving (ops/quant.py) is ported in a "
-                                  "later slice of the PyTorch port")
 
     from transformer_transducer_tpu_torch.data.wav import read_wave
+    from transformer_transducer_tpu_torch.decoding.beam import recognize_beam
     from transformer_transducer_tpu_torch.decoding.greedy import recognize
     from transformer_transducer_tpu_torch.models.factory import load_family
     from transformer_transducer_tpu_torch.ops import features_np as F
@@ -64,7 +63,7 @@ def main(argv=None) -> str:
     left_ctx, right_ctx = stack_context(cfg.data)
     d_in = (cfg.data.feature_dim or 128) * (1 + left_ctx + right_ctx)
     model = load_family(cfg, d_in, args.checkpoint, device=device,
-                           flash=args.full_context)
+                        flash=args.full_context, int8=args.int8)
 
     wave, rate = read_wave(args.wav)
     feats = F.subsample(F.stack_frames(
@@ -72,9 +71,10 @@ def main(argv=None) -> str:
         left_ctx, right_ctx), subsample_factor(cfg.data))
     band = None if args.full_context else (cfg.model.enc.left_context or 10,
                                            cfg.model.enc.right_context or 2)
-    pred = recognize(model, torch.from_numpy(feats[None]).to(device),
-                     [feats.shape[0]], band=band,
-                     max_tokens=cfg.data.max_target_length + 1)[0]
+    x = torch.from_numpy(feats[None]).to(device)
+    max_tokens = cfg.data.max_target_length + 1
+    decode = recognize_beam if args.beam else recognize
+    pred = decode(model, x, [feats.shape[0]], band=band, max_tokens=max_tokens)[0]
 
     text = "".join(vocab.decode(pred))
     print("识别结果 / prediction:", text)

@@ -11,7 +11,8 @@ output equals a solo ``StreamingSession`` fed the same audio.
     python -m transformer_transducer_tpu_torch.apps.serve \\
         --config configs/joint_streaming.yaml \\
         --checkpoint egs/<name>/<save_model>/epoch_N --wavs a.wav b.wav c.wav \\
-        [--streams 8] [--rtf] [--json] [--latency | --continuous] [--device cpu]
+        [--streams 8] [--rtf] [--json] [--latency | --continuous] [--int8] \\
+        [--device cpu]
 """
 
 from __future__ import annotations
@@ -72,9 +73,6 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; pass cpu to run there)")
     args = ap.parse_args(argv)
-    if args.int8:
-        raise NotImplementedError("int8 serving (ops/quant.py) is ported in a "
-                                  "later slice of the PyTorch port")
 
     from transformer_transducer_tpu_torch.data.wav import read_wave
     from transformer_transducer_tpu_torch.models.factory import load_family
@@ -91,7 +89,7 @@ def main(argv=None) -> None:
     scfg = StreamingConfig.from_config(cfg)
     vocab = Vocabulary.from_file(cfg.data.vocab)
     d_in = (cfg.data.feature_dim or 128) * (1 + sum(stack_context(cfg.data)))
-    model = load_family(cfg, d_in, args.checkpoint, device=device)
+    model = load_family(cfg, d_in, args.checkpoint, device=device, int8=args.int8)
     n_streams = args.streams or min(len(args.wavs), 8)
     session = BatchedStreamingSession(model, scfg, n_streams,
                                       incremental=args.incremental, device=device)

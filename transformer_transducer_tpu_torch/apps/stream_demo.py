@@ -11,7 +11,8 @@ then); ``--gui`` opens the Tk window (``apps/gui.py``) on either source.
     python -m transformer_transducer_tpu_torch.apps.stream_demo \\
         --config configs/joint_streaming.yaml \\
         --checkpoint egs/<name>/<save_model>/epoch_19 --wav audio.wav \\
-        [--chunk-ms 100] [--rtf] [--timestamps] [--incremental] [--device cpu]
+        [--chunk-ms 100] [--rtf] [--timestamps] [--incremental] [--int8] \\
+        [--device cpu]
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ def build_session(args):
     apply_overrides(cfg, args.overrides)
     vocab = Vocabulary.from_file(cfg.data.vocab)
     d_in = (cfg.data.feature_dim or 128) * (1 + sum(stack_context(cfg.data)))
-    model = load_family(cfg, d_in, args.checkpoint, device=device)
+    model = load_family(cfg, d_in, args.checkpoint, device=device, int8=args.int8)
     scfg = StreamingConfig.from_config(cfg)
 
     def on_token(tok, _is_split):
@@ -121,9 +122,6 @@ def main(argv=None) -> str:
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; pass cpu to run there)")
     args = ap.parse_args(argv)
-    if args.int8:
-        raise NotImplementedError("int8 serving (ops/quant.py) is ported in a "
-                                  "later slice of the PyTorch port")
     if not (args.mic or args.wav):
         sys.exit("need --wav or --mic")
 

@@ -107,3 +107,25 @@ def recognize(model, inputs: torch.Tensor, t_len,
         enc = model.encode(inputs, audio_mask)
     tokens, counts = greedy_decode(model, enc, t_len, max_tokens)
     return tokens_to_lists(tokens.cpu().numpy(), counts.cpu().numpy())
+
+
+@torch.no_grad()
+def decode_reference_exact(model, enc_states_b: torch.Tensor, t_len_b: int,
+                           blank: int = BLANK) -> List[int]:
+    """The reference's unmasked greedy loop for ONE utterance
+    (``tt/model.py:70-90``), dynamic shapes: the label encoder re-run over
+    the whole history with no mask after each emission.  A test oracle for
+    :func:`greedy_decode` (which runs under the causal mask)."""
+    tokens = [blank]
+
+    def dec_last():
+        buf = torch.tensor([tokens], dtype=torch.long, device=enc_states_b.device)
+        return model.predict(buf, None)[0, -1]
+
+    dec_state = dec_last()
+    for t in range(int(t_len_b)):
+        pred = int(model.joint_logits(enc_states_b[t], dec_state).argmax())
+        if pred != blank:
+            tokens.append(pred)
+            dec_state = dec_last()
+    return tokens[1:]

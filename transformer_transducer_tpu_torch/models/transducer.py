@@ -27,6 +27,7 @@ from torch import nn
 
 from transformer_transducer_tpu_torch.models.attention import TransformerXLLayer
 from transformer_transducer_tpu_torch.ops.masks import look_ahead_mask
+from transformer_transducer_tpu_torch.ops.quant import QuantLinear
 from transformer_transducer_tpu_torch.utils.device import resolve_device
 
 
@@ -93,17 +94,38 @@ class JointNetwork(nn.Module):
                                 tied_projection)
 
     # forward_layer(cat(e, d)) == project_enc(e) + project_dec(d): a decoder
-    # that holds one side fixed applies that side's half once
+    # that holds one side fixed applies that side's half once.  An int8
+    # layer (W8A8) takes one activation scale for each row of the
+    # concatenation, so it has no such split: there the halves are the
+    # states themselves, and first_layer applies the layer to their
+    # concatenation, as the JAX decoders' joint_logits does.
+    @property
+    def quant(self) -> bool:
+        return isinstance(self.forward_layer, QuantLinear)
+
     def project_enc(self, enc_state: torch.Tensor) -> torch.Tensor:
-        """The first layer's encoder half, with its bias."""
+        """The first layer's encoder half, with its bias (int8: the state)."""
+        if self.quant:
+            return enc_state
         w = self.forward_layer.weight
         return nn.functional.linear(enc_state, w[:, :enc_state.shape[-1]],
                                     self.forward_layer.bias)
 
     def project_dec(self, dec_state: torch.Tensor) -> torch.Tensor:
-        """The first layer's label half, no bias."""
+        """The first layer's label half, no bias (int8: the state)."""
+        if self.quant:
+            return dec_state
         w = self.forward_layer.weight
         return dec_state @ w[:, w.shape[1] - dec_state.shape[-1]:].t()
+
+    def first_layer(self, enc_half: torch.Tensor, dec_half: torch.Tensor) -> torch.Tensor:
+        """The first layer's pre-activation from the two halves
+        (broadcasting over the leading dimensions)."""
+        if self.quant:
+            lead = torch.broadcast_shapes(enc_half.shape[:-1], dec_half.shape[:-1])
+            return self.forward_layer(torch.cat([enc_half.expand(*lead, -1),
+                                                 dec_half.expand(*lead, -1)], -1))
+        return enc_half + dec_half
 
     def logits_from(self, pre: torch.Tensor,
                     tied_projection: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -169,8 +191,15 @@ class Transducer(nn.Module):
                      dec_state: torch.Tensor) -> torch.Tensor:
         return self.joint(enc_state, dec_state, tied_projection=self._tied_projection())
 
+    @property
+    def quant(self) -> bool:
+        """Whether the projections are int8 (JAX ``Transducer(quant=True)``;
+        ``ops/quant.py::quantize_modules`` swaps them)."""
+        return self.joint.quant
+
     def joint_logits_from(self, pre: torch.Tensor) -> torch.Tensor:
-        """Joint logits from ``joint.project_enc(e) + joint.project_dec(d)``."""
+        """Joint logits from ``joint.first_layer(joint.project_enc(e),
+        joint.project_dec(d))`` (for a float joint, the sum of the halves)."""
         return self.joint.logits_from(pre, self._tied_projection())
 
     def _tied_projection(self) -> Optional[torch.Tensor]:

@@ -22,6 +22,7 @@ from torch.utils.checkpoint import checkpoint
 
 from transformer_transducer_tpu_torch.ops.cuda.rnnt_kernel import (
     NEG, alpha_scan, beta_scan)
+from transformer_transducer_tpu_torch.ops.quant import dense_kernel
 
 
 def _skew(lp: torch.Tensor) -> torch.Tensor:
@@ -199,14 +200,15 @@ def joint_params(model) -> Tuple[torch.Tensor, ...]:
     (in, out) matrices: the concat Linear is split by rows at the encoder
     width (its input width less the label embedding's), and a tied joint's
     output weight is the label embedding.  Views of the parameters, so
-    gradients reach them."""
+    gradients reach them; an int8 joint's dequantised weights (JAX
+    ``dense_kernel``), which the beam's split joint takes."""
     joint = model.joint
-    w1 = joint.forward_layer.weight.t()                     # (enc+dec, inner)
+    w1 = dense_kernel(joint.forward_layer).t()              # (enc+dec, inner)
     d_enc = w1.shape[0] - model.decoder.dec_embedding.weight.shape[1]
     if model.share_embedding:
         w2, b2 = model.decoder.dec_embedding.weight.t(), joint.project_bias
     else:
-        w2, b2 = joint.project_layer.weight.t(), joint.project_layer.bias
+        w2, b2 = dense_kernel(joint.project_layer).t(), joint.project_layer.bias
     return w1[:d_enc], w1[d_enc:], joint.forward_layer.bias, w2, b2
 
 

@@ -186,8 +186,8 @@ class BatchedStreamingSession:
                                           left_t, output_size=n_rows)
             offs = torch.cumsum(left_t, 0) - left_t
             local = torch.arange(n_rows, device=self.device) - offs[seg]
-            logits = self.model.joint_logits_from(enc_proj[base[seg] + local]
-                                                  + self._dec_proj[slot_t][seg])
+            logits = self.model.joint_logits_from(self.model.joint.first_layer(
+                enc_proj[base[seg] + local], self._dec_proj[slot_t][seg]))
             preds = logits.argmax(-1)
             cand = torch.where(preds != BLANK, local, n_rows)
             first = torch.full((active.size,), n_rows, dtype=torch.long,

@@ -44,8 +44,11 @@ stream by stream it is ``incremental_encode_step`` on the valid rows.
 The layer norms are the port's ``nn.LayerNorm`` modules (two-pass
 variance), the formula of the port's window path; the JAX step uses
 flax's fast variance, ``max(0, E[x^2] - mu^2)``, which agrees with it to
-float32 rounding.  The espnet family (its shift-invariant step) and int8
-are ported in later slices.
+float32 rounding.  The projections are the layers' own modules, so an
+int8 model (``ops/quant.py::QuantLinear``) runs W8A8 here with per-row
+activation scales, as the window path does and as the JAX step's
+``_dense`` does.  The espnet family (its shift-invariant step) is ported
+in a later slice.
 """
 
 from __future__ import annotations

@@ -262,11 +262,13 @@ class StreamingSession:
         if self._dec_proj is None:
             self._dec_proj = self._label_proj()
         # the joint's first layer: its encoder half once a window, its label
-        # half once an emission
+        # half once an emission (an int8 joint has no halves: it takes the
+        # concatenation, as the JAX session's joint_logits does)
         enc_proj = self.model.joint.project_enc(enc_eff)
         t = 0
         while t < n:
-            logits = self.model.joint_logits_from(enc_proj[t:] + self._dec_proj)
+            logits = self.model.joint_logits_from(
+                self.model.joint.first_layer(enc_proj[t:], self._dec_proj))
             preds = logits.argmax(-1)
             rows = torch.arange(n - t, device=logits.device)
             first = torch.where(preds != BLANK, rows, n - t).min()

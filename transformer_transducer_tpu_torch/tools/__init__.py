@@ -1,2 +1,2 @@
-"""Scripts that measure the port on the card; nothing here is imported by
-the package."""
+"""Scripts of the port: measurements on the card and checkpoint tools;
+nothing here is imported by the package."""

@@ -14,6 +14,9 @@ A JAX checkpoint is a directory with one ``flax.serialization`` msgpack
 file a component (``{encoder,decoder,joint}.msgpack``), optionally
 ``optimizer.msgpack`` (the optax state) and ``meta.json``; a partial one
 (``save_partial_checkpoint``) lists its components in ``meta["components"]``.
+An int8-baked checkpoint of either format (``meta["quant"] == "int8"``)
+holds the quantised projections (``utils/convert.py``,
+``ops/quant.py::QuantLinear``) and loads into a quantised model.
 :func:`load_checkpoint` and :func:`load_component` read both formats into
 the same dict, through ``utils/flax_msgpack.py`` and ``utils/convert.py``.
 """
@@ -65,12 +68,17 @@ def _jax_meta(path: str) -> Dict[str, Any]:
     if os.path.exists(meta_path):
         with open(meta_path) as fh:
             meta = json.load(fh)
-    if meta.get("quant") is not None:
-        raise NotImplementedError(
-            f"{path} is an int8-baked checkpoint (tools/quantize_checkpoint.py, "
-            f"meta quant={meta['quant']!r}); int8 serving is Queue 1 item 9 of "
-            "the PyTorch port, ported in a later slice")
+    check_quant(meta, path)
     return meta
+
+
+def check_quant(meta: Dict[str, Any], path: str) -> None:
+    """A checkpoint is float (no ``quant`` in its meta) or int8-baked
+    (``quant: "int8"``, written by the JAX package's or the port's
+    ``tools/quantize_checkpoint.py``); any other marker raises."""
+    if meta.get("quant") not in (None, "int8"):
+        raise ValueError(f"{path}: meta quant={meta['quant']!r}; a checkpoint is "
+                         "float or int8-baked (quant 'int8')")
 
 
 def _jax_component(path: str, comp: str, device=None) -> Dict[str, torch.Tensor]:
@@ -112,7 +120,9 @@ def load_checkpoint(path: str, device=None,
         return _load_jax_checkpoint(path, device, param_names)
     if os.path.isdir(path):
         path = os.path.join(path, MODEL_FILE)
-    return torch.load(path, map_location=device, weights_only=True)
+    state = torch.load(path, map_location=device, weights_only=True)
+    check_quant(state, path)
+    return state
 
 
 def load_component(path: str, comp: str, device=None) -> Dict[str, torch.Tensor]:

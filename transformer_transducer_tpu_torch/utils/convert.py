@@ -8,7 +8,10 @@ package's ``utils/torch_convert.py::transducer_params`` maps the port's
 
 Layout rules: torch ``Linear.weight`` is (out, in), the transpose of a flax
 kernel; ``qkv``/``out`` have no bias while ``fc1``/``fc2`` do; the FFN's one
-LayerNorm (``ff/ln``) is the single ``pos_ff.layer_norm``.
+LayerNorm (``ff/ln``) is the single ``pos_ff.layer_norm``.  An int8 tree
+(JAX ``ops/quant.py::quantize_params``: ``{kernel_q, scale[, bias]}``
+leaves) maps to a quantised model's ``weight_q`` (transposed, int8) and
+``scale`` (``ops/quant.py::QuantLinear``).
 
 :func:`optimizer_from_jax` maps the optax state that the JAX trainer saves
 (``optimizer.msgpack``) into the port's ``Optimizer.state_dict()``: a
@@ -34,9 +37,23 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))   # a writable copy
 
 
-def _kernel(p: Mapping) -> torch.Tensor:
-    """A flax Dense kernel (in, out) as a torch ``Linear.weight`` (out, in)."""
-    return _t(p["kernel"]).t().contiguous()
+def _dense(p: Mapping, name: str) -> Dict[str, torch.Tensor]:
+    """A flax Dense leaf as the entries of the torch layer ``name``: a
+    float ``{kernel (in, out)[, bias]}`` as an ``nn.Linear``'s ``weight``
+    (out, in) and ``bias``; an int8 ``{kernel_q (in, out), scale (out,)[,
+    bias]}`` (JAX ``QuantDense``) as a ``QuantLinear``'s ``weight_q``
+    (out, in), int8, and ``scale``."""
+    if "kernel_q" in p:
+        w_q = np.array(p["kernel_q"])
+        if w_q.dtype != np.int8:
+            raise ValueError(f"{name}: an int8 leaf's kernel_q is {w_q.dtype}")
+        sd = {name + ".weight_q": torch.from_numpy(w_q).t().contiguous(),
+              name + ".scale": _t(p["scale"])}
+    else:
+        sd = {name + ".weight": _t(p["kernel"]).t().contiguous()}
+    if "bias" in p:
+        sd[name + ".bias"] = _t(p["bias"])
+    return sd
 
 
 def _layer_state(lp: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
@@ -46,16 +63,14 @@ def _layer_state(lp: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
         prefix + "r_emb": _t(lp["r_emb"]),
         prefix + "r_w_bias": _t(lp["r_w_bias"]),
         prefix + "r_bias": _t(lp["r_bias"]),
-        mha + "dec_attn.qkv_net.weight": _kernel(attn["qkv"]),
-        mha + "dec_attn.o_net.weight": _kernel(attn["out"]),
+        **_dense(attn["qkv"], mha + "dec_attn.qkv_net"),
+        **_dense(attn["out"], mha + "dec_attn.o_net"),
         mha + "dec_attn.layer_norm.weight": _t(attn["ln"]["scale"]),
         mha + "dec_attn.layer_norm.bias": _t(attn["ln"]["bias"]),
         mha + "pos_ff.layer_norm.weight": _t(ff["ln"]["scale"]),
         mha + "pos_ff.layer_norm.bias": _t(ff["ln"]["bias"]),
-        mha + "pos_ff.CoreNet.0.weight": _kernel(ff["fc1"]),
-        mha + "pos_ff.CoreNet.0.bias": _t(ff["fc1"]["bias"]),
-        mha + "pos_ff.CoreNet.3.weight": _kernel(ff["fc2"]),
-        mha + "pos_ff.CoreNet.3.bias": _t(ff["fc2"]["bias"]),
+        **_dense(ff["fc1"], mha + "pos_ff.CoreNet.0"),
+        **_dense(ff["fc2"], mha + "pos_ff.CoreNet.3"),
     }
 
 
@@ -74,13 +89,11 @@ def component_state(comp: str, tree: Mapping) -> Dict[str, torch.Tensor]:
         if comp == "decoder":
             sd["dec_embedding.weight"] = _t(tree["embedding"]["embedding"])
     elif comp == "joint":
-        sd["forward_layer.weight"] = _kernel(tree["forward_layer"])
-        sd["forward_layer.bias"] = _t(tree["forward_layer"]["bias"])
+        sd.update(_dense(tree["forward_layer"], "forward_layer"))
         if "project_bias" in tree:     # tied projection: the weight is the embedding
             sd["project_bias"] = _t(tree["project_bias"])
         else:
-            sd["project_layer.weight"] = _kernel(tree["project_layer"])
-            sd["project_layer.bias"] = _t(tree["project_layer"]["bias"])
+            sd.update(_dense(tree["project_layer"], "project_layer"))
     else:
         raise ValueError(f"unknown component {comp!r}; expected one of {COMPONENTS}")
     return sd
