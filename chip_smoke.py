@@ -86,7 +86,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 8. training timings: the training kernels (alone, under a CUDA graph)
    against their plain versions and bounds (the lattice sweeps also against
    their chain bound: D - 1 dependent log-add steps, one step timed alone in
-   one thread, ``ttx_rnnt_lae_chain``; the logZ, its four launches in
+   one thread, ``ttx_rnnt_lae_chain``; the band sweeps against the same
+   step times the dependent steps of their chains; the logZ, its four launches in
    one graph, also against ``torch.logsumexp`` over the whole sum, with
    each launch's share and its cells through the exact pass, and the exact
    form's bound beside its own; the flash kernels, on the tensor
@@ -190,6 +191,35 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    ``load_family`` to the bit of ``to_quant`` in memory, with both sizes;
    ``apps/predict.py --int8`` on it; a JSON line of these before the
    kernels' line (``phase12_launches``).
+
+13. the espnet family at full width: ``configs/espnet_aishell.yaml`` (8
+   encoder blocks, d 512, 8 heads x 64, no input layer; 2 text blocks; V
+   4233, joint 512 tanh; bands 10/2 and 2/0) with seeded random weights and
+   phase 4's blank bias rule, on phase 4's batch: greedy ``recognize``
+   cached and uncached, ``recognize_beam`` and int8 ``recognize`` (W8A8:
+   each encoder layer from the same input within a mean |error| of 1e-3 of
+   the CPU's, the tokens logged beside the float ones), against the same model on
+   the CPU (encoder states within 1e-3, tokens identical or the first
+   difference a tie replayed on each side's own model); a JAX-format
+   checkpoint of the weights read by ``load_family`` to the bit and served
+   by ``apps/predict.py`` with and without ``--beam`` on the 410- and
+   60-frame waves (the model's own decode); ``apps/serve.py`` with 4
+   streams on phase 10's waves (the batched session's tokens, each stream
+   against a solo window session); the window, trapezoid and incremental
+   sessions on phase 9's waves, 100 ms a call and whole (window and
+   trapezoid against the CPU's, incremental against window); no kernel
+   launches on any of these paths (the counts are read around each).
+   Then training: phase 6's batch (labels 1 .. V - 2), dropout 0, 3 SGD
+   steps with the full loss and 3 with the pruned loss (S 5), 1 alpha and
+   1 beta launch a step, plus 1 logZ, 1 band alpha and 1 band beta pruned,
+   against the plain versions (losses within 1e-4, step 1's gradient norm
+   within 1e-3, relative); ``apps/train_esptt.py`` on a synthetic corpus
+   for one epoch, ``-mode continue`` for a second, and ``apps/predict.py``
+   on its ``epoch_1``; medians of 5 of greedy, beam and int8
+   ``recognize``, a whole-file window stream and a full-loss and a pruned
+   train step; a JSON line of these before the kernels' line, whose
+   launches of kernels 1-5 count the phase's training paths too
+   (``phase13_launches``).
 
 Each phase logs the seconds since the run began.
 
@@ -991,7 +1021,8 @@ def read_counts():
 def training_batch(cfg, device, seed, raw=False):
     """B_TRAIN synthetic utterances of 60-410 frames through the dataset's
     host frontend (log-mel eps, stack, subsample), padded to
-    max_input_length, with 5-42 random targets; and its seconds of audio.
+    max_input_length, with 5-42 random targets (1 .. V - 1, or 1 .. V - 2
+    for the espnet family, whose V - 1 is sos); and its seconds of audio.
     With ``raw`` the same waves and targets as ``data.on_device_features``
     ships them: padded int16 waves and their sample counts."""
     import numpy as np
@@ -1021,7 +1052,8 @@ def training_batch(cfg, device, seed, raw=False):
     u_len = np.linspace(5, u_max, B_TRAIN).astype(np.int64)
     targets = np.zeros((B_TRAIN, u_max), np.int64)
     for i, n in enumerate(u_len):
-        targets[i, :n] = rng.integers(1, cfg.model.vocab_size, n)
+        targets[i, :n] = rng.integers(1, cfg.model.vocab_size or cfg.model.joint.vocab_size - 1,
+                                      n)
     batch = {"inputs": x, "inputs_length": x_len, "targets": targets,
              "targets_length": u_len}
     return batch_to_device(batch, device), sum(len(w) for w in waves) / 16000.0
@@ -1032,13 +1064,16 @@ def make_trainee(model_cfg, optim_cfg, state, mode, device, pruned_range=None,
     """A model in train mode with ``state``, its SGD optimizer (momentum,
     clip 200 as the trainer builds it) and its train step (SpecAugment on;
     the pruned loss with simple scale 0.25 when ``pruned_range``; the
-    on-device log-mel of raw waves with a ``frontend`` tuple)."""
-    from transformer_transducer_tpu_torch.models.transducer import build_transducer
+    on-device log-mel of raw waves with a ``frontend`` tuple).  An
+    espnet-schema block (``mask``) builds the espnet family (``mode`` does
+    not apply)."""
+    from transformer_transducer_tpu_torch.models.factory import build_family
     from transformer_transducer_tpu_torch.training.optim import build_optimizer
     from transformer_transducer_tpu_torch.training.train_step import (
         TrainStepConfig, make_train_step)
-    model = build_transducer(model_cfg, flash=mode == "flash",
-                             banded=mode == "banded", device=device)
+    from transformer_transducer_tpu_torch.utils.config import Config
+    model = build_family(Config(model=model_cfg), flash=mode == "flash",
+                         banded=mode == "banded", device=device)
     model.load_state_dict(state)
     model.train()
     opt = build_optimizer(optim_cfg, list(model.parameters()), max_grad_norm=200.0)
@@ -1169,41 +1204,61 @@ def synthetic_waves(n_utts, seed, frames=None):
     return waves
 
 
-def greedy_trace(model, enc1, t_len, max_tokens):
+def greedy_trace(model, enc1, t_len, max_tokens, use_cache=True):
     """One utterance's greedy decode, frame by frame: (token or 0, top-2
-    logit gap) per frame."""
+    logit gap) per frame; from the model family's seed, its label state
+    from the KV cache or, without ``use_cache``, re-encoded over the
+    history under the causal mask."""
     import torch
-    from transformer_transducer_tpu_torch.decoding import label_cache as lc
-    one = torch.ones(1, dtype=torch.bool, device="cuda")
+    from transformer_transducer_tpu_torch.decoding.greedy import predict_last_state
+    from transformer_transducer_tpu_torch.ops.masks import look_ahead_mask
+    dev = enc1.device
+    one = torch.ones(1, dtype=torch.bool, device=dev)
+    init_cache, lc_step = model.label_cache()
+    hist = [model.sos]
+
+    def label_state(tok):
+        nonlocal cache
+        if use_cache:
+            dec, cache = lc_step(torch.tensor([tok], device=dev), cache, one)
+            return dec
+        buf = torch.zeros((1, max_tokens), dtype=torch.long, device=dev)
+        buf[0, :len(hist)] = torch.tensor(hist, device=dev)
+        return predict_last_state(model, buf, torch.tensor([len(hist)], device=dev),
+                                  look_ahead_mask(max_tokens, device=dev))
+
     with torch.no_grad():
-        cache = lc.init_cache(model.decoder, 1, max_tokens)
-        dec, cache = lc.step(model.decoder, torch.zeros(1, dtype=torch.long,
-                                                        device="cuda"), cache, one)
-        count, out = 1, []
+        cache = init_cache(1, max_tokens)
+        dec = label_state(hist[0])
+        out = []
         for t in range(t_len):
             logits = model.joint_logits(enc1[:, t], dec)[0]
             top = logits.topk(2).values
             pred = int(logits.argmax())
-            emit = pred != 0 and count < max_tokens
+            emit = pred != 0 and len(hist) < max_tokens
             out.append((pred if emit else 0, float(top[0] - top[1])))
             if emit:
-                dec, cache = lc.step(model.decoder, torch.tensor([pred], device="cuda"),
-                                     cache, one)
-                count += 1
+                hist.append(pred)
+                dec = label_state(pred)
     return out
 
 
-def compare_tokens(name, got, ref, model, enc_k, enc_p, t_len, max_tokens, tol=GAP_TOL):
+def compare_tokens(name, got, ref, model, enc_k, enc_p, t_len, max_tokens, tol=GAP_TOL,
+                   caches=(True, True), ref_model=None):
     """Tokens must be identical; where they are not, the first differing
-    frame must be a tie (top-2 gap <= ``tol``), else the run fails."""
+    frame must be a tie (top-2 gap <= ``tol``), else the run fails.
+    ``caches``: whether each side's replay takes the KV-cached label
+    state; ``ref_model``: the model ``ref`` was decoded with (on the
+    device of ``enc_p``), if not ``model``."""
     if got == ref:
         log(f"  {name}: tokens identical ({sum(map(len, got))} tokens)")
         return
     for u, (a, b) in enumerate(zip(got, ref)):
         if a == b:
             continue
-        ta = greedy_trace(model, enc_k[u:u + 1], int(t_len[u]), max_tokens)
-        tb = greedy_trace(model, enc_p[u:u + 1], int(t_len[u]), max_tokens)
+        ta = greedy_trace(model, enc_k[u:u + 1], int(t_len[u]), max_tokens, caches[0])
+        tb = greedy_trace(ref_model or model, enc_p[u:u + 1], int(t_len[u]), max_tokens,
+                          caches[1])
         frame = next(i for i, (x, y) in enumerate(zip(ta, tb)) if x[0] != y[0])
         gap = max(ta[frame][1], tb[frame][1])
         log(f"  {name}: utterance {u} first differs at frame {frame}, "
@@ -1220,15 +1275,16 @@ def paired_trace(model, enc_a, enc_b, t_len, max_tokens):
     Returns numpy (T, B) arrays: the token each path takes at each frame
     (0 for none), each path's top-2 logit gap and max|logits_a - logits_b|."""
     import torch
-    from transformer_transducer_tpu_torch.decoding import label_cache as lc
     b, t_max = enc_b.shape[:2]
     dev = enc_b.device
     t_len = torch.as_tensor(t_len, device=dev)
     rows = []
+    init_cache, lc_step = model.label_cache()
     with torch.no_grad():
-        cache = lc.init_cache(model.decoder, b, max_tokens)
-        dec, cache = lc.step(model.decoder, torch.zeros(b, dtype=torch.long, device=dev), cache,
-                             torch.ones(b, dtype=torch.bool, device=dev))
+        cache = init_cache(b, max_tokens)
+        dec, cache = lc_step(torch.full((b,), model.sos, dtype=torch.long,
+                                        device=dev),
+                             cache, torch.ones(b, dtype=torch.bool, device=dev))
         count = torch.ones(b, dtype=torch.long, device=dev)
         for t in range(t_max):
             logits = model.joint_logits(torch.cat([enc_a[:, t], enc_b[:, t]]),
@@ -1240,7 +1296,7 @@ def paired_trace(model, enc_a, enc_b, t_len, max_tokens):
             rows.append(torch.stack([tok[:b].float(), tok[b:].float(), *(
                 top[:, 0] - top[:, 1]).view(2, b), (logits[:b] - logits[b:]).abs().amax(-1)]))
             emit = tok[b:] != 0
-            out, cache = lc.step(model.decoder, tok[b:], cache, emit)
+            out, cache = lc_step(tok[b:], cache, emit)
             dec = torch.where(emit[:, None], out, dec)
             count = count + emit.long()
     tok_a, tok_b, gap_a, gap_b, delta = torch.stack(rows).cpu().numpy().transpose(1, 0, 2)
@@ -1929,19 +1985,21 @@ def check_head_width_32(device):
                        enc_k, enc_p, t_len, max_tokens)
 
 
-def write_corpus(root, cfg) -> str:
+def write_corpus(root, cfg, base=None) -> str:
     """16 train and 8 dev synthetic waves with random labels over a vocabulary
-    of ``vocab_size`` symbols, and the flagship config pointing at them;
+    of ``vocab_size`` symbols (of the espnet ``joint.vocab_size``: the labels
+    never sos), and the flagship config (or ``base``) pointing at them;
     returns the config's path."""
     import numpy as np
     from transformer_transducer_tpu_torch.data.wav import write_wave
     from transformer_transducer_tpu_torch.utils.config import dump_config
     from transformer_transducer_tpu_torch.utils.vocab import Vocabulary
-    chars = [chr(0x4E00 + i) for i in range(cfg.model.vocab_size - 2)]
+    chars = [chr(0x4E00 + i) for i in range((cfg.model.vocab_size
+                                             or cfg.model.joint.vocab_size) - 2)]
     vocab_path = os.path.join(root, "vocab.txt")
     Vocabulary.from_symbols(chars + ["<unk>"]).save(vocab_path)
     rng = np.random.default_rng(3)
-    cli_cfg = load_flagship()
+    cli_cfg = load_flagship() if base is None else base
     cli_cfg.override("data.vocab", vocab_path)
     for split, n, seed in (("train", 16, 2), ("dev", 8, 3)):
         lines = ["file_path,label"]
@@ -1965,8 +2023,7 @@ def split_step(model, opt, batch, gen, samples: int = 5) -> dict:
     encoder forward (SpecAugment + ``encode_both``), loss forward (the fused
     joint and the lattice), backward, optimizer (gradient norm + update)."""
     import torch
-    from transformer_transducer_tpu_torch.ops.rnnt_loss import (
-        joint_params, rnnt_loss_fused)
+    from transformer_transducer_tpu_torch.ops.rnnt_loss import rnnt_loss_fused
     from transformer_transducer_tpu_torch.ops.specaug import spec_augment
     from transformer_transducer_tpu_torch.training.optim import global_norm
     from transformer_transducer_tpu_torch.training.train_step import TrainStepConfig
@@ -1984,7 +2041,7 @@ def split_step(model, opt, batch, gen, samples: int = 5) -> dict:
         enc, dec = model.encode_both(x, batch["targets"])
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
-        loss = rnnt_loss_fused(enc, dec, joint_params(model), batch["targets"],
+        loss = rnnt_loss_fused(enc, dec, model.joint_params(), batch["targets"],
                                batch["inputs_length"], batch["targets_length"],
                                chunk_size=cfg.loss_chunk_size, remat=cfg.loss_remat)
         torch.cuda.synchronize()
@@ -2011,7 +2068,6 @@ def split_pruned_step(model, opt, batch, gen, samples: int = 5) -> dict:
     loss), backward, optimizer."""
     import torch
     from transformer_transducer_tpu_torch.ops import rnnt_loss_pruned as rp
-    from transformer_transducer_tpu_torch.ops.rnnt_loss import joint_params
     from transformer_transducer_tpu_torch.ops.specaug import spec_augment
     from transformer_transducer_tpu_torch.training.optim import global_norm
     from transformer_transducer_tpu_torch.training.train_step import TrainStepConfig
@@ -2035,7 +2091,7 @@ def split_pruned_step(model, opt, batch, gen, samples: int = 5) -> dict:
                          cfg.max_mask_frequency, cfg.mask_num)
         enc, dec = model.encode_both(x, labels)
         mark()
-        jp = joint_params(model)
+        jp = model.joint_params()
         t_len = torch.clamp(batch["inputs_length"], max=enc.shape[1])
         u_len = torch.clamp(batch["targets_length"], max=dec.shape[1] - 1)
         sp_b, sp_l = rp.simple_grid_logprobs(enc, dec, jp, labels)
@@ -2812,6 +2868,371 @@ def check_beam_int8(cfg, state, offset, phase4, device, smi):
     return dict(launches), summary
 
 
+def check_espnet(phase4, device, smi):
+    """Phase 13: the espnet family at full width (``configs/espnet_aishell.yaml``,
+    seeded random weights, phase 4's blank bias rule).  Returns the launches
+    of the phase's training paths by counter name, and the phase's summary."""
+    import copy
+    import numpy as np
+    import torch
+    from transformer_transducer_tpu_torch.apps import predict as predict_app
+    from transformer_transducer_tpu_torch.apps import serve, train_esptt
+    from transformer_transducer_tpu_torch.data.wav import write_wave
+    from transformer_transducer_tpu_torch.decoding.beam import (
+        beam_search, beam_search_batched, recognize_beam)
+    from transformer_transducer_tpu_torch.decoding.greedy import (
+        greedy_decode, recognize, tokens_to_lists)
+    from transformer_transducer_tpu_torch.models.espnet_variant import _pos_table
+    from transformer_transducer_tpu_torch.models.factory import (
+        build_family, load_family, to_quant)
+    from transformer_transducer_tpu_torch.ops import features_np as F
+    from transformer_transducer_tpu_torch.ops.masks import (
+        combine_masks, context_mask, padding_mask)
+    from transformer_transducer_tpu_torch.streaming.batched import BatchedStreamingSession
+    from transformer_transducer_tpu_torch.streaming.session import (
+        StreamingConfig, StreamingSession, TrapezoidStreamingSession)
+    from transformer_transducer_tpu_torch.utils.config import Config, dump_config
+    from transformer_transducer_tpu_torch.utils.convert import (
+        from_jax_params, random_jax_params)
+    from transformer_transducer_tpu_torch.utils.vocab import Vocabulary
+
+    cfg = load_config("configs", "espnet_aishell.yaml")
+    v, n_layer = cfg.model.joint.vocab_size, cfg.model.enc.num_blocks
+    max_tokens = cfg.data.max_target_length + 1
+    x, t_len = phase4["x"], phase4["t_len"]
+    tl = torch.as_tensor(t_len, device=device)
+    tree = random_jax_params(cfg.model, seed=0)
+    model = build_family(cfg, x.shape[-1], device=device)
+    model.load_state_dict(from_jax_params(tree))
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"espnet model (configs/espnet_aishell.yaml): {n_layer} encoder blocks, d "
+        f"{cfg.model.enc.output_size}, {cfg.model.enc.attention_heads} heads, "
+        f"{cfg.model.dec.num_blocks} text blocks, V {v}, joint {cfg.model.joint.joint_space_size} "
+        f"{model.joint_activation}, bands {model.encoder_left_mask}/{model.encoder_right_mask} "
+        f"and {model.decoder_left_mask}/0; {n_params} parameters")
+    with torch.no_grad():
+        enc = model.encode(x, tl)
+        dec = model.predict(torch.full((len(t_len), 1), v - 1, device=device))
+        logits = model.joint_logits(enc, dec)[:, :, 0]
+        margin = logits[..., 1:].max(-1).values - logits[..., 0]
+        valid = torch.arange(x.shape[1], device=device)[None] < tl[:, None]
+        offset = torch.quantile(margin[valid], 0.85).item()
+        model.joint.lin_out.bias[0] += offset
+    tree["joint"]["lin_out"]["bias"] = model.joint.lin_out.bias.detach().cpu().numpy()
+    log(f"  blank logit biased by {offset:.3f}")
+    cpu = copy.deepcopy(model).cpu()
+    x_cpu = x.cpu()
+    summary = {"parameters": n_params, "blank_offset": offset, "part_s": {}}
+    start = time.perf_counter()
+
+    def mark(part):
+        """The seconds each part of the phase took, logged and kept."""
+        nonlocal start
+        now = time.perf_counter()
+        summary["part_s"][part] = now - start
+        log(f"  [{part}: {now - start:.1f} s]")
+        start = now
+
+    def quiet(what, fn):
+        """``fn()`` with the counts from 0, read after: no kernel launches
+        on an espnet serving path (its attention is plain tensor code)."""
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = read_counts()
+        require(not any(got.values()), f"{what}: launched {got}")
+        return out
+
+    # (a) greedy recognize, cached and uncached, against the CPU
+    tok = quiet("recognize", lambda: recognize(model, x, t_len, max_tokens=max_tokens))
+    with torch.no_grad():
+        enc = model.encode(x, tl)
+        enc_cpu = cpu.encode(x_cpu, torch.as_tensor(t_len))
+    tok_unc = quiet("recognize, uncached", lambda: tokens_to_lists(*(
+        a.cpu().numpy() for a in greedy_decode(model, enc, t_len, max_tokens,
+                                               use_cache=False))))
+    tok_cpu = recognize(cpu, x_cpu, t_len, max_tokens=max_tokens)
+    n_frames = int(t_len.sum())
+    require(len(tok) == len(t_len) and all(len(r) < max_tokens and 0 not in r for r in tok),
+            "espnet recognize: malformed token lists")
+    require(enc.shape == (len(t_len), x.shape[1], cfg.model.enc.output_size)
+            and bool(torch.isfinite(enc).all()), "espnet encoder states malformed")
+    err = (enc.cpu() - enc_cpu).abs().max().item()
+    log(f"  recognize B {len(t_len)}: {sum(map(len, tok))} tokens over {n_frames} frames "
+        f"({100.0 * sum(map(len, tok)) / n_frames:.1f} % emission), no kernel launched; "
+        f"encoder states card vs CPU max|err| {err:.3e} (tolerance {ENC_TOL})")
+    require(err <= ENC_TOL, f"espnet encoder states differ from the CPU's by {err}")
+    compare_tokens("greedy, card vs CPU", tok, tok_cpu, model, enc, enc_cpu, t_len,
+                   max_tokens, ref_model=cpu)
+    compare_tokens("greedy, cached vs uncached", tok, tok_unc, model, enc, enc, t_len,
+                   max_tokens, caches=(True, False))
+    summary["greedy"] = {"tokens": sum(map(len, tok)), "frames": n_frames,
+                         "enc_max_abs_err_vs_cpu": err}
+    mark("greedy")
+
+    # (b) the width-5 beam search against the CPU
+    beam = quiet("recognize_beam", lambda: recognize_beam(model, x, t_len,
+                                                          max_tokens=max_tokens))
+    beam_cpu = recognize_beam(cpu, x_cpu, t_len, max_tokens=max_tokens)
+    compare_beams("beam, card vs CPU", beam, beam_cpu, [
+        lambda obs: beam_search_batched(model, enc, t_len, 5, max_tokens, observe=obs),
+        lambda obs: beam_search_batched(cpu, enc_cpu, t_len, 5, max_tokens, observe=obs)])
+    summary["beam"] = {"tokens": sum(map(len, beam)),
+                       "same_as_greedy": sum(a == b for a, b in zip(beam, tok))}
+    mark("beam")
+
+    # (c) int8: each layer from the same input against the CPU's (the gate);
+    # the tokens logged beside the float ones (W8A8 turns rounding into
+    # whole int8 steps, see INT8_LAYER_MEAN_TOL)
+    qm, qc = to_quant(model), to_quant(cpu)
+    same_w = all(torch.equal(a.cpu(), b) for a, b in zip(qm.state_dict().values(),
+                                                         qc.state_dict().values()))
+    require(same_w, "espnet int8 weights quantised on the card differ from the CPU's")
+    tok_q = quiet("int8 recognize", lambda: recognize(qm, x, t_len, max_tokens=max_tokens))
+    require(len(tok_q) == len(t_len) and all(0 not in r for r in tok_q),
+            "espnet int8 recognize: malformed token lists")
+    t = x.shape[1]
+    mask = combine_masks(context_mask(t, model.encoder_left_mask, model.encoder_right_mask,
+                                      device=device)[None],
+                         padding_mask(tl, t)[:, None, :])
+    pos = _pos_table(t, cfg.model.enc.output_size, device)
+    means = []
+    with torch.no_grad():
+        h = qm.encoder.input_transform(x)[0] * cfg.model.enc.output_size ** 0.5
+        for lk, lc in zip(qm.encoder.encoders, qc.encoder.encoders):
+            out_k = lk(h, pos, mask)
+            d = (out_k.cpu() - lc(h.cpu(), pos.cpu(), mask.cpu())).abs()
+            means.append(d.mean().item())
+            h = out_k
+    same_float = sum(a == b for a, b in zip(tok_q, tok))
+    log(f"  int8 (W8A8) weights bit-equal on the card and the CPU; each encoder layer from "
+        f"the same input, card vs CPU: mean|err| at most {max(means):.3e} (limit "
+        f"{INT8_LAYER_MEAN_TOL}); int8 recognize {sum(map(len, tok_q))} tokens, {same_float} "
+        f"of {len(tok)} utterances as the float model's (not gated)")
+    require(max(means) <= INT8_LAYER_MEAN_TOL,
+            f"espnet int8: a layer differs from the CPU's by {max(means):.3e} on average")
+    summary["int8"] = {"layer_mean_abs_err_max": max(means), "tokens": sum(map(len, tok_q)),
+                       "same_as_float": same_float}
+    mark("int8")
+
+    # (d) JAX-format checkpoint, read to the bit and served by the CLI
+    waves = synthetic_waves(8, seed=0)
+    pick = {"410 frames": waves[-1], "60 frames": waves[0]}
+    with tempfile.TemporaryDirectory() as tmp:
+        vocab_path = os.path.join(tmp, "vocab.txt")
+        Vocabulary.from_symbols([chr(0x4E00 + i) for i in range(v - 2)]
+                                + ["<unk>"]).save(vocab_path)
+        cli_cfg = load_config("configs", "espnet_aishell.yaml")
+        cli_cfg.override("data.vocab", vocab_path)
+        cfg_path = os.path.join(tmp, "config.yaml")
+        dump_config(cli_cfg, cfg_path)
+        ckpt = write_jax_checkpoint(os.path.join(tmp, "epoch_0"), tree)
+        loaded = load_family(cli_cfg, x.shape[-1], ckpt, device=device)
+        require(all(torch.equal(a, b) for a, b in zip(loaded.state_dict().values(),
+                                                      model.state_dict().values())),
+                "the JAX-format espnet checkpoint did not load to the bit")
+        del loaded
+        vocab = Vocabulary.from_file(vocab_path)
+        texts = {}
+        for wname, wave in pick.items():
+            path = os.path.join(tmp, "utt.wav")
+            write_wave(path, wave)
+            feats = F.subsample(F.stack_frames(F.logmel_masked(wave, 16000, 128), 3, 0), 3)
+            xf = torch.from_numpy(feats[None]).to(device)
+            for flags in ([], ["--beam"]):
+                text = quiet(f"predict {flags}", lambda: predict_app.main(
+                    ["--config", cfg_path, "--checkpoint", ckpt, "--wav", path, *flags]))
+                if flags:
+                    with torch.no_grad():
+                        want = beam_search(model, model.encode(xf)[0], feats.shape[0],
+                                           max_tokens=max_tokens)
+                else:
+                    want = recognize(model, xf, [feats.shape[0]], max_tokens=max_tokens)[0]
+                want = "".join(vocab.decode(want))
+                require(text == want, f"predict {flags} on the {wname} wave gave {text!r}, "
+                                      f"the model {want!r}")
+                texts[f"{wname}{' beam' if flags else ''}"] = len(text)
+        log(f"  JAX-format espnet checkpoint: read by load_family to the bit; apps/predict.py "
+            f"with and without --beam on the 410- and 60-frame waves: the model's own "
+            f"decode ({texts} characters), no kernel launched")
+        mark("checkpoint and predict")
+
+        # (e) the serve CLI, 4 streams, against the batched session and solo sessions
+        scfg = lambda: StreamingConfig.from_config(cfg)
+        serve_waves = synthetic_waves(4, seed=1)
+        paths = []
+        for i, w in enumerate(serve_waves):
+            paths.append(os.path.join(tmp, f"s{i}.wav"))
+            write_wave(paths[-1], w)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            quiet("serve CLI", lambda: serve.main(
+                ["--config", cfg_path, "--checkpoint", ckpt, "--wavs", *paths, "--streams",
+                 str(len(paths)), "--json", "--device", str(device)]))
+        cli = [json.loads(line) for line in out.getvalue().splitlines() if line.strip()]
+    batched = record_rounds(BatchedStreamingSession(model, scfg(), 4, device=device))
+    for i, w in enumerate(serve_waves):
+        batched.accept_waveform(i, w)
+        batched.finalize(i)
+    quiet("batched drain", batched.run_to_completion)
+    require([r["tokens"] for r in cli] == [st.result for st in batched.streams],
+            "espnet serve CLI: tokens differ from the batched session's")
+    for i, (got, w) in enumerate(zip(utterance_views(batched), serve_waves)):
+        solo = record_windows(StreamingSession(model, scfg(), device=device))
+        quiet("solo session", lambda: feed_stream(solo, w, None))
+        compare_streams(f"espnet stream {i}, batched vs solo window", got, solo)
+    log(f"  serve CLI --streams 4: {[len(r['tokens']) for r in cli]} tokens, the batched "
+        f"session's; no kernel launched")
+    mark("serve")
+
+    # (f) the sessions on phase 9's waves: window, trapezoid, incremental;
+    # 100 ms a call and whole; the window and trapezoid against the CPU
+    def session(mode, on=model, dev=device):
+        s = (TrapezoidStreamingSession(on, scfg(), device=dev) if mode == "trapezoid"
+             else StreamingSession(on, scfg(), device=dev, incremental=mode == "incremental"))
+        return record_windows(s)
+
+    streams = {}
+    for wname, wave in pick.items():
+        for fname, chunk in (("100 ms", STREAM_CHUNK), ("whole file", None)):
+            for mode in ("window", "trapezoid", "incremental"):
+                s = session(mode)
+                quiet(f"{mode} session", lambda: feed_stream(s, wave, chunk))
+                streams[wname, fname, mode] = s
+        for mode in ("window", "trapezoid"):
+            ref = session(mode, cpu, "cpu")
+            feed_stream(ref, wave, None)
+            compare_streams(f"{wname}, {mode} session, card vs CPU",
+                            streams[wname, "whole file", mode], ref)
+        compare_streams(f"{wname}, incremental vs window session",
+                        streams[wname, "100 ms", "incremental"], streams[wname, "100 ms", "window"])
+        compare_streams(f"{wname}, window session, 100 ms vs whole file",
+                        streams[wname, "100 ms", "window"], streams[wname, "whole file", "window"])
+    summary["streams"] = {f"{w}, {f}, {m}": len(s.result) for (w, f, m), s in streams.items()}
+    mark("sessions")
+
+    # (g) training: 3 full-loss then 3 pruned steps against the plain
+    # versions, dropout 0, phase 6's batch with labels 1 .. V - 2
+    model_cfg = copy.deepcopy(cfg.model)
+    for blk in ("enc", "dec"):
+        for key in ("dropout_rate", "positional_dropout_rate", "attention_dropout_rate"):
+            model_cfg[blk][key] = 0.0
+    state = model.state_dict()
+    del cpu, qm, qc, enc_cpu
+    torch.cuda.empty_cache()
+    optim_cfg = Config({"type": "sgd", "lr": cfg.optim.lr, "momentum": 0.9})
+    batch, _ = training_batch(cfg, device, seed=1)
+    launches = dict.fromkeys(read_counts(), 0)
+    summary["training"] = {}
+    for pruned in (None, S_RANGE):
+        rs_kern, rs_plain = [], []
+        kern = train_three_steps(model_cfg, optim_cfg, state, None, batch, device,
+                                 plain=False, pruned_range=pruned,
+                                 hooks=(band_starts(rs_kern),) if pruned else ())
+        plain = train_three_steps(model_cfg, optim_cfg, state, None, batch, device,
+                                  plain=True, pruned_range=pruned,
+                                  hooks=(band_starts(rs_plain, force=rs_kern),) if pruned
+                                  else ())
+        want = dict.fromkeys(launches, 0)
+        want.update(alpha=1, beta=1)
+        if pruned:
+            want.update(logz=1, band_alpha=1, band_beta=1)
+        name = f"pruned {pruned}" if pruned else "full"
+        for i, ((lk, nk, ck), (lp, norm_p, cp)) in enumerate(zip(kern, plain)):
+            rel = abs(lk - lp) / abs(lp)
+            log(f"  espnet {name} loss, step {i + 1}: loss kernel {lk:.6f} / plain {lp:.6f} "
+                f"(rel {rel:.2e}), grad norm {nk:.5f} / {norm_p:.5f}; launches {ck}")
+            require(ck == want, f"espnet {name} step {i + 1}: launches {ck}, want {want}")
+            require(not any(cp.values()), f"espnet {name} plain step launched {cp}")
+            require(rel <= LOSS_RTOL, f"espnet {name} step {i + 1}: losses differ by {rel:.2e}")
+            for key, n in ck.items():
+                launches[key] += n
+        rel = abs(kern[0][1] - plain[0][1]) / abs(plain[0][1])
+        log(f"  espnet {name} loss: step 1 grad norm rel diff {rel:.2e} (tolerance {NORM_RTOL})")
+        require(rel <= NORM_RTOL, f"espnet {name}: step 1 grad norms differ by {rel:.2e}")
+        summary["training"][name] = {"losses": [k[0] for k in kern],
+                                     "plain_losses": [p[0] for p in plain]}
+    mark("training steps")
+
+    # (h) apps/train_esptt.py: one epoch, -mode continue for a second, then
+    # predict on the epoch_1 it wrote
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path = write_corpus(tmp, cfg, base=load_config("configs", "espnet_aishell.yaml"))
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            reset_counts()
+            first = train_esptt.main(["-config", cfg_path, "--epochs", "1"])
+            second = train_esptt.main(["-config", cfg_path, "-mode", "continue",
+                                       "--epochs", "2"])
+            torch.cuda.synchronize()
+            cli_counts = read_counts()
+        finally:
+            os.chdir(cwd)
+        exp = os.path.join(tmp, second.exp_dir)
+        with open(os.path.join(exp, "metrics.jsonl"), encoding="utf-8") as fh:
+            cers = [r["value"] for r in map(json.loads, fh) if r["tag"] == "cer"]
+        require(first.is_espnet and second.start_epoch == 1 and second.global_step == 8,
+                f"train_esptt continue resumed at epoch {second.start_epoch}, step "
+                f"{second.global_step}")
+        require(len(cers) == 2 and all(np.isfinite(cers)), f"train_esptt CER {cers}")
+        require(cli_counts["alpha"] >= 8 and cli_counts["beta"] == 8
+                and not any(cli_counts[k] for k in ("banded_fwd", "banded_bwd", "flash_fwd",
+                                                    "flash_bwd")),
+                f"train_esptt launches {cli_counts}")
+        for key in ("alpha", "beta"):
+            launches[key] += cli_counts[key]
+        from transformer_transducer_tpu_torch.utils.config import load_config as load_file
+        cli_cfg = load_file(cfg_path)
+        with open(cli_cfg.data.dev, encoding="utf-8") as fh:
+            wav = fh.read().splitlines()[1].split(",")[0]
+        text = quiet("predict on epoch_1", lambda: predict_app.main(
+            ["--config", cfg_path, "--checkpoint", os.path.join(exp, "epoch_1"), "--wav", wav]))
+        from transformer_transducer_tpu_torch.data.wav import read_wave
+        wave, rate = read_wave(wav)
+        feats = F.subsample(F.stack_frames(F.logmel_masked(wave, rate, 128), 3, 0), 3)
+        second.model.eval()
+        want = recognize(second.model, torch.from_numpy(feats[None]).to(device),
+                         [feats.shape[0]], max_tokens=max_tokens)[0]
+        want = "".join(Vocabulary.from_file(cli_cfg.data.vocab).decode(want))
+        require(text == want, f"predict on epoch_1 gave {text!r}, the trained model {want!r}")
+        log(f"  apps/train_esptt.py: 2 epochs (the second by -mode continue), "
+            f"{second.global_step} steps, CER per epoch {cers}, launches {cli_counts}; "
+            f"apps/predict.py on epoch_1 gives the trained model's greedy decode")
+        summary["train_esptt"] = {"cer": cers, "steps": second.global_step}
+        del first, second
+    mark("train_esptt")
+
+    # (i) timings, medians of 5, in turns
+    long_wave = pick["410 frames"]
+    trainees = {name: make_trainee(model_cfg, optim_cfg, state, None, device, pruned)[2]
+                for name, pruned in (("full", None), (f"pruned {S_RANGE}", S_RANGE))}
+    qm = to_quant(model)
+    gen = torch.Generator().manual_seed(0)
+
+    def stream_whole():
+        s = StreamingSession(model, scfg(), device=device)
+        s.accept_waveform(long_wave)
+        s.finalize()
+
+    runs = {"greedy recognize B 8": lambda: recognize(model, x, t_len, max_tokens=max_tokens),
+            "beam recognize B 8": lambda: recognize_beam(model, x, t_len,
+                                                         max_tokens=max_tokens),
+            "int8 greedy recognize B 8": lambda: recognize(qm, x, t_len,
+                                                           max_tokens=max_tokens),
+            "window stream, whole 12.3 s file": stream_whole,
+            "train step, full loss": lambda: trainees["full"](batch, gen),
+            f"train step, pruned {S_RANGE}": lambda: trainees[f"pruned {S_RANGE}"](batch, gen)}
+    times = host_ms(runs, samples=5)
+    summary["ms"] = {}
+    for name, ms in times.items():
+        summary["ms"][name] = statistics.median(ms)
+        log(f"  {name}: {spread(ms)} ({smi})")
+    mark("timings")
+    summary["nvidia_smi"] = smi
+    return launches, summary
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3457,10 +3878,16 @@ def main() -> int:
                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": None, "chain_steps": chain[name],
                "us_per_chain_step": 1e3 * ms / chain[name], "n_chunks": n_chunks,
+               # its chain bound: that many dependent log-add steps of the
+               # lattice sweeps' measured step (ttx_rnnt_lae_chain)
+               "chain_bound_ms": chain[name] * chain_step_ms,
+               "share_of_chain_bound": chain[name] * chain_step_ms / ms,
                "kernels_per_launch": 1 + (n_chunks > 1), **band_sass[name]}
         log(f"  {name} (B={B_TRAIN}, T={T_MAIN}, S={S_RANGE}): kernel {ms:.4f} ms, "
             f"{chain[name]} dependent steps on its chain ({rec['us_per_chain_step']:.3f} "
-            f"us a step), plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
+            f"us a step; chain bound {rec['chain_bound_ms']:.5f} ms, "
+            f"{100 * rec['share_of_chain_bound']:.1f} % of it), "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
             f"{pruned_launches[name] // 3} call per pruned step; {n_chunks} chunks "
             f"(band_alpha_plan), {rec['atomics']} atomics, registers {rec['registers']}")
         records.append(rec)
@@ -3620,6 +4047,20 @@ def main() -> int:
         rec["phase12_launches"] = beam_launches.get(key, 0)
         rec["launches"] += rec["phase12_launches"]
     log(json.dumps({"slice_7_9": slice_7_9}))
+
+    log(f"[{time.perf_counter() - run_start:.1f} s] phase 13")
+    # ---- 13. the espnet family: serving (no kernel) and training (kernels 1-5)
+    start = time.perf_counter()
+    torch.cuda.empty_cache()
+    espnet_launches, espnet = check_espnet({"x": x, "t_len": t_len}, device, smi)
+    espnet["phase_s"] = time.perf_counter() - start
+    for rec in records:
+        key = {"rnnt_alpha": "alpha", "rnnt_beta": "beta", "additive_logz": "logz",
+               "band_alpha": "band_alpha", "band_beta": "band_beta"}.get(rec["name"])
+        rec["phase13_launches"] = espnet_launches.get(key, 0)
+        rec["launches"] += rec["phase13_launches"]
+    log(f"  phase 13: {espnet['phase_s']:.1f} s")
+    log(json.dumps({"espnet": espnet}))
 
     log(f"[{time.perf_counter() - run_start:.1f} s] all phases passed")
     log(json.dumps({"kernels": records}))

@@ -2,7 +2,8 @@
 batched cached-encoder step of ``streaming/incremental.py``) held against
 the JAX package's ``BatchedStreamingSession`` and against the port's solo
 session on the same weights and int16 audio; mirrors
-``tests/test_batched_streaming.py`` (its espnet test becomes a test that
+``tests/test_batched_streaming.py`` (its espnet test is in
+``tests/test_torch_port_espnet_streaming.py``; here a test that
 the family raises).
 
 Tokens, timestamps and segments must be equal; confidences and encoder
@@ -226,8 +227,11 @@ def test_espnet_family_waits_for_a_later_slice():
     from transformer_transducer_tpu_torch.utils.config import load_config
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     cfg = load_config(os.path.join(root, "configs", "espnet_aishell.yaml"))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        StreamingConfig.from_config(cfg)
+    # the family is served now: its band, blocks and sos seed come from the
+    # config (tests/test_torch_port_espnet_streaming.py drives it)
+    scfg = StreamingConfig.from_config(cfg)
+    assert (scfg.left_context, scfg.right_context, scfg.n_layer, scfg.seed_token) == \
+        (10, 2, 8, 4232)
 
 
 @pytest.mark.parametrize("incremental_mode", MODES)

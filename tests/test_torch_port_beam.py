@@ -152,11 +152,15 @@ def test_reference_exact_oracles_match_jax(seed):
 
 
 def test_espnet_joint_raises():
+    """An espnet joint no longer raises: the search runs it as JAX does
+    (``tests/test_torch_port_espnet.py`` holds it to JAX's); a joint of
+    neither family raises ``ValueError``."""
+    from torch_port_helpers import jax_espnet_model, port_espnet_model, tiny_espnet_cfg
     _, _, _, pm, enc = _problem(0)
-    esp = copy.deepcopy(pm)
-    esp.joint.lin_enc = torch.nn.Linear(64, 8)
-    with pytest.raises(NotImplementedError, match="espnet"):
-        beam.beam_search_batched(esp, t(enc), T_LEN)
+    cfg = tiny_espnet_cfg(vocab=V, d=64)
+    esp = port_espnet_model(cfg, jax_espnet_model(cfg)[1])
+    beams, counts, _ = beam.beam_search_batched(esp, t(enc), T_LEN)
+    assert (beams[:, :, 0] == V - 1).all() and (counts >= 1).all()
     odd = copy.deepcopy(pm)
     del odd.joint.forward_layer
     with pytest.raises(ValueError, match="unrecognized joint"):

@@ -14,8 +14,9 @@ streaming window (T = 256, B = 1 and 16), and the streaming sessions on the
 card against the same sessions through the plain version, the batched
 session on the card against solo sessions, the int8 product
 (``torch._int_mm``, padded) exact at V = 6485, ``QuantLinear`` on the card
-against the CPU, and the width-5 beam search, float and int8, against the
-plain path.
+against the CPU, the width-5 beam search, float and int8, against the
+plain path, and the espnet family's serving paths (no kernel launches) and
+its loss (the lattice, logZ and band kernels) against the CPU.
 
 A CUDA kernel has no CPU mode, so every test here needs an NVIDIA card and
 skips without one.  On a machine with a card:
@@ -353,7 +354,7 @@ def test_one_layer_model_gradients_through_the_kernels(gen, flash):
                                                                   device="cuda"))
             dec = model.predict(torch.nn.functional.pad(y, (1, 0)),
                                 look_ahead_mask(7, device="cuda"))
-        loss = rnnt_loss.rnnt_loss_fused(enc, dec, rnnt_loss.joint_params(model),
+        loss = rnnt_loss.rnnt_loss_fused(enc, dec, model.joint_params(),
                                          y, t_len, u_len, chunk_size=16)
         loss.backward()
         grads.append({n: p.grad for n, p in model.named_parameters()})
@@ -940,3 +941,119 @@ def test_beam_on_the_card_matches_the_plain_path(gen, monkeypatch, int8):
     assert recognize_beam(model, x, t_len, band=(10, 2), use_cache=False) == got
     monkeypatch.setattr(ba, "banded_attention", ba.banded_attention_plain)
     assert recognize_beam(model, x, t_len, band=(10, 2)) == got
+
+
+# ---------------------------------------------------------------------------
+# the espnet family: no kernel on its serving paths, kernels 1-5 in training
+
+def _espnet_models(gen):
+    """An espnet model (2 blocks, d 64, V 40, bands 3/2 and 2/0) with random
+    weights on the card, and the same on the CPU."""
+    import copy
+    from transformer_transducer_tpu_torch.models.espnet_variant import build_espnet_transducer
+    blk = {"output_size": 64, "attention_heads": 4, "linear_units": 128, "dropout_rate": 0.0,
+           "positional_dropout_rate": 0.0, "attention_dropout_rate": 0.0, "padding_idx": -1}
+    cfg = Config({
+        "enc": {**blk, "input_size": 64, "num_blocks": 2, "input_layer": None},
+        "dec": {**blk, "input_size": 40, "num_blocks": 2, "input_layer": "embed"},
+        "joint": {"vocab_size": 40, "joint_space_size": 72, "joint_activation_type": "tanh"},
+        "mask": {"encoder_left_mask": 3, "encoder_right_mask": 2, "decoder_left_mask": 2}})
+    model = build_espnet_transducer(cfg, device="cuda")
+    model.load_state_dict(from_jax_params(random_jax_params(cfg, seed=0)))
+    with torch.no_grad():
+        model.joint.lin_out.bias[0] += 1.5          # some frames blank
+    return model, copy.deepcopy(model).cpu()
+
+
+def _launches():
+    return {n: f.launches for n, f in (
+        ("banded", banded_attention), ("flash", flash_rel_attention), ("alpha", alpha_scan),
+        ("beta", beta_scan), ("logz", additive_logz), ("band_alpha", band_alpha),
+        ("band_beta", band_beta))}
+
+
+def test_espnet_serving_on_the_card_matches_the_cpu(gen):
+    """Greedy (cached and not), beam and int8 recognition of the espnet
+    family on the card: no kernel launches, encoder states within 1e-4 of
+    the CPU's, the CPU's tokens."""
+    from transformer_transducer_tpu_torch.decoding.beam import recognize_beam
+    from transformer_transducer_tpu_torch.decoding.greedy import greedy_decode, recognize
+    from transformer_transducer_tpu_torch.models.factory import to_quant
+    model, cpu = _espnet_models(gen)
+    x = torch.randn(3, 90, 64, generator=gen, device="cuda")
+    t_len = [90, 61, 33]
+    before = _launches()
+    with torch.no_grad():
+        enc = model.encode(x, torch.tensor(t_len, device="cuda"))
+    got = recognize(model, x, t_len)
+    beams = recognize_beam(model, x, t_len)
+    unc = greedy_decode(model, enc, t_len, use_cache=False)
+    q = recognize(to_quant(model), x, t_len)
+    assert _launches() == before
+    with torch.no_grad():
+        torch.testing.assert_close(enc.cpu(), cpu.encode(x.cpu(), torch.tensor(t_len)), **TOL)
+    assert any(got) and got == recognize(cpu, x.cpu(), t_len)
+    assert beams == recognize_beam(cpu, x.cpu(), t_len)
+    assert [row[1:n].tolist() for row, n in zip(*unc)] == got
+    assert len(q) == 3
+
+
+@pytest.mark.parametrize("pruned", [None, 3])
+def test_espnet_loss_on_the_card_matches_the_cpu(gen, pruned):
+    """The espnet training loss on the card (the lattice kernels, with the
+    pruned loss the logZ and band kernels too) against the CPU: the loss
+    and every gradient."""
+    from transformer_transducer_tpu_torch.training.train_step import (
+        TrainStepConfig, make_loss_fn)
+    model, cpu = _espnet_models(gen)
+    batch = {"inputs": torch.randn(3, 60, 64, generator=gen, device="cuda"),
+             "inputs_length": torch.tensor([60, 47, 21], device="cuda"),
+             "targets": torch.randint(1, 39, (3, 7), generator=gen, device="cuda"),
+             "targets_length": torch.tensor([7, 4, 1], device="cuda")}
+    step_cfg = TrainStepConfig(specaug=False, loss_pruned_range=pruned)
+    before = _launches()
+    loss = make_loss_fn(model.train(), step_cfg)(batch, None)
+    loss.backward()
+    after = _launches()
+    per = {"alpha": 1, "beta": 1, **({"logz": 1, "band_alpha": 1, "band_beta": 1}
+                                     if pruned else {})}
+    assert {k: after[k] - before[k] for k in after} == {
+        k: per.get(k, 0) for k in after}
+    ref = make_loss_fn(cpu.train(), step_cfg)({k: v.cpu() for k, v in batch.items()}, None)
+    ref.backward()
+    torch.testing.assert_close(loss.cpu(), ref, **TOL)
+    for (name, p), r in zip(model.named_parameters(), cpu.parameters()):
+        torch.testing.assert_close(p.grad.cpu(), r.grad, atol=1e-4 * r.grad.abs().max().item()
+                                   + 1e-5, rtol=1e-4, msg=name)
+
+
+@pytest.mark.parametrize("incremental", [False, True])
+def test_espnet_sessions_on_the_card_match_the_cpu(gen, incremental):
+    """The espnet window and incremental sessions and the batched session
+    on the card: no kernel launches, the CPU sessions' tokens."""
+    import numpy as np
+    from transformer_transducer_tpu_torch.streaming.batched import BatchedStreamingSession
+    from transformer_transducer_tpu_torch.streaming.session import (
+        StreamingConfig, StreamingSession)
+    model, cpu = _espnet_models(gen)
+    scfg = lambda: StreamingConfig(left_context=3, right_context=2, n_layer=2, feature_dim=16,
+                                   seed_token=39)
+    rng = np.random.RandomState(0)
+    waves = [(np.sin(np.arange(n) * 0.03) * 9000 + rng.randn(n) * 1500).astype(np.int16)
+             for n in (30000, 17000)]
+
+    def run(m, device):
+        out = []
+        for w in waves:
+            s = StreamingSession(m, scfg(), incremental=incremental, device=device)
+            out.append(s.accept_waveform(w) + s.finalize())
+        b = BatchedStreamingSession(m, scfg(), 2, incremental=incremental, device=device)
+        for i, w in enumerate(waves):
+            b.accept_waveform(i, w)
+            b.finalize(i)
+        return out, b.run_to_completion()
+
+    before = _launches()
+    got = run(model, "cuda")
+    assert _launches() == before
+    assert any(got[0]) and got[0] == got[1] and got == run(cpu, "cpu")

@@ -152,5 +152,7 @@ def test_incremental_rejects_trapezoid(session_models):
 
 
 def test_incremental_encoder_rejects_other_families():
-    with pytest.raises(NotImplementedError, match="later slice"):
+    """A model of neither family raises ``ValueError`` (the espnet family
+    has its own step: ``tests/test_torch_port_espnet_streaming.py``)."""
+    with pytest.raises(ValueError, match="no incremental encoder"):
         incremental.make_incremental_encoder(torch.nn.Linear(2, 2), scfg())

@@ -105,6 +105,36 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 def test_espnet_family_waits_for_a_later_slice():
     from transformer_transducer_tpu_torch.models.factory import build_family
     from transformer_transducer_tpu_torch.utils.config import load_config
+    from transformer_transducer_tpu_torch.models.espnet_variant import EspnetTransducer
     cfg = load_config(os.path.join(ROOT, "configs", "espnet_aishell.yaml"))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        build_family(cfg, 512, device="cpu")
+    # the family is built now, on the device asked for; without a card
+    # its entry points raise like the native family's
+    model = build_family(cfg, 512, device="cpu")
+    assert isinstance(model, EspnetTransducer) and not model.training
+    assert sum(p.numel() for p in model.parameters()) == 23277193
+    with pytest.raises(ValueError, match="input width"):
+        build_family(cfg, 128, device="cpu")
+
+
+def test_espnet_modules_are_scanned_and_their_entry_points_raise_without_cuda(monkeypatch):
+    """The espnet family's modules are among those scanned above, and its
+    entry points take the card unless asked for the CPU."""
+    from transformer_transducer_tpu_torch.apps import train_esptt
+    from transformer_transducer_tpu_torch.models.espnet_variant import build_espnet_transducer
+    from transformer_transducer_tpu_torch.streaming.session import (
+        StreamingConfig, StreamingSession)
+    from transformer_transducer_tpu_torch.utils.config import Config
+    from torch_port_helpers import tiny_espnet_cfg
+    mods = set(_modules())
+    for mod in ("models.espnet_variant", "decoding.espnet_label_cache", "apps.train_esptt"):
+        assert "transformer_transducer_tpu_torch." + mod in mods
+    cfg = Config(tiny_espnet_cfg())
+    model = build_espnet_transducer(cfg, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_espnet_transducer(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StreamingSession(model, StreamingConfig(n_layer=2, feature_dim=8, left_context=3,
+                                                seed_token=39))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_esptt.main(["-config", os.path.join(ROOT, "configs", "espnet_aishell.yaml")])

@@ -145,7 +145,7 @@ def test_fused_loss_and_gradients_match_jax(remat, tied):
                            tuple(map(jnp.asarray, jp)))
 
     e, d = t(enc).requires_grad_(), t(dec).requires_grad_()
-    jp_t = P.joint_params(model)
+    jp_t = model.joint_params()
     for mine, theirs in zip(jp_t, jp):
         np.testing.assert_array_equal(mine.detach().numpy(), np.asarray(theirs))
     loss = P.rnnt_loss_fused(e, d, jp_t, t(labels), t(t_len), t(u_len),

@@ -1,7 +1,8 @@
 """PyTorch port: the streaming sessions (``streaming/session.py``) held against
 the JAX package's on the same weights and the same int16 audio; mirrors
 ``tests/test_streaming.py`` (its jit-only program-size test has no
-counterpart; its espnet test becomes a test that the family raises).
+counterpart; the espnet family's sessions are in
+``tests/test_torch_port_espnet_streaming.py``).
 
 Tokens, timestamps and segments must be equal; confidences and encoder
 states within ``TOL`` (rtol 2e-4, atol 2e-5: the same fp32 math in another
@@ -124,9 +125,16 @@ def test_streaming_config_lengths():
 
 
 def test_espnet_family_waits_for_a_later_slice():
-    cfg = load_config(os.path.join(ROOT, "configs", "espnet_aishell.yaml"))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        StreamingConfig.from_config(cfg)
+    """The espnet family streams now (JAX ``StreamingConfig.from_config``'s
+    espnet branch): band from ``model.mask``, ``enc.num_blocks`` layers, the
+    sos seed."""
+    from transformer_transducer_tpu.streaming.session import (
+        StreamingConfig as JaxStreamingConfig)
+    from transformer_transducer_tpu.utils.config import load_config as jax_load_config
+    path = os.path.join(ROOT, "configs", "espnet_aishell.yaml")
+    got = StreamingConfig.from_config(load_config(path))
+    ref = JaxStreamingConfig.from_config(jax_load_config(path))
+    assert vars(got) == vars(ref) and got.seed_token == 4232
 
 
 def test_pack_decode_outputs_is_exact():

@@ -207,8 +207,7 @@ def test_flags_of_later_slices_raise(flag):
         train_app.main(["--device", "cpu", *flag])
 
 
-@pytest.mark.parametrize("key,value", [("parallel.n_pipe", 2),
-                                       ("model.mask", {"encoder_left_mask": 4})])
+@pytest.mark.parametrize("key,value", [("parallel.n_pipe", 2), ("parallel.zero", True)])
 def test_trainer_raises_for_later_slices(corpus, tmp_path, key, value):
     with pytest.raises(NotImplementedError, match="later slice"):
         Trainer(_cfg(corpus, **{key: value}), exp_root=str(tmp_path), device="cpu")

@@ -66,6 +66,70 @@ def port_model(model_cfg: dict, variables, flash: bool = False):
     return model
 
 
+def tiny_espnet_cfg(input_layer=None, vocab: int = 40, d: int = 32, heads: int = 4,
+                    enc_blocks: int = 2, dec_blocks: int = 2, d_in: int = None,
+                    activation: str = "tanh", band=(3, 2, 2)) -> dict:
+    """An espnet-schema ``model:`` block at test size (the family's marker
+    is the ``mask`` block)."""
+    blk = {"output_size": d, "attention_heads": heads, "linear_units": 2 * d,
+           "dropout_rate": 0.0, "positional_dropout_rate": 0.0,
+           "attention_dropout_rate": 0.0, "padding_idx": -1}
+    return {
+        "enc": {**blk, "input_size": d_in or d, "num_blocks": enc_blocks,
+                "input_layer": input_layer},
+        "dec": {**blk, "input_size": vocab, "num_blocks": dec_blocks,
+                "input_layer": "embed"},
+        "joint": {"vocab_size": vocab, "encoder_output_size": d,
+                  "decoder_output_size": d, "joint_space_size": d + 8,
+                  "joint_activation_type": activation},
+        "mask": {"encoder_left_mask": band[0], "encoder_right_mask": band[1],
+                 "decoder_left_mask": band[2]},
+    }
+
+
+def jax_espnet_model(model_cfg: dict, seed: int = 0):
+    """(JAX EspnetTransducer, numpy variables) with flax-initialised weights."""
+    from transformer_transducer_tpu.models.espnet_variant import build_espnet_transducer
+    model = build_espnet_transducer(JaxConfig(copy.deepcopy(model_cfg)))
+    enc = model_cfg["enc"]
+    t0 = 32
+    xs = (jnp.zeros((1, t0), jnp.int32) if enc["input_layer"] == "embed"
+          else jnp.zeros((1, t0, enc["input_size"])))
+    variables = model.init(jax.random.PRNGKey(seed), xs, jnp.asarray([t0]),
+                           jnp.zeros((1, 4), jnp.int32), jnp.asarray([4]))
+    return model, to_numpy_tree(variables)
+
+
+def port_espnet_model(model_cfg: dict, variables):
+    """The port's espnet model on the CPU with the JAX weights."""
+    from transformer_transducer_tpu_torch.models.espnet_variant import (
+        build_espnet_transducer)
+    model = build_espnet_transducer(Config(copy.deepcopy(model_cfg)), device="cpu")
+    model.load_state_dict(from_jax_params(variables["params"]))
+    return model
+
+
+def espnet_train_config(root: str, vocab_path: str, csvs: dict, vocab_size: int = 12,
+                        d: int = 16, input_layer=None, **model_kw) -> dict:
+    """A whole espnet-schema config (data, training, optim as
+    ``data_helpers.tiny_train_config``'s; the stacked features, 4 x
+    ``feature_dim``, are the encoder's input)."""
+    from data_helpers import tiny_train_config
+    cfg = dict(tiny_train_config(root, vocab_path, csvs, d_model=d, vocab_size=vocab_size))
+    cfg["model"] = tiny_espnet_cfg(input_layer, vocab=vocab_size, d=d, heads=2,
+                                   enc_blocks=1, dec_blocks=1, d_in=d, **model_kw)
+    cfg["data"] = {**cfg["data"], "ignore_id": 0}
+    cfg["training"] = {**cfg["training"], "save_model": "esp_tiny"}
+    return cfg
+
+
+def bias_espnet_blank(variables, offset: float):
+    """Shift the espnet joint's blank logit so only some frames emit."""
+    out = copy.deepcopy(variables)
+    out["params"]["joint"]["lin_out"]["bias"][0] += offset
+    return out
+
+
 def bias_blank(variables, offset: float):
     """Shift the joint's blank logit so only some frames emit."""
     out = copy.deepcopy(variables)

@@ -7,7 +7,10 @@ Loads a config + a checkpoint (a port trainer's ``epoch_N`` directory, its
 features, encodes under the streaming band through the banded kernel (or
 full-context through the flash kernel), decodes greedily (or, with
 ``--beam``, by the width-5 beam search) and reports CER against an
-optional reference transcript.  ``--int8`` serves the W8A8 twin of the
+optional reference transcript.  An espnet-schema config (``model.mask``)
+serves the espnet family: its encoder bands itself (plain tensor code),
+with the utterance's length as its pad mask, so ``--full-context`` does not
+apply to it (as in the JAX CLI).  ``--int8`` serves the W8A8 twin of the
 model (``ops/quant.py``); an int8-baked checkpoint
 (``tools/quantize_checkpoint.py``) is served int8 with or without it.
 
@@ -48,6 +51,7 @@ def main(argv=None) -> str:
     from transformer_transducer_tpu_torch.data.wav import read_wave
     from transformer_transducer_tpu_torch.decoding.beam import recognize_beam
     from transformer_transducer_tpu_torch.decoding.greedy import recognize
+    from transformer_transducer_tpu_torch.models.espnet_variant import is_espnet_config
     from transformer_transducer_tpu_torch.models.factory import load_family
     from transformer_transducer_tpu_torch.ops import features_np as F
     from transformer_transducer_tpu_torch.utils.config import (
@@ -69,8 +73,8 @@ def main(argv=None) -> str:
     feats = F.subsample(F.stack_frames(
         F.logmel_masked(wave, rate, cfg.data.feature_dim or 128),
         left_ctx, right_ctx), subsample_factor(cfg.data))
-    band = None if args.full_context else (cfg.model.enc.left_context or 10,
-                                           cfg.model.enc.right_context or 2)
+    band = None if args.full_context or is_espnet_config(cfg.model) else (
+        cfg.model.enc.left_context or 10, cfg.model.enc.right_context or 2)
     x = torch.from_numpy(feats[None]).to(device)
     max_tokens = cfg.data.max_target_length + 1
     decode = recognize_beam if args.beam else recognize

@@ -19,6 +19,11 @@ JAX package's checkpoints (``epoch_*`` or ``step_*`` directories with
 msgpack files) in the experiment directory or at ``training.load_model``.
 Checkpoints, logs and decode dumps go to
 ``egs/<data.name>/<training.save_model>/``.
+
+An espnet-schema config (``model.mask``) trains the espnet family with the
+full or the pruned loss; ``apps/train_esptt.py`` runs this entry point with
+``configs/espnet_aishell.yaml`` by default.  ``--flash`` and ``--banded``
+select the native family's attention kernels and do not apply to it.
 """
 
 from __future__ import annotations

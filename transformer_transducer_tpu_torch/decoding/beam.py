@@ -16,10 +16,17 @@ As in the JAX package the label encoder runs under the causal label mask
 (``decoding/greedy.py``), batched over all beams, and the search jumps from
 emission to emission: one joint over a window of ``GATE_CHUNK`` frames a
 row finds each row's next expanding frame.  The joint is applied through
-its split weights (``ops/rnnt_loss.py::joint_params``): the encoder half of
+its split weights (``model.joint_params()``): the encoder half of
 every frame once, the label half on expansion.  For an int8 model those
 are the dequantised weights, as in JAX (``ops/quant.py::dense_kernel``),
 while the label encoder runs W8A8.
+
+Both model families, through the surface they share: the espnet
+family's additive joint has the same split form (its
+``joint_activation``, ``tanh`` or ``relu``, in place of ``tanh``), its
+label history seeds with ``model.sos`` = V - 1, and its KV cache
+(``model.label_cache()``, ``decoding/espnet_label_cache.py``) holds
+distance tables that are the same for every row and are not gathered.
 
 The JAX loop is one ``lax.while_loop``; here it is an eager loop that
 reads the card once an iteration (did any row expand, does any row go on,
@@ -36,10 +43,10 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from transformer_transducer_tpu_torch.decoding import label_cache as lc
-from transformer_transducer_tpu_torch.decoding.greedy import BLANK, predict_last_state
+from transformer_transducer_tpu_torch.decoding.greedy import (
+    BLANK, predict_last_state)
 from transformer_transducer_tpu_torch.ops.masks import look_ahead_mask
-from transformer_transducer_tpu_torch.ops.rnnt_loss import joint_params
+from transformer_transducer_tpu_torch.ops.activations import ACTIVATIONS
 
 NEG = -1e30
 GATE_CHUNK = 32  # frames a row in one gate window of the emission-jump loop
@@ -53,6 +60,7 @@ def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+@torch.no_grad()
 def beam_search_batched(model, enc_states: torch.Tensor, t_len, beam_width: int = 5,
                         max_tokens: int = 43, blank: int = BLANK,
                         use_cache: bool = True, stats: Optional[Dict] = None,
@@ -66,21 +74,19 @@ def beam_search_batched(model, enc_states: torch.Tensor, t_len, beam_width: int 
     stops appends).  ``stats``, if given, gets the loop's ``iterations``
     and ``host_reads``; ``observe``, if given, is called each iteration
     with its decisions and the scores they were made on (to replay a
-    near-tie).  Native family only: an espnet joint raises
-    ``NotImplementedError`` (Queue 1 item 8), any other ``ValueError``.
+    near-tie).  Either family; a joint whose split weights
+    (``model.joint_params()``) cannot be read raises ``ValueError``.
     """
-    if hasattr(model.joint, "lin_enc"):
-        raise NotImplementedError("beam search of the espnet family is ported with "
-                                  "the family, in a later slice of the PyTorch port")
-    if not hasattr(model.joint, "forward_layer"):
-        raise ValueError("beam_search_batched: unrecognized joint layout (neither "
-                         "native joint.forward_layer nor espnet joint.lin_enc)")
-    return _beam_run(model, enc_states, t_len, beam_width, max_tokens, blank,
+    try:
+        jp = model.joint_params()
+    except AttributeError as err:
+        raise ValueError(f"beam_search_batched: unrecognized joint layout ({err})") from err
+    return _beam_run(model, jp, enc_states, t_len, beam_width, max_tokens, blank,
                      use_cache, stats, observe)
 
 
 @torch.no_grad()
-def _beam_run(model, enc_states: torch.Tensor, t_len, w: int, max_tokens: int,
+def _beam_run(model, jp, enc_states: torch.Tensor, t_len, w: int, max_tokens: int,
               blank: int, use_cache: bool, stats: Optional[Dict],
               observe: Optional[Callable[[Dict], None]]):
     """The emission-jump search (JAX ``_beam_run``).  Between expansions
@@ -91,7 +97,8 @@ def _beam_run(model, enc_states: torch.Tensor, t_len, w: int, max_tokens: int,
     b, t_max, _ = enc_states.shape
     device = enc_states.device
     k = GATE_CHUNK
-    seed = blank                        # the native family seeds with blank
+    seed = model.sos                    # blank, or sos for the espnet family
+    act = ACTIVATIONS[model.joint_activation]
     reads = 0
     if isinstance(t_len, torch.Tensor):
         t_len_host = t_len.tolist()
@@ -102,13 +109,13 @@ def _beam_run(model, enc_states: torch.Tensor, t_len, w: int, max_tokens: int,
     rows = torch.arange(b, device=device)
     label_mask = look_ahead_mask(max_tokens, device=device)
 
-    w_enc, w_dec, b1, w_out, b_out = joint_params(model)
+    w_enc, w_dec, b1, w_out, b_out = jp
     # the encoder half of every frame, once; padded so that a row's gate
     # window never runs off the end
     enc_proj = torch.nn.functional.pad(enc_states @ w_enc + b1, (0, 0, 0, k))
 
     def joint_split(he: torch.Tensor, hd: torch.Tensor) -> torch.Tensor:
-        return torch.tanh(he + hd) @ w_out + b_out
+        return act(he + hd) @ w_out + b_out
 
     def compute_dec_proj(beams, counts):
         dec = predict_last_state(model, beams.reshape(b * w, max_tokens),
@@ -122,9 +129,9 @@ def _beam_run(model, enc_states: torch.Tensor, t_len, w: int, max_tokens: int,
     first = torch.ones((b,), dtype=torch.bool, device=device)
     cur_t = torch.zeros((b,), dtype=torch.long, device=device)
     if use_cache:
-        cache = lc.init_cache(model.decoder, b * w, max_tokens)
-        x0, cache = lc.step(model.decoder,
-                            torch.full((b * w,), seed, dtype=torch.long, device=device),
+        init_cache, lc_step = model.label_cache()
+        cache = init_cache(b * w, max_tokens)
+        x0, cache = lc_step(torch.full((b * w,), seed, dtype=torch.long, device=device),
                             cache, torch.ones((b * w,), dtype=torch.bool, device=device))
         dec_proj = (x0 @ w_dec).reshape(b, w, -1)
     else:
@@ -203,9 +210,10 @@ def _beam_run(model, enc_states: torch.Tensor, t_len, w: int, max_tokens: int,
         def gboth(c):                   # a cache leaf (B*W, ...) -> parent rows
             return g2(c.reshape(b, w, *c.shape[1:])).reshape(c.shape)
 
-        gathered = {"k": [gboth(c) for c in cache["k"]],
+        # batch-independent leaves (the espnet distance tables) stay
+        gathered = {**cache, "k": [gboth(c) for c in cache["k"]],
                     "v": [gboth(c) for c in cache["v"]], "idx": gboth(cache["idx"])}
-        x, new_cache = lc.step(model.decoder, new_toks.reshape(b * w), gathered,
+        x, new_cache = lc_step(new_toks.reshape(b * w), gathered,
                                (e & can_append).reshape(b * w))
         dp = torch.where(can_append[..., None], (x @ w_dec).reshape(b, w, -1),
                          g2(dec_proj))
@@ -217,7 +225,8 @@ def _beam_run(model, enc_states: torch.Tensor, t_len, w: int, max_tokens: int,
         def merge(new, old):
             return torch.where(row_e.view(-1, *([1] * (new.dim() - 1))), new, old)
 
-        cache = {"k": [merge(n, o) for n, o in zip(new_cache["k"], cache["k"])],
+        cache = {**cache,
+                 "k": [merge(n, o) for n, o in zip(new_cache["k"], cache["k"])],
                  "v": [merge(n, o) for n, o in zip(new_cache["v"], cache["v"])],
                  "idx": merge(new_cache["idx"], cache["idx"])}
 
@@ -248,11 +257,9 @@ def recognize_beam(model, inputs: torch.Tensor, t_len,
     ``recognize_beam_search``, ``tt/model.py:181-198``): the encoder as
     :func:`~decoding.greedy.recognize` runs it (``audio_mask``, the
     streaming ``band`` through ``encode_banded``, or full context), then
-    :func:`beam_search_batched`."""
-    if audio_mask is not None and band is not None:
-        raise ValueError("pass audio_mask or band, not both")
-    enc = model.encode_banded(inputs, *band) if band is not None else model.encode(
-        inputs, audio_mask)
+    :func:`beam_search_batched` (an espnet model encodes with ``t_len``
+    and searches over its ``encoded_lengths``)."""
+    enc, t_len = model.encode_for_decoding(inputs, t_len, audio_mask, band)
     beams, counts, _ = beam_search_batched(model, enc, t_len, beam_width, max_tokens,
                                            use_cache=use_cache, stats=stats)
     beams, counts = beams[:, 0].cpu().numpy(), counts[:, 0].cpu().numpy()

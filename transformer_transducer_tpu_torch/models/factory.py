@@ -1,31 +1,45 @@
 """Family-dispatching model construction for the apps (port of
 ``models/factory.py``).
 
-An espnet-schema config carries a ``model.mask`` block; that family is
-ported in a later slice, so it raises here.
+The two model families share the CLI surface; a config selects the family:
+an espnet-schema config carries a ``model.mask`` block (reference
+``config/espnet_aishell.yaml``, ``models/espnet_variant.py``), any other is
+the native family (``models/transducer.py``).
 """
 
 from __future__ import annotations
 
 import copy
+from typing import Optional
 
+from transformer_transducer_tpu_torch.models.espnet_variant import (
+    build_espnet_transducer, is_espnet_config)
 from transformer_transducer_tpu_torch.models.transducer import build_transducer
 from transformer_transducer_tpu_torch.ops.quant import quantize_modules
 from transformer_transducer_tpu_torch.utils import checkpoint as ckpt_lib
 
 
-def build_family(cfg, d_in: int, device=None, flash: bool = False):
-    """The model of a full config; ``d_in`` is the stacked feature
-    dimension, which the native family takes as ``d_model``."""
-    if cfg.model.mask is not None:
-        raise NotImplementedError(
-            "the espnet family (models/espnet_variant.py) is ported in a later "
-            "slice of the PyTorch port")
-    if d_in != cfg.model.enc.d_model:
+def build_family(cfg, d_in: Optional[int] = None, device=None,
+                 flash: bool = False, banded: bool = False):
+    """The model of a full config, in eval mode.  ``d_in``, if given, is
+    the stacked feature dimension, which the native family
+    takes as ``d_model`` and an espnet encoder with no input layer as its
+    ``output_size``.  ``flash`` and ``banded`` select the native family's
+    attention kernels (``build_transducer``); the espnet attention has none,
+    and the family ignores them, as the JAX trainer does."""
+    model_cfg = cfg.model
+    if is_espnet_config(model_cfg):
+        enc = model_cfg.enc
+        width = enc.output_size if enc.input_layer is None else enc.input_size
+        if d_in is not None and d_in != width:
+            raise ValueError(f"stacked features ({d_in}) must equal the espnet "
+                             f"encoder's input width ({width})")
+        return build_espnet_transducer(model_cfg, device=device)
+    if d_in is not None and d_in != model_cfg.enc.d_model:
         raise ValueError(f"stacked features ({d_in}) must equal enc.d_model "
-                         f"({cfg.model.enc.d_model}): the encoder has no input "
+                         f"({model_cfg.enc.d_model}): the encoder has no input "
                          "projection")
-    return build_transducer(cfg.model, flash=flash, device=device)
+    return build_transducer(model_cfg, flash=flash, banded=banded, device=device)
 
 
 def load_family(cfg, d_in: int, checkpoint=None, device=None,
@@ -38,6 +52,9 @@ def load_family(cfg, d_in: int, checkpoint=None, device=None,
     ``encoder.msgpack``; the JAX ``train.py``'s ``epoch_*`` and ``step_*``).
     A file is told apart by its keys: a trainer's dict holds the split
     ``encoder``, ``decoder`` and ``joint`` state dicts.
+
+    Either family: the checkpoint's component state dicts carry its
+    family's keys (a JAX espnet tree maps through ``utils/convert.py``).
 
     ``int8``: serve the W8A8 twin (``ops/quant.py``).  As in the JAX
     ``load_family``, a float checkpoint is quantised after loading, and an

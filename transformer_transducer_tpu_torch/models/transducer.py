@@ -25,13 +25,15 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from transformer_transducer_tpu_torch.decoding import label_cache
 from transformer_transducer_tpu_torch.models.attention import TransformerXLLayer
 from transformer_transducer_tpu_torch.ops.masks import look_ahead_mask
-from transformer_transducer_tpu_torch.ops.quant import QuantLinear
+from transformer_transducer_tpu_torch.ops.quant import QuantLinear, dense_kernel
 from transformer_transducer_tpu_torch.utils.device import resolve_device
 
 
 class AudioEncoder(nn.Module):
+    input_layer = None            # the features are the first layer's input
     def __init__(self, n_layer: int, k_len: int, n_head: int, d_model: int,
                  d_head: int, d_inner: int, dropout: float = 0.0,
                  flash: bool = False):
@@ -145,7 +147,17 @@ class Transducer(nn.Module):
     the streaming band through the banded kernel.  As in the JAX package this
     deviates on purpose from the reference, which trains every config with no
     audio mask and only decodes with the band.
+
+    The decoders, the losses and the streaming sessions see either family
+    through the same surface: ``sos`` (the label history's seed, here
+    blank 0), ``joint_activation``, ``encode_for_loss``,
+    ``encode_for_decoding``, ``predict``, ``label_cache``, ``joint_logits``,
+    ``joint_logits_from`` and ``joint_params``
+    (``models/espnet_variant.py::EspnetTransducer`` has the same).
     """
+
+    sos = 0                       # the history starts from blank
+    joint_activation = "tanh"
 
     def __init__(self, vocab_size: int, enc: Tuple[int, ...],
                  dec: Tuple[int, ...], joint_inner: int, dropout: float = 0.0,
@@ -173,9 +185,29 @@ class Transducer(nn.Module):
         return (self.encoder(inputs, band=self.band),
                 self.decoder(prefixed, label_mask))
 
+    def encode_for_loss(self, inputs: torch.Tensor, t_len, targets: torch.Tensor,
+                        u_len):
+        """``(enc, dec, t_len)`` for the loss: :meth:`encode_both` (padded
+        frames are not masked, as in the reference) and the frame counts
+        unchanged."""
+        return (*self.encode_both(inputs, targets), t_len)
+
     def encode(self, inputs: torch.Tensor,
                attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.encoder(inputs, attn_mask)
+
+    def encode_for_decoding(self, inputs: torch.Tensor, t_len,
+                            audio_mask: Optional[torch.Tensor] = None,
+                            band: Optional[Tuple[int, int]] = None):
+        """``(enc, t_len)`` for the decoders: the encoder under
+        ``audio_mask``, or under the streaming ``band=(left, right)``
+        through ``encode_banded``, or, with neither, full-context; the
+        frame counts unchanged."""
+        if audio_mask is not None and band is not None:
+            raise ValueError("pass audio_mask or band, not both")
+        if band is not None:
+            return self.encode_banded(inputs, *band), t_len
+        return self.encode(inputs, audio_mask), t_len
 
     def encode_banded(self, inputs: torch.Tensor, left: int, right: int) -> torch.Tensor:
         """Streaming-band encoding through the banded kernel; numerically
@@ -186,6 +218,12 @@ class Transducer(nn.Module):
                 attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Label-encoder forward (reference inference passes no mask)."""
         return self.decoder(tokens, attn_mask)
+
+    def label_cache(self):
+        """``(init_cache(batch, cap), step(tokens, cache, update_mask))`` of
+        the KV-cached label encoder (``decoding/label_cache.py``)."""
+        return (lambda b, cap: label_cache.init_cache(self.decoder, b, cap),
+                lambda tok, cache, upd: label_cache.step(self.decoder, tok, cache, upd))
 
     def joint_logits(self, enc_state: torch.Tensor,
                      dec_state: torch.Tensor) -> torch.Tensor:
@@ -201,6 +239,23 @@ class Transducer(nn.Module):
         """Joint logits from ``joint.first_layer(joint.project_enc(e),
         joint.project_dec(d))`` (for a float joint, the sum of the halves)."""
         return self.joint.logits_from(pre, self._tied_projection())
+
+    def joint_params(self) -> Tuple[torch.Tensor, ...]:
+        """(W_enc, W_dec, b1, W_out, b_out) of the joint as (in, out)
+        matrices, which the fused and the pruned loss and the beam's split
+        joint take: the concat Linear split by rows at the encoder width
+        (its input width less the label embedding's), and a tied joint's
+        output weight the label embedding.  Views of the parameters, so
+        gradients reach them; an int8 joint's dequantised weights (JAX
+        ``dense_kernel``)."""
+        joint = self.joint
+        w1 = dense_kernel(joint.forward_layer).t()              # (enc+dec, inner)
+        d_enc = w1.shape[0] - self.decoder.dec_embedding.weight.shape[1]
+        if self.share_embedding:
+            w2, b2 = self.decoder.dec_embedding.weight.t(), joint.project_bias
+        else:
+            w2, b2 = dense_kernel(joint.project_layer).t(), joint.project_layer.bias
+        return w1[:d_enc], w1[d_enc:], joint.forward_layer.bias, w2, b2
 
     def _tied_projection(self) -> Optional[torch.Tensor]:
         return self.decoder.dec_embedding.weight if self.share_embedding else None

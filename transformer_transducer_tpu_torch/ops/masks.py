@@ -3,10 +3,14 @@
 * ``look_ahead_mask`` — strict upper-triangular causal mask for the label
   encoder;
 * ``context_mask`` — banded streaming mask: position *i* may attend to
-  ``[i - left, i + right]`` only (reference ``tt/utils.py:233-251``).
+  ``[i - left, i + right]`` only (reference ``tt/utils.py:233-251``);
+* ``padding_mask`` — length-based key padding (the espnet family's pad
+  mask), and ``combine_masks``, their broadcast OR.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -30,3 +34,20 @@ def context_mask(seq_len: int, left: int = 10, right: int = 2,
     if left >= 0:
         mask = mask | (i - j > left)
     return mask
+
+
+def padding_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
+    """(B, T) bool; True at padded positions (``j >= lengths[b]``)."""
+    lengths = torch.as_tensor(lengths)
+    return torch.arange(max_len, device=lengths.device)[None, :] >= lengths[:, None]
+
+
+def combine_masks(*masks: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """Broadcast OR of masks; ``None`` entries are skipped (all ``None``:
+    ``None``)."""
+    out = None
+    for m in masks:
+        if m is None:
+            continue
+        out = m if out is None else (out | m)
+    return out

@@ -14,11 +14,13 @@ The scheme is the JAX package's, step for step:
   multiply-add.  ``round`` is half-to-even in both packages.
 
 Only the projections the JAX model routes through ``make_dense`` are
-quantised (``PROJECTIONS``): the attention's ``qkv`` and ``out``, the
-FFN's ``fc1`` and ``fc2`` and the joint's ``forward_layer`` and
-``project_layer``.  The attention einsums, LayerNorms, embeddings,
-position tables, ``r_bias`` and a tied output projection (the embedding
-table) stay float.
+quantised (``PROJECTIONS``): in the native family the attention's ``qkv``
+and ``out``, the FFN's ``fc1`` and ``fc2`` and the joint's
+``forward_layer`` and ``project_layer``; in the espnet family every
+``Linear`` (``linear_pos`` too, on the position table).  The attention
+einsums, LayerNorms, embeddings, convolutions, position tables,
+``r_bias`` and a tied output projection (the embedding table) stay
+float.
 
 On the card the int8 product is ``torch._int_mm`` (the JAX package
 computes it with ``lax.dot_general`` outside any Pallas kernel); on the
@@ -40,16 +42,33 @@ INT8_MAX = 127.0
 # product here too; an op-by-op JAX call divides, and its scales may
 # differ from the compiled ones by an ulp
 INV_INT8_MAX = 1.0 / INT8_MAX
-# the module names, in a native Transducer, of the projections the JAX
-# model builds with make_dense: qkv, out, fc1 and fc2 of each layer and
-# the joint's two layers
+# the module names of the projections the JAX models build with
+# make_dense: in a native Transducer qkv, out, fc1 and fc2 of each layer and
+# the joint's two layers; in an EspnetTransducer the attention's q, k, v,
+# out and bias-free pos, the FFN's w_1 and w_2, the joint's three layers,
+# the "linear" input layer's projection (embed.0; the "embed" input layer's
+# embed.0 is an embedding and stays float) and a conv stack's out.0 (its
+# convolutions stay float)
 PROJECTIONS = ("qkv_net", "o_net", "CoreNet.0", "CoreNet.3", "forward_layer",
-               "project_layer")
+               "project_layer", "linear_q", "linear_k", "linear_v", "linear_out",
+               "linear_pos", "w_1", "w_2", "lin_enc", "lin_dec", "lin_out",
+               "embed.0", "out.0")
 
 
 def is_projection(name: str) -> bool:
-    """Whether the module at the qualified ``name`` is quantised."""
+    """Whether the module at the qualified ``name`` is quantised when it is
+    a ``Linear`` (``embed.0`` may be an embedding)."""
     return any(name == p or name.endswith("." + p) for p in PROJECTIONS)
+
+
+def is_projection_weight(state, key: str) -> bool:
+    """Whether ``key`` of a float state dict is a projection's weight: an
+    ``embed.0`` weight is one only beside a bias (the "linear" input
+    layer's; the "embed" layer's table has none)."""
+    name, _, leaf = key.rpartition(".")
+    if leaf != "weight" or not is_projection(name):
+        return False
+    return not (name == "embed.0" or name.endswith(".embed.0")) or name + ".bias" in state
 
 
 def quantize_weight(weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -185,8 +204,9 @@ def dense_kernel(layer: nn.Module) -> torch.Tensor:
 
 
 def quantize_modules(model: nn.Module) -> nn.Module:
-    """Swap each projection (``PROJECTIONS``) of a native ``Transducer``
-    for its ``QuantLinear``, in place; everything else stays float."""
+    """Swap each projection (``PROJECTIONS``) of a ``Transducer`` or an
+    ``EspnetTransducer`` for its ``QuantLinear``, in place; everything else
+    stays float."""
     for name, module in list(model.named_modules()):
         for child_name, child in list(module.named_children()):
             if is_projection(f"{name}.{child_name}") and isinstance(child, nn.Linear):

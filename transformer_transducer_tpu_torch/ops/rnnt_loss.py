@@ -22,7 +22,7 @@ from torch.utils.checkpoint import checkpoint
 
 from transformer_transducer_tpu_torch.ops.cuda.rnnt_kernel import (
     NEG, alpha_scan, beta_scan)
-from transformer_transducer_tpu_torch.ops.quant import dense_kernel
+from transformer_transducer_tpu_torch.ops.activations import ACTIVATIONS
 
 
 def _skew(lp: torch.Tensor) -> torch.Tensor:
@@ -195,31 +195,16 @@ def rnnt_loss(logits: torch.Tensor, labels: torch.Tensor, t_len, u_len,
     return _reduce(rnnt_loss_grid(lp_b, lp_l, t_len, u_len), reduction)
 
 
-def joint_params(model) -> Tuple[torch.Tensor, ...]:
-    """(W_enc, W_dec, b1, W_out, b_out) of a port ``Transducer``'s joint, as
-    (in, out) matrices: the concat Linear is split by rows at the encoder
-    width (its input width less the label embedding's), and a tied joint's
-    output weight is the label embedding.  Views of the parameters, so
-    gradients reach them; an int8 joint's dequantised weights (JAX
-    ``dense_kernel``), which the beam's split joint takes."""
-    joint = model.joint
-    w1 = dense_kernel(joint.forward_layer).t()              # (enc+dec, inner)
-    d_enc = w1.shape[0] - model.decoder.dec_embedding.weight.shape[1]
-    if model.share_embedding:
-        w2, b2 = model.decoder.dec_embedding.weight.t(), joint.project_bias
-    else:
-        w2, b2 = dense_kernel(joint.project_layer).t(), joint.project_layer.bias
-    return w1[:d_enc], w1[d_enc:], joint.forward_layer.bias, w2, b2
-
-
 def fused_grid_logprobs(enc: torch.Tensor, dec: torch.Tensor, jp,
                         labels: torch.Tensor, blank: int = 0,
-                        chunk_size: int = 32,
-                        remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+                        chunk_size: int = 32, remat: bool = True,
+                        activation: str = "tanh") -> Tuple[torch.Tensor, torch.Tensor]:
     """Blank/label log-prob grids straight from encoder / label-encoder
     states, T-chunk by T-chunk; with ``remat`` each chunk is recomputed in
     the backward (``torch.utils.checkpoint``) instead of keeping its joint
-    activations."""
+    activations.  ``activation``: the joint's (``tanh``, or ``relu`` for an
+    espnet joint so configured)."""
+    act = ACTIVATIONS[activation]
     w_enc, w_dec, b1, w_out, b_out = jp
     b, t, _ = enc.shape
     u1 = dec.shape[1]
@@ -227,7 +212,7 @@ def fused_grid_logprobs(enc: torch.Tensor, dec: torch.Tensor, jp,
     dec_proj = dec @ w_dec + b1                             # (B, U1, inner)
 
     def chunk_fn(enc_chunk, dec_proj, w_enc, w_out, b_out):
-        h = torch.tanh((enc_chunk @ w_enc)[:, :, None, :] + dec_proj[:, None, :, :])
+        h = act((enc_chunk @ w_enc)[:, :, None, :] + dec_proj[:, None, :, :])
         logits = h @ w_out + b_out                          # (B, C, U1, V)
         lse = torch.logsumexp(logits, dim=-1)
         idx = labels_pad[:, None, :, None].expand(-1, enc_chunk.shape[1], -1, -1)
@@ -247,9 +232,9 @@ def fused_grid_logprobs(enc: torch.Tensor, dec: torch.Tensor, jp,
 def rnnt_loss_fused(enc: torch.Tensor, dec: torch.Tensor, jp,
                     labels: torch.Tensor, t_len, u_len, blank: int = 0,
                     chunk_size: int = 32, reduction: str = "mean",
-                    remat: bool = True) -> torch.Tensor:
+                    remat: bool = True, activation: str = "tanh") -> torch.Tensor:
     """End-to-end training loss from encoder/label-encoder states: the joint
     fused into the loss (no (B,T,U,V) tensor) and the lattice on the grids."""
     lp_b, lp_l = fused_grid_logprobs(enc, dec, jp, labels, blank, chunk_size,
-                                     remat)
+                                     remat, activation)
     return _reduce(rnnt_loss_grid(lp_b, lp_l, t_len, u_len), reduction)

@@ -33,6 +33,7 @@ from typing import Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from transformer_transducer_tpu_torch.ops.activations import ACTIVATIONS
 from transformer_transducer_tpu_torch.ops.cuda.band_kernel import (
     band_alpha, band_beta)
 from transformer_transducer_tpu_torch.ops.cuda.logz_kernel import additive_logz
@@ -40,7 +41,6 @@ from transformer_transducer_tpu_torch.ops.cuda.rnnt_kernel import NEG, logaddexp
 from transformer_transducer_tpu_torch.ops.rnnt_loss import (
     _pad_labels, _reduce, rnnt_bwd, rnnt_fwd)
 
-_ACTIVATIONS = {"tanh": torch.tanh, "relu": torch.relu}
 
 
 # ---------------------------------------------------------------------------
@@ -162,7 +162,7 @@ def banded_grid_logprobs(enc: torch.Tensor, dec: torch.Tensor, jp,
     u_len = torch.as_tensor(u_len, device=dev).long()
     rs = torch.as_tensor(rs, device=dev).long()
     dec_proj = dec @ w_dec + b1                             # (B, U1, inner)
-    act = _ACTIVATIONS[activation]
+    act = ACTIVATIONS[activation]
     bi = torch.arange(b, device=dev)[:, None, None]
     s_idx = torch.arange(s_range, device=dev)
 

@@ -37,7 +37,7 @@ from transformer_transducer_tpu_torch.decoding.greedy import BLANK, predict_last
 from transformer_transducer_tpu_torch.ops import features_np as F
 from transformer_transducer_tpu_torch.ops.masks import look_ahead_mask
 from transformer_transducer_tpu_torch.streaming.session import (
-    StreamingConfig, advance_window_geometry)
+    StreamingConfig, advance_window_geometry, check_streamable)
 from transformer_transducer_tpu_torch.utils.device import resolve_device
 
 
@@ -75,10 +75,12 @@ class _StreamState:
 class BatchedStreamingSession:
     """N streams decoded together, round by round.
 
-    ``model``: a port :class:`~models.transducer.Transducer` on ``device``
-    (``cuda`` unless the caller passes ``cpu``; without a card it raises).
+    ``model``: a port :class:`~models.transducer.Transducer` or
+    :class:`~models.espnet_variant.EspnetTransducer` on ``device`` (``cuda``
+    unless the caller passes ``cpu``; without a card it raises).
     ``incremental``: cached-encoder rounds (``streaming/incremental.py``'s
-    batched step) in place of the halo windows; the same tokens.
+    batched step of the model's family) in place of the halo windows; the
+    same tokens.
     """
 
     MAX_ROUNDS = 16    # rounds a drain gathers, encodes and decodes as one group
@@ -90,6 +92,7 @@ class BatchedStreamingSession:
         if self.device.type != want.type:
             raise ValueError(f"the model is on {self.device}, the session "
                              f"asked for {want}")
+        check_streamable(model)
         self.model = model
         self.cfg = cfg
         self.n = n_streams
@@ -99,9 +102,9 @@ class BatchedStreamingSession:
         self._label_mask = look_ahead_mask(cfg.label_history + 1, device=self.device)
         if incremental:
             from transformer_transducer_tpu_torch.streaming.incremental import (
-                prepare_layers)
-            self._layers = prepare_layers(model, cfg.left_context, cfg.right_context,
-                                          cfg.window_len)
+                make_incremental_encoder)
+            self._layers, self._inc_geom, self._inc_step = make_incremental_encoder(
+                model, cfg, batched=True)
         self.reset()
 
     @torch.no_grad()
@@ -131,9 +134,9 @@ class BatchedStreamingSession:
         if self.incremental:
             from transformer_transducer_tpu_torch.streaming.incremental import (
                 init_batched_cache)
-            # the native family has no input projection: d_model == self._d
-            self._cache = init_batched_cache(self.n, len(self._layers), cfg.left_context,
-                                             cfg.right_context, self._d, self.device)
+            n_layer, d_model = self._inc_geom
+            self._cache = init_batched_cache(self.n, n_layer, cfg.left_context,
+                                             cfg.right_context, d_model, self.device)
 
     # ------------------------------------------------------------------
     def _label_proj(self, ids: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
@@ -370,11 +373,9 @@ class BatchedStreamingSession:
 
     def _encode_chunks(self, rounds):
         """The rounds' cached-encoder steps, in order: each advances the
-        round's streams by one chunk (``batched_encode_step`` over those
+        round's streams by one chunk (the family's batched step over those
         streams' caches); per round its ``(slot, first row, n_rows,
         abs_start)`` segments in the stacked outputs."""
-        from transformer_transducer_tpu_torch.streaming.incremental import (
-            batched_encode_step)
         cfg = self.cfg
         items = [c for r in rounds for c in r]
         x = np.zeros((len(items), cfg.chunk_len, self._d), np.float32)
@@ -387,9 +388,8 @@ class BatchedStreamingSession:
         for r in rounds:
             ids, n_new, key_limit = ints[:, base:base + len(r)]
             cache = {"bufs": self._cache["bufs"][ids], "n_in": self._cache["n_in"][ids]}
-            cache, out, _ = batched_encode_step(self._layers, cache, x[base:base + len(r)],
-                                                n_new, key_limit, left=cfg.left_context,
-                                                right=cfg.right_context)
+            cache, out, _ = self._inc_step(self._layers, cache, x[base:base + len(r)],
+                                           n_new, key_limit)
             self._cache["bufs"][ids] = cache["bufs"]
             self._cache["n_in"][ids] = cache["n_in"]
             outs.append(out)

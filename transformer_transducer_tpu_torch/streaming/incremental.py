@@ -47,18 +47,32 @@ flax's fast variance, ``max(0, E[x^2] - mu^2)``, which agrees with it to
 float32 rounding.  The projections are the layers' own modules, so an
 int8 model (``ops/quant.py::QuantLinear``) runs W8A8 here with per-row
 activation scales, as the window path does and as the JAX step's
-``_dense`` does.  The espnet family (its shift-invariant step) is ported
-in a later slice.
+``_dense`` does.
+
+The espnet family's step (``incremental_encode_step_espnet``, batched as
+``batched_encode_step_espnet``) is simpler: its sinusoidal encodings are
+shift-invariant, so the band's ``left + right + 1`` position rows
+(``espnet_rel_rows``) are the same at any window length, with no wrap row
+and nothing pinned.  Its pre-LN layers re-zero masked cells after the
+softmax (a query with no live key attends to nothing), the input layer
+(None or ``linear``) and the sqrt(d) scale run on the raw feature rows in
+the step, flush zeros included, as the padded windows run them, and
+``after_norm`` on the rows that emerge.  A conv-subsampling input layer
+raises ``ValueError``: its feature and encoder rows differ in rate, which
+the window geometry does not follow either.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from transformer_transducer_tpu_torch.models.attention import NEG_INF
+from transformer_transducer_tpu_torch.models.espnet_variant import (
+    EspnetTransducer, sinusoid_rows)
 
 _BIG = 2 ** 30  # "no key limit" sentinel (positions are small ints)
 
@@ -69,13 +83,13 @@ def prepare_layers(model, left: int, right: int, window_len: int) -> List[Dict]:
     reads, sliced once (they are weights): the main band's LAST ``left+1``
     rows and the ``right-1`` wrap rows ``max(0, k_len - window_len + m)``,
     pinned to the window (front-pad rule when ``window_len > k_len``), each
-    as (H, Dh, rows) for the products and (H, rows) for the biases.  A
-    model of the espnet family raises (a later slice)."""
+    as (H, Dh, rows) for the products and (H, rows) for the biases.  Native
+    family only (the espnet family's is ``prepare_espnet``); another model
+    raises ``ValueError``."""
     from transformer_transducer_tpu_torch.models.transducer import Transducer
     if not isinstance(model, Transducer):
-        raise NotImplementedError(
-            "the incremental encoder of the espnet family is ported in a "
-            "later slice of the PyTorch port")
+        raise ValueError(f"no incremental encoder for a {type(model).__name__}: "
+                         "expected a Transducer or an EspnetTransducer")
     out = []
     for layer in model.encoder.layers:
         re, rb = layer.r_emb, layer.r_bias
@@ -291,20 +305,143 @@ def batched_encode_step(layers: List[Dict], cache: Dict, x_new: torch.Tensor,
     return new_cache, x, n_in - len(layers) * R
 
 
-def make_incremental_encoder(model, cfg):
-    """For the sessions: ``(layers, (n_layer, d_model), step)`` where
-    ``layers`` is ``prepare_layers``'s list (the wrap pinned to
-    ``cfg.window_len``) and ``step(layers, cache, x_new, key_limit) ->
-    (cache, out, out_start)`` the native family's cached-encoder step.  The
-    espnet family raises ``NotImplementedError`` (a later slice)."""
-    layers = prepare_layers(model, cfg.left_context, cfg.right_context, cfg.window_len)
+# ---------------------------------------------------------------------------
+# Espnet family: the shift-invariant band
+
+
+def espnet_rel_rows(left: int, right: int, d_model: int) -> np.ndarray:
+    """Sinusoid rows for ``rel = i - j`` at the band's offsets ``dj = j - i``:
+    row ``m = dj + left`` encodes ``rel = left - m``, the only rows of
+    ``rel_positional_encoding`` a banded query reads (the same formula, so
+    the window and incremental paths project the same vectors)."""
+    return sinusoid_rows(left - np.arange(left + right + 1), d_model)
+
+
+def prepare_espnet(model, left: int, right: int) -> Dict:
+    """The espnet encoder and its band's position rows on its device.  A
+    conv-subsampling input layer raises ``ValueError`` (as in JAX)."""
+    from transformer_transducer_tpu_torch.streaming.session import check_streamable
+    check_streamable(model)
+    enc = model.encoder
+    rel_pe = torch.from_numpy(espnet_rel_rows(left, right, enc.output_size))
+    return {"encoder": enc, "rel_pe": rel_pe.to(enc.after_norm.weight.device)}
+
+
+def espnet_input_transform(enc, x_new: torch.Tensor) -> torch.Tensor:
+    """The rowwise espnet input pipeline on raw feature rows: the input
+    layer (``linear``: proj, LN, [dropout], relu) and the sqrt(d) scale,
+    the order of ``EspnetTransformerEncoder.forward``."""
+    return enc.input_transform(x_new)[0] * math.sqrt(enc.output_size)
+
+
+def _espnet_layer_step(layer, rel_pe: torch.Tensor, buf: torch.Tensor,
+                       x_new: torch.Tensor, n_new: torch.Tensor, lo: torch.Tensor,
+                       hi: torch.Tensor, band_keys: torch.Tensor, *, left: int,
+                       right: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One espnet pre-LN layer, one chunk a stream (JAX
+    ``_espnet_layer_step``, ``vmap``ped): the contract of
+    ``_batched_layer_step``.  Only the band's cells are scored; the BD term
+    of offset ``m - L`` is ``(q_i + v) . p[m]``, with ``p`` the band's
+    position rows through ``linear_pos``."""
+    L, R = left, right
+    attn = layer.self_attn
+    H, dk = attn.h, attn.d_k
+    N, C, D = x_new.shape
+    K, W = L + R + C, L + R + 1
+    rows = torch.arange(K, device=x_new.device)
+    row_ok = (rows >= lo[:, None]) & (rows < hi[:, None])                  # (N, K)
+    concat = torch.where(row_ok[..., None], torch.cat([buf, x_new], dim=1), 0.0)
+
+    y = layer.norm1(concat)
+    q = attn.linear_q(y[:, L:L + C]).view(N, C, H, dk)
+    k = attn.linear_k(y).view(N, K, H, dk)
+    v = attn.linear_v(y).view(N, K, H, dk)
+    p = attn.linear_pos(rel_pe).view(W, H, dk)
+    ac = torch.matmul((q + attn.pos_bias_u)[..., None, :], k.unfold(1, W, 1))[..., 0, :]
+    bd = torch.einsum("nchd,mhd->nchm", q + attn.pos_bias_v, p)          # (N, C, H, W)
+    invalid = ((band_keys < lo[:, None, None]) | (band_keys >= hi[:, None, None]))[:, :, None]
+    score = ((ac + bd) / math.sqrt(dk)).masked_fill(invalid, NEG_INF)
+    # espnet re-zeroes masked cells after the softmax
+    prob = torch.softmax(score, dim=-1).masked_fill(invalid, 0.0)
+    vec = torch.matmul(prob[..., None, :], v.unfold(1, W, 1).transpose(-1, -2))
+    x_att = concat[:, L:L + C] + attn.linear_out(vec.reshape(N, C, H * dk))
+    out = x_att + layer.feed_forward(layer.norm2(x_att))
+    keep = (n_new[:, None] + torch.arange(L + R, device=x_new.device))[..., None]
+    return concat.gather(1, keep.expand(-1, -1, D)), out
+
+
+def batched_encode_step_espnet(prep: Dict, cache: Dict, x_new: torch.Tensor,
+                               n_new: torch.Tensor, key_limit: torch.Tensor, *,
+                               left: int, right: int
+                               ) -> Tuple[Dict, torch.Tensor, torch.Tensor]:
+    """The espnet twin of :func:`batched_encode_step`: ``x_new`` (N, C, F)
+    raw feature rows through the input transform, the cached band layers
+    and ``after_norm``; the caches hold the transformed streams (N,
+    n_layer, L+R, D).  The same contract and returns."""
+    enc = prep["encoder"]
+    n_in, C = cache["n_in"], x_new.shape[1]
+    L, R = left, right
+    K, dev = L + R + C, x_new.device
+    band_keys = (torch.arange(C, device=dev)[:, None]
+                 + torch.arange(L + R + 1, device=dev)[None])
+    x, bufs = espnet_input_transform(enc, x_new), []
+    for k, layer in enumerate(enc.encoders):
+        pos0 = n_in - k * R
+        lo = (L + R - pos0).clamp(0, K)
+        hi = torch.maximum(lo, torch.minimum(key_limit - pos0, n_new) + (L + R))
+        buf, x = _espnet_layer_step(layer, prep["rel_pe"], cache["bufs"][:, k], x, n_new,
+                                    lo, hi, band_keys, left=L, right=R)
+        bufs.append(buf)
+    new_cache = {"bufs": torch.stack(bufs, dim=1), "n_in": n_in + n_new}
+    return new_cache, enc.after_norm(x), n_in - len(enc.encoders) * R
+
+
+def incremental_encode_step_espnet(prep: Dict, cache: Dict, x_new: torch.Tensor,
+                                   key_limit: Optional[int] = None, *, left: int,
+                                   right: int) -> Tuple[Dict, torch.Tensor, int]:
+    """The espnet twin of :func:`incremental_encode_step` (one stream,
+    ``x_new`` (C, F) raw feature rows): the batched step on one stream."""
+    n_in, C, dev = cache["n_in"], x_new.shape[0], x_new.device
+    ints = torch.tensor([n_in, C, _BIG if key_limit is None else int(key_limit)],
+                        device=dev)
+    new, out, _ = batched_encode_step_espnet(
+        prep, {"bufs": cache["bufs"][None], "n_in": ints[0:1]}, x_new[None],
+        ints[1:2], ints[2:3], left=left, right=right)
+    return ({"bufs": new["bufs"][0], "n_in": n_in + C}, out[0],
+            n_in - len(prep["encoder"].encoders) * right)
+
+
+def _family_steps(model, left: int, right: int, window_len: int):
+    """``(layers, (n_layer, d_model), step, batched_step)`` of the model's
+    family: ``step(layers, cache, x_new, key_limit)`` one stream,
+    ``batched_step(layers, cache, x_new, n_new, key_limit)`` N streams."""
+    if isinstance(model, EspnetTransducer):
+        prep = prepare_espnet(model, left, right)
+        enc = prep["encoder"]
+        return (prep, (len(enc.encoders), enc.output_size),
+                lambda p, c, x, kl: incremental_encode_step_espnet(
+                    p, c, x, kl, left=left, right=right),
+                lambda p, c, x, n, kl: batched_encode_step_espnet(
+                    p, c, x, n, kl, left=left, right=right))
+    layers = prepare_layers(model, left, right, window_len)
     d_model = layers[0]["layer"].MultiHeadAttention.dec_attn.qkv_net.in_features
+    return (layers, (len(layers), d_model),
+            lambda p, c, x, kl: incremental_encode_step(p, c, x, kl, left=left, right=right),
+            lambda p, c, x, n, kl: batched_encode_step(p, c, x, n, kl, left=left,
+                                                       right=right))
 
-    def step(layers, cache, x_new, key_limit):
-        return incremental_encode_step(layers, cache, x_new, key_limit,
-                                       left=cfg.left_context, right=cfg.right_context)
 
-    return layers, (len(layers), d_model), step
+def make_incremental_encoder(model, cfg, batched: bool = False):
+    """For the sessions: ``(layers, (n_layer, d_model), step)``, the
+    family's cached-encoder step (native: the closed form with the wrap
+    pinned to ``cfg.window_len``; espnet: the shift-invariant band).
+    ``step(layers, cache, x_new, key_limit) -> (cache, out, out_start)``,
+    or with ``batched`` ``step(layers, cache, x_new, n_new, key_limit)``
+    over N streams (``init_batched_cache``'s layout).  ``d_model`` is the
+    width of the cached streams."""
+    layers, geom, step, batched_step = _family_steps(
+        model, cfg.left_context, cfg.right_context, cfg.window_len)
+    return layers, geom, batched_step if batched else step
 
 
 def chunked_encode_key_limit(t: int, left_len: int, right_len: int,
@@ -335,22 +472,21 @@ def incremental_encode(model, features: np.ndarray, *, left: int, right: int,
     ``streaming.session.chunked_encode`` at the same pinned ``window_len``,
     by default including the canonical final window's key clip
     (``chunked_encode_key_limit`` at chunked_encode's default ``step``); pass
-    ``key_limit`` when comparing with another window geometry."""
-    layers = prepare_layers(model, left, right, window_len)
+    ``key_limit`` when comparing with another window geometry.  Either
+    family."""
+    layers, (n_layer, d_model), step, _ = _family_steps(model, left, right, window_len)
     device = next(model.parameters()).device
-    n_layer, d_model = len(layers), features.shape[1]
     cache = init_cache(n_layer, left, right, d_model, device)
     t = features.shape[0]
     lag = n_layer * right
-    padded = np.concatenate([features, np.zeros((lag, d_model), np.float32)])
+    padded = np.concatenate([features, np.zeros((lag, features.shape[1]), np.float32)])
     if key_limit is None:
         key_limit = chunked_encode_key_limit(t, n_layer * left, lag,
                                              max(lag, 1), window_len)
     outs = []
     for p in range(0, padded.shape[0], chunk):
         rows = torch.from_numpy(padded[p:p + chunk]).to(device)
-        cache, out, s = incremental_encode_step(layers, cache, rows, key_limit,
-                                                left=left, right=right)
+        cache, out, s = step(layers, cache, rows, key_limit)
         lo, hi = max(0, -s), min(rows.shape[0], t - s)
         if hi > lo:
             outs.append(out[lo:hi])

@@ -28,6 +28,14 @@ encoded together, up to ``MAX_GROUP`` a call, through ``encode_banded``
 The decode state is threaded through the windows in order by the frame
 decoder (:meth:`StreamingSession._frame_decode`), which reads the device
 once per emission plus once per window (``host_reads``).
+
+Both model families.  An espnet model (``models/espnet_variant.py``; its
+config's ``model.mask`` gives the band and ``seed_token`` = sos = V - 1)
+encodes its windows with ``encode_banded``, plain tensor code: its
+sinusoidal encodings are shift-invariant, so nothing depends on the window
+length, and the incremental mode runs its shift-invariant step.  Its
+conv-subsampling input layers raise ``ValueError``: their encoder rows
+are not the feature rows the window geometry counts.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ import numpy as np
 import torch
 
 from transformer_transducer_tpu_torch.decoding.greedy import BLANK, predict_last_state
+from transformer_transducer_tpu_torch.models.espnet_variant import is_espnet_config
 from transformer_transducer_tpu_torch.ops import features_np as F
 from transformer_transducer_tpu_torch.ops.masks import look_ahead_mask
 from transformer_transducer_tpu_torch.utils.config import stack_context, subsample_factor
@@ -58,7 +67,7 @@ class StreamingConfig:
     sample_rate: int = 16000
     label_history: int = 40
     blank_split: int = 15
-    seed_token: int = BLANK   # label-history seed: blank for the native family
+    seed_token: int = BLANK   # label-history seed: blank (native) / sos (espnet)
     # Fixed encoder window length.  Every window is padded to it, so every
     # window reads one rel-position table slice: the slice depends on the
     # sequence length (the reference takes the LAST klen rows,
@@ -73,10 +82,14 @@ class StreamingConfig:
 
     @classmethod
     def from_config(cls, cfg) -> "StreamingConfig":
-        if cfg.model.mask is not None:
-            raise NotImplementedError(
-                "streaming the espnet family is ported in a later slice of "
-                "the PyTorch port")
+        if is_espnet_config(cfg.model):
+            return cls(left_context=cfg.model.mask.encoder_left_mask,
+                       right_context=cfg.model.mask.encoder_right_mask,
+                       n_layer=cfg.model.enc.num_blocks,
+                       feature_dim=cfg.data.feature_dim or 128,
+                       stack_left=stack_context(cfg.data)[0],
+                       subsample=subsample_factor(cfg.data),
+                       seed_token=cfg.model.joint.vocab_size - 1)
         return cls(left_context=cfg.model.enc.left_context or 10,
                    right_context=cfg.model.enc.right_context or 2,
                    n_layer=cfg.model.enc.n_layer,
@@ -107,6 +120,17 @@ class StreamingConfig:
             self.window_len = -(-need // 64) * 64
         if self.chunk_len is None:
             self.chunk_len = -(-self.new_frames // 8) * 8
+
+
+def check_streamable(model) -> None:
+    """An espnet model with a conv-subsampling input layer raises
+    ``ValueError``: its encoder rows are fewer than the feature rows the
+    window geometry counts."""
+    layer = model.encoder.input_layer
+    if layer not in (None, "linear"):
+        raise ValueError(f"streaming supports espnet input_layer None/'linear', "
+                         f"not {layer!r} (conv subsampling changes the "
+                         "feature:encoder row rate)")
 
 
 def advance_window_geometry(pos: int, final_start: Optional[int],
@@ -147,8 +171,9 @@ def pack_decode_outputs(toks, splits, confs) -> torch.Tensor:
 class StreamingSession:
     """One stream, decoded as its audio arrives.
 
-    ``model``: a port :class:`~models.transducer.Transducer` on ``device``
-    (``cuda`` unless the caller passes ``cpu``; without a card it raises).
+    ``model``: a port :class:`~models.transducer.Transducer` or
+    :class:`~models.espnet_variant.EspnetTransducer` on ``device`` (``cuda``
+    unless the caller passes ``cpu``; without a card it raises).
     ``incremental``: the cached-encoder mode (``streaming/incremental.py``)
     in place of the halo windows; the same tokens.
     """
@@ -167,6 +192,7 @@ class StreamingSession:
         if self.device.type != want.type:
             raise ValueError(f"the model is on {self.device}, the session "
                              f"asked for {want}")
+        check_streamable(model)
         self.model = model
         self.cfg = cfg
         self.on_token = on_token

@@ -26,7 +26,7 @@ from typing import Dict
 
 import torch
 
-from transformer_transducer_tpu_torch.ops.quant import is_projection, quantize_weight
+from transformer_transducer_tpu_torch.ops.quant import is_projection_weight, quantize_weight
 from transformer_transducer_tpu_torch.utils import checkpoint as ckpt_lib
 from transformer_transducer_tpu_torch.utils.device import resolve_device
 
@@ -37,8 +37,8 @@ def quantize_state(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     gives); every other tensor as it was."""
     out = {}
     for key, value in state.items():
-        name, _, leaf = key.rpartition(".")
-        if leaf == "weight" and is_projection(name):
+        if is_projection_weight(state, key):
+            name = key.rpartition(".")[0]
             out[name + ".weight_q"], out[name + ".scale"] = quantize_weight(value)
         else:
             out[key] = value

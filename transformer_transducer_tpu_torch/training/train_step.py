@@ -1,5 +1,5 @@
 """The training step on one device (port of ``training/train_step.py``,
-native family).
+both model families).
 
 Reference step (``train.py:31-65``): SpecAugment + forward + RNN-T loss +
 grad-clip(200) + optimizer step.  As in the JAX package the joint, the
@@ -7,7 +7,9 @@ log-softmax and the lattice run through the fused loss
 (``ops/rnnt_loss.rnnt_loss_fused``), or with ``loss_pruned_range`` through
 the pruned loss (``ops/rnnt_loss_pruned.rnnt_loss_pruned``), so no
 (B,T,U,V) tensor exists, and padding is ignored by the loss through
-``t_len``/``u_len``.
+``t_len``/``u_len``.  The espnet family encodes with the input lengths (its
+pad masks), runs the loss over ``encoded_lengths`` and applies its joint's
+activation (JAX ``make_loss_fn``).
 """
 
 from __future__ import annotations
@@ -19,8 +21,7 @@ import numpy as np
 import torch
 
 from transformer_transducer_tpu_torch.ops.features import extract_batch_padded
-from transformer_transducer_tpu_torch.ops.rnnt_loss import (
-    joint_params, rnnt_loss_fused)
+from transformer_transducer_tpu_torch.ops.rnnt_loss import rnnt_loss_fused
 from transformer_transducer_tpu_torch.ops.rnnt_loss_pruned import rnnt_loss_pruned
 from transformer_transducer_tpu_torch.ops.specaug import spec_augment
 from transformer_transducer_tpu_torch.training.optim import Optimizer, global_norm
@@ -83,7 +84,7 @@ def featurize(batch: Dict[str, torch.Tensor], frontend: Optional[Tuple]):
 def make_loss_fn(model, cfg: TrainStepConfig, reduction: str = "mean") -> Callable:
     """``loss_fn(batch, gen, train=True)``: the on-device frontend (with
     ``cfg.frontend``), SpecAugment (training only, from the
-    ``torch.Generator`` ``gen``), ``encode_both``, then the fused or, with
+    ``torch.Generator`` ``gen``), ``model.encode_for_loss``, then the fused or, with
     ``loss_pruned_range``, the pruned loss.
     The caller sets the model's train/eval mode (dropout)."""
 
@@ -93,11 +94,15 @@ def make_loss_fn(model, cfg: TrainStepConfig, reduction: str = "mean") -> Callab
         if train and cfg.specaug:
             inputs = spec_augment(gen, inputs, cfg.max_mask_time,
                                   cfg.max_mask_frequency, cfg.mask_num)
-        enc, dec = model.encode_both(inputs, batch["targets"])
-        args = (enc, dec, joint_params(model), batch["targets"],
+        # an espnet model's pad masks take the lengths, and a conv input
+        # layer shortens its output: the loss runs over the lengths it gives
+        enc, dec, t_len = model.encode_for_loss(inputs, t_len, batch["targets"],
+                                                batch["targets_length"])
+        args = (enc, dec, model.joint_params(), batch["targets"],
                 t_len, batch["targets_length"])
         kw = dict(chunk_size=cfg.loss_chunk_size, reduction=reduction,
-                  remat=cfg.loss_remat and torch.is_grad_enabled())
+                  remat=cfg.loss_remat and torch.is_grad_enabled(),
+                  activation=model.joint_activation)
         if cfg.loss_pruned_range:
             return rnnt_loss_pruned(*args, s_range=int(cfg.loss_pruned_range),
                                     simple_scale=cfg.loss_simple_scale, **kw)

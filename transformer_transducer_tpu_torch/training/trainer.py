@@ -15,9 +15,16 @@ checkpoint directories (msgpack): the weights, the optimizer state and the
 counters carry over; a JAX step checkpoint's random key does not, so
 dropout and SpecAugment then draw from ``training.seed``.  With
 ``data.on_device_features`` the loaders ship raw waves and the log-mel
-runs on the card inside the step and the evaluation.  The JAX package's
-mesh, pipeline, sequence-parallel and ZeRO paths, the espnet family and the
-profiler come in later slices and raise ``NotImplementedError`` here.
+runs on the card inside the step and the evaluation.
+
+Both model families: an espnet-schema config (a ``model.mask`` block;
+``apps/train_esptt.py``) builds ``models/espnet_variant.py``'s model, whose
+step encodes with the input lengths and runs the loss over
+``encoded_lengths``, and whose evaluation decodes from sos over those
+lengths; ``flash`` and ``banded`` apply to the native family only and are
+ignored for it, as the JAX trainer ignores them.  The JAX package's mesh,
+pipeline, sequence-parallel and ZeRO paths and the profiler come in later
+slices and raise ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -30,9 +37,9 @@ import torch
 
 from transformer_transducer_tpu_torch.data.dataset import AudioDataset
 from transformer_transducer_tpu_torch.data.loader import DataLoader
-from transformer_transducer_tpu_torch.decoding.greedy import (
-    greedy_decode, tokens_to_lists)
-from transformer_transducer_tpu_torch.models.transducer import build_transducer
+from transformer_transducer_tpu_torch.decoding.greedy import greedy_decode, tokens_to_lists
+from transformer_transducer_tpu_torch.models.espnet_variant import EspnetTransducer
+from transformer_transducer_tpu_torch.models.factory import build_family
 from transformer_transducer_tpu_torch.training import optim as optim_lib
 from transformer_transducer_tpu_torch.training.train_step import (
     TrainStepConfig, batch_to_device, featurize, make_eval_loss_step,
@@ -56,8 +63,6 @@ class Trainer:
                  log_file: str = "train.log", exp_root: str = "egs",
                  flash: bool = False, banded: bool = False, device=None):
         self.device = resolve_device(device)
-        if config.model.mask is not None:
-            raise _later("the espnet family (models/espnet_variant.py)")
         pcfg = config.parallel or Config()
         if (pcfg.n_pipe or 1) > 1 or (pcfg.n_seq or 1) > 1 or pcfg.zero:
             raise _later("parallel training (parallel/)")
@@ -77,8 +82,12 @@ class Trainer:
         seed = config.training.seed or 1
         torch.manual_seed(seed)           # initial weights and dropout
         self.gen = torch.Generator().manual_seed(seed)   # SpecAugment stripes
-        self.model = build_transducer(config.model, flash=flash,
-                                      device=self.device, banded=banded).train()
+        self.model = build_family(config, device=self.device, flash=flash,
+                                  banded=banded).train()
+        self.is_espnet = isinstance(self.model, EspnetTransducer)
+        if self.is_espnet and (flash or banded):
+            self.logger.info("--flash/--banded select the native family's "
+                             "attention kernels; the espnet family ignores them")
         n_total = sum(p.numel() for p in self.model.parameters())
         n_enc = sum(p.numel() for p in self.model.encoder.parameters())
         n_dec = sum(p.numel() for p in self.model.decoder.parameters())
@@ -307,7 +316,8 @@ class Trainer:
     def evaluate(self, epoch: int, loader, max_batches: Optional[int] = None,
                  compute_loss: bool = True) -> float:
         """Eval loss, batched greedy decoding of the full-context encoder
-        and CER; the transcripts go to ``decode_{epoch}.txt``."""
+        (an espnet encoder under its own band, with the lengths) and CER;
+        the transcripts go to ``decode_{epoch}.txt``."""
         total_dist, total_words = 0, 0
         total_loss, loss_utts = 0.0, 0
         dump_path = os.path.join(self.exp_dir, f"decode_{epoch}.txt")
@@ -324,7 +334,7 @@ class Trainer:
                 self.model.eval()
                 with torch.no_grad():
                     inputs, t_len = featurize(dev_batch, self.frontend)
-                    enc = self.model.encode(inputs)
+                    enc, t_len = self.model.encode_for_decoding(inputs, t_len)
                 tokens, counts = greedy_decode(self.model, enc, t_len,
                                                max_tokens=max_tokens)
                 preds = tokens_to_lists(tokens.cpu().numpy(), counts.cpu().numpy())

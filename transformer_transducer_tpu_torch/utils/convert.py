@@ -6,6 +6,10 @@ dicts of numpy arrays, ``variables["params"]``) into the port's
 package's ``utils/torch_convert.py::transducer_params`` maps the port's
 ``encoder``/``decoder``/``joint`` state dicts back to the same tree.
 
+The espnet family's tree (JAX ``models/espnet_variant.py``) maps to the
+upstream espnet keys of the port's ``models/espnet_variant.py``, which the
+JAX ``utils/torch_convert.py::espnet_transducer_params`` reads back.
+
 Layout rules: torch ``Linear.weight`` is (out, in), the transpose of a flax
 kernel; ``qkv``/``out`` have no bias while ``fc1``/``fc2`` do; the FFN's one
 LayerNorm (``ff/ln``) is the single ``pos_ff.layer_norm``.  An int8 tree
@@ -25,6 +29,9 @@ from typing import Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
+
+from transformer_transducer_tpu_torch.models.espnet_variant import (
+    _CONV_STACKS, is_espnet_config)
 
 COMPONENTS = ("encoder", "decoder", "joint")
 
@@ -79,11 +86,58 @@ def _layers(tree: Mapping) -> list:
     return sorted(names, key=lambda s: int(s.split("_")[1]))
 
 
+def _ln(p: Mapping, name: str) -> Dict[str, torch.Tensor]:
+    return {name + ".weight": _t(p["scale"]), name + ".bias": _t(p["bias"])}
+
+
+def _espnet_encoder_state(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """An espnet encoder subtree (JAX ``EspnetTransformerEncoder``) as the
+    port's state dict, upstream espnet's keys: the inverse of the JAX
+    ``utils/torch_convert.py::espnet_encoder_params``.  A flax conv
+    kernel (KH, KW, I, O) is torch's (O, I, KH, KW); conv ``i`` of the
+    stack is ``embed.conv.{2i}`` (a ReLU between each)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i, name in enumerate(_layers(tree)):
+        lp, p = tree[name], f"encoders.{i}."
+        sa = lp["self_attn"]
+        for proj in ("linear_q", "linear_k", "linear_v", "linear_out", "linear_pos"):
+            sd.update(_dense(sa[proj], p + "self_attn." + proj))
+        sd[p + "self_attn.pos_bias_u"] = _t(sa["pos_bias_u"])
+        sd[p + "self_attn.pos_bias_v"] = _t(sa["pos_bias_v"])
+        sd.update(_dense(lp["feed_forward"]["w_1"], p + "feed_forward.w_1"))
+        sd.update(_dense(lp["feed_forward"]["w_2"], p + "feed_forward.w_2"))
+        sd.update(_ln(lp["norm1"], p + "norm1"))
+        sd.update(_ln(lp["norm2"], p + "norm2"))
+    sd.update(_ln(tree["after_norm"], "after_norm"))
+    if "embed" in tree:
+        sd["embed.0.weight"] = _t(tree["embed"]["embedding"])
+    elif "input_proj" in tree:
+        sd.update(_dense(tree["input_proj"], "embed.0"))
+        sd.update(_ln(tree["input_norm"], "embed.1"))
+    elif "subsample" in tree:
+        sub = tree["subsample"]
+        convs = sorted((k for k in sub if k.startswith("conv_")),
+                       key=lambda s: int(s.split("_")[1]))
+        for ci, name in enumerate(convs):
+            sd[f"embed.conv.{2 * ci}.weight"] = \
+                _t(sub[name]["kernel"]).permute(3, 2, 0, 1).contiguous()
+            sd[f"embed.conv.{2 * ci}.bias"] = _t(sub[name]["bias"])
+        sd.update(_dense(sub["out"], "embed.out.0"))
+    return sd
+
+
 def component_state(comp: str, tree: Mapping) -> Dict[str, torch.Tensor]:
     """One component's subtree (``encoder``, ``decoder`` or ``joint``) as
-    that module's ``state_dict`` (keys without the component's prefix)."""
+    that module's ``state_dict`` (keys without the component's prefix).
+    The family is told by the subtree: an espnet encoder has
+    ``after_norm``, an espnet joint ``lin_enc``."""
     sd: Dict[str, torch.Tensor] = {}
-    if comp in ("encoder", "decoder"):
+    if comp in ("encoder", "decoder") and "after_norm" in tree:
+        sd.update(_espnet_encoder_state(tree))
+    elif comp == "joint" and "lin_enc" in tree:
+        for name in ("lin_enc", "lin_dec", "lin_out"):
+            sd.update(_dense(tree[name], name))
+    elif comp in ("encoder", "decoder"):
         for i, name in enumerate(_layers(tree)):
             sd.update(_layer_state(tree[name], f"layers.{i}."))
         if comp == "decoder":
@@ -178,7 +232,9 @@ def random_jax_params(model_cfg, seed: int = 0) -> Dict:
     """Seeded random weights for a ``model:`` block, as a numpy tree in the
     JAX package's layout: dense kernels N(0, 1/fan_in) with zero biases,
     LayerNorms at identity, position tables and embedding N(0, 1) (the
-    JAX package's initializers for them)."""
+    JAX package's initializers for them).  An espnet-schema block (with
+    ``model.mask``) gives the espnet family's tree: conv kernels N(0,
+    1/fan_in) too, and ``pos_bias_u``/``pos_bias_v`` Xavier-uniform."""
     rng = np.random.default_rng(seed)
 
     def normal(*shape, std=1.0):
@@ -205,6 +261,8 @@ def random_jax_params(model_cfg, seed: int = 0) -> Dict:
                    "fc2": dense(c.d_inner, d)},
         } for i in range(c.n_layer)}
 
+    if is_espnet_config(model_cfg):
+        return _random_espnet(model_cfg, normal, dense, ln, rng)
     enc, dec, v = model_cfg.enc, model_cfg.dec, model_cfg.vocab_size
     decoder = stack(dec)
     decoder["embedding"] = {"embedding": normal(v, dec.d_model)}
@@ -212,3 +270,44 @@ def random_jax_params(model_cfg, seed: int = 0) -> Dict:
             "joint": {"forward_layer": dense(enc.d_model + dec.d_model,
                                              model_cfg.joint.inner_size),
                       "project_layer": dense(model_cfg.joint.inner_size, v)}}
+
+
+def _random_espnet(model_cfg, normal, dense, ln, rng) -> Dict:
+    """``random_jax_params``'s espnet tree (JAX ``build_espnet_transducer``'s
+    ``init`` layout)."""
+
+    def encoder(blk, input_layer):
+        d, h = blk.output_size, blk.attention_heads
+        bound = (6.0 / (h + d // h)) ** 0.5          # Xavier-uniform of (h, dk)
+        out = {f"layer_{i}": {
+            "self_attn": {**{n: dense(d, d) for n in
+                             ("linear_q", "linear_k", "linear_v", "linear_out")},
+                          "linear_pos": dense(d, d, bias=False),
+                          **{n: rng.uniform(-bound, bound, (h, d // h)).astype(np.float32)
+                             for n in ("pos_bias_u", "pos_bias_v")}},
+            "feed_forward": {"w_1": dense(d, blk.linear_units),
+                             "w_2": dense(blk.linear_units, d)},
+            "norm1": ln(d), "norm2": ln(d)} for i in range(blk.num_blocks)}
+        out["after_norm"] = ln(d)
+        if input_layer == "embed":
+            out["embed"] = {"embedding": normal(blk.input_size, d)}
+        elif input_layer == "linear":
+            out["input_proj"] = dense(blk.input_size, d)
+            out["input_norm"] = ln(d)
+        elif input_layer in _CONV_STACKS:
+            sub, c_in, f = {}, 1, blk.input_size
+            for ci, (k, s) in enumerate(_CONV_STACKS[input_layer]):
+                sub[f"conv_{ci}"] = {"kernel": normal(k, k, c_in, d, std=(k * k * c_in) ** -0.5),
+                                     "bias": np.zeros(d, np.float32)}
+                c_in, f = d, (f - k) // s + 1
+            sub["out"] = dense(d * f, d)
+            out["subsample"] = sub
+        return out
+
+    j = model_cfg.joint
+    return {"encoder": encoder(model_cfg.enc, model_cfg.enc.input_layer),
+            "decoder": encoder(model_cfg.dec, model_cfg.dec.input_layer or "embed"),
+            "joint": {"lin_enc": dense(model_cfg.enc.output_size, j.joint_space_size),
+                      "lin_dec": dense(model_cfg.dec.output_size, j.joint_space_size,
+                                       bias=False),
+                      "lin_out": dense(j.joint_space_size, j.vocab_size)}}
