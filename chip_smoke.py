@@ -221,6 +221,29 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    launches of kernels 1-5 count the phase's training paths too
    (``phase13_launches``).
 
+14. ``--remat`` and ``--bf16`` training at flagship width on phase 6's
+   batch and weights (``check_bf16_remat``).  Remat in float32: 3 banded
+   steps at the config's dropout (0.5), with and without remat from the
+   same state and generators, losses and raw gradient norms equal to the
+   bit; the flash model's first step at that dropout and 3 flash steps at
+   dropout 0 within the atomics tolerance (losses 1e-4, step 1's gradient
+   norm 1e-3); the forward kernel 36 times a step, the backward 18; step
+   time, device busy time and peak memory with and without, in turns.
+   bf16: 3 steps each of the dense, banded, ``--banded --pruned-range 5``
+   and espnet (full loss) models at dropout 0, the kernels against the
+   plain versions, both bf16 (step 1 within ``BF16_LOSS_RTOL`` and
+   ``BF16_NORM_RTOL`` and under the bf16-to-float32 distances of the same
+   step, which 3 float32 steps print beside each step; steps 2-3 printed,
+   not held: the clipped update makes them chaotic), the launches
+   of kernels 1, 2, 6, 7 (3-5 pruned); ``--bf16 --flash`` refused by the
+   model and the CLI; step time, device busy time and peak memory against
+   the float32 step in turns.  Then ``apps/train.py --bf16 --remat
+   --nan-guard --steps-per-call 8`` for 2 epochs on the port's tone
+   corpus (``tools/tone_demo.py``, 128 / 16 utterances, the small
+   geometry), float32 checkpoints, and ``apps/predict.py`` on its
+   ``epoch_1`` (kernel 6, twice); a JSON line before the kernels' line,
+   whose launches count the phase's main paths (``phase14_launches``).
+
 Each phase logs the seconds since the run began.
 
 Kernel checks in phase 3: each forward against its plain version (atol
@@ -293,6 +316,15 @@ GRAD_TOL = 1e-4          # atol GRAD_TOL * max|ref| + GRAD_FLOOR, rtol GRAD_TOL
 GRAD_FLOOR = 1e-5        # for gradients that are 0 in exact arithmetic (T = 1)
 B_TRAIN = 4              # configs/joint_streaming.yaml data.batch_size
 LOSS_RTOL, NORM_RTOL = 1e-4, 1e-3
+# --bf16 step 1, kernels against the plain versions (both bf16): the
+# kernels' float32 outputs may move a bf16 rounding downstream (measured on
+# an H100 80GB HBM3 at 700 W, two runs: losses up to 1.2e-05, gradient
+# norms up to 1.3e-04; bf16 against float32 at step 1: losses 8.8e-05 to
+# 9.0e-04, norms 2.1e-04 to 4.0e-03).  Steps 2-3 are printed, not held: the
+# first clipped SGD step (raw gradient norm near 5e8) turns those
+# differences into others as large as bf16's own (--banded step 3: loss
+# 2.8e-03 and norm 1.4e-02 apart, bf16 against float32 6.7e-03 and 3.6e-02)
+BF16_LOSS_RTOL, BF16_NORM_RTOL = 1e-4, 1e-3
 S_RANGE = 5              # the pruned loss's band (--pruned-range 5)
 STREAM_T = 256           # the streaming window_len at the flagship's band
 STREAM_CHUNK = 1600      # 100 ms of 16 kHz audio an accept_waveform call
@@ -1060,20 +1092,24 @@ def training_batch(cfg, device, seed, raw=False):
 
 
 def make_trainee(model_cfg, optim_cfg, state, mode, device, pruned_range=None,
-                 frontend=None):
+                 frontend=None, compute_dtype=None, remat=False):
     """A model in train mode with ``state``, its SGD optimizer (momentum,
     clip 200 as the trainer builds it) and its train step (SpecAugment on;
     the pruned loss with simple scale 0.25 when ``pruned_range``; the
-    on-device log-mel of raw waves with a ``frontend`` tuple).  An
-    espnet-schema block (``mask``) builds the espnet family (``mode`` does
-    not apply)."""
+    on-device log-mel of raw waves with a ``frontend`` tuple; bf16 compute
+    with ``compute_dtype``, per-layer encoder recomputation with
+    ``remat``).  An espnet-schema block (``mask``) builds the espnet family
+    (``mode`` and ``remat`` do not apply)."""
+    import torch
+    compute_dtype = compute_dtype or torch.float32
     from transformer_transducer_tpu_torch.models.factory import build_family
     from transformer_transducer_tpu_torch.training.optim import build_optimizer
     from transformer_transducer_tpu_torch.training.train_step import (
         TrainStepConfig, make_train_step)
     from transformer_transducer_tpu_torch.utils.config import Config
     model = build_family(Config(model=model_cfg), flash=mode == "flash",
-                         banded=mode == "banded", device=device)
+                         banded=mode == "banded", device=device, remat=remat,
+                         compute_dtype=compute_dtype)
     model.load_state_dict(state)
     model.train()
     opt = build_optimizer(optim_cfg, list(model.parameters()), max_grad_norm=200.0)
@@ -1082,21 +1118,23 @@ def make_trainee(model_cfg, optim_cfg, state, mode, device, pruned_range=None,
 
 
 def train_three_steps(model_cfg, optim_cfg, state, mode, batch, device, plain,
-                      pruned_range=None, hooks=(), frontend=None):
-    """Phases 6, 6b and 11: 3 steps from ``state`` with the SpecAugment
-    stream seeded alike, inside the contexts ``hooks``; per step (loss, raw
-    gradient norm, launch counts)."""
+                      pruned_range=None, hooks=(), frontend=None, compute_dtype=None,
+                      remat=False, steps=3):
+    """Phases 6, 6b, 11 and 14: ``steps`` steps from ``state`` with the SpecAugment
+    stream and the dropout generators seeded alike, inside the contexts
+    ``hooks``; per step (loss, raw gradient norm, launch counts)."""
     import torch
     model, opt, step = make_trainee(model_cfg, optim_cfg, state, mode, device,
-                                    pruned_range, frontend)
+                                    pruned_range, frontend, compute_dtype, remat)
     gen = torch.Generator().manual_seed(0)
+    torch.manual_seed(0)                    # dropout, on the host and the card
     out = []
     with contextlib.ExitStack() as stack:
         if plain:
             stack.enter_context(plain_versions())
         for hook in hooks:
             stack.enter_context(hook)
-        for _ in range(3):
+        for _ in range(steps):
             reset_counts()          # the main path: counts from 0, read after
             m = step(batch, gen)
             torch.cuda.synchronize()
@@ -3233,6 +3271,246 @@ def check_espnet(phase4, device, smi):
     return launches, summary
 
 
+def check_bf16_remat(cfg, state, batch, device, smi):
+    """Phase 14: ``--remat`` and ``--bf16`` training at flagship width on
+    phase 6's batch and weights.  (a) With and without remat: 3 banded steps
+    at the config's dropout, losses and raw gradient norms equal to the bit;
+    flash (whose backward sums in a varying order) its first step at that
+    dropout and 3 steps at dropout 0 within the atomics tolerance; the
+    forward kernel twice a layer; peak memory and step time both ways in
+    turns.  (b) 3 bf16 steps each of the
+    dense, banded and ``--banded --pruned-range 5`` models and the espnet
+    family's full loss, the kernels against the plain versions (both bf16),
+    beside the bf16-to-float32 distance of step 1; the launch counts;
+    ``--bf16 --flash`` refused; step time, device busy time and peak memory
+    against the float32 step in turns.  (c) ``apps/train.py --bf16 --remat
+    --nan-guard --steps-per-call 8`` for 2 epochs on the port's tone corpus,
+    then ``apps/predict.py`` on its checkpoint.  Returns (the main path's
+    launches, a summary)."""
+    import copy
+    import numpy as np
+    import torch
+    from transformer_transducer_tpu_torch.apps import predict as predict_app
+    from transformer_transducer_tpu_torch.apps import train as train_app
+    from transformer_transducer_tpu_torch.tools import tone_demo
+    from transformer_transducer_tpu_torch.utils.config import Config, dump_config
+    from transformer_transducer_tpu_torch.utils.convert import (
+        from_jax_params, random_jax_params)
+    bf16 = torch.bfloat16
+    n_layer = cfg.model.enc.n_layer
+    optim_cfg = Config({"type": "sgd", "lr": cfg.optim.lr, "momentum": 0.9})
+    launches = dict.fromkeys(read_counts(), 0)
+    summary = {"card": smi}
+    rel = lambda a, b: abs(a - b) / abs(b)
+
+    def add(counts):
+        for key, n in counts.items():
+            launches[key] += n
+
+    def timed(name, makers):
+        """Step time (medians in turns) and device busy time of the steps
+        ``makers`` build (name -> () -> step), then each one's peak memory
+        with only its own model on the card."""
+        out = {}
+        runs = {key: make() for key, make in makers.items()}
+        times = host_ms(runs)
+        busy = {key: device_busy_ms(run) for key, run in runs.items()}
+        del runs
+        for key, make in makers.items():
+            torch.cuda.empty_cache()
+            run = make()
+            run()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            run()
+            torch.cuda.synchronize()
+            out[key] = {"step_ms": statistics.median(times[key]),
+                        "quartiles_ms": statistics.quantiles(times[key], n=4)[::2],
+                        "device_busy_ms": busy[key],
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+            del run
+            log(f"  {name}, {key}: step {spread(times[key])}, device busy "
+                f"{busy[key]:.2f} ms, peak memory {out[key]['peak_gib']:.2f} GiB ({smi})")
+        torch.cuda.empty_cache()
+        return out
+
+    def stepper(mcfg, mstate, mode, mbatch, **kw):
+        """() -> a fresh trainee's step on ``mbatch``, SpecAugment seeded."""
+        def make():
+            step = make_trainee(mcfg, optim_cfg, mstate, mode, device, **kw)[2]
+            return functools.partial(step, mbatch, torch.Generator().manual_seed(0))
+        return make
+
+    # (a) --remat in float32, dropout on (the config's): banded 3 steps to
+    # the bit; flash step 1 within the atomics tolerance (its backward sums
+    # in a varying order, and at dropout 0.5 the clipped steps after it
+    # carry that spread chaotically), then 3 flash steps at dropout 0
+    model_cfg0 = copy.deepcopy(cfg.model)
+    model_cfg0.override("dropout", 0.0)
+    summary["remat"] = {}
+    for mode in ("banded", "flash"):
+        fwd, bwd = f"{mode}_fwd", f"{mode}_bwd"
+        runs = [(cfg.model, 3 if mode == "banded" else 1)]
+        if mode == "flash":
+            runs.append((model_cfg0, 3))
+        for mcfg, n_steps in runs:
+            plain = train_three_steps(mcfg, optim_cfg, state, mode, batch, device, False,
+                                      steps=n_steps)
+            remat = train_three_steps(mcfg, optim_cfg, state, mode, batch, device, False,
+                                      remat=True, steps=n_steps)
+            for i, ((l0, n0, c0), (l1, n1, c1)) in enumerate(zip(plain, remat)):
+                log(f"  --remat --{mode}, dropout {mcfg.dropout}, step {i + 1}: loss "
+                    f"{l1:.6f} / without {l0:.6f} (rel {rel(l1, l0):.2e}), grad norm "
+                    f"{n1:.5f} / {n0:.5f} (rel {rel(n1, n0):.2e}); launches {c1}")
+                require(c0[fwd] == n_layer and c1[fwd] == 2 * n_layer and c1[bwd] == n_layer
+                        and c1["alpha"] == c1["beta"] == 1,
+                        f"--remat --{mode} step {i + 1}: launches {c1} (without remat {c0})")
+                if mode == "banded":
+                    require(l1 == l0 and n1 == n0, f"--remat --banded step {i + 1}: loss or "
+                            f"gradient norm differs from the plain step's")
+                else:     # the flash backward's atomics: losses, and step 1's norm
+                    require(rel(l1, l0) <= LOSS_RTOL and (i or rel(n1, n0) <= NORM_RTOL),
+                            f"--remat --flash step {i + 1}: differs beyond the atomics "
+                            f"tolerance")
+                add(c1)
+        summary["remat"][mode] = {"losses": [r[0] for r in remat],
+                                  "plain_losses": [r[0] for r in plain],
+                                  **timed(f"--{mode} step B={B_TRAIN}", {
+                                      "without remat": stepper(cfg.model, state, mode, batch),
+                                      "remat": stepper(cfg.model, state, mode, batch,
+                                                       remat=True)})}
+
+    # (b) --bf16, dropout 0 for the comparisons
+    esp = load_config("configs", "espnet_aishell.yaml")
+    esp_cfg0 = copy.deepcopy(esp.model)
+    for blk in ("enc", "dec"):
+        for key in ("dropout_rate", "positional_dropout_rate", "attention_dropout_rate"):
+            esp_cfg0[blk][key] = 0.0
+    esp_state = from_jax_params(random_jax_params(esp.model, seed=0))
+    esp_batch, _ = training_batch(esp, device, seed=1)
+    cases = (("dense", model_cfg0, state, None, batch),
+             ("banded", model_cfg0, state, None, batch),
+             (f"banded, pruned {S_RANGE}", model_cfg0, state, S_RANGE, batch),
+             ("espnet, full loss", esp_cfg0, esp_state, None, esp_batch))
+    summary["bf16"] = {}
+    for name, mcfg, mstate, pruned, mbatch in cases:
+        mode = "banded" if name.startswith("banded") else "dense"
+        rs_kern, rs_plain = [], []
+        hooks_k = (band_starts(rs_kern),) if pruned else ()
+        kern = train_three_steps(mcfg, optim_cfg, mstate, mode, mbatch, device, False,
+                                 pruned, hooks=hooks_k, compute_dtype=bf16)
+        plain = train_three_steps(mcfg, optim_cfg, mstate, mode, mbatch, device, True, pruned,
+                                  hooks=(band_starts(rs_plain, force=rs_kern),) if pruned
+                                  else (), compute_dtype=bf16)
+        f32 = train_three_steps(mcfg, optim_cfg, mstate, mode, mbatch, device, False, pruned)
+        want = dict.fromkeys(launches, 0)
+        want.update(alpha=1, beta=1)
+        if mode == "banded":
+            want.update(banded_fwd=n_layer, banded_bwd=n_layer)
+        if pruned:
+            want.update(logz=1, band_alpha=1, band_beta=1)
+        for i, ((lk, nk, ck), (lp, norm_p, cp), (l32, n32, _)) in enumerate(
+                zip(kern, plain, f32)):
+            log(f"  --bf16 {name}, step {i + 1}: loss kernel {lk:.6f} / plain {lp:.6f} "
+                f"(rel {rel(lk, lp):.2e}), grad norm {nk:.5f} / {norm_p:.5f} (rel "
+                f"{rel(nk, norm_p):.2e}); bf16 against float32 (kernels both): loss "
+                f"{rel(lk, l32):.2e}, grad norm {rel(nk, n32):.2e}; launches {ck}")
+            require(ck == want, f"--bf16 {name} step {i + 1}: launches {ck}, want {want}")
+            require(not any(cp.values()), f"--bf16 {name} plain step launched {cp}")
+            require(np.isfinite([lk, nk]).all(), f"--bf16 {name} step {i + 1}: not finite")
+            add(ck)
+        (lk, nk, _), (lp, norm_p, _), (l32, n32, _) = kern[0], plain[0], f32[0]
+        log(f"  --bf16 {name}: step 1 kernel-vs-plain rel diff loss {rel(lk, lp):.2e}, grad "
+            f"norm {rel(nk, norm_p):.2e} (tolerances: loss {BF16_LOSS_RTOL}, norm "
+            f"{BF16_NORM_RTOL}, each under bf16 against float32: {rel(lk, l32):.2e}, "
+            f"{rel(nk, n32):.2e})")
+        require(rel(lk, lp) <= BF16_LOSS_RTOL,
+                f"--bf16 {name}: step 1 losses differ by {rel(lk, lp):.2e}")
+        require(rel(nk, norm_p) <= BF16_NORM_RTOL,
+                f"--bf16 {name}: step 1 grad norms differ by {rel(nk, norm_p):.2e}")
+        require(rel(lk, lp) < rel(lk, l32) and rel(nk, norm_p) < rel(nk, n32),
+                f"--bf16 {name}: the kernels move step 1 as far as bf16 does")
+        d_loss, d_norm = rel(lk, l32), rel(nk, n32)
+        summary["bf16"][name] = {"losses": [k[0] for k in kern],
+                                 "plain_losses": [p[0] for p in plain],
+                                 "grad_norms": [k[1] for k in kern],
+                                 "plain_grad_norms": [p[1] for p in plain],
+                                 "float32_losses": [f[0] for f in f32],
+                                 "float32_grad_norms": [f[1] for f in f32],
+                                 "rel_to_float32_step1": [d_loss, d_norm]}
+        if name in ("dense", "banded", "espnet, full loss"):
+            summary["bf16"][name].update(timed(f"--bf16 {name} step B={B_TRAIN}", {
+                "float32": stepper(mcfg, mstate, mode, mbatch),
+                "bf16": stepper(mcfg, mstate, mode, mbatch, compute_dtype=bf16)}))
+        torch.cuda.empty_cache()
+    model, _, step = make_trainee(model_cfg0, optim_cfg, state, "flash", device,
+                                  compute_dtype=bf16)
+    try:
+        step(batch, torch.Generator().manual_seed(0))
+        require(False, "a --bf16 --flash step ran")
+    except NotImplementedError as err:
+        log(f"  --bf16 --flash refused: {err}")
+    try:
+        train_app.main(["-config", os.path.join(HERE, "configs", "joint_streaming.yaml"),
+                        "--bf16", "--flash"])
+        require(False, "apps/train.py --bf16 --flash ran")
+    except NotImplementedError:
+        pass
+    del model, step
+    torch.cuda.empty_cache()
+
+    # (c) the CLI on the port's tone corpus (the small geometry), then predict
+    with tempfile.TemporaryDirectory() as tmp:
+        vocab, csvs = tone_demo._write_corpus(os.path.join(tmp, "tone"), 128, 16, seed=0)
+        cfg_path = os.path.join(tmp, "config.yaml")
+        dump_config(tone_demo._config(vocab, csvs, "small"), cfg_path)
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            reset_counts()
+            start = time.perf_counter()
+            trainer = train_app.main(["-config", cfg_path, "--bf16", "--remat", "--nan-guard",
+                                      "--steps-per-call", "8", "--epochs", "2"])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - start
+            cli_counts = read_counts()
+        finally:
+            os.chdir(cwd)
+        exp = os.path.join(tmp, trainer.exp_dir)
+        with open(os.path.join(exp, "metrics.jsonl"), encoding="utf-8") as fh:
+            rows = list(map(json.loads, fh))
+        cers = [r["value"] for r in rows if r["tag"] == "cer"]
+        losses = [r["value"] for r in rows if r["tag"] == "train_loss"]
+        log(f"  apps/train.py --bf16 --remat --nan-guard --steps-per-call 8: 2 epochs of the "
+            f"tone corpus (128 / 16, d 64) in {cli_s:.1f} s ({smi}), {trainer.global_step} "
+            f"steps, {trainer.total_skips} skipped, first / last train loss {losses[0]:.3f} / "
+            f"{losses[-1]:.3f}, CER {cers}, launches {cli_counts}")
+        require(trainer.global_step == 16 and trainer.total_skips == 0 and len(cers) == 2
+                and np.isfinite(cers + losses).all(), "the bf16 CLI run failed")
+        # 16 steps, and the evaluation's loss once an epoch (one dev batch,
+        # forward only: an alpha sweep)
+        require(cli_counts["alpha"] == 18 and cli_counts["beta"] == 16,
+                f"the bf16 CLI did not run the lattice kernels once a step: {cli_counts}")
+        state_ckpt = torch.load(os.path.join(exp, "epoch_1", "model.pt"), map_location="cpu")
+        require(all(v.dtype == torch.float32 for comp in ("encoder", "decoder", "joint")
+                    for v in state_ckpt[comp].values() if v.is_floating_point()),
+                "the bf16 run's checkpoint is not float32")
+        with open(csvs["dev"], encoding="utf-8") as fh:
+            wav = fh.read().splitlines()[1].split(",")[0]
+        reset_counts()
+        text = predict_app.main(["--config", cfg_path, "--checkpoint",
+                                 os.path.join(exp, "epoch_1"), "--wav", wav])
+        torch.cuda.synchronize()
+        pred_counts = read_counts()
+        log(f"  apps/predict.py on its epoch_1: {text!r}; launches {pred_counts}")
+        require(pred_counts["banded_fwd"] == 2, f"predict launches {pred_counts}")
+        add(cli_counts)
+        add(pred_counts)
+        summary["cli"] = {"seconds": cli_s, "cer": cers, "first_loss": losses[0],
+                          "last_loss": losses[-1], "launches": cli_counts}
+    return launches, summary
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4061,6 +4339,22 @@ def main() -> int:
         rec["launches"] += rec["phase13_launches"]
     log(f"  phase 13: {espnet['phase_s']:.1f} s")
     log(json.dumps({"espnet": espnet}))
+
+    log(f"[{time.perf_counter() - run_start:.1f} s] phase 14")
+    # ---- 14. --remat and --bf16 training at flagship width
+    start = time.perf_counter()
+    torch.cuda.empty_cache()
+    bf16_launches, slice_6b = check_bf16_remat(cfg, state, batch, device, smi)
+    slice_6b["phase_s"] = time.perf_counter() - start
+    for rec in records:
+        key = {"banded_attention_fwd": "banded_fwd", "flash_rel_attention_fwd": "flash_fwd",
+               "banded_attention_bwd": "banded_bwd", "flash_rel_attention_bwd": "flash_bwd",
+               "rnnt_alpha": "alpha", "rnnt_beta": "beta", "additive_logz": "logz",
+               "band_alpha": "band_alpha", "band_beta": "band_beta"}[rec["name"]]
+        rec["phase14_launches"] = bf16_launches.get(key, 0)
+        rec["launches"] += rec["phase14_launches"]
+    log(f"  phase 14: {slice_6b['phase_s']:.1f} s")
+    log(json.dumps({"slice_6b": slice_6b}))
 
     log(f"[{time.perf_counter() - run_start:.1f} s] all phases passed")
     log(json.dumps({"kernels": records}))

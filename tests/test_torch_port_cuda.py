@@ -15,8 +15,10 @@ card against the same sessions through the plain version, the batched
 session on the card against solo sessions, the int8 product
 (``torch._int_mm``, padded) exact at V = 6485, ``QuantLinear`` on the card
 against the CPU, the width-5 beam search, float and int8, against the
-plain path, and the espnet family's serving paths (no kernel launches) and
-its loss (the lattice, logZ and band kernels) against the CPU.
+plain path, the espnet family's serving paths (no kernel launches) and
+its loss (the lattice, logZ and band kernels) against the CPU, a bf16
+banded step through the kernels against the plain versions, and remat
+gradients against plain ones.
 
 A CUDA kernel has no CPU mode, so every test here needs an NVIDIA card and
 skips without one.  On a machine with a card:
@@ -1057,3 +1059,84 @@ def test_espnet_sessions_on_the_card_match_the_cpu(gen, incremental):
     got = run(model, "cuda")
     assert _launches() == before
     assert any(got[0]) and got[0] == got[1] and got == run(cpu, "cpu")
+
+
+def _bf16_trainee(gen, kind, remat=False, compute_dtype=torch.bfloat16, dropout=0.0):
+    """A 2-layer model (d 128, 2 heads x 64) on the card with random weights,
+    and a batch; ``kind`` banded or flash."""
+    layer = {"n_layer": 2, "n_head": 2, "d_model": 128, "d_head": DH, "d_inner": 256}
+    cfg = Config({"enc": dict(layer, max_input_length=K_LEN, left_context=10,
+                              right_context=2),
+                  "dec": dict(layer, max_target_length=12),
+                  "joint": {"inner_size": 96}, "vocab_size": 40, "dropout": dropout})
+    model = build_transducer(cfg, device="cuda", banded=kind == "banded",
+                             flash=kind == "flash", remat=remat, compute_dtype=compute_dtype)
+    model.load_state_dict(from_jax_params(random_jax_params(cfg, seed=3)))
+    g = torch.Generator(device="cuda").manual_seed(5)
+    batch = {"inputs": torch.randn(B, 70, 128, generator=g, device="cuda"),
+             "inputs_length": torch.tensor([70, 51], device="cuda"),
+             "targets": torch.randint(1, 40, (B, 6), generator=g, device="cuda"),
+             "targets_length": torch.tensor([6, 4], device="cuda")}
+    return model.train(), batch
+
+
+def _step_grads(model, batch, seed=0):
+    from transformer_transducer_tpu_torch.training.train_step import (
+        TrainStepConfig, make_loss_fn)
+    for p in model.parameters():
+        p.grad = None
+    torch.manual_seed(seed)
+    loss = make_loss_fn(model, TrainStepConfig(specaug=False))(batch, None)
+    loss.backward()
+    torch.cuda.synchronize()
+    return loss.detach(), {n: p.grad.clone() for n, p in model.named_parameters()}
+
+
+def test_bf16_banded_step_through_the_kernels_matches_the_plain_versions(gen):
+    """A ``--bf16 --banded`` step: the banded forward and backward (6, 7)
+    and the lattice sweeps (1, 2) launch once a layer / once a step on
+    float32 operands, and the loss and every gradient equal the plain
+    versions' on the card within bf16 steps (the loss 1e-3 relative, each
+    gradient 2.5e-2 of its largest magnitude: a float32 difference in the
+    kernel's output may move a bf16 rounding)."""
+    from chip_smoke import plain_versions
+    model, batch = _bf16_trainee(gen, "banded")
+    before = _launches()
+    loss, grads = _step_grads(model, batch)
+    after = _launches()
+    assert {k: after[k] - before[k] for k in after} == {
+        "banded": 2, "flash": 0, "alpha": 1, "beta": 1, "logz": 0, "band_alpha": 0,
+        "band_beta": 0}
+    assert banded_attention_backward.launches > 0
+    with plain_versions():
+        ref_loss, ref = _step_grads(model, batch)
+    assert _launches() == after
+    torch.testing.assert_close(loss, ref_loss, atol=0, rtol=1e-3)
+    for name, g in grads.items():
+        assert torch.isfinite(g).all(), name
+        torch.testing.assert_close(g, ref[name], rtol=0,
+                                   atol=2.5e-2 * ref[name].abs().max().item(), msg=name)
+
+
+@pytest.mark.parametrize("kind", ["banded", "flash"])
+def test_remat_gradients_equal_plain_gradients_on_the_card(gen, kind):
+    """``--remat`` with dropout on, the card's generators seeded alike: the
+    forward kernel launches twice a layer (once more in the backward), the
+    backward once, and the gradients equal the plain step's (to the bit for
+    the banded kernels; within the flash backward's atomics tolerance)."""
+    model, batch = _bf16_trainee(gen, kind, compute_dtype=torch.float32, dropout=0.1)
+    remat, _ = _bf16_trainee(gen, kind, remat=True, compute_dtype=torch.float32, dropout=0.1)
+    fwd = banded_attention if kind == "banded" else flash_rel_attention
+    bwd = banded_attention_backward if kind == "banded" else flash_rel_attention_backward
+    loss_a, plain = _step_grads(model, batch)
+    f0, b0 = fwd.launches, bwd.launches
+    loss_b, got = _step_grads(remat, batch)
+    assert (fwd.launches - f0, bwd.launches - b0) == (4, 2)
+    if kind == "banded":
+        assert torch.equal(loss_a, loss_b)
+        for name, g in plain.items():
+            assert torch.equal(g, got[name]), name
+    else:
+        torch.testing.assert_close(loss_a, loss_b, **TOL)
+        for name, g in plain.items():
+            _grad_close(got[name], g, name)

@@ -138,3 +138,15 @@ def test_espnet_modules_are_scanned_and_their_entry_points_raise_without_cuda(mo
                                                 seed_token=39))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_esptt.main(["-config", os.path.join(ROOT, "configs", "espnet_aishell.yaml")])
+
+
+def test_tone_corpus_writer_is_scanned_and_bf16_training_raises_without_cuda(monkeypatch):
+    """The port's ``tools/tone_demo.py`` (the corpus of the learning runs) is
+    among the modules scanned above, and ``--bf16`` / ``--remat`` training
+    takes the card unless asked for the CPU, as the float training does."""
+    from transformer_transducer_tpu_torch.apps import train
+    assert "transformer_transducer_tpu_torch.tools.tone_demo" in set(_modules())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["-config", os.path.join(ROOT, "configs", "joint_streaming.yaml"),
+                    "--bf16", "--remat"])

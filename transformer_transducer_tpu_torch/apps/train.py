@@ -4,7 +4,7 @@
     python -m transformer_transducer_tpu_torch.apps.train \\
         -config configs/joint_streaming.yaml -log train.log \\
         -mode retrain|continue [--flash | --banded] [--pruned-range N]
-        [--augment] [--device cpu]
+        [--bf16] [--remat] [--augment] [--device cpu]
 
 ``--flash`` trains the unmasked encoder through the flash rel-attention
 kernels (forward and backward), ``--banded`` under the streaming band
@@ -12,6 +12,11 @@ through the banded kernels; with neither, the dense attention path.  The
 RNN-T lattice sweeps run on their kernels in every mode.  ``--pruned-range
 N`` trains the pruned loss (the joint on a width-N label band, with the
 logZ and band-sweep kernels); it combines with either attention mode.
+``--bf16`` trains with bfloat16 compute over float32 parameters (the model,
+both losses and the evaluation cast where the JAX package casts; the
+kernels of the banded and dense paths take float32, as JAX feeds them);
+``--bf16 --flash`` needs the bf16 flash kernels of a later slice and
+raises.  ``--remat`` recomputes each encoder layer in the backward.
 ``--augment`` runs the waveform augmentation chain (``ops/augment.py``) on
 the training set; ``--set data.on_device_features=true`` ships raw waves
 and runs the log-mel on the card.  ``-mode continue`` also resumes from the
@@ -32,8 +37,6 @@ import argparse
 
 # flags of the JAX entry point whose paths come in later slices of the port
 _LATER = {
-    "bf16": "bfloat16 training (--bf16)",
-    "remat": "encoder rematerialisation (--remat)",
     "n_model": "tensor parallelism (--n_model)",
     "n_data": "data parallelism (--n_data)",
     "n_pipe": "pipeline parallelism (--n_pipe)",
@@ -72,8 +75,11 @@ def parse_args(argv=None):
                     help="torch device (default cuda; pass cpu to run there)")
     ap.add_argument("--augment", action="store_true",
                     help="waveform augmentation chain on the training set")
-    for flag in ("--bf16", "--remat", "--zero"):
-        ap.add_argument(flag, action="store_true", default=None)
+    ap.add_argument("--bf16", action="store_true",
+                    help="bfloat16 compute (parameters stay float32)")
+    ap.add_argument("--remat", action="store_true",
+                    help="recompute the encoder layers in the backward")
+    ap.add_argument("--zero", action="store_true", default=None)
     ap.add_argument("--pruned-range", type=int, default=None, metavar="N",
                     help="pruned transducer loss with a width-N label band "
                     "(same as --set training.loss_pruned_range=N)")
@@ -91,6 +97,11 @@ def main(argv=None):
                                       "the PyTorch port")
     if args.flash and args.banded:
         raise ValueError("pass --flash or --banded, not both")
+    if args.bf16 and args.flash:
+        raise NotImplementedError(
+            "--bf16 --flash needs the bf16 forms of the flash attention kernels "
+            "(8 and 9), which are ported in a later slice of the PyTorch port "
+            "(6b-ii, the next one); use --bf16 with --banded or the dense path")
 
     from transformer_transducer_tpu_torch.training.trainer import Trainer
     from transformer_transducer_tpu_torch.utils.config import (
@@ -107,8 +118,11 @@ def main(argv=None):
     if args.nan_guard:
         cfg.override("training.nan_guard", True)
 
+    import torch
     trainer = Trainer(cfg, mode=args.mode, log_file=args.log, flash=args.flash,
-                      banded=args.banded, device=args.device)
+                      banded=args.banded, device=args.device,
+                      compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
+                      remat=args.remat)
     trainer.logger.info("device: %s", trainer.device)
     trainer.fit(epochs=args.epochs, augment=args.augment)
     return trainer

@@ -4,10 +4,12 @@
 
     python -m transformer_transducer_tpu_torch.apps.train_esptt \\
         [-config configs/espnet_aishell.yaml] [-mode retrain|continue] \\
-        [--pruned-range N] [--device cpu] ...
+        [--pruned-range N] [--bf16] [--device cpu] ...
 
 The loop of ``apps/train.py``: the trainer picks the model family from the
-config (a ``model.mask`` block is the espnet family).  Without a
+config (a ``model.mask`` block is the espnet family); ``--bf16`` trains it
+with bfloat16 compute over float32 parameters, and ``--remat`` does not
+apply to it (logged), as in the JAX trainer.  Without a
 ``-config``/``--config`` argument it trains ``configs/espnet_aishell.yaml``.
 """
 

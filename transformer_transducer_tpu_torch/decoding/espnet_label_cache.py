@@ -87,5 +87,7 @@ def step(decoder, tokens: torch.Tensor, cache: Dict, update_mask: torch.Tensor,
         prob = torch.softmax(score, dim=-1)
         vec = torch.einsum("bhj,bjhd->bhd", prob, v_cache).reshape(b, h * dk)
         x = x + attn.linear_out(vec)
-        x = x + layer.feed_forward(layer.norm2(x))
+        # float32 whatever the model's compute dtype (JAX's cache reads the
+        # weights and ignores it)
+        x = x + layer.feed_forward(layer.norm2(x), torch.float32)
     return decoder.after_norm(x), new_cache

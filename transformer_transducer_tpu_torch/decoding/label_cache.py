@@ -79,6 +79,8 @@ def step(decoder, tokens: torch.Tensor, cache: Dict,
         prob = torch.softmax(score, dim=-1)
         vec = torch.einsum("bhj,bjhd->bhd", prob, v_cache).reshape(b, h * dh)
         x = attn.layer_norm(x + attn.o_net(vec))
-        x = layer.MultiHeadAttention.pos_ff(x)
+        # float32 whatever the model's compute dtype (JAX's cache reads the
+        # weights and ignores it)
+        x = layer.MultiHeadAttention.pos_ff(x, torch.float32)
 
     return x, new_cache

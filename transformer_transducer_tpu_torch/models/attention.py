@@ -19,6 +19,15 @@ Layout: batch-major ``(B, T, D)``; scores ``(B, H, q, k)``.  The attention
 has three branches, as in the JAX module: the dense einsum path (any mask),
 the banded kernel (``band=(left, right)``) and the full-context flash
 kernel (``flash=True`` with no mask); see ``ops/cuda/``.
+
+``compute_dtype=torch.bfloat16`` (``--bf16``) computes over float32
+parameters with the JAX module's rounding points, by explicit casts
+(``ops/precision.py``): each projection is a bf16 product followed by a
+separate bf16 bias add, the scores and the einsums run in bf16, the softmax
+in float32 cast back, and the residual stream and the LayerNorms stay
+float32.  The banded kernel takes float32
+(JAX casts its operands up); the flash kernels' bf16 forms are not ported
+yet, so the flash branch refuses bf16.
 """
 
 from __future__ import annotations
@@ -28,7 +37,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-NEG_INF = torch.finfo(torch.float32).min
+from transformer_transducer_tpu_torch.ops.precision import (
+    NEG_INF, dense, neg_inf, scalar, to_compute, widen)
 
 
 def rel_shift(x: torch.Tensor) -> torch.Tensor:
@@ -62,7 +72,7 @@ def rel_attention_scores(q: torch.Tensor, k: torch.Tensor, r_emb: torch.Tensor,
     b_ = torch.einsum("bind,jnd->bnij", q, r_emb)
     d_ = r_bias.t()[None, :, None, :]
     bd = rel_shift(b_ + d_)
-    return (ac + bd) * (1.0 / dh ** 0.5)
+    return (ac + bd) * scalar(1.0 / dh ** 0.5, bd.dtype)
 
 
 def rel_attention_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -74,12 +84,13 @@ def rel_attention_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v: (B, T, H, Dh); tables sliced to T rows; ``attn_mask`` (T, T) or
     (B, T, T) bool, True == masked.  Returns (B, T, H, Dh) (pre
     out-projection).  It is also the plain version of both attention kernels.
+    In the inputs' dtype; the softmax runs in float32 and is cast back.
     """
     score = rel_attention_scores(q, k, r_emb, r_w_bias, r_bias)
     if attn_mask is not None:
         mask = attn_mask[None, None] if attn_mask.dim() == 2 else attn_mask[:, None]
-        score = score.masked_fill(mask, NEG_INF)
-    prob = torch.softmax(score, dim=-1)
+        score = score.masked_fill(mask, neg_inf(score.dtype))
+    prob = torch.softmax(widen(score), dim=-1).to(score.dtype)
     return torch.einsum("bnij,bjnd->bind", prob, v)
 
 
@@ -88,9 +99,11 @@ class RelLearnableSelfAttention(nn.Module):
     (the tables are owned by :class:`TransformerXLLayer`)."""
 
     def __init__(self, n_head: int, d_model: int, d_head: int,
-                 dropout: float = 0.0, flash: bool = False):
+                 dropout: float = 0.0, flash: bool = False,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_head, self.d_head, self.flash = n_head, d_head, flash
+        self.compute_dtype = compute_dtype
         self.qkv_net = nn.Linear(d_model, 3 * n_head * d_head, bias=False)
         self.o_net = nn.Linear(n_head * d_head, d_model, bias=False)
         self.layer_norm = nn.LayerNorm(d_model, eps=1e-5)
@@ -102,25 +115,37 @@ class RelLearnableSelfAttention(nn.Module):
                 band: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         b, t, _ = x.shape
         h, dh = self.n_head, self.d_head
+        cd = self.compute_dtype
         # q, k, v stay strided views of the fused projection (row stride
         # 3*H*Dh); the kernels read them in place
-        q, k, v = self.qkv_net(x).view(b, t, 3, h, dh).unbind(2)
-        r_emb = slice_pos_table(r_emb, t)
-        r_bias = slice_pos_table(r_bias, t)
+        q, k, v = dense(self.qkv_net, x, cd).view(b, t, 3, h, dh).unbind(2)
+        # the tables in the compute dtype (bf16-rounded under bf16, as JAX's
+        # casts round them); r_w_bias is cast where each branch uses it
+        r_emb = to_compute(slice_pos_table(r_emb, t), cd)
+        r_bias = to_compute(slice_pos_table(r_bias, t), cd)
 
         if band is None and attn_mask is None and self.flash:
+            if cd != torch.float32:
+                raise NotImplementedError(
+                    "bf16 flash attention (the bf16 forms of the flash forward "
+                    "and backward kernels, 8 and 9) is ported in a later slice "
+                    "of the PyTorch port (6b-ii, the next one); compute in bf16 "
+                    "with the band or the dense path")
             from transformer_transducer_tpu_torch.ops.cuda.flash_rel_attention import (
                 flash_rel_attention)
             vec = flash_rel_attention(q, k, v, r_emb, r_w_bias, r_bias)
         elif band is not None:
+            # float32 operands, as JAX casts them up before its banded kernel
+            # (under float32 the strided views go in as they are)
             from transformer_transducer_tpu_torch.ops.cuda.banded_attention import (
                 banded_attention)
-            vec = banded_attention(q, k, v, r_emb, r_w_bias, r_bias,
-                                   int(band[0]), int(band[1]))
+            vec = banded_attention(widen(q), widen(k), widen(v), widen(r_emb),
+                                   r_w_bias, widen(r_bias), int(band[0]), int(band[1]))
         else:
-            vec = rel_attention_dense(q, k, v, r_emb, r_w_bias, r_bias, attn_mask)
+            vec = rel_attention_dense(q, k, v, r_emb, to_compute(r_w_bias, cd), r_bias,
+                                      attn_mask)
 
-        out = self.drop(self.o_net(vec.reshape(b, t, h * dh)))
+        out = self.drop(dense(self.o_net, vec.reshape(b, t, h * dh), cd))
         return self.layer_norm(x + out)
 
 
@@ -129,15 +154,23 @@ class PositionwiseFF(nn.Module):
     (``CoreNet`` indices follow the reference: Linear, ReLU, Dropout,
     Linear, Dropout)."""
 
-    def __init__(self, d_model: int, d_inner: int, dropout: float = 0.0):
+    def __init__(self, d_model: int, d_inner: int, dropout: float = 0.0,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.CoreNet = nn.Sequential(
             nn.Linear(d_model, d_inner), nn.ReLU(), nn.Dropout(dropout),
             nn.Linear(d_inner, d_model), nn.Dropout(dropout))
         self.layer_norm = nn.LayerNorm(d_model, eps=1e-5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.layer_norm(x + self.CoreNet(self.layer_norm(x)))
+    def forward(self, x: torch.Tensor,
+                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """``compute_dtype`` overrides the module's (the label cache runs
+        float32)."""
+        cd = compute_dtype or self.compute_dtype
+        fc1, relu, drop1, fc2, drop2 = self.CoreNet
+        h = drop2(dense(fc2, drop1(relu(dense(fc1, self.layer_norm(x), cd))), cd))
+        return self.layer_norm(x + widen(h))
 
 
 class RelLearnableDecoderLayer(nn.Module):
@@ -145,11 +178,12 @@ class RelLearnableDecoderLayer(nn.Module):
     ``tt/transformer.py:181-197``)."""
 
     def __init__(self, n_head: int, d_model: int, d_head: int, d_inner: int,
-                 dropout: float = 0.0, flash: bool = False):
+                 dropout: float = 0.0, flash: bool = False,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dec_attn = RelLearnableSelfAttention(n_head, d_model, d_head,
-                                                  dropout, flash)
-        self.pos_ff = PositionwiseFF(d_model, d_inner, dropout)
+                                                  dropout, flash, compute_dtype)
+        self.pos_ff = PositionwiseFF(d_model, d_inner, dropout, compute_dtype)
 
 
 class TransformerXLLayer(nn.Module):
@@ -157,13 +191,14 @@ class TransformerXLLayer(nn.Module):
     owning its ``k_len``-row position tables (``tt/encoder.py:7-29``)."""
 
     def __init__(self, k_len: int, n_head: int, d_model: int, d_head: int,
-                 d_inner: int, dropout: float = 0.0, flash: bool = False):
+                 d_inner: int, dropout: float = 0.0, flash: bool = False,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.r_emb = nn.Parameter(torch.randn(k_len, n_head, d_head))
         self.r_w_bias = nn.Parameter(torch.randn(n_head, d_head))
         self.r_bias = nn.Parameter(torch.randn(k_len, n_head))
         self.MultiHeadAttention = RelLearnableDecoderLayer(
-            n_head, d_model, d_head, d_inner, dropout, flash)
+            n_head, d_model, d_head, d_inner, dropout, flash, compute_dtype)
         self.drop = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None,

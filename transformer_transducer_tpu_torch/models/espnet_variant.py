@@ -20,8 +20,16 @@ author-modified ESPnet pieces:
   ``decoder_left_mask`` / right 0.
 
 Masks are True == masked, as in the rest of the port.  A masked score takes
-``finfo(float32).min`` (not -inf) and the masked cells are set back to 0
-after the softmax, so a fully masked padded row attends to nothing.
+``finfo(float32).min`` (-inf under bf16, as JAX rounds it) and the masked
+cells are set back to 0 after the softmax, so a fully masked padded row
+attends to nothing.
+
+``compute_dtype=torch.bfloat16`` casts where the JAX module casts: the
+attention's and the feed-forward's projections, the biases ``pos_bias_u``
+/ ``pos_bias_v``, the scores and the joint run in bf16 (each projection a
+bf16 product and a separate bf16 bias add, ``ops/precision.py``),
+the softmax in float32; the input layers, the residual stream and the
+LayerNorms stay float32.
 
 The modules are plain tensor code: the JAX module has no Pallas kernel, so
 nothing here launches one.  Their ``state_dict`` keys are upstream espnet's
@@ -46,10 +54,10 @@ from transformer_transducer_tpu_torch.models.attention import rel_shift
 from transformer_transducer_tpu_torch.ops.activations import ACTIVATIONS
 from transformer_transducer_tpu_torch.ops.masks import (
     combine_masks, context_mask, padding_mask)
+from transformer_transducer_tpu_torch.ops.precision import (
+    NEG_INF, dense, neg_inf, scalar, to_compute, widen)
 from transformer_transducer_tpu_torch.ops.quant import QuantLinear, dense_kernel
 from transformer_transducer_tpu_torch.utils.device import resolve_device
-
-NEG_INF = torch.finfo(torch.float32).min
 
 # (kernel, stride) of each VALID Conv2d of the subsampling stacks (espnet
 # ``subsampling.py``: Conv2dSubsampling 1/4, Conv2dSubsampling6 1/6,
@@ -92,9 +100,11 @@ def rel_shift_signed(x: torch.Tensor) -> torch.Tensor:
 
 
 class RelPosMultiHeadAttention(nn.Module):
-    def __init__(self, n_head: int, d_model: int, dropout: float = 0.0):
+    def __init__(self, n_head: int, d_model: int, dropout: float = 0.0,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.h, self.d_k = n_head, d_model // n_head
+        self.compute_dtype = compute_dtype
         self.linear_q = nn.Linear(d_model, d_model)
         self.linear_k = nn.Linear(d_model, d_model)
         self.linear_v = nn.Linear(d_model, d_model)
@@ -111,42 +121,56 @@ class RelPosMultiHeadAttention(nn.Module):
         """x (B, t, D), pos_emb (2t-1, D), attn_mask (t, t) or (B|1, t, t)."""
         b, t, _ = x.shape
         h, dk = self.h, self.d_k
-        q = self.linear_q(x).view(b, t, h, dk)
-        k = self.linear_k(x).view(b, t, h, dk)
-        v = self.linear_v(x).view(b, t, h, dk)
-        p = self.linear_pos(pos_emb).view(-1, h, dk)
-        ac = torch.einsum("bind,bjnd->bnij", q + self.pos_bias_u, k)
-        bd = torch.einsum("bind,jnd->bnij", q + self.pos_bias_v, p)   # (B,H,t,2t-1)
-        scores = (ac + rel_shift_signed(bd)) / math.sqrt(dk)
+        cd = self.compute_dtype
+        x = to_compute(x, cd)   # once: JAX sums the three products' gradients in cd
+        q = dense(self.linear_q, x, cd).view(b, t, h, dk)
+        k = dense(self.linear_k, x, cd).view(b, t, h, dk)
+        v = dense(self.linear_v, x, cd).view(b, t, h, dk)
+        p = dense(self.linear_pos, pos_emb, cd).view(-1, h, dk)
+        ac = torch.einsum("bind,bjnd->bnij", q + to_compute(self.pos_bias_u, cd), k)
+        bd = torch.einsum("bind,jnd->bnij", q + to_compute(self.pos_bias_v, cd), p)
+        scores = ac + rel_shift_signed(bd)                    # bd: (B,H,t,2t-1)
+        # divided as JAX divides a bf16 tensor: by the bf16-rounded
+        # constant, in float32, rounded once (torch would multiply a bf16
+        # tensor by a float32 reciprocal)
+        scores = (widen(scores) / scalar(math.sqrt(dk), scores.dtype)).to(scores.dtype)
         if attn_mask is not None:
             m = attn_mask[None, None] if attn_mask.dim() == 2 else attn_mask[:, None]
-            scores = scores.masked_fill(m, NEG_INF)
-        probs = torch.softmax(scores, dim=-1)
+            scores = scores.masked_fill(m, neg_inf(scores.dtype))
+        probs = torch.softmax(widen(scores), dim=-1)
         if attn_mask is not None:
             probs = probs.masked_fill(m, 0.0)       # espnet re-zeroes masked cells
-        out = torch.einsum("bnij,bjnd->bind", self.dropout(probs), v)
-        return self.linear_out(out.reshape(b, t, h * dk))
+        out = torch.einsum("bnij,bjnd->bind", self.dropout(probs.to(scores.dtype)), v)
+        return widen(dense(self.linear_out, out.reshape(b, t, h * dk), cd))
 
 
 class EspnetFeedForward(nn.Module):
-    def __init__(self, d_model: int, d_inner: int, dropout: float = 0.0):
+    def __init__(self, d_model: int, d_inner: int, dropout: float = 0.0,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.w_1 = nn.Linear(d_model, d_inner)
         self.w_2 = nn.Linear(d_inner, d_model)
         self.dropout = nn.Dropout(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.w_2(self.dropout(torch.relu(self.w_1(x))))
+    def forward(self, x: torch.Tensor,
+                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """``compute_dtype`` overrides the module's (the label cache runs
+        float32)."""
+        cd = compute_dtype or self.compute_dtype
+        return widen(dense(self.w_2, self.dropout(torch.relu(dense(self.w_1, x, cd))), cd))
 
 
 class EspnetEncoderLayer(nn.Module):
     """Pre-LN layer: x + drop(attn(LN(x))), then x + drop(ff(LN(x)))."""
 
     def __init__(self, n_head: int, d_model: int, d_inner: int,
-                 dropout: float = 0.0, attn_dropout: float = 0.0):
+                 dropout: float = 0.0, attn_dropout: float = 0.0,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.self_attn = RelPosMultiHeadAttention(n_head, d_model, attn_dropout)
-        self.feed_forward = EspnetFeedForward(d_model, d_inner, dropout)
+        self.self_attn = RelPosMultiHeadAttention(n_head, d_model, attn_dropout,
+                                                  compute_dtype)
+        self.feed_forward = EspnetFeedForward(d_model, d_inner, dropout, compute_dtype)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
         self.dropout = nn.Dropout(dropout)
@@ -209,7 +233,8 @@ class EspnetTransformerEncoder(nn.Module):
                  attention_dropout_rate: float = 0.0,
                  input_layer: Optional[str] = None,
                  input_size: Optional[int] = None,
-                 padding_idx: Optional[int] = None):
+                 padding_idx: Optional[int] = None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.output_size = output_size
         self.input_layer = input_layer
@@ -229,7 +254,7 @@ class EspnetTransformerEncoder(nn.Module):
         self.pos_drop_emb = nn.Dropout(positional_dropout_rate)
         self.encoders = nn.ModuleList([
             EspnetEncoderLayer(attention_heads, output_size, linear_units,
-                               dropout_rate, attention_dropout_rate)
+                               dropout_rate, attention_dropout_rate, compute_dtype)
             for _ in range(num_blocks)])
         self.after_norm = nn.LayerNorm(output_size, eps=1e-5)
 
@@ -283,12 +308,15 @@ class AdditiveJointNetwork(nn.Module):
     The first layer is a sum of the two halves, each its own projection,
     so a decoder that holds one side fixed applies that side once; an
     int8 joint (each half W8A8 with its own activation scales, as in the
-    JAX model) splits the same way."""
+    JAX model) splits the same way; so does a bf16 one (the halves and
+    their sum rounded to bf16, as in the JAX model)."""
 
     def __init__(self, enc_dim: int, dec_dim: int, joint_space_size: int,
-                 vocab_size: int, activation: str = "tanh"):
+                 vocab_size: int, activation: str = "tanh",
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.activation = activation
+        self.compute_dtype = compute_dtype
         self.lin_enc = nn.Linear(enc_dim, joint_space_size)
         self.lin_dec = nn.Linear(dec_dim, joint_space_size, bias=False)
         self.lin_out = nn.Linear(joint_space_size, vocab_size)
@@ -298,16 +326,17 @@ class AdditiveJointNetwork(nn.Module):
         return isinstance(self.lin_out, QuantLinear)
 
     def project_enc(self, enc_state: torch.Tensor) -> torch.Tensor:
-        return self.lin_enc(enc_state)
+        return dense(self.lin_enc, enc_state, self.compute_dtype)
 
     def project_dec(self, dec_state: torch.Tensor) -> torch.Tensor:
-        return self.lin_dec(dec_state)
+        return dense(self.lin_dec, dec_state, self.compute_dtype)
 
     def first_layer(self, enc_half: torch.Tensor, dec_half: torch.Tensor) -> torch.Tensor:
         return enc_half + dec_half
 
     def logits_from(self, pre: torch.Tensor) -> torch.Tensor:
-        return self.lin_out(ACTIVATIONS[self.activation](pre))
+        return widen(dense(self.lin_out, ACTIVATIONS[self.activation](pre),
+                           self.compute_dtype))
 
     def forward(self, enc: torch.Tensor, dec: torch.Tensor) -> torch.Tensor:
         he, hd = self.project_enc(enc), self.project_dec(dec)
@@ -329,19 +358,23 @@ class EspnetTransducer(nn.Module):
     def __init__(self, vocab_size: int, enc_kwargs: dict, dec_kwargs: dict,
                  joint_space_size: int, joint_activation: str = "tanh",
                  encoder_left_mask: int = 10, encoder_right_mask: int = 2,
-                 decoder_left_mask: int = 2):
+                 decoder_left_mask: int = 2,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.vocab_size = vocab_size
+        self.compute_dtype = compute_dtype
         self.joint_activation = joint_activation
         self.encoder_left_mask = encoder_left_mask
         self.encoder_right_mask = encoder_right_mask
         self.decoder_left_mask = decoder_left_mask
-        self.encoder = EspnetTransformerEncoder(**enc_kwargs)
-        self.decoder = EspnetTransformerEncoder(**dec_kwargs)
+        self.encoder = EspnetTransformerEncoder(**enc_kwargs,
+                                                compute_dtype=compute_dtype)
+        self.decoder = EspnetTransformerEncoder(**dec_kwargs,
+                                                compute_dtype=compute_dtype)
         self.joint = AdditiveJointNetwork(enc_kwargs["output_size"],
                                           dec_kwargs["output_size"],
                                           joint_space_size, vocab_size,
-                                          joint_activation)
+                                          joint_activation, compute_dtype)
 
     @property
     def sos(self) -> int:
@@ -443,10 +476,13 @@ def is_espnet_config(model_cfg) -> bool:
     return model_cfg.mask is not None
 
 
-def build_espnet_transducer(model_cfg, device=None) -> EspnetTransducer:
+def build_espnet_transducer(model_cfg, device=None,
+                            compute_dtype: torch.dtype = torch.float32
+                            ) -> EspnetTransducer:
     """An :class:`EspnetTransducer` from a reference-schema
     ``config/espnet_aishell.yaml`` model block, in eval mode on ``device``
-    (``cuda`` unless the caller passes ``cpu``)."""
+    (``cuda`` unless the caller passes ``cpu``), computing in
+    ``compute_dtype`` over float32 parameters."""
     def enc_args(blk, input_layer):
         return {"output_size": blk.output_size,
                 "attention_heads": blk.attention_heads,
@@ -468,5 +504,6 @@ def build_espnet_transducer(model_cfg, device=None) -> EspnetTransducer:
             joint_activation=model_cfg.joint.joint_activation_type or "tanh",
             encoder_left_mask=model_cfg.mask.encoder_left_mask,
             encoder_right_mask=model_cfg.mask.encoder_right_mask,
-            decoder_left_mask=model_cfg.mask.decoder_left_mask)
+            decoder_left_mask=model_cfg.mask.decoder_left_mask,
+            compute_dtype=compute_dtype)
     return model.eval()

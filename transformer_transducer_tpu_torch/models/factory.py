@@ -12,6 +12,8 @@ from __future__ import annotations
 import copy
 from typing import Optional
 
+import torch
+
 from transformer_transducer_tpu_torch.models.espnet_variant import (
     build_espnet_transducer, is_espnet_config)
 from transformer_transducer_tpu_torch.models.transducer import build_transducer
@@ -20,13 +22,17 @@ from transformer_transducer_tpu_torch.utils import checkpoint as ckpt_lib
 
 
 def build_family(cfg, d_in: Optional[int] = None, device=None,
-                 flash: bool = False, banded: bool = False):
+                 flash: bool = False, banded: bool = False, remat: bool = False,
+                 compute_dtype: torch.dtype = torch.float32):
     """The model of a full config, in eval mode.  ``d_in``, if given, is
     the stacked feature dimension, which the native family
     takes as ``d_model`` and an espnet encoder with no input layer as its
     ``output_size``.  ``flash`` and ``banded`` select the native family's
-    attention kernels (``build_transducer``); the espnet attention has none,
-    and the family ignores them, as the JAX trainer does."""
+    attention kernels (``build_transducer``), and ``remat`` recomputes its
+    encoder layers in the backward; the espnet family has neither kernels
+    nor remat and ignores them, as the JAX trainer does.  ``compute_dtype``
+    (either family): bf16 compute over float32 parameters, so checkpoints
+    are the same either way."""
     model_cfg = cfg.model
     if is_espnet_config(model_cfg):
         enc = model_cfg.enc
@@ -34,12 +40,14 @@ def build_family(cfg, d_in: Optional[int] = None, device=None,
         if d_in is not None and d_in != width:
             raise ValueError(f"stacked features ({d_in}) must equal the espnet "
                              f"encoder's input width ({width})")
-        return build_espnet_transducer(model_cfg, device=device)
+        return build_espnet_transducer(model_cfg, device=device,
+                                       compute_dtype=compute_dtype)
     if d_in is not None and d_in != model_cfg.enc.d_model:
         raise ValueError(f"stacked features ({d_in}) must equal enc.d_model "
                          f"({model_cfg.enc.d_model}): the encoder has no input "
                          "projection")
-    return build_transducer(model_cfg, flash=flash, banded=banded, device=device)
+    return build_transducer(model_cfg, flash=flash, banded=banded, device=device,
+                            remat=remat, compute_dtype=compute_dtype)
 
 
 def load_family(cfg, d_in: int, checkpoint=None, device=None,

@@ -16,6 +16,12 @@
 State-dict keys of ``encoder``, ``decoder`` and ``joint`` are the upstream
 torch model's, so ``utils/torch_convert.py::transducer_params`` of the JAX
 package reads them as they are.
+
+``compute_dtype=torch.bfloat16`` computes in bf16 over float32 parameters
+at the JAX module's rounding points (``ops/precision.py``), and
+``remat`` recomputes each encoder layer in the backward
+(``torch.utils.checkpoint``), as JAX's ``nn.remat``; the label encoder is
+not recomputed.
 """
 
 from __future__ import annotations
@@ -24,10 +30,12 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from transformer_transducer_tpu_torch.decoding import label_cache
 from transformer_transducer_tpu_torch.models.attention import TransformerXLLayer
 from transformer_transducer_tpu_torch.ops.masks import look_ahead_mask
+from transformer_transducer_tpu_torch.ops.precision import dense, to_compute, widen
 from transformer_transducer_tpu_torch.ops.quant import QuantLinear, dense_kernel
 from transformer_transducer_tpu_torch.utils.device import resolve_device
 
@@ -36,28 +44,36 @@ class AudioEncoder(nn.Module):
     input_layer = None            # the features are the first layer's input
     def __init__(self, n_layer: int, k_len: int, n_head: int, d_model: int,
                  d_head: int, d_inner: int, dropout: float = 0.0,
-                 flash: bool = False):
+                 flash: bool = False, remat: bool = False,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.remat = remat
         self.layers = nn.ModuleList([
             TransformerXLLayer(k_len, n_head, d_model, d_head, d_inner,
-                               dropout, flash) for _ in range(n_layer)])
+                               dropout, flash, compute_dtype) for _ in range(n_layer)])
 
     def forward(self, inputs: torch.Tensor,
                 attn_mask: Optional[torch.Tensor] = None,
                 band: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         x = inputs
+        # remat: keep only each layer's input and recompute the layer in the
+        # backward, its dropout masks replayed from the saved random state
+        remat = self.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, attn_mask, band)
+            x = (checkpoint(layer, x, attn_mask, band, use_reentrant=False)
+                 if remat else layer(x, attn_mask, band))
         return x
 
 
 class LabelEncoder(nn.Module):
     def __init__(self, vocab_size: int, n_layer: int, k_len: int, n_head: int,
-                 d_model: int, d_head: int, d_inner: int, dropout: float = 0.0):
+                 d_model: int, d_head: int, d_inner: int, dropout: float = 0.0,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dec_embedding = nn.Embedding(vocab_size, d_model)
         self.layers = nn.ModuleList([
-            TransformerXLLayer(k_len, n_head, d_model, d_head, d_inner, dropout)
+            TransformerXLLayer(k_len, n_head, d_model, d_head, d_inner, dropout,
+                               compute_dtype=compute_dtype)
             for _ in range(n_layer)])
 
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -74,9 +90,16 @@ class LabelEncoder(nn.Module):
 
 
 class JointNetwork(nn.Module):
+    """Under bf16 (JAX ``JointNetwork(compute_dtype=bfloat16)``): the
+    concatenation cast to bf16, ``forward_layer`` and ``project_layer`` bf16
+    products each followed by its bf16 bias, the tanh in bf16, the logits
+    cast to float32; a tied projection is a bf16 product plus the float32
+    bias."""
+
     def __init__(self, input_size: int, inner_dim: int, vocab_size: int,
-                 tied: bool = False):
+                 tied: bool = False, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.forward_layer = nn.Linear(input_size, inner_dim)
         if tied:
             # the output weight is the label embedding; only the bias is free
@@ -92,15 +115,19 @@ class JointNetwork(nn.Module):
             t, u = enc_state.shape[1], dec_state.shape[1]
             enc_state = enc_state[:, :, None, :].expand(-1, -1, u, -1)
             dec_state = dec_state[:, None, :, :].expand(-1, t, -1, -1)
-        return self.logits_from(self.forward_layer(torch.cat([enc_state, dec_state], -1)),
-                                tied_projection)
+        return self.logits_from(dense(self.forward_layer,
+                                      torch.cat([enc_state, dec_state], -1),
+                                      self.compute_dtype), tied_projection)
 
     # forward_layer(cat(e, d)) == project_enc(e) + project_dec(d): a decoder
     # that holds one side fixed applies that side's half once.  An int8
     # layer (W8A8) takes one activation scale for each row of the
     # concatenation, so it has no such split: there the halves are the
     # states themselves, and first_layer applies the layer to their
-    # concatenation, as the JAX decoders' joint_logits does.
+    # concatenation, as the JAX decoders' joint_logits does.  Under bf16
+    # the halves are float32 sums of bf16-rounded operands, and first_layer
+    # rounds their sum to bf16 once before the bf16 bias: JAX's one bf16
+    # product over the concatenation, which two rounded halves are not.
     @property
     def quant(self) -> bool:
         return isinstance(self.forward_layer, QuantLinear)
@@ -109,16 +136,25 @@ class JointNetwork(nn.Module):
         """The first layer's encoder half, with its bias (int8: the state)."""
         if self.quant:
             return enc_state
-        w = self.forward_layer.weight
-        return nn.functional.linear(enc_state, w[:, :enc_state.shape[-1]],
-                                    self.forward_layer.bias)
+        w = self.forward_layer.weight[:, :enc_state.shape[-1]]
+        if self.compute_dtype != torch.float32:
+            return self._half(enc_state, w)
+        return nn.functional.linear(enc_state, w, self.forward_layer.bias)
 
     def project_dec(self, dec_state: torch.Tensor) -> torch.Tensor:
         """The first layer's label half, no bias (int8: the state)."""
         if self.quant:
             return dec_state
         w = self.forward_layer.weight
-        return dec_state @ w[:, w.shape[1] - dec_state.shape[-1]:].t()
+        w = w[:, w.shape[1] - dec_state.shape[-1]:]
+        if self.compute_dtype != torch.float32:
+            return self._half(dec_state, w)
+        return dec_state @ w.t()
+
+    def _half(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """A half's product under bf16: bf16-rounded operands, float32 sums."""
+        cd = self.compute_dtype
+        return x.to(cd).float() @ w.to(cd).float().t()
 
     def first_layer(self, enc_half: torch.Tensor, dec_half: torch.Tensor) -> torch.Tensor:
         """The first layer's pre-activation from the two halves
@@ -127,15 +163,19 @@ class JointNetwork(nn.Module):
             lead = torch.broadcast_shapes(enc_half.shape[:-1], dec_half.shape[:-1])
             return self.forward_layer(torch.cat([enc_half.expand(*lead, -1),
                                                  dec_half.expand(*lead, -1)], -1))
+        cd = self.compute_dtype
+        if cd != torch.float32:
+            return (enc_half + dec_half).to(cd) + self.forward_layer.bias.to(cd)
         return enc_half + dec_half
 
     def logits_from(self, pre: torch.Tensor,
                     tied_projection: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Logits from the first layer's pre-activation."""
+        cd = self.compute_dtype
         h = torch.tanh(pre)
         if tied_projection is not None:
-            return h @ tied_projection.t() + self.project_bias
-        return self.project_layer(h)
+            return widen(h @ to_compute(tied_projection.t(), cd) + self.project_bias)
+        return widen(dense(self.project_layer, h, cd))
 
 
 class Transducer(nn.Module):
@@ -144,7 +184,8 @@ class Transducer(nn.Module):
     ``enc``/``dec``: (n_layer, k_len, n_head, d_model, d_head, d_inner).
     ``flash``: unmasked encoder attention goes through the flash kernel.
     ``band``: ``(left, right)`` trains (``encode_both``) the encoder under
-    the streaming band through the banded kernel.  As in the JAX package this
+    the streaming band through the banded kernel.  ``remat`` and
+    ``compute_dtype``: see the module docstring.  As in the JAX package this
     deviates on purpose from the reference, which trains every config with no
     audio mask and only decodes with the band.
 
@@ -162,15 +203,19 @@ class Transducer(nn.Module):
     def __init__(self, vocab_size: int, enc: Tuple[int, ...],
                  dec: Tuple[int, ...], joint_inner: int, dropout: float = 0.0,
                  share_embedding: bool = False, flash: bool = False,
-                 band: Optional[Tuple[int, int]] = None):
+                 band: Optional[Tuple[int, int]] = None, remat: bool = False,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.vocab_size = vocab_size
         self.share_embedding = share_embedding
         self.band = band
-        self.encoder = AudioEncoder(*enc, dropout=dropout, flash=flash)
-        self.decoder = LabelEncoder(vocab_size, *dec, dropout=dropout)
+        self.compute_dtype = compute_dtype
+        self.encoder = AudioEncoder(*enc, dropout=dropout, flash=flash,
+                                    remat=remat, compute_dtype=compute_dtype)
+        self.decoder = LabelEncoder(vocab_size, *dec, dropout=dropout,
+                                    compute_dtype=compute_dtype)
         self.joint = JointNetwork(enc[3] + dec[3], joint_inner, vocab_size,
-                                  tied=share_embedding)
+                                  tied=share_embedding, compute_dtype=compute_dtype)
 
     def forward(self, inputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
         """Full-logits forward: (B,T,D), (B,U) -> (B,T,U+1,V): blank-prefixed
@@ -262,7 +307,8 @@ class Transducer(nn.Module):
 
 
 def build_transducer(model_cfg, flash: bool = False, device=None,
-                     banded: bool = False) -> Transducer:
+                     banded: bool = False, remat: bool = False,
+                     compute_dtype: torch.dtype = torch.float32) -> Transducer:
     """A :class:`Transducer` from a reference-schema ``model:`` block, in
     eval mode on ``device`` (``cuda`` unless the caller passes ``cpu``); a
     trainer calls ``.train()``.
@@ -292,5 +338,6 @@ def build_transducer(model_cfg, flash: bool = False, device=None,
                            joint_inner=model_cfg.joint.inner_size,
                            dropout=model_cfg.dropout or 0.0,
                            share_embedding=bool(model_cfg.share_embedding),
-                           flash=flash, band=band)
+                           flash=flash, band=band, remat=remat,
+                           compute_dtype=compute_dtype)
     return model.eval()

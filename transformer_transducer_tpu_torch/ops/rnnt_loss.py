@@ -23,6 +23,7 @@ from torch.utils.checkpoint import checkpoint
 from transformer_transducer_tpu_torch.ops.cuda.rnnt_kernel import (
     NEG, alpha_scan, beta_scan)
 from transformer_transducer_tpu_torch.ops.activations import ACTIVATIONS
+from transformer_transducer_tpu_torch.ops.precision import to_compute, widen
 
 
 def _skew(lp: torch.Tensor) -> torch.Tensor:
@@ -198,22 +199,33 @@ def rnnt_loss(logits: torch.Tensor, labels: torch.Tensor, t_len, u_len,
 def fused_grid_logprobs(enc: torch.Tensor, dec: torch.Tensor, jp,
                         labels: torch.Tensor, blank: int = 0,
                         chunk_size: int = 32, remat: bool = True,
-                        activation: str = "tanh") -> Tuple[torch.Tensor, torch.Tensor]:
+                        activation: str = "tanh",
+                        compute_dtype: torch.dtype = torch.float32
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Blank/label log-prob grids straight from encoder / label-encoder
     states, T-chunk by T-chunk; with ``remat`` each chunk is recomputed in
     the backward (``torch.utils.checkpoint``) instead of keeping its joint
     activations.  ``activation``: the joint's (``tanh``, or ``relu`` for an
-    espnet joint so configured)."""
+    espnet joint so configured).
+
+    ``compute_dtype`` bf16 reproduces JAX's type promotion with explicit
+    casts (torch refuses a mixed-dtype product): the two input products are
+    bf16, and the float32 ``b1`` and decoder half promote the sum to
+    float32, so the activation and the output product run in float32, the
+    latter over bf16-rounded ``w_out`` (cast inside each chunk, as JAX casts
+    it in its chunk function)."""
     act = ACTIVATIONS[activation]
+    cd = compute_dtype
     w_enc, w_dec, b1, w_out, b_out = jp
     b, t, _ = enc.shape
     u1 = dec.shape[1]
     labels_pad = _pad_labels(labels, u1, blank)
-    dec_proj = dec @ w_dec + b1                             # (B, U1, inner)
+    dec_proj = to_compute(dec, cd) @ to_compute(w_dec, cd) + b1     # (B, U1, inner)
 
     def chunk_fn(enc_chunk, dec_proj, w_enc, w_out, b_out):
-        h = act((enc_chunk @ w_enc)[:, :, None, :] + dec_proj[:, None, :, :])
-        logits = h @ w_out + b_out                          # (B, C, U1, V)
+        h = act((to_compute(enc_chunk, cd) @ to_compute(w_enc, cd))[:, :, None, :]
+                + dec_proj[:, None, :, :])
+        logits = h @ widen(to_compute(w_out, cd)) + b_out             # (B, C, U1, V)
         lse = torch.logsumexp(logits, dim=-1)
         idx = labels_pad[:, None, :, None].expand(-1, enc_chunk.shape[1], -1, -1)
         return (logits[..., blank] - lse,
@@ -232,9 +244,11 @@ def fused_grid_logprobs(enc: torch.Tensor, dec: torch.Tensor, jp,
 def rnnt_loss_fused(enc: torch.Tensor, dec: torch.Tensor, jp,
                     labels: torch.Tensor, t_len, u_len, blank: int = 0,
                     chunk_size: int = 32, reduction: str = "mean",
-                    remat: bool = True, activation: str = "tanh") -> torch.Tensor:
+                    remat: bool = True, activation: str = "tanh",
+                    compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """End-to-end training loss from encoder/label-encoder states: the joint
-    fused into the loss (no (B,T,U,V) tensor) and the lattice on the grids."""
+    fused into the loss (no (B,T,U,V) tensor) and the lattice on the grids
+    (float32 grids under any ``compute_dtype``)."""
     lp_b, lp_l = fused_grid_logprobs(enc, dec, jp, labels, blank, chunk_size,
-                                     remat, activation)
+                                     remat, activation, compute_dtype)
     return _reduce(rnnt_loss_grid(lp_b, lp_l, t_len, u_len), reduction)

@@ -34,6 +34,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from transformer_transducer_tpu_torch.ops.activations import ACTIVATIONS
+from transformer_transducer_tpu_torch.ops.precision import to_compute, widen
 from transformer_transducer_tpu_torch.ops.cuda.band_kernel import (
     band_alpha, band_beta)
 from transformer_transducer_tpu_torch.ops.cuda.logz_kernel import additive_logz
@@ -48,13 +49,19 @@ from transformer_transducer_tpu_torch.ops.rnnt_loss import (
 # ---------------------------------------------------------------------------
 
 def simple_grid_logprobs(enc: torch.Tensor, dec: torch.Tensor, jp,
-                         labels: torch.Tensor,
-                         blank: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+                         labels: torch.Tensor, blank: int = 0,
+                         compute_dtype: torch.dtype = torch.float32
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Blank/label log-prob grids (each (B, T, U+1)) of the linearized joint
-    ``A[t] + L[u]`` (no activation)."""
+    ``A[t] + L[u]`` (no activation).  Under bf16, JAX's promotion: A is a
+    bf16 chain cast to float32; the float32 ``b1`` promotes L to a float32
+    product over bf16-rounded ``w_out``.  The logZ takes float32 grids."""
     w_enc, w_dec, b1, w_out, b_out = jp
-    a_grid = (enc @ w_enc) @ w_out                          # (B, T, V)
-    l_grid = (dec @ w_dec + b1) @ w_out + b_out             # (B, U1, V)
+    cd = compute_dtype
+    a_grid = widen((to_compute(enc, cd) @ to_compute(w_enc, cd))
+                   @ to_compute(w_out, cd))                             # (B, T, V)
+    l_grid = ((to_compute(dec, cd) @ to_compute(w_dec, cd) + b1)
+              @ widen(to_compute(w_out, cd)) + b_out)                   # (B, U1, V)
     b, t, _ = a_grid.shape
     u1 = dec.shape[1]
     labels_pad = _pad_labels(labels, u1, blank)
@@ -148,20 +155,23 @@ def banded_grid_logprobs(enc: torch.Tensor, dec: torch.Tensor, jp,
                          labels: torch.Tensor, rs: torch.Tensor,
                          u_len: torch.Tensor, s_range: int, blank: int = 0,
                          chunk_size: int = 32, remat: bool = True,
-                         activation: str = "tanh"
+                         activation: str = "tanh",
+                         compute_dtype: torch.dtype = torch.float32
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Blank/label log-prob grids on the band only (each (B, T, s_range)):
     cell (t, s) is lattice cell (t, rs[t] + s).  The real joint, with its
     activation, T-chunk by T-chunk; with ``remat`` each chunk is recomputed
-    in the backward (``torch.utils.checkpoint``)."""
+    in the backward (``torch.utils.checkpoint``).  ``compute_dtype``: the
+    casts of ``ops/rnnt_loss.py::fused_grid_logprobs``."""
     w_enc, w_dec, b1, w_out, b_out = jp
+    cd = compute_dtype
     b, t, _ = enc.shape
     u1 = dec.shape[1]
     dev = enc.device
     labels_pad = _pad_labels(labels, u1, blank)
     u_len = torch.as_tensor(u_len, device=dev).long()
     rs = torch.as_tensor(rs, device=dev).long()
-    dec_proj = dec @ w_dec + b1                             # (B, U1, inner)
+    dec_proj = to_compute(dec, cd) @ to_compute(w_dec, cd) + b1     # (B, U1, inner)
     act = ACTIVATIONS[activation]
     bi = torch.arange(b, device=dev)[:, None, None]
     s_idx = torch.arange(s_range, device=dev)
@@ -169,8 +179,9 @@ def banded_grid_logprobs(enc: torch.Tensor, dec: torch.Tensor, jp,
     def chunk_fn(enc_chunk, rs_chunk, dec_proj, w_enc, w_out, b_out):
         uidx = rs_chunk[..., None] + s_idx                  # (B, C, S)
         uidx_c = torch.clamp(uidx, max=u1 - 1)
-        h = act((enc_chunk @ w_enc)[:, :, None, :] + dec_proj[bi, uidx_c])
-        logits = h @ w_out + b_out                          # (B, C, S, V)
+        h = act((to_compute(enc_chunk, cd) @ to_compute(w_enc, cd))[:, :, None, :]
+                + dec_proj[bi, uidx_c])
+        logits = h @ widen(to_compute(w_out, cd)) + b_out             # (B, C, S, V)
         lse = torch.logsumexp(logits, dim=-1)
         lp_b = logits[..., blank] - lse
         lab = labels_pad[bi, uidx_c]
@@ -307,24 +318,28 @@ def rnnt_loss_pruned(enc: torch.Tensor, dec: torch.Tensor, jp, labels: torch.Ten
                      t_len, u_len, *, s_range: int = 5, blank: int = 0,
                      chunk_size: int = 32, reduction: str = "mean",
                      remat: bool = True, activation: str = "tanh",
-                     simple_scale: float = 0.0) -> torch.Tensor:
+                     simple_scale: float = 0.0,
+                     compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Training loss with the joint evaluated only on the pruned band.
 
     ``simple_scale > 0`` adds that multiple of the linearized-joint NLL
     (k2's simple-loss term; here it shares the full joint's weights, so it
     also keeps the corridor estimate aligned), and its gradient flows through
     the logZ backward and the saved occupancies.  With 0 the simple pipeline
-    runs without autograd: the bounds are its only consumer."""
+    runs without autograd: the bounds are its only consumer.
+    ``compute_dtype``: bf16 joint products with JAX's promotion (see the
+    stage functions); every kernel gets float32."""
     dev = enc.device
     t_len = torch.clamp(torch.as_tensor(t_len, device=dev).long(), max=enc.shape[1])
     u_len = torch.clamp(torch.as_tensor(u_len, device=dev).long(),
                         max=dec.shape[1] - 1)
     with torch.set_grad_enabled(bool(simple_scale) and torch.is_grad_enabled()):
-        sp_b, sp_l = simple_grid_logprobs(enc, dec, jp, labels, blank)
+        sp_b, sp_l = simple_grid_logprobs(enc, dec, jp, labels, blank, compute_dtype)
         simple_losses, occ = simple_loss_and_occ(sp_b, sp_l, t_len, u_len)
     rs = bounds_from_occ(occ, t_len, u_len, s_range)
     lp_b, lp_l = banded_grid_logprobs(enc, dec, jp, labels, rs, u_len, s_range,
-                                      blank, chunk_size, remat, activation)
+                                      blank, chunk_size, remat, activation,
+                                      compute_dtype)
     losses = rnnt_loss_banded(lp_b, lp_l, rs, t_len, u_len)
     if simple_scale:
         losses = losses + simple_scale * simple_losses

@@ -1,2 +1,2 @@
-"""Scripts of the port: measurements on the card and checkpoint tools;
-nothing here is imported by the package."""
+"""Scripts of the port: measurements on the card, checkpoint tools and the
+tone corpus writer; nothing here is imported by the package."""

@@ -102,7 +102,8 @@ def make_loss_fn(model, cfg: TrainStepConfig, reduction: str = "mean") -> Callab
                 t_len, batch["targets_length"])
         kw = dict(chunk_size=cfg.loss_chunk_size, reduction=reduction,
                   remat=cfg.loss_remat and torch.is_grad_enabled(),
-                  activation=model.joint_activation)
+                  activation=model.joint_activation,
+                  compute_dtype=model.compute_dtype)
         if cfg.loss_pruned_range:
             return rnnt_loss_pruned(*args, s_range=int(cfg.loss_pruned_range),
                                     simple_scale=cfg.loss_simple_scale, **kw)

@@ -21,8 +21,15 @@ Both model families: an espnet-schema config (a ``model.mask`` block;
 ``apps/train_esptt.py``) builds ``models/espnet_variant.py``'s model, whose
 step encodes with the input lengths and runs the loss over
 ``encoded_lengths``, and whose evaluation decodes from sos over those
-lengths; ``flash`` and ``banded`` apply to the native family only and are
-ignored for it, as the JAX trainer ignores them.  The JAX package's mesh,
+lengths; ``flash``, ``banded`` and ``remat`` apply to the native family
+only and are ignored for it, as the JAX trainer ignores them.
+
+``compute_dtype=torch.bfloat16`` (``--bf16``) trains with bf16 compute over
+float32 parameters: the model (either family) and both losses cast where
+the JAX package casts, the optimizer and the checkpoints hold float32, and
+the evaluation decodes with the bf16 encoder and joint (the KV label cache
+runs in float32, as JAX's).  ``remat`` (``--remat``) recomputes each encoder
+layer in the backward.  The JAX package's mesh,
 pipeline, sequence-parallel and ZeRO paths and the profiler come in later
 slices and raise ``NotImplementedError`` here.
 """
@@ -61,7 +68,8 @@ def _later(what: str) -> NotImplementedError:
 class Trainer:
     def __init__(self, config: Config, mode: str = "retrain",
                  log_file: str = "train.log", exp_root: str = "egs",
-                 flash: bool = False, banded: bool = False, device=None):
+                 flash: bool = False, banded: bool = False, device=None,
+                 compute_dtype: torch.dtype = torch.float32, remat: bool = False):
         self.device = resolve_device(device)
         pcfg = config.parallel or Config()
         if (pcfg.n_pipe or 1) > 1 or (pcfg.n_seq or 1) > 1 or pcfg.zero:
@@ -83,11 +91,18 @@ class Trainer:
         torch.manual_seed(seed)           # initial weights and dropout
         self.gen = torch.Generator().manual_seed(seed)   # SpecAugment stripes
         self.model = build_family(config, device=self.device, flash=flash,
-                                  banded=banded).train()
+                                  banded=banded, remat=remat,
+                                  compute_dtype=compute_dtype).train()
         self.is_espnet = isinstance(self.model, EspnetTransducer)
         if self.is_espnet and (flash or banded):
             self.logger.info("--flash/--banded select the native family's "
                              "attention kernels; the espnet family ignores them")
+        if self.is_espnet and remat:
+            self.logger.info("--remat recomputes the native family's encoder "
+                             "layers; the espnet family ignores it")
+        self.logger.info("compute dtype %s over float32 parameters; encoder "
+                         "remat %s", str(compute_dtype).replace("torch.", ""),
+                         "on" if remat and not self.is_espnet else "off")
         n_total = sum(p.numel() for p in self.model.parameters())
         n_enc = sum(p.numel() for p in self.model.encoder.parameters())
         n_dec = sum(p.numel() for p in self.model.decoder.parameters())
