@@ -9,8 +9,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 2. build the port's CUDA kernels from ``transformer_transducer_tpu_torch/
    csrc`` (timed; one ``nvcc`` a source, all at once), with ptxas's
    registers and spills, and the ``HMMA`` (tensor-core) instructions of the
-   flash forward and backward at Dh = 64 (``cuobjdump -sass``; none in
-   either fails the run), and the SASS instructions and ``RED``/``ATOM``
+   flash forward and backward at Dh = 64, float32 and bf16 forms
+   (``cuobjdump -sass``; none in any fails the run), and the SASS instructions and ``RED``/``ATOM``
    (atomic) instructions of the banded forward, of the banded
    backward's two kernels, of the additive logZ's four kernels, of each
    band sweep's two and of the lattice sweeps' instantiations (any atomic
@@ -42,7 +42,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (64, 0), (64, 64), as the flash forward's against the full one; the
    banded forward also at the streaming sessions' shape, T = 256 (the
    pinned window) with B = 1 and 16 at band (10, 2); the
-   four attention kernels at head width 32 as well as 64;
+   four attention kernels at head width 32 as well as 64; the flash
+   kernels' bf16 forms against their plain bf16 forms on strided bf16
+   views at Dh 64 and 32 and T = 1, 15-17, 31-33, 37, 63-65, 127-129, 410,
+   513 (``BF16_FWD_RTOL``, ``BF16_GRAD_RTOL``: the forward's output, lse
+   and float32 sums, the backward's six gradients);
 4. the slice at full width: ``configs/joint_streaming.yaml`` (18 layers,
    d_model 512, V 6485) with seeded random weights, 8 synthetic utterances
    of 60-410 frames through the host frontend and batched greedy
@@ -235,14 +239,18 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    ``BF16_NORM_RTOL`` and under the bf16-to-float32 distances of the same
    step, which 3 float32 steps print beside each step; steps 2-3 printed,
    not held: the clipped update makes them chaotic), the launches
-   of kernels 1, 2, 6, 7 (3-5 pruned); ``--bf16 --flash`` refused by the
-   model and the CLI; step time, device busy time and peak memory against
-   the float32 step in turns.  Then ``apps/train.py --bf16 --remat
+   of kernels 1, 2, 6, 7 (3-5 pruned); the same for 3 ``--bf16 --flash``
+   steps, 18 + 18 launches a step of the bf16 forms of kernels 8 and 9 and
+   none of their float32 forms, and one ``--bf16 --remat --flash`` step
+   (36 + 18); step time, device busy time and peak memory against the
+   float32 step in turns.  Then ``apps/train.py --bf16 --remat --flash
    --nan-guard --steps-per-call 8`` for 2 epochs on the port's tone
    corpus (``tools/tone_demo.py``, 128 / 16 utterances, the small
-   geometry), float32 checkpoints, and ``apps/predict.py`` on its
-   ``epoch_1`` (kernel 6, twice); a JSON line before the kernels' line,
-   whose launches count the phase's main paths (``phase14_launches``).
+   geometry, Dh 32), float32 checkpoints, and ``apps/predict.py`` on its
+   ``epoch_1`` (kernel 6, twice); the bf16 forms alone under a CUDA graph
+   with their bounds at the bf16 and TF32 rates and bf16 SDPA as
+   yardstick; a JSON line before the kernels' line, whose launches count
+   the phase's main paths (``phase14_launches``).
 
 Each phase logs the seconds since the run began.
 
@@ -287,6 +295,7 @@ PKG = "transformer_transducer_tpu_torch"
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
+BF16_FLOP_PER_S = 989e12
 # exponentials per SM per clock of the special function units (Hopper)
 SFU_PER_SM_PER_CLOCK = 16
 
@@ -325,6 +334,18 @@ LOSS_RTOL, NORM_RTOL = 1e-4, 1e-3
 # differences into others as large as bf16's own (--banded step 3: loss
 # 2.8e-03 and norm 1.4e-02 apart, bf16 against float32 6.7e-03 and 3.6e-02)
 BF16_LOSS_RTOL, BF16_NORM_RTOL = 1e-4, 1e-3
+# the flash kernels' bf16 forms against their plain bf16 forms (the bf16
+# forward's and backward's roundings, ops/cuda/flash_rel_attention.py): the
+# forward's output, lse and float32 sums within BF16_FWD_RTOL of their
+# largest magnitudes, the output also plus one bf16 step of the row's
+# largest P times max|v| (a float32 P within a few ulps of a bf16 rounding
+# boundary may round the other way in another summation order); each
+# gradient within BF16_GRAD_RTOL of its leaf's largest magnitude, or one
+# bf16 step of the element (the final cast), plus one rounding of a dS or P
+# inside the sums (bf16_grad_allowance) and GRAD_FLOOR; the output
+# and the gradients of 10,000 elements or more also nearer the plain bf16
+# form than a quarter of its distance from float32 on the same bf16 values
+BF16_FWD_RTOL, BF16_GRAD_RTOL = 2e-4, 2e-3
 S_RANGE = 5              # the pruned loss's band (--pruned-range 5)
 STREAM_T = 256           # the streaming window_len at the flagship's band
 STREAM_CHUNK = 1600      # 100 ms of 16 kHz audio an accept_waveform call
@@ -856,6 +877,139 @@ def attention_grads(fn, leaves, gout):
     return [out.detach(), *qkv.grad.unbind(2), re.grad, u.grad, rb.grad]
 
 
+def bf16_step(x):
+    """The spacing of bf16 numbers at |x| (8 significant bits), 0 at 0."""
+    import torch
+    _, e = torch.frexp(x.abs())
+    return torch.ldexp(torch.ones_like(x), e - 8) * (x != 0)
+
+
+def hold_bf16(what, got, ref, slack, ref32=None) -> float:
+    """``|got - ref| <= slack`` element by element and, with ``ref32`` (the
+    float32 function on the same bf16 values), a 2-norm error within a
+    quarter of ``ref``'s distance from it; returns the largest |error|."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    over = int((err > slack).sum())
+    require(over == 0, f"{what}: {over} elements over the bar, the worst {err.max():.3e}")
+    if ref32 is not None:
+        e2, dist = (got - ref).norm().item(), (ref - ref32.float()).norm().item()
+        require(e2 <= 0.25 * dist, f"{what}: 2-norm error {e2:.3e} over a quarter of the "
+                f"bf16-float32 distance {dist:.3e}")
+    return err.max().item()
+
+
+def bf16_grad_allowance(args, gout) -> float:
+    """What one bf16 rounding inside the bf16 backward's sums that goes the
+    other way can move a gradient by: a bf16 step of the largest |dS| or P
+    (the plain bf16 form's, from ``args = (q, k, v, r_emb, r_w_bias,
+    r_bias)`` and the output gradient) times the largest operand it
+    multiplies.  A dS or P whose float32 value sits within a few ulps of a
+    rounding boundary rounds one way in the kernel and the other in the
+    plain form (measured on an H100: dq at T 513 moved by 7.8e-3, 5 of its
+    1,050,624 elements over the bar without this)."""
+    import torch
+    from transformer_transducer_tpu_torch.ops.cuda import flash_rel_attention as fa
+    q, k, v, re, u, rb = args
+    with torch.no_grad():
+        qf, kf, ref, _, qu, root, _, scores = fa._bf16_parts(q, k, re, u, rb)
+        prob = torch.softmax(scores, dim=-1)
+        go = gout.to(torch.bfloat16).float()
+        dp = torch.einsum("bind,bjnd->bnij", go, v.float())
+        ds = prob * (dp - (prob * dp).sum(-1, keepdim=True)) / root
+        step = max(bf16_step(ds.abs().max()).item(), bf16_step(prob.max()).item())
+        return step * max(x.abs().max().item() for x in (qf, kf, v.float(), ref, qu, go))
+
+
+def bf16_attention_inputs(tlen, k_len, gen, b=B, dh=DH):
+    """``attention_inputs`` in bf16 at unit scale: q, k, v strided views of
+    one bf16 projection, bf16 tables sliced to T."""
+    import torch
+    from transformer_transducer_tpu_torch.models.attention import slice_pos_table
+    mk = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = mk(b, tlen, 3, H, dh).unbind(2)
+    return (q, k, v, slice_pos_table(mk(k_len, H, dh), tlen), mk(H, dh),
+            slice_pos_table(mk(k_len, H), tlen))
+
+
+def check_bf16_forward(gen):
+    """Phase 3, the bf16 forward (kernel 8's bf16 form) against the plain
+    bf16 forward on strided bf16 views: output, lse and float32 sums
+    (``BF16_FWD_RTOL``, the output also one P's rounding a row and under a
+    quarter of the bf16-to-float32 distance), at Dh 64 and 32, at T
+    around its 128-row query tiles and 32-key chunks; the wrapper without
+    the lse gives the same output bits.  Returns the largest abs error."""
+    import torch
+    from transformer_transducer_tpu_torch.ops.cuda import flash_rel_attention as fa
+    worst = 0.0
+    for dh in (DH, 32):
+        for tlen in (1, 15, 16, 17, 31, 32, 33, 37, 63, 64, 65, 127, 128, 129, 410, 513):
+            args = bf16_attention_inputs(tlen, 410, gen, dh=dh)
+            out, lse, sums = fa.flash_forward_bf16(*args, with_lse=True)
+            without = fa.flash_rel_attention(*args)
+            ref, ref_lse, ref_sums = fa.flash_bf16_forward_plain(*args)
+            scores = fa._bf16_parts(*args[:2], *args[3:])[-1]
+            p_max = torch.softmax(scores, -1).amax(-1).transpose(1, 2)[..., None]
+            flip = bf16_step(p_max) * args[2].float().abs().max()
+            ref32 = fa.flash_rel_attention_plain(*(x.float() for x in args))
+            torch.cuda.synchronize()
+            errs = [hold_bf16(f"bf16 flash Dh={dh} T={tlen} out", out, ref,
+                              BF16_FWD_RTOL * ref.abs().max() + flip, ref32),
+                    hold_bf16(f"bf16 flash Dh={dh} T={tlen} lse", lse, ref_lse,
+                              BF16_FWD_RTOL * ref_lse.abs().max()),
+                    hold_bf16(f"bf16 flash Dh={dh} T={tlen} sums", sums, ref_sums,
+                              BF16_FWD_RTOL * ref_sums.abs().max())]
+            require(torch.equal(without, out), f"bf16 flash T={tlen}: the output moved "
+                    "with the lse")
+            log(f"  flash bf16 Dh={dh} T={tlen:4d}: max|err| out {errs[0]:.3e}, lse "
+                f"{errs[1]:.3e}, sums {errs[2]:.3e}")
+            worst = max(worst, *errs)
+    return worst
+
+
+def check_bf16_backward(gen):
+    """Phase 3, the bf16 backward (kernel 9's bf16 form) through the
+    autograd function on strided bf16 views against the plain bf16
+    backward: each gradient within ``BF16_GRAD_RTOL`` of its leaf's largest
+    magnitude or one bf16 step of the element, plus one rounding inside the
+    sums (``bf16_grad_allowance``) and ``GRAD_FLOOR``, and the
+    leaves of 10,000 elements or more under a quarter of the
+    bf16-to-float32 distance, at Dh 64 and 32, at T around its 32-row query
+    tiles and 64-key chunks.  Returns the largest abs error."""
+    import torch
+    from transformer_transducer_tpu_torch.models.attention import slice_pos_table
+    from transformer_transducer_tpu_torch.ops.cuda import flash_rel_attention as fa
+    worst = 0.0
+    names = ("dq", "dk", "dv", "d_r_emb", "d_r_w_bias", "d_r_bias")
+    for dh in (DH, 32):
+        for tlen in (1, 15, 16, 17, 31, 32, 33, 37, 63, 64, 65, 127, 128, 129, 410, 513):
+            mk = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(torch.bfloat16)
+            leaves = [mk(B_TRAIN, tlen, 3, H, dh).requires_grad_(), mk(T_MAIN, H, dh)
+                      .requires_grad_(), mk(H, dh).requires_grad_(),
+                      mk(T_MAIN, H).requires_grad_()]
+            gout = torch.randn(B_TRAIN, tlen, H, dh, generator=gen, device="cuda")
+            got = attention_grads(fa.flash_rel_attention, leaves, gout)
+            ref = attention_grads(fa.flash_rel_attention_plain, leaves, gout)
+            f32 = [x.detach().float().requires_grad_() for x in leaves]
+            ref32 = attention_grads(fa.flash_rel_attention_plain, f32,
+                                    gout.to(torch.bfloat16).float())
+            qkv, re, u, rb = leaves
+            inner = bf16_grad_allowance(
+                (*qkv.detach().unbind(2), slice_pos_table(re.detach(), tlen), u.detach(),
+                 slice_pos_table(rb.detach(), tlen)), gout)
+            torch.cuda.synchronize()
+            line = []
+            for name, a, r, r32 in zip(names, got[1:], ref[1:], ref32[1:]):
+                slack = torch.maximum(BF16_GRAD_RTOL * r.float().abs().max(), bf16_step(
+                    torch.maximum(a.float().abs(), r.float().abs()))) + inner + GRAD_FLOOR
+                err = hold_bf16(f"bf16 flash backward Dh={dh} T={tlen} {name}", a, r, slack,
+                                r32 if tlen > 1 and r.numel() >= 10_000 else None)
+                worst = max(worst, err)
+                line.append(f"{name} {err:.2e}")
+            log(f"  flash bf16 Dh={dh} T={tlen:3d}: " + ", ".join(line))
+    return worst
+
+
 def check_training_kernels(gen):
     """Phase 3, the training kernels: the lattice sweeps against the eager
     scans and the attention backward against autograd through the plain
@@ -1036,6 +1190,9 @@ def counters():
     return {"banded_fwd": ba.banded_attention, "banded_bwd": ba.banded_attention_backward,
             "flash_fwd": fa.flash_rel_attention,
             "flash_bwd": fa.flash_rel_attention_backward,
+            # the bf16 forms alone (also counted in flash_fwd, flash_bwd)
+            "flash_fwd_bf16": fa.flash_forward_bf16,
+            "flash_bwd_bf16": fa.flash_backward_bf16,
             "alpha": rk.alpha_scan, "beta": rk.beta_scan,
             "logz": lk.additive_logz, "band_alpha": bk.band_alpha,
             "band_beta": bk.band_beta}
@@ -3280,13 +3437,14 @@ def check_bf16_remat(cfg, state, batch, device, smi):
     forward kernel twice a layer; peak memory and step time both ways in
     turns.  (b) 3 bf16 steps each of the
     dense, banded and ``--banded --pruned-range 5`` models and the espnet
-    family's full loss, the kernels against the plain versions (both bf16),
-    beside the bf16-to-float32 distance of step 1; the launch counts;
-    ``--bf16 --flash`` refused; step time, device busy time and peak memory
-    against the float32 step in turns.  (c) ``apps/train.py --bf16 --remat
-    --nan-guard --steps-per-call 8`` for 2 epochs on the port's tone corpus,
-    then ``apps/predict.py`` on its checkpoint.  Returns (the main path's
-    launches, a summary)."""
+    family's full loss, and of the ``--flash`` model through the bf16 forms
+    of kernels 8 and 9, the kernels against the plain versions (both bf16),
+    beside the bf16-to-float32 distance of step 1; the launch counts; one
+    ``--bf16 --remat --flash`` step; step time, device busy time and peak
+    memory against the float32 step in turns.  (c) ``apps/train.py --bf16
+    --remat --flash --nan-guard --steps-per-call 8`` for 2 epochs on the
+    port's tone corpus, then ``apps/predict.py`` on its checkpoint.
+    Returns (the main path's launches, a summary)."""
     import copy
     import numpy as np
     import torch
@@ -3391,10 +3549,11 @@ def check_bf16_remat(cfg, state, batch, device, smi):
     cases = (("dense", model_cfg0, state, None, batch),
              ("banded", model_cfg0, state, None, batch),
              (f"banded, pruned {S_RANGE}", model_cfg0, state, S_RANGE, batch),
+             ("flash", model_cfg0, state, None, batch),
              ("espnet, full loss", esp_cfg0, esp_state, None, esp_batch))
     summary["bf16"] = {}
     for name, mcfg, mstate, pruned, mbatch in cases:
-        mode = "banded" if name.startswith("banded") else "dense"
+        mode = name.split(",")[0] if name.startswith(("banded", "flash")) else "dense"
         rs_kern, rs_plain = [], []
         hooks_k = (band_starts(rs_kern),) if pruned else ()
         kern = train_three_steps(mcfg, optim_cfg, mstate, mode, mbatch, device, False,
@@ -3407,6 +3566,9 @@ def check_bf16_remat(cfg, state, batch, device, smi):
         want.update(alpha=1, beta=1)
         if mode == "banded":
             want.update(banded_fwd=n_layer, banded_bwd=n_layer)
+        if mode == "flash":     # the bf16 forms of kernels 8 and 9, never the float32 ones
+            want.update(flash_fwd=n_layer, flash_bwd=n_layer, flash_fwd_bf16=n_layer,
+                        flash_bwd_bf16=n_layer)
         if pruned:
             want.update(logz=1, band_alpha=1, band_beta=1)
         for i, ((lk, nk, ck), (lp, norm_p, cp), (l32, n32, _)) in enumerate(
@@ -3438,25 +3600,28 @@ def check_bf16_remat(cfg, state, batch, device, smi):
                                  "float32_losses": [f[0] for f in f32],
                                  "float32_grad_norms": [f[1] for f in f32],
                                  "rel_to_float32_step1": [d_loss, d_norm]}
-        if name in ("dense", "banded", "espnet, full loss"):
+        if name in ("dense", "banded", "flash", "espnet, full loss"):
             summary["bf16"][name].update(timed(f"--bf16 {name} step B={B_TRAIN}", {
                 "float32": stepper(mcfg, mstate, mode, mbatch),
                 "bf16": stepper(mcfg, mstate, mode, mbatch, compute_dtype=bf16)}))
         torch.cuda.empty_cache()
-    model, _, step = make_trainee(model_cfg0, optim_cfg, state, "flash", device,
-                                  compute_dtype=bf16)
-    try:
-        step(batch, torch.Generator().manual_seed(0))
-        require(False, "a --bf16 --flash step ran")
-    except NotImplementedError as err:
-        log(f"  --bf16 --flash refused: {err}")
-    try:
-        train_app.main(["-config", os.path.join(HERE, "configs", "joint_streaming.yaml"),
-                        "--bf16", "--flash"])
-        require(False, "apps/train.py --bf16 --flash ran")
-    except NotImplementedError:
-        pass
-    del model, step
+    # one --bf16 --remat --flash step: the forward form twice a layer (once
+    # more in the backward), the backward form once; loss and gradient norm
+    # as without remat, within the bf16 tolerances of step 1
+    (lr, nr, cr), = train_three_steps(model_cfg0, optim_cfg, state, "flash", batch, device,
+                                      False, compute_dtype=bf16, remat=True, steps=1)
+    lk, nk = summary["bf16"]["flash"]["losses"][0], summary["bf16"]["flash"]["grad_norms"][0]
+    want = dict.fromkeys(launches, 0)
+    want.update(alpha=1, beta=1, flash_fwd=2 * n_layer, flash_fwd_bf16=2 * n_layer,
+                flash_bwd=n_layer, flash_bwd_bf16=n_layer)
+    log(f"  --bf16 --remat --flash, step 1: loss {lr:.6f} / without remat {lk:.6f} (rel "
+        f"{rel(lr, lk):.2e}), grad norm {nr:.5f} / {nk:.5f} (rel {rel(nr, nk):.2e}); "
+        f"launches {cr}")
+    require(cr == want, f"--bf16 --remat --flash: launches {cr}, want {want}")
+    require(rel(lr, lk) <= BF16_LOSS_RTOL and rel(nr, nk) <= BF16_NORM_RTOL,
+            "--bf16 --remat --flash: step 1 differs from the step without remat")
+    add(cr)
+    summary["bf16"]["flash"]["remat_step1"] = [lr, nr]
     torch.cuda.empty_cache()
 
     # (c) the CLI on the port's tone corpus (the small geometry), then predict
@@ -3469,8 +3634,8 @@ def check_bf16_remat(cfg, state, batch, device, smi):
         try:
             reset_counts()
             start = time.perf_counter()
-            trainer = train_app.main(["-config", cfg_path, "--bf16", "--remat", "--nan-guard",
-                                      "--steps-per-call", "8", "--epochs", "2"])
+            trainer = train_app.main(["-config", cfg_path, "--bf16", "--remat", "--flash",
+                                      "--nan-guard", "--steps-per-call", "8", "--epochs", "2"])
             torch.cuda.synchronize()
             cli_s = time.perf_counter() - start
             cli_counts = read_counts()
@@ -3481,7 +3646,8 @@ def check_bf16_remat(cfg, state, batch, device, smi):
             rows = list(map(json.loads, fh))
         cers = [r["value"] for r in rows if r["tag"] == "cer"]
         losses = [r["value"] for r in rows if r["tag"] == "train_loss"]
-        log(f"  apps/train.py --bf16 --remat --nan-guard --steps-per-call 8: 2 epochs of the "
+        log(f"  apps/train.py --bf16 --remat --flash --nan-guard --steps-per-call 8: 2 epochs "
+            f"of the "
             f"tone corpus (128 / 16, d 64) in {cli_s:.1f} s ({smi}), {trainer.global_step} "
             f"steps, {trainer.total_skips} skipped, first / last train loss {losses[0]:.3f} / "
             f"{losses[-1]:.3f}, CER {cers}, launches {cli_counts}")
@@ -3491,6 +3657,12 @@ def check_bf16_remat(cfg, state, batch, device, smi):
         # forward only: an alpha sweep)
         require(cli_counts["alpha"] == 18 and cli_counts["beta"] == 16,
                 f"the bf16 CLI did not run the lattice kernels once a step: {cli_counts}")
+        # 2 layers: the bf16 backward form twice a step, the forward form
+        # four times a step (remat) and in the evaluation, no float32 form
+        require(cli_counts["flash_bwd_bf16"] == cli_counts["flash_bwd"] == 32
+                and cli_counts["flash_fwd_bf16"] == cli_counts["flash_fwd"] > 64
+                and not cli_counts["banded_fwd"],
+                f"the bf16 CLI did not run the flash kernels' bf16 forms: {cli_counts}")
         state_ckpt = torch.load(os.path.join(exp, "epoch_1", "model.pt"), map_location="cpu")
         require(all(v.dtype == torch.float32 for comp in ("encoder", "decoder", "joint")
                     for v in state_ckpt[comp].values() if v.is_floating_point()),
@@ -3509,6 +3681,110 @@ def check_bf16_remat(cfg, state, batch, device, smi):
         summary["cli"] = {"seconds": cli_s, "cer": cers, "first_loss": losses[0],
                           "last_loss": losses[-1], "launches": cli_counts}
     return launches, summary
+
+
+def bf16_bound(n_bytes, ops):
+    """(least ms at the bf16 rate, "bytes" or "operations", least ms at the
+    TF32 rate) of work that moves ``n_bytes`` and does ``ops`` FLOP."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_bf16, t_tf32 = ops / BF16_FLOP_PER_S, ops / TF32_FLOP_PER_S
+    by = "bytes" if t_bytes >= t_bf16 else "operations"
+    return max(t_bytes, t_bf16) * 1e3, by, max(t_bytes, t_tf32) * 1e3
+
+
+def bf16_flash_bytes(b, f32_outputs, bf16_io, table_passes):
+    """Bytes a bf16 flash form moves at T_MAIN: ``bf16_io`` (B, T, H, Dh)
+    bf16 tensors in or out, ``f32_outputs`` float32 ones, the bf16 tables
+    ``table_passes`` times (read, or read and their gradients written)."""
+    rows = b * T_MAIN * H * DH
+    tables = T_MAIN * H * DH + H * DH + T_MAIN * H
+    return 2 * bf16_io * rows + 4 * f32_outputs * rows + 2 * table_passes * tables
+
+
+def time_bf16_flash(gen, errs, launches, tc, smi):
+    """Phase 14, the kernels' rows of the bf16 forms: each alone under a
+    CUDA graph (the forward at B 8 without the lse, as served, and at B 4
+    with it, as trained; the backward at B 4), its plain bf16 form, its
+    bound at the bf16 and at the TF32 rate, and as yardstick SDPA in bf16
+    with BD as a precomputed additive mask, forward and backward."""
+    import torch
+    from transformer_transducer_tpu_torch.models.attention import rel_shift
+    from transformer_transducer_tpu_torch.ops.cuda import flash_rel_attention as fa
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    records = []
+
+    def yard_inputs(args):
+        """q, k, v as (B, H, T, Dh) and the additive bf16 mask (BD + u.k) /
+        sqrt(Dh): SDPA's (q.k) / sqrt(Dh) plus it is the bf16 scores'."""
+        q, k, v, re, u, rb = (x.float() for x in args)
+        with torch.no_grad():
+            bd = rel_shift(torch.einsum("bind,jnd->bnij", q, re) + rb.t()[None, :, None, :])
+            add = (bd + torch.einsum("nd,bjnd->bnj", u, k)[:, :, None, :]) / DH ** 0.5
+        heads = [x.transpose(1, 2).detach().requires_grad_() for x in args[:3]]
+        return heads, add.to(torch.bfloat16)
+
+    args = bf16_attention_inputs(T_MAIN, 410, gen)
+    args4 = bf16_attention_inputs(T_MAIN, 410, gen, b=B_TRAIN)
+    (qh, kh, vh), add = yard_inputs(args)
+    with torch.no_grad():
+        ms = graph_ms(lambda: fa.flash_forward_bf16(*args, with_lse=False))
+        ms_b4 = graph_ms(lambda: fa.flash_forward_bf16(*args4, with_lse=True))
+        plain_ms = cuda_ms(lambda: fa.flash_bf16_forward_plain(*args))
+        yard_ms = cuda_ms(lambda: sdpa(qh, kh, vh, attn_mask=add))
+    fwd_ops = lambda b: b * H * T_MAIN * T_MAIN * 6 * DH
+    # q, k, v and the tables in, the float32 output out (with the lse: the
+    # float32 sums and the lse too)
+    bound_ms, bound_by, tf32_ms = bf16_bound(bf16_flash_bytes(B, 1, 3, 1), fwd_ops(B))
+    bound_b4, _, _ = bf16_bound(bf16_flash_bytes(B_TRAIN, 2, 3, 1) + 4 * B_TRAIN * H * T_MAIN,
+                                fwd_ops(B_TRAIN))
+    fwd = tc["flash forward bf16"]
+    records.append({
+        "name": "flash_rel_attention_fwd_bf16", "route": "cuda",
+        "source": f"{PKG}/csrc/flash_rel_attention_fwd.cu",
+        "replaces": "transformer_transducer_tpu/ops/pallas/flash_rel_attention.py:248",
+        "launches": launches["flash_fwd_bf16"], "max_abs_err": errs["flash_bf16"], "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None, "bound_tf32_ms": tf32_ms, "share_of_bound": bound_ms / ms,
+        "sdpa_bf16_bd_mask_yardstick_ms": yard_ms, "ms_b4_with_lse": ms_b4,
+        "bound_b4_ms": bound_b4, **fwd})
+    log(f"  flash_rel_attention_fwd_bf16: kernel {ms:.4f} ms (alone, CUDA graph, B={B} "
+        f"T={T_MAIN} H={H} Dh={DH}, no lse), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}, bf16 rate; {tf32_ms:.4f} ms at the TF32 rate), "
+        f"{100 * bound_ms / ms:.1f} % of it; at B={B_TRAIN} with the lse and sums "
+        f"{ms_b4:.4f} ms (bound {bound_b4:.4f} ms); SDPA bf16 with BD as a precomputed mask "
+        f"(yardstick) {yard_ms:.4f} ms; {fwd['hmma']} HMMA, {fwd['registers']} registers; "
+        f"{launches['flash_fwd_bf16']} launches in phase 14 ({smi})")
+    del args
+
+    out, lse, sums = fa.flash_forward_bf16(*args4, with_lse=True)
+    gout = torch.randn(B_TRAIN, T_MAIN, H, DH, generator=gen, device="cuda")
+    (qh, kh, vh), add = yard_inputs(args4)
+    out_s = sdpa(qh, kh, vh, attn_mask=add)
+    ms = graph_ms(lambda: fa.flash_backward_bf16(*args4, sums, lse, gout))
+    plain_ms = cuda_ms(lambda: fa.flash_bf16_backward_plain(*args4, gout))
+    yard_ms = cuda_ms(lambda: torch.autograd.grad(
+        out_s, (qh, kh, vh), gout.transpose(1, 2).to(torch.bfloat16), retain_graph=True))
+    # in: q, k, v, dO and the tables; out: dq, dk, dv and the tables'
+    # gradients, all bf16 (the sums and the lse are not counted: the function
+    # does not need them); about 16 Dh FLOP a cell, as backward_bound
+    bound_ms, bound_by, tf32_ms = bf16_bound(bf16_flash_bytes(B_TRAIN, 0, 7, 2),
+                                             B_TRAIN * H * T_MAIN * T_MAIN * 16 * DH)
+    bwd = tc["flash backward bf16"]
+    records.append({
+        "name": "flash_rel_attention_bwd_bf16", "route": "cuda",
+        "source": f"{PKG}/csrc/flash_rel_attention_bwd.cu",
+        "replaces": "transformer_transducer_tpu/ops/pallas/flash_rel_attention.py:288",
+        "launches": launches["flash_bwd_bf16"], "max_abs_err": errs["flash_bwd_bf16"],
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None, "bound_tf32_ms": tf32_ms, "share_of_bound": bound_ms / ms,
+        "sdpa_bf16_bd_mask_yardstick_ms": yard_ms, **bwd})
+    log(f"  flash_rel_attention_bwd_bf16: kernel {ms:.4f} ms (alone, CUDA graph, with the "
+        f"wrapper's gradient buffers and casts, B={B_TRAIN}), plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}, bf16 rate; {tf32_ms:.4f} ms at the TF32 rate), "
+        f"{100 * bound_ms / ms:.1f} % of it; SDPA bf16 backward with BD as a precomputed "
+        f"mask (yardstick) {yard_ms:.4f} ms; {bwd['hmma']} HMMA, {bwd['registers']} "
+        f"registers; {launches['flash_bwd_bf16']} launches in phase 14 ({smi})")
+    return records
 
 
 def main() -> int:
@@ -3563,7 +3839,9 @@ def main() -> int:
     # the flash kernels' products run on the tensor cores (mma.sync); Dh 64
     tc = {}
     for name, symbol in (("flash forward", "flash_fwd_tcILi64E"),
-                         ("flash backward", "flash_bwd_tcILi64E")):
+                         ("flash backward", "flash_bwd_tcILi64ELb0E"),
+                         ("flash forward bf16", "flash_fwd_bf16ILi64E"),
+                         ("flash backward bf16", "flash_bwd_tcILi64ELb1E")):
         ops = sass_opcodes(lib_path, symbol)
         (regs, spill_st, spill_ld), = ptxas_entries(ptxas, symbol)
         tc[name] = {"hmma": ops["HMMA"], "sass": sum(ops.values()), "registers": regs,
@@ -3651,6 +3929,11 @@ def main() -> int:
     errs = check_kernels(gen)
     errs.update(check_training_kernels(gen))
     errs.update(check_pruned_kernels(gen))
+    log(f"the flash kernels' bf16 forms vs their plain bf16 forms (forward rtol "
+        f"{BF16_FWD_RTOL} of the largest magnitude + one P rounding a row; gradients "
+        f"{BF16_GRAD_RTOL} of the leaf's largest magnitude or one bf16 step):")
+    errs["flash_bf16"] = check_bf16_forward(gen)
+    errs["flash_bwd_bf16"] = check_bf16_backward(gen)
 
     log(f"[{time.perf_counter() - run_start:.1f} s] phase 4")
     # ---- 4. the slice at full width
@@ -4351,8 +4634,13 @@ def main() -> int:
                "banded_attention_bwd": "banded_bwd", "flash_rel_attention_bwd": "flash_bwd",
                "rnnt_alpha": "alpha", "rnnt_beta": "beta", "additive_logz": "logz",
                "band_alpha": "band_alpha", "band_beta": "band_beta"}[rec["name"]]
-        rec["phase14_launches"] = bf16_launches.get(key, 0)
+        # the float32 flash rows count their own form's launches; the bf16
+        # forms' (also on flash_fwd, flash_bwd) have rows of their own
+        rec["phase14_launches"] = (bf16_launches.get(key, 0)
+                                   - bf16_launches.get(f"{key}_bf16", 0))
         rec["launches"] += rec["phase14_launches"]
+    records += time_bf16_flash(gen, errs, bf16_launches, tc, smi)
+    slice_6b["phase_s"] = time.perf_counter() - start
     log(f"  phase 14: {slice_6b['phase_s']:.1f} s")
     log(json.dumps({"slice_6b": slice_6b}))
 

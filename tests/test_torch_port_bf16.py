@@ -1,12 +1,12 @@
 """PyTorch port: bf16 compute over float32 parameters (``--bf16``) held
 against the JAX package at ``compute_dtype=jnp.bfloat16`` on the same
 weights (``utils/convert.py``) and the same seeded numpy inputs: the native
-encoder (dense unmasked, dense masked, banded), the label encoder, the
+encoder (dense unmasked, dense masked, banded, flash), the label encoder, the
 joint (concatenated, split, tied), the fused and the pruned loss (tanh and
 relu), the espnet encoders and joint, the train step's loss and every
 gradient leaf, and the evaluation's greedy decode.  JAX runs as its own
-tests run it on the CPU: the banded kernel in Pallas interpret mode, the
-pruned loss through its ``additive_logz``.
+tests run it on the CPU: the banded and flash kernels in Pallas interpret
+mode, the pruned loss through its ``additive_logz``.
 
 Each comparison has two conditions:
 
@@ -268,14 +268,24 @@ def test_tied_joint_bf16():
           **STATE_TOL)
 
 
-def test_bf16_flash_raises(native):
-    """The flash kernels have no bf16 form yet: the flash branch refuses bf16
-    rather than run a float32 function where JAX runs a bf16 one."""
+def test_native_encoder_bf16_flash():
+    """Full context through the flash kernels' bf16 forms (their plain
+    versions here) against JAX's ``--bf16 --flash`` encoder, whose Pallas
+    kernels run in interpret mode: two layers."""
     cfg = tiny_model_cfg(vocab=V)
-    model = build_transducer(Config(copy.deepcopy(cfg)), device="cpu", flash=True,
-                             compute_dtype=BF16)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        model.encode(torch.zeros(1, 8, 64))
+    model_f32 = jax_build(JaxConfig(copy.deepcopy(cfg)), flash=True)
+    model_bf16 = jax_build(JaxConfig(copy.deepcopy(cfg)), flash=True,
+                           compute_dtype=jnp.bfloat16)
+    variables = randomised(to_numpy_tree(model_f32.init(
+        jax.random.PRNGKey(8), jnp.zeros((1, 8, 64)), jnp.zeros((1, 4), jnp.int32))), 8)
+    port = build_transducer(Config(copy.deepcopy(cfg)), device="cpu", flash=True,
+                            compute_dtype=BF16)
+    port.load_state_dict(from_jax_params(variables["params"]))
+    x = np.random.RandomState(9).randn(3, 40, 64).astype(np.float32)
+    run = lambda m: m.apply(variables, jnp.asarray(x), None, method="encode")
+    got = port.encode(t(x))
+    assert got.dtype == torch.float32
+    check("flash", got, run(model_bf16), run(model_f32), **STATE_TOL)
 
 
 def test_greedy_evaluation_bf16(native):
@@ -393,7 +403,7 @@ def _batch(seed, b=3, tlen=20, u=5, d=64, vocab=V):
 
 
 @pytest.mark.parametrize("kind,pruned", [("dense", None), ("banded", None),
-                                         ("banded", 3), ("espnet", None)])
+                                         ("banded", 3), ("flash", None), ("espnet", None)])
 def test_train_step_loss_and_every_gradient_bf16(kind, pruned):
     """``make_loss_fn`` of both packages (SpecAugment off, dropout 0): the
     loss and the gradient of every parameter, mapped into the port's names
@@ -412,12 +422,13 @@ def test_train_step_loss_and_every_gradient_bf16(kind, pruned):
     else:
         cfg = tiny_model_cfg(vocab=V)
         models = {cd: jax_build(JaxConfig(copy.deepcopy(cfg)), compute_dtype=cd,
-                                banded=kind == "banded")
+                                banded=kind == "banded", flash=kind == "flash")
                   for cd in (jnp.bfloat16, jnp.float32)}
         variables = randomised(to_numpy_tree(models[jnp.float32].init(
             jax.random.PRNGKey(0), jnp.zeros((1, 8, 64)), jnp.zeros((1, 4), jnp.int32))), 5)
         port = build_transducer(Config(copy.deepcopy(cfg)), device="cpu",
-                                banded=kind == "banded", compute_dtype=BF16)
+                                banded=kind == "banded", flash=kind == "flash",
+                                compute_dtype=BF16)
         batch = _batch(7)
     port.load_state_dict(from_jax_params(variables["params"]))
     port.train()

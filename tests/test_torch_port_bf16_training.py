@@ -1,8 +1,8 @@
 """PyTorch port: training with ``--bf16`` and ``--remat`` through the
 trainer and its CLIs on the CPU (tone corpus, tiny configs): a ``retrain``
-epoch for each flag set (dense, ``--banded``, ``--pruned-range``, the
-espnet family through ``apps/train_esptt.py``), ``--bf16 --flash``
-refused before any work, float32 checkpoints and ``-mode continue`` from
+epoch for each flag set (dense, ``--banded``, ``--pruned-range``,
+``--flash``, the espnet family through ``apps/train_esptt.py``), float32
+checkpoints and ``-mode continue`` from
 a bf16 run, a JAX bf16 run's checkpoint continued under the port's
 ``--bf16`` (its first step's loss as JAX's loss function gives it), and
 the port's mirror of the JAX package's depth-18 stability smoke
@@ -53,7 +53,8 @@ def _log(trainer) -> str:
 
 @pytest.mark.parametrize("flags", [
     ["--bf16"], ["--remat"], ["--bf16", "--remat", "--nan-guard", "--steps-per-call", "2"],
-    ["--bf16", "--remat", "--banded"], ["--bf16", "--banded", "--pruned-range", "3"]])
+    ["--bf16", "--remat", "--banded"], ["--bf16", "--banded", "--pruned-range", "3"],
+    ["--bf16", "--flash"], ["--bf16", "--remat", "--flash"]])
 def test_cli_runs_a_retrain_epoch(corpus, tmp_path, monkeypatch, flags):
     """One epoch: finite losses, the epoch checkpoint, the evaluation's CER,
     the compute dtype and remat in the log, float32 parameters."""
@@ -87,16 +88,6 @@ def test_train_esptt_bf16(corpus, tmp_path, monkeypatch):
     log = _log(trainer)
     assert "the espnet family ignores it" in log and log.count("CER:") == 1
     assert "nan" not in log.lower()
-
-
-@pytest.mark.parametrize("flags", [["--bf16", "--flash"], ["--bf16", "--remat", "--flash"]])
-def test_bf16_flash_is_refused_before_any_work(corpus, tmp_path, monkeypatch, flags):
-    monkeypatch.chdir(tmp_path)
-    path = str(tmp_path / "tiny.yaml")
-    dump_config(_cfg(corpus), path)
-    with pytest.raises(NotImplementedError, match="bf16 forms of the flash"):
-        train_app.main(["-config", path, "--device", "cpu", *flags])
-    assert not os.path.exists(tmp_path / "egs")
 
 
 def test_bf16_checkpoint_is_float32_and_continues(corpus, tmp_path, monkeypatch):

@@ -62,6 +62,9 @@ from transformer_transducer_tpu_torch.utils.config import Config
 from transformer_transducer_tpu_torch.utils.convert import (
     from_jax_params, random_jax_params)
 
+from chip_smoke import (
+    BF16_FWD_RTOL, BF16_GRAD_RTOL, bf16_grad_allowance, bf16_step, hold_bf16)
+
 pytestmark = pytest.mark.cuda
 
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -1140,3 +1143,154 @@ def test_remat_gradients_equal_plain_gradients_on_the_card(gen, kind):
         torch.testing.assert_close(loss_a, loss_b, **TOL)
         for name, g in plain.items():
             _grad_close(got[name], g, name)
+
+
+# ---------------------------------------------------------------------------
+# The flash kernels' bf16 forms (--bf16 --flash)
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+
+
+def _bf16_leaves(gen, tlen, dh):
+    """bf16 leaves (qkv (B, T, 3, H, Dh), r_emb, r_w_bias, r_bias), unit
+    scale, and a float32 output gradient."""
+    mk = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(BF16).requires_grad_()
+    leaves = [mk(B, tlen, 3, H, dh), mk(K_LEN, H, dh), mk(H, dh), mk(K_LEN, H)]
+    return leaves, torch.randn(B, tlen, H, dh, generator=gen, device="cuda")
+
+
+def _bf16_args(leaves):
+    qkv, re, u, rb = leaves
+    tlen = qkv.shape[1]
+    return (*qkv.unbind(2), slice_pos_table(re, tlen), u, slice_pos_table(rb, tlen))
+
+
+# the forward's 128-row query tiles and 32-key chunks
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("tlen", [1, 2, 31, 32, 33, 64, 65, 127, 128, 129, 200, 410])
+def test_flash_bf16_forward_matches_plain(gen, tlen, dh):
+    """Output (the rounded P's), row lse and the float32 P's sums of the bf16
+    forward on strided bf16 views, against the plain bf16 forward: the
+    lse and sums within 2e-4 of their largest magnitudes, the output too
+    plus one bf16 step of the row's largest P times max|v| (a P at a
+    rounding boundary may round the other way); the output also nearer
+    the plain bf16 form than a quarter of its distance from float32."""
+    from transformer_transducer_tpu_torch.ops.cuda import flash_rel_attention as fa
+    leaves, _ = _bf16_leaves(gen, tlen, dh)
+    args = _bf16_args([x.detach() for x in leaves])
+    before = (fa.flash_rel_attention.launches, fa.flash_forward_bf16.launches)
+    out, lse, sums = fa.flash_forward_bf16(*args, with_lse=True)
+    torch.cuda.synchronize()
+    assert (fa.flash_rel_attention.launches, fa.flash_forward_bf16.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref, ref_lse, ref_sums = fa.flash_bf16_forward_plain(*args)
+    *_, scores = fa._bf16_parts(*args[:2], *args[3:])
+    p_max = torch.softmax(scores, -1).amax(-1).transpose(1, 2)[..., None]
+    flip = bf16_step(p_max) * args[2].float().abs().max()
+    ref32 = flash_rel_attention_plain(*(x.float() for x in args))
+    hold_bf16("out", out, ref, BF16_FWD_RTOL * ref.abs().max() + flip, ref32)
+    hold_bf16("lse", lse, ref_lse, BF16_FWD_RTOL * ref_lse.abs().max())
+    hold_bf16("sums", sums, ref_sums, BF16_FWD_RTOL * ref_sums.abs().max())
+    without = flash_rel_attention(*args)          # no lse, no sums: the same output
+    assert torch.equal(without, out)
+
+
+def _bf16_grads(fn, leaves, gout):
+    for x in leaves:
+        x.grad = None
+    out = fn(*_bf16_args(leaves))
+    out.backward(gout)
+    return [out.detach()] + [x.grad.clone() for x in leaves]
+
+
+# the backward's 32-row query tiles and 64-key chunks
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("tlen", [1, 16, 31, 32, 33, 63, 64, 65, 97, 200, 410])
+def test_flash_bf16_backward_matches_plain(gen, tlen, dh):
+    """The bf16 gradients of the kernels against the plain bf16 backward:
+    each within 2e-3 of its leaf's largest magnitude or one bf16 step (the
+    final cast), plus one rounding inside the sums (``bf16_grad_allowance``)
+    and 1e-5, and (the larger leaves) nearer the plain form
+    than a quarter of its distance from the float32 gradients of the same
+    bf16 values."""
+    from transformer_transducer_tpu_torch.ops.cuda import flash_rel_attention as fa
+    leaves, gout = _bf16_leaves(gen, tlen, dh)
+    before = fa.flash_backward_bf16.launches, flash_rel_attention_backward.launches
+    got = _bf16_grads(flash_rel_attention, leaves, gout)
+    torch.cuda.synchronize()
+    assert (fa.flash_backward_bf16.launches, flash_rel_attention_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = _bf16_grads(flash_rel_attention_plain, leaves, gout)
+    f32 = [x.detach().float().requires_grad_() for x in leaves]
+    ref32 = _bf16_grads(flash_rel_attention_plain, f32, gout.to(BF16).float())
+    inner = bf16_grad_allowance(_bf16_args([x.detach() for x in leaves]), gout)
+    for name, a, r, r32 in list(zip(("out", "qkv", "r_emb", "r_w_bias", "r_bias"), got,
+                                    ref, ref32))[1:]:
+        assert a.dtype == BF16, name
+        # + 1e-5 for gradients that are 0 in exact arithmetic (T = 1)
+        slack = torch.maximum(BF16_GRAD_RTOL * r.float().abs().max(), bf16_step(
+            torch.maximum(a.float().abs(), r.float().abs()))) + inner + 1e-5
+        # the 2-norm condition on leaves of 10,000 elements or more: on a
+        # smaller one a single final-cast rounding that goes the other way
+        # at its largest element is a third of the distance (r_bias at T
+        # 410: 1,640 elements, one step of 7.8e-3 against a distance of
+        # 2.3e-2, measured on an H100)
+        hold_bf16(name, a, r, slack, r32 if tlen > 1 and r.numel() >= 10_000 else None)
+
+
+@pytest.mark.parametrize("tlen", [33, 410])
+def test_flash_bf16_backward_takes_strided_and_contiguous_inputs_alike(gen, tlen):
+    """bf16 q, k, v as row-strided views of a packed qkv and as contiguous
+    copies: the same gradients within one bf16 step (the backward's fp32
+    atomics sum in a varying order before the cast)."""
+    mk = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(BF16)
+    qkv = mk(B, tlen, 3, H, DH)
+    tables = (slice_pos_table(mk(K_LEN, H, DH), tlen), mk(H, DH),
+              slice_pos_table(mk(K_LEN, H), tlen))
+    gout = torch.randn(B, tlen, H, DH, generator=gen, device="cuda")
+    grads = []
+    for q, k, v in (qkv.unbind(2), [x.contiguous() for x in qkv.unbind(2)]):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v, *tables)]
+        flash_rel_attention(*leaves).backward(gout)
+        grads.append([x.grad.float() for x in leaves])
+    for name, a, b in zip(("q", "k", "v", "r_emb", "r_w_bias", "r_bias"), *grads):
+        slack = torch.maximum(1e-4 * b.abs().max(), bf16_step(b))
+        assert ((a - b).abs() <= slack).all(), name
+
+
+def test_flash_wrappers_refuse_mixed_dtypes_and_bf16_banded(gen):
+    q, k, v, re, u, rb = _inputs(gen, 40)
+    with pytest.raises(TypeError, match="r_w_bias must be torch.bfloat16"):
+        flash_rel_attention(q.to(BF16), k.to(BF16), v.to(BF16), re.to(BF16), u, rb.to(BF16))
+    with pytest.raises(TypeError, match="float32"):
+        banded_attention(*(x.to(BF16) for x in (q, k, v, re, u, rb)), 10, 2)
+    odd = torch.zeros(B, 40, 3 * H * DH + 4, device="cuda", dtype=BF16)
+    view = odd[..., :H * DH].view(B, 40, H, DH)
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_rel_attention(view, view, view, *(x.to(BF16) for x in (re, u, rb)))
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_bf16_flash_step_through_the_kernels_matches_the_plain_versions(gen, remat):
+    """A ``--bf16 --flash`` step (and with ``--remat``): the bf16 forms of
+    kernels 8 and 9 launch once a layer (the forward twice under remat),
+    the float32 forms never, and the loss and every gradient equal the
+    plain versions' within bf16 steps (loss 1e-3 relative, gradients 2.5e-2
+    of their largest magnitudes, as the bf16 banded step)."""
+    from chip_smoke import plain_versions
+    from transformer_transducer_tpu_torch.ops.cuda import flash_rel_attention as fa
+    model, batch = _bf16_trainee(gen, "flash", remat=remat)
+    counts = lambda: (fa.flash_forward_bf16.launches, fa.flash_backward_bf16.launches,
+                      flash_rel_attention.launches, flash_rel_attention_backward.launches)
+    before = counts()
+    loss, grads = _step_grads(model, batch)
+    n_fwd = 4 if remat else 2
+    assert [a - b for a, b in zip(counts(), before)] == [n_fwd, 2, n_fwd, 2]
+    with plain_versions():
+        ref_loss, ref = _step_grads(model, batch)
+    torch.testing.assert_close(loss, ref_loss, atol=0, rtol=1e-3)
+    for name, g in grads.items():
+        assert torch.isfinite(g).all(), name
+        torch.testing.assert_close(g, ref[name], rtol=0,
+                                   atol=2.5e-2 * ref[name].abs().max().item(), msg=name)

@@ -11,6 +11,16 @@ version and against ``jax.grad`` through the JAX package's Pallas kernel in
 interpret mode, on the same numpy inputs (fp32, ``TOL``: rtol 2e-4, atol
 2e-5).
 
+The bf16 form's schedule (``flash_bwd_tc<Dh, true>``) runs through the same
+emulation with ``bf16=True``: q + u rounded to bf16, dO rounded to bf16,
+the scores and dS divided by sqrt(Dh), D_i from the float32 P's product
+with v (the forward's sums), P and dS rounded to bf16 before every product
+(exact on bf16 values, so one TF32 pass), the gradients cast to bf16.  It
+is held against the plain bf16 backward and ``jax.grad`` through the
+Pallas kernels on bf16 inputs, each gradient within 2e-3 of its leaf's
+largest magnitude or one bf16 step of the element (the final cast), plus
+1e-5.
+
 It also holds the kernel's 3xTF32 products to the card's tolerance (atol
 1e-4 * max|ref| + 1e-5, rtol 1e-4): ``cvt.rna.tf32.f32`` is emulated on the
 bits, the hi/lo split product accumulates in fp32 per 8-deep step as the
@@ -30,7 +40,8 @@ from transformer_transducer_tpu.ops.pallas.flash_rel_attention import (
 from transformer_transducer_tpu_torch.ops.cuda.flash_rel_attention import (
     flash_rel_attention_plain)
 
-from torch_port_helpers import TOL, bd_rows, gather_rows, t, tc_product, tf32_rna
+from torch_port_helpers import (
+    TOL, bd_rows, bf16_step, gather_rows, hold_bf16, t, tc_product, tf32_rna)
 
 torch.set_num_threads(1)
 
@@ -50,16 +61,22 @@ def _tile_chunks(tlen, tq):
             yield i0, j0, rows, x < 1 - omin
 
 
-def emulate_flash_bwd(q, k, v, re, u, rb, dout, tq):
+def emulate_flash_bwd(q, k, v, re, u, rb, dout, tq, bf16=False):
     """The kernel's schedule: q, k, v, dout (B, T, H, Dh); re (T, H, Dh), u
     (H, Dh), rb (T, H) sliced to T rows.  Returns (dq, dk, dv, d re, d u,
     d rb).  The forward's output and row log-sum-exp come from the same
-    tiles."""
+    tiles.  ``bf16``: the bf16 form on float32 tensors holding bf16 values
+    (the forward's output then the float32 P's sums)."""
     b, tlen, h, dh = q.shape
     scale = 1.0 / dh ** 0.5
+    root = float(np.sqrt(dh))
+    rnd = (lambda x: x.to(torch.bfloat16).float()) if bf16 else (lambda x: x)
+    dout, qu_all = rnd(dout), rnd(q + u)
+    div = (lambda x: x / root) if bf16 else (lambda x: x * scale)
     qh, kh, vh, gh = (x.transpose(1, 2) for x in (q, k, v, dout))   # (B, H, T, Dh)
     pad = lambda x, n: torch.nn.functional.pad(x, (0, 0, 0, n))
     qp, kp, vp, gp = pad(qh, tq + 1), pad(kh, TK), pad(vh, TK), pad(gh, tq)
+    qup = pad(qu_all.transpose(1, 2), tq)
     r_idx = torch.arange(tq)[:, None]
     kk_idx = torch.arange(TK)[None, :]
 
@@ -69,9 +86,9 @@ def emulate_flash_bwd(q, k, v, re, u, rb, dout, tq):
         eb = gather_rows(rb, rows).t()[None, :, None, :]            # (1, H, 1, NX)
         qe = torch.where(own, qt @ e.transpose(-1, -2), qn @ e.transpose(-1, -2)) + eb
         bd = qe[:, :, r_idx, kk_idx - r_idx + tq - 1]               # diagonal read
-        s_ac = (qt + u[None, :, None]) @ kp[:, :, j0:j0 + TK].transpose(-1, -2)
+        s_ac = qup[:, :, i0:i0 + tq] @ kp[:, :, j0:j0 + TK].transpose(-1, -2)
         live = ((i0 + r_idx) < tlen) & ((j0 + kk_idx) < tlen)
-        return (s_ac + bd) * scale, live, qt, qn, e
+        return div(s_ac + bd), live, qt, qn, e
 
     # the forward on the same tiles: row log-sum-exp and output
     lse = torch.full((b, h, tlen + tq), -torch.inf)
@@ -95,9 +112,10 @@ def emulate_flash_bwd(q, k, v, re, u, rb, dout, tq):
         p = torch.exp(sc - lse[:, :, i0:i0 + tq, None]) * live
         go = gp[:, :, i0:i0 + tq]
         dp = go @ vp[:, :, j0:j0 + TK].transpose(-1, -2)
-        ds = p * (dp - di[:, :, i0:i0 + tq, None]) * scale
+        ds = rnd(div(p * (dp - di[:, :, i0:i0 + tq, None])))
+        p = rnd(p)
         dv[:, :, j0:j0 + TK] += p.transpose(-1, -2) @ go
-        dk[:, :, j0:j0 + TK] += ds.transpose(-1, -2) @ (qt + u[None, :, None])
+        dk[:, :, j0:j0 + TK] += ds.transpose(-1, -2) @ qup[:, :, i0:i0 + tq]
         dq_ac = ds @ kp[:, :, j0:j0 + TK]
         du += dq_ac.sum((0, 2))
         dsk = torch.zeros(b, h, tq, tq + TK)                       # DSk's skew
@@ -111,7 +129,7 @@ def emulate_flash_bwd(q, k, v, re, u, rb, dout, tq):
         dre.index_add_(0, rows[valid], g_re.transpose(0, 1)[valid])
         drb.index_add_(0, rows[valid], dsk.sum((0, 2)).t()[valid])
     back = lambda x: x[:, :, :tlen].transpose(1, 2)
-    return back(dq), back(dk), back(dv), dre, du, drb
+    return tuple(rnd(x) for x in (back(dq), back(dk), back(dv), dre, du, drb))
 
 
 def _inputs(shape, tlen, seed):
@@ -149,6 +167,36 @@ def test_emulated_tiles_match_plain_and_jax(shape, tq, tlen):
     for name, a, p, j in zip(NAMES, got, plain, jax_grads):
         np.testing.assert_allclose(a.numpy(), p.numpy(), err_msg=f"{name} vs plain", **TOL)
         np.testing.assert_allclose(a.numpy(), j, err_msg=f"{name} vs jax", **TOL)
+
+
+@functools.lru_cache(maxsize=None)
+def _references_bf16(shape, tlen):
+    """bf16-valued inputs (unit scale) and output gradient, the plain bf16
+    backward's gradients and JAX's bf16 gradients (interpret mode)."""
+    b, h, dh = shape
+    rng = np.random.RandomState(tlen + dh + 2)
+    shapes = [(b, tlen, h, dh)] * 3 + [(tlen, h, dh), (h, dh), (tlen, h)]
+    args = [np.asarray(jnp.asarray(rng.randn(*s), jnp.bfloat16).astype(jnp.float32))
+            for s in shapes]
+    g = rng.randn(b, tlen, h, dh).astype(np.float32)
+    leaves = [t(x).to(torch.bfloat16).requires_grad_() for x in args]
+    flash_rel_attention_plain(*leaves).backward(t(g))
+    _, vjp = jax.vjp(lambda *a: jax_flash(*a, True), *(jnp.asarray(x, jnp.bfloat16)
+                                                       for x in args))
+    jax_grads = [np.asarray(x, np.float32) for x in vjp(jnp.asarray(g))]
+    return args, g, [x.grad.float().numpy() for x in leaves], jax_grads
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "B%dH%dDh%d" % s)
+@pytest.mark.parametrize("tq", [16, 32])
+@pytest.mark.parametrize("tlen", T_VALUES)
+def test_emulated_bf16_tiles_match_plain_and_jax(shape, tq, tlen):
+    args, g, plain, jax_grads = _references_bf16(shape, tlen)
+    got = emulate_flash_bwd(*map(t, args), t(g), tq, bf16=True)
+    for name, a, p, j in zip(NAMES, got, plain, jax_grads):
+        for what, ref in (("plain", p), ("jax", j)):
+            slack = np.maximum(2e-3 * np.abs(ref).max(), bf16_step(ref)) + 1e-5
+            hold_bf16(f"{name} vs {what}", a.numpy(), ref, slack)
 
 
 def test_own_next_split_is_by_column():

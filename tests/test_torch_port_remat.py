@@ -70,7 +70,7 @@ def _port_grads(cfg, variables, kind, remat, batch, compute_dtype=torch.float32,
 
 @pytest.mark.parametrize("kind,dtype", [
     ("dense", "float32"), ("dense", "bfloat16"), ("banded", "float32"),
-    ("banded", "bfloat16"), ("flash", "float32")])   # bf16 flash: a later slice
+    ("banded", "bfloat16"), ("flash", "float32"), ("flash", "bfloat16")])
 def test_remat_gradients_equal_plain_gradients_to_the_bit(kind, dtype):
     """Dropout 0.1 on, the same seed: the loss and every gradient equal."""
     cfg = tiny_model_cfg(vocab=V)

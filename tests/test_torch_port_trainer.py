@@ -200,9 +200,9 @@ def test_load_model_and_components(corpus, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    # --bf16 and --remat train now (tests/test_torch_port_bf16_training.py);
-    # with --flash, --bf16 needs the bf16 flash kernels of the next slice
-    ["--bf16", "--flash"], ["--bf16", "--remat", "--flash"], ["--zero"], ["--n_model", "2"],
+    # --bf16, --remat and --bf16 --flash train now
+    # (tests/test_torch_port_bf16_training.py)
+    ["--zero"], ["--n_model", "2"],
     ["--n_data", "2"], ["--n_pipe", "2"], ["--pipe-micro", "2"], ["--n_seq", "2"],
     ["--profile", "trace"]])
 def test_flags_of_later_slices_raise(flag):

@@ -185,6 +185,37 @@ def tc_product(a: torch.Tensor, b: torch.Tensor, terms: str,
     return c
 
 
+def bf16_step(x) -> np.ndarray:
+    """The spacing of bf16 numbers at |x| (8 significant bits), 0 at 0."""
+    x = np.asarray(x, np.float64)
+    _, e = np.frexp(np.abs(x))
+    return np.ldexp(1.0, e - 8) * (x != 0)
+
+
+def hold_bf16(name, got, ref, slack, ref32=None, quarter=0.25):
+    """``|got - ref| <= slack`` element by element and, with ``ref32`` (the
+    float32 result on the same bf16 values), ``||got - ref|| <= quarter *
+    ||ref - ref32||``: the rounding points are ``ref``'s."""
+    got, ref = (np.asarray(x, np.float32) for x in (got, ref))
+    err = np.abs(got - ref)
+    bad = err > slack
+    assert not bad.any(), (f"{name}: {bad.sum()} elements over the bar, the worst "
+                           f"{err.max():.3e}")
+    if ref32 is not None:
+        dist = np.linalg.norm(ref - np.asarray(ref32, np.float32))
+        e2 = np.linalg.norm(got - ref)
+        assert e2 <= quarter * dist, \
+            f"{name}: error {e2:.3e} over {quarter} of the bf16-float32 distance {dist:.3e}"
+
+
+def flip_allowance(scores: torch.Tensor, v) -> np.ndarray:
+    """One bf16 step of each row's largest probability times max|v|, (B, T,
+    H, 1) from the scores (B, H, T, T): what a P at a rounding boundary that
+    rounds the other way moves its output row by."""
+    p_max = torch.softmax(scores.float(), -1).amax(-1).transpose(1, 2)[..., None]
+    return bf16_step(p_max.numpy()) * float(np.abs(np.asarray(v)).max())
+
+
 # ---------------------------------------------------------------------------
 # The band kernels' chunked schedule (tests/test_torch_port_band_*_chunks.py)
 # ---------------------------------------------------------------------------

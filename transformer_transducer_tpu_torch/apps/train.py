@@ -14,9 +14,9 @@ N`` trains the pruned loss (the joint on a width-N label band, with the
 logZ and band-sweep kernels); it combines with either attention mode.
 ``--bf16`` trains with bfloat16 compute over float32 parameters (the model,
 both losses and the evaluation cast where the JAX package casts; the
-kernels of the banded and dense paths take float32, as JAX feeds them);
-``--bf16 --flash`` needs the bf16 flash kernels of a later slice and
-raises.  ``--remat`` recomputes each encoder layer in the backward.
+kernels of the banded and dense paths take float32, as JAX feeds them;
+with ``--flash`` the flash kernels' bf16 forms take bf16, as JAX's do).
+``--remat`` recomputes each encoder layer in the backward.
 ``--augment`` runs the waveform augmentation chain (``ops/augment.py``) on
 the training set; ``--set data.on_device_features=true`` ships raw waves
 and runs the log-mel on the card.  ``-mode continue`` also resumes from the
@@ -97,11 +97,6 @@ def main(argv=None):
                                       "the PyTorch port")
     if args.flash and args.banded:
         raise ValueError("pass --flash or --banded, not both")
-    if args.bf16 and args.flash:
-        raise NotImplementedError(
-            "--bf16 --flash needs the bf16 forms of the flash attention kernels "
-            "(8 and 9), which are ported in a later slice of the PyTorch port "
-            "(6b-ii, the next one); use --bf16 with --banded or the dense path")
 
     from transformer_transducer_tpu_torch.training.trainer import Trainer
     from transformer_transducer_tpu_torch.utils.config import (

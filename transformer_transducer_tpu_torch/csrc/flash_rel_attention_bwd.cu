@@ -63,6 +63,22 @@
 // table rows lie H floats apart, goes out as one scalar atomicAdd per
 // offset and chunk.
 //
+// The bf16 form (ttx_flash_rel_attention_bwd_bf16, BF = true) is the same
+// kernel at the Pallas backward's rounding points (--bf16 --flash): q, k,
+// v, the tables and dO are bf16, widened to fp32 as they are staged; q + u
+// is rounded to bf16; the scores and dS divide by sqrt(Dh) in fp32, as JAX
+// divides; P and dS are rounded to bf16 as they are written to shared
+// memory, so every product (dV, dK, dq, d re, d rb's sums) takes bf16
+// operands and runs as one exact TF32 pass (csrc/tensor_core.cuh, ONE)
+// where the fp32 form runs three.  D_i must be sum_j P_ij dP_ij with the
+// fp32 P (the Pallas kernel's): the caller passes, in place of the output,
+// the float32 P's product with v that the bf16 forward keeps beside the
+// output of the rounded P (option a of the design: a second accumulator in
+// the forward), so D_i = dO_i . sums_i.  The gradients are fp32 sums, cast
+// to bf16 by the caller, as JAX casts after its pallas_call.  Its bounds at
+// the same shape: the 5.5 GFLOP take 11 us at the TF32 rate as built (one
+// pass) and 5.6 us at the bf16 rate; the bf16 inputs halve their bytes.
+//
 // Plain C interface (loaded with ctypes); the launch runs on the caller's
 // stream, allocates nothing and returns cudaGetLastError().
 
@@ -78,17 +94,20 @@ constexpr int NE = TQ + TK - 1;     // offsets o in one chunk
 constexpr int NX = 96;              // NE padded to 12 tiles of 8
 constexpr int NTHREADS = 256;       // 8 warps
 
+// X is the inputs' type: float, or __nv_bfloat16 for the bf16 form
+template <class X>
 struct Args {
-    const float* q;       // q[b, t, h, d] at q + (b*T + t)*sq + h*Dh + d
-    const float* k;
-    const float* v;
+    const X* q;           // q[b, t, h, d] at q + (b*T + t)*sq + h*Dh + d
+    const X* k;
+    const X* v;
     long long sq, sk, sv;
-    const float* re;      // (T, H, Dh), sliced to T rows
-    const float* u;       // r_w_bias (H, Dh)
-    const float* rb;      // r_bias (T, H)
-    const float* out;     // forward output (B, T, H, Dh)
+    const X* re;          // (T, H, Dh), sliced to T rows
+    const X* u;           // r_w_bias (H, Dh)
+    const X* rb;          // r_bias (T, H)
+    const float* out;     // forward output (B, T, H, Dh); the bf16 form's
+                          // float32 P . v sums
     const float* lse;     // forward row log-sum-exp (B, H, T)
-    const float* dout;    // dO (B, T, H, Dh)
+    const X* dout;        // dO (B, T, H, Dh)
     float* dq;            // outputs, zeroed by the caller
     float* dk;
     float* dv;
@@ -114,9 +133,12 @@ struct __align__(16) Smem {
     float lse[TQ];
 };
 
-template <int DH>
+template <bool BF>
+using ArgsOf = Args<std::conditional_t<BF, __nv_bfloat16, float>>;
+
+template <int DH, bool BF>
 __global__ void __launch_bounds__(NTHREADS, 2)
-flash_bwd_tc(Args a) {
+flash_bwd_tc(ArgsOf<BF> a) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     Smem<DH>& s = *reinterpret_cast<Smem<DH>*>(smem_raw);
     // dq tiles of 8 dims a warp in products b and e (four column groups),
@@ -130,6 +152,7 @@ flash_bwd_tc(Args a) {
     const int b = blockIdx.z;
     const int T = a.T, H = a.H;
     const float scale = 1.0f / sqrtf((float)DH);
+    const float root = sqrtf((float)DH);     // the bf16 form divides, as JAX does
     const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
 
     // the query tile: q (one row more), q + u, dO; zero past T
@@ -141,7 +164,10 @@ flash_bwd_tc(Args a) {
         st4(&s.q[at(r, d, DH)], x);
         if (r < TQ) {
             const float4 w = ld4(a.u + h * DH + d);
-            st4(&s.qu[at(r, d, DH)], make_float4(x.x + w.x, x.y + w.y, x.z + w.z, x.w + w.w));
+            const float4 qu = make_float4(x.x + w.x, x.y + w.y, x.z + w.z, x.w + w.w);
+            st4(&s.qu[at(r, d, DH)], BF ? make_float4(bf16r(qu.x), bf16r(qu.y), bf16r(qu.z),
+                                                      bf16r(qu.w))
+                                        : qu);
             st4(&s.go[at(r, d, DH)],
                 i < T ? ld4(a.dout + (((long long)b * T + i) * H + h) * DH + d) : zero4);
         }
@@ -203,7 +229,7 @@ flash_bwd_tc(Args a) {
                              : zero4;
         }
         const int eb_row = tid < NE ? bd_row(T, omin + tid) : -1;
-        const float ebx = eb_row >= 0 ? __ldg(a.rb + eb_row * H + h) : 0.f;
+        const float ebx = eb_row >= 0 ? ldg1(a.rb + eb_row * H + h) : 0.f;
         __syncthreads();   // the previous chunk's tiles are no longer read
 #pragma unroll
         for (int n = 0; n < NKV; ++n) {
@@ -230,8 +256,8 @@ flash_bwd_tc(Args a) {
             zero(own);
             zero(nx);
             const RowView<DH> e_rows(s.e, n0);
-            if (n0 < xs) warp_mma<DH>(own, RowView<DH>(s.q, mq), e_rows);
-            if (n0 + 24 > xs) warp_mma<DH>(nx, RowView<DH>(s.q, mq + 1), e_rows);
+            if (n0 < xs) warp_mma<DH, BF>(own, RowView<DH>(s.q, mq), e_rows);
+            if (n0 + 24 > xs) warp_mma<DH, BF>(nx, RowView<DH>(s.q, mq + 1), e_rows);
 #pragma unroll
             for (int j = 0; j < 3; ++j)
 #pragma unroll
@@ -247,18 +273,21 @@ flash_bwd_tc(Args a) {
             float sac[2][4], dp[2][4];
             zero(sac);
             zero(dp);
-            warp_mma<DH>(sac, RowView<DH>(s.qu, mq), RowView<DH>(s.k, nq));
-            warp_mma<DH>(dp, RowView<DH>(s.go, mq), RowView<DH>(s.v, nq));
+            warp_mma<DH, BF>(sac, RowView<DH>(s.qu, mq), RowView<DH>(s.k, nq));
+            warp_mma<DH, BF>(dp, RowView<DH>(s.go, mq), RowView<DH>(s.v, nq));
 #pragma unroll
             for (int j = 0; j < 2; ++j)
 #pragma unroll
                 for (int e = 0; e < 4; ++e) {
                     const int r = c_row(mq, e), kk = c_col(nq, j, e);
                     const bool live = i0 + r < T && j0 + kk < T;
-                    const float sc = (sac[j][e] + s.qe[at(r, kk - r + TQ - 1, NX)]) * scale;
+                    const float ac_bd = sac[j][e] + s.qe[at(r, kk - r + TQ - 1, NX)];
+                    const float sc = BF ? ac_bd / root : ac_bd * scale;
                     const float p = live ? expf(sc - s.lse[r]) : 0.f;
-                    s.p[at(r, kk, TK)] = p;
-                    s.ds[at(r, kk, TK)] = p * (dp[j][e] - s.di[r]) * scale;
+                    const float pd = p * (dp[j][e] - s.di[r]);
+                    // the bf16 form rounds P and dS for every product
+                    s.p[at(r, kk, TK)] = BF ? bf16r(p) : p;
+                    s.ds[at(r, kk, TK)] = BF ? bf16r(pd / root) : pd * scale;
                 }
         }
         __syncthreads();
@@ -283,15 +312,15 @@ flash_bwd_tc(Args a) {
             };
             float acc[NKD][4];
             zero(acc);
-            warp_mma<TQ>(acc, KView<TK, 2>(s.p, mk), KView<DH, NKD>(s.go, nk));
+            warp_mma<TQ, BF>(acc, KView<TK, 2>(s.p, mk), KView<DH, NKD>(s.go, nk));
             emit_rows(acc, mk, nk, key_row(a.dv));
             zero(acc);
-            warp_mma<TQ>(acc, KView<TK, 2>(s.ds, mk), KView<DH, NKD>(s.qu, nk));
+            warp_mma<TQ, BF>(acc, KView<TK, 2>(s.ds, mk), KView<DH, NKD>(s.qu, nk));
             emit_rows(acc, mk, nk, key_row(a.dk));
         }
 
         // b: dq's AC part
-        warp_mma<TK>(dq_ac, RowView<TK>(s.ds, mq), KView<DH, NQD>(s.k, nqd));
+        warp_mma<TK, BF>(dq_ac, RowView<TK>(s.ds, mq), KView<DH, NQD>(s.k, nqd));
 
         // e: dq's BD parts from DSk (own columns x = k + t + 4h to row i, the
         // others to row i+1)
@@ -304,8 +333,8 @@ flash_bwd_tc(Args a) {
             auto nxt = [&](int k, int hh, int i) {
                 return k + t + 4 * hh >= xs ? dsk(k, hh, i) : 0.f;
             };
-            warp_mma_range(dq_own, own, e_cols, 0, min(NX, (max(xs, 0) + 7) & ~7));
-            warp_mma_range(dq_nx, nxt, e_cols, max(0, min(xs, NX) & ~7), NX);
+            warp_mma_range<BF>(dq_own, own, e_cols, 0, min(NX, (max(xs, 0) + 7) & ~7));
+            warp_mma_range<BF>(dq_nx, nxt, e_cols, max(0, min(xs, NX) & ~7), NX);
         }
 
         // e: the table gradients
@@ -330,8 +359,8 @@ flash_bwd_tc(Args a) {
                 };
                 float acc[NRD][4];
                 zero(acc);
-                if (mr < xs) warp_mma<TQ>(acc, own, q_own);
-                if (mr + 16 > xs) warp_mma<TQ>(acc, nxt, q_next);
+                if (mr < xs) warp_mma<TQ, BF>(acc, own, q_own);
+                if (mr + 16 > xs) warp_mma<TQ, BF>(acc, nxt, q_next);
                 emit_rows(acc, mr, nr, table_row);
             }
             // d rb: DSk's column sums
@@ -383,25 +412,22 @@ flash_bwd_tc(Args a) {
     }
 }
 
-}  // namespace
-
-extern "C" int ttx_flash_rel_attention_bwd(
-        const void* q, const void* k, const void* v, long long sq, long long sk,
-        long long sv, const void* re, const void* u, const void* rb,
-        const void* out, const void* lse, const void* dout, void* dq, void* dk,
-        void* dv, void* dre, void* du, void* drb, int B, int T, int H, int Dh,
-        void* stream) {
-    Args a;
-    a.q = static_cast<const float*>(q);
-    a.k = static_cast<const float*>(k);
-    a.v = static_cast<const float*>(v);
+template <bool BF, class X>
+int launch(const void* q, const void* k, const void* v, long long sq, long long sk,
+           long long sv, const void* re, const void* u, const void* rb, const void* out,
+           const void* lse, const void* dout, void* dq, void* dk, void* dv, void* dre,
+           void* du, void* drb, int B, int T, int H, int Dh, void* stream) {
+    Args<X> a;
+    a.q = static_cast<const X*>(q);
+    a.k = static_cast<const X*>(k);
+    a.v = static_cast<const X*>(v);
     a.sq = sq; a.sk = sk; a.sv = sv;
-    a.re = static_cast<const float*>(re);
-    a.u = static_cast<const float*>(u);
-    a.rb = static_cast<const float*>(rb);
+    a.re = static_cast<const X*>(re);
+    a.u = static_cast<const X*>(u);
+    a.rb = static_cast<const X*>(rb);
     a.out = static_cast<const float*>(out);
     a.lse = static_cast<const float*>(lse);
-    a.dout = static_cast<const float*>(dout);
+    a.dout = static_cast<const X*>(dout);
     a.dq = static_cast<float*>(dq);
     a.dk = static_cast<float*>(dk);
     a.dv = static_cast<float*>(dv);
@@ -413,10 +439,35 @@ extern "C" int ttx_flash_rel_attention_bwd(
         constexpr int DH = decltype(dh)::value;
         const int smem = (int)sizeof(Smem<DH>);
         cudaError_t err = cudaFuncSetAttribute(
-            flash_bwd_tc<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+            flash_bwd_tc<DH, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
         if (err != cudaSuccess) return (int)err;
         const dim3 grid((T + TQ - 1) / TQ, H, B);
-        flash_bwd_tc<DH><<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
+        flash_bwd_tc<DH, BF><<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
         return (int)cudaGetLastError();
     });
+}
+
+}  // namespace
+
+extern "C" int ttx_flash_rel_attention_bwd(
+        const void* q, const void* k, const void* v, long long sq, long long sk,
+        long long sv, const void* re, const void* u, const void* rb,
+        const void* out, const void* lse, const void* dout, void* dq, void* dk,
+        void* dv, void* dre, void* du, void* drb, int B, int T, int H, int Dh,
+        void* stream) {
+    return launch<false, float>(q, k, v, sq, sk, sv, re, u, rb, out, lse, dout, dq, dk, dv,
+                                dre, du, drb, B, T, H, Dh, stream);
+}
+
+// The bf16 form: q, k, v, the tables and dO bf16; out is the forward's
+// float32 P . v sums (D_i = dO_i . sums_i = sum_j P_ij dP_ij with the
+// float32 P); the gradients float32 sums, cast by the caller.
+extern "C" int ttx_flash_rel_attention_bwd_bf16(
+        const void* q, const void* k, const void* v, long long sq, long long sk,
+        long long sv, const void* re, const void* u, const void* rb,
+        const void* out, const void* lse, const void* dout, void* dq, void* dk,
+        void* dv, void* dre, void* du, void* drb, int B, int T, int H, int Dh,
+        void* stream) {
+    return launch<true, __nv_bfloat16>(q, k, v, sq, sk, sv, re, u, rb, out, lse, dout, dq,
+                                       dk, dv, dre, du, drb, B, T, H, Dh, stream);
 }

@@ -58,6 +58,31 @@
 // swizzled (at2(); V by the row's bits 1-2, as P.V reads its rows 2t + h) so
 // that every fragment load is free of bank conflicts.
 //
+// The bf16 form (flash_fwd_bf16, ttx_flash_rel_attention_fwd_bf16) computes
+// at the Pallas forward's rounding points (--bf16 --flash): q, k, v and the
+// tables are bf16, widened to fp32 as they are staged into fp32 tiles (not
+// split: a bf16 value is exact in TF32, so each product is one exact TF32
+// pass, csrc/tensor_core.cuh); q + u is rounded to bf16, as JAX adds in
+// bf16, so AC takes its own tile qu beside q's (no u . k_j term); the
+// scores divide by sqrt(Dh) in fp32.  JAX rounds the normalised P to bf16
+// before P.V, which an online softmax cannot do (its P is scaled by a
+// running max and sum until the last chunk), so the bf16 form sweeps the
+// key chunks twice: the first sweep takes each row's max and sum, the
+// second recomputes the same scores, forms P = exp(s - m) / l, rounds it to
+// bf16 for O += bf16(P) . V and, when the lse is kept (training), adds the
+// rest P - bf16(P) (rounded to TF32) into a second accumulator on the same
+// V fragments: O + that is the fp32 P's product with v, which the bf16
+// backward needs for D_i = sum_j P_ij dP_ij (the rounded P's output would
+// put D off by 2-4e-3 of the gradients' largest magnitudes).  Its bounds
+// at the flagship serving shape: 4.13 GFLOP take 8.3 us at the TF32 rate
+// as built and 4.2 us at the bf16 rate; the two sweeps do about 1.7x the
+// scores' products, one pass each where the fp32 form does three, and the
+// bf16 inputs halve their bytes.  The tiles: q (129 rows), qu (128), k, v
+// (32), the table's 160 rows, fp32, and the warps' QE tiles: 149 KB at
+// Dh = 64.  V's tile is swizzled by the row's bits 1-2 times 8 (atv1), as
+// P.V reads its rows 2t + h, so its 32-bit fragment loads are free of bank
+// conflicts.
+//
 // Plain C interface (loaded with ctypes); the launch runs on the caller's
 // stream, allocates nothing and returns cudaGetLastError().
 
@@ -320,6 +345,260 @@ flash_fwd_tc(Args a) {
     }
 }
 
+// ---- the bf16 form
+
+struct ArgsBf16 {
+    const __nv_bfloat16* q;     // q[b, t, h, d] at q + (b*T + t)*sq + h*Dh + d
+    const __nv_bfloat16* k;
+    const __nv_bfloat16* v;
+    long long sq, sk, sv;
+    const __nv_bfloat16* re;    // (T, H, Dh), sliced to T rows
+    const __nv_bfloat16* u;     // r_w_bias (H, Dh)
+    const __nv_bfloat16* rb;    // r_bias (T, H)
+    float* out;                 // (B, T, H, Dh): bf16(P) . v
+    float* lse;                 // (B, H, T) row log-sum-exp, or null
+    float* sums;                // (B, T, H, Dh): the fp32 P . v, or null
+    int B, T, H;
+};
+
+template <int DH>
+struct __align__(16) SmemBf16 {
+    float q[(TQ + 1) * DH];     // q_i (bf16 values); row TQ is q_{i0+TQ}
+    float qu[TQ * DH];          // bf16(q_i + u)
+    float k[TK * DH];
+    float v[TK * DH];
+    float e[NX * DH];           // table row of offset omin + x (zero if none)
+    float qe[NW][16 * QW];      // each warp's QE + rb over its skewed columns
+    float eb[NX];               // r_bias of offset omin + x
+};
+
+// V's swizzle in an fp32 tile: P.V reads rows 2t + h of an 8-row step, whose
+// bits 1-2 (t) pick the 8-bank group.
+__device__ __forceinline__ int atv1(int row, int col, int w) {
+    return row * w + (col ^ (((row >> 1) & 3) << 3));
+}
+
+// P.V's B operand from an fp32 tile: rows k + 2t + h (keys), columns 8i + g
+// (dims), at column (8i + g) ^ 8t = 8(i ^ t) + g.
+template <int W>
+struct VView1 {
+    const float* p[2];
+    int t;
+    __device__ __forceinline__ VView1(const float* tile) {
+        const int g = (threadIdx.x & 31) >> 2;
+        t = threadIdx.x & 3;
+        p[0] = tile + (2 * t) * W + g;
+        p[1] = tile + (2 * t + 1) * W + g;
+    }
+    __device__ __forceinline__ float operator()(int k, int h, int i) const {
+        return p[h][k * W + 8 * (i ^ t)];
+    }
+};
+
+template <int DH>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_fwd_bf16(ArgsBf16 a) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    SmemBf16<DH>& s = *reinterpret_cast<SmemBf16<DH>*>(smem_raw);
+    constexpr int NKT = TK / 8, NQT = QX / 8, NOT = DH / 8;   // tiles a warp
+
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int i0 = blockIdx.x * TQ;
+    const int h = blockIdx.y;
+    const int b = blockIdx.z;
+    const int T = a.T, H = a.H;
+    const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+
+    // the query tile: q (one row more) and bf16(q + u), zero past T
+    for (int idx = tid; idx < (TQ + 1) * (DH / 4); idx += NTHREADS) {
+        const int r = idx / (DH / 4);
+        const int d = 4 * (idx % (DH / 4));
+        const int i = i0 + r;
+        const float4 x = i < T ? ldg4(a.q + ((long long)b * T + i) * a.sq + h * DH + d) : zero4;
+        st4(&s.q[at(r, d, DH)], x);
+        if (r < TQ) {
+            const float4 w = ldg4(a.u + h * DH + d);
+            st4(&s.qu[at(r, d, DH)], make_float4(bf16r(x.x + w.x), bf16r(x.y + w.y),
+                                                 bf16r(x.z + w.z), bf16r(x.w + w.w)));
+        }
+    }
+
+    // the warp's rows m0..m0+15 of the tile; its skewed columns x0 + xl
+    const int m0 = 16 * warp;
+    const bool rows_live = i0 + m0 < T;
+    const int x0 = TQ - 16 - m0;
+    const RowView<DH> qu_rows(s.qu, m0), q_own(s.q, m0), q_next(s.q, m0 + 1),
+        k_rows(s.k, 0), e_rows(s.e, x0);
+    const VView1<DH> v_rows(s.v);
+    float* qe = s.qe[warp];
+    const float root = sqrtf((float)DH);
+
+    // stage chunk j0's keys (and values), table rows and r_bias; every load
+    // is issued before the first store and the barrier
+    auto stage = [&](int j0, bool with_v) {
+        constexpr int NKV = TK * (DH / 4) / NTHREADS;
+        constexpr int NEX = NX * (DH / 4) / NTHREADS;
+        const int omin = j0 - (i0 + TQ - 1);
+        float4 kx[NKV], vx[NKV], ex[NEX];
+#pragma unroll
+        for (int n = 0; n < NKV; ++n) {
+            const int idx = tid + n * NTHREADS;
+            const int j = j0 + idx / (DH / 4);
+            const int d = 4 * (idx % (DH / 4));
+            kx[n] = j < T ? ldg4(a.k + ((long long)b * T + j) * a.sk + h * DH + d) : zero4;
+            vx[n] = with_v && j < T ? ldg4(a.v + ((long long)b * T + j) * a.sv + h * DH + d)
+                                    : zero4;
+        }
+#pragma unroll
+        for (int n = 0; n < NEX; ++n) {
+            const int idx = tid + n * NTHREADS;
+            const int x = idx / (DH / 4);
+            const int row = x < NE ? bd_row(T, omin + x) : -1;
+            ex[n] = row >= 0 ? ldg4(a.re + ((long long)row * H + h) * DH + 4 * (idx % (DH / 4)))
+                             : zero4;
+        }
+        const int eb_row = tid < NE ? bd_row(T, omin + tid) : -1;
+        const float ebx = eb_row >= 0 ? ldg1(a.rb + eb_row * H + h) : 0.f;
+        __syncthreads();   // the previous chunk's tiles are no longer read
+#pragma unroll
+        for (int n = 0; n < NKV; ++n) {
+            const int idx = tid + n * NTHREADS;
+            const int kk = idx / (DH / 4), d = 4 * (idx % (DH / 4));
+            st4(&s.k[at(kk, d, DH)], kx[n]);
+            if (with_v) st4(&s.v[atv1(kk, d, DH)], vx[n]);
+        }
+#pragma unroll
+        for (int n = 0; n < NEX; ++n) {
+            const int idx = tid + n * NTHREADS;
+            st4(&s.e[at(idx / (DH / 4), 4 * (idx % (DH / 4)), DH)], ex[n]);
+        }
+        if (tid < NX) s.eb[tid] = ebx;
+        __syncthreads();
+    };
+
+    // the warp's scores over chunk j0 (rows g, g + 8 of its 16): S_ac from
+    // qu, QE from q (columns xl < xs) or the next row's q, plus r_bias, read
+    // along the diagonals; divided by sqrt(Dh); NEG past T
+    auto scores = [&](int j0, float (&sc)[NKT][4]) {
+        const int xs = i0 + TQ - j0 - x0;
+        float own[NQT][4], nxt[NQT][4];
+        zero(sc);
+        zero(own);
+        zero(nxt);
+#pragma unroll
+        for (int k = 0; k < DH; k += 8) {
+            mma_step<true>(sc, qu_rows, k_rows, k);
+            if (xs > 0) mma_step<true>(own, q_own, e_rows, k);
+            if (xs < QX) mma_step<true>(nxt, q_next, e_rows, k);
+        }
+#pragma unroll
+        for (int j = 0; j < NQT; ++j)
+#pragma unroll
+            for (int hr = 0; hr < 2; ++hr) {
+                const int xl = 8 * j + 2 * t;
+                const float2 val = make_float2(
+                    (xl < xs ? own[j][2 * hr] : nxt[j][2 * hr]) + s.eb[x0 + xl],
+                    (xl + 1 < xs ? own[j][2 * hr + 1] : nxt[j][2 * hr + 1]) + s.eb[x0 + xl + 1]);
+                *reinterpret_cast<float2*>(&qe[(g + 8 * hr) * QW + xl]) = val;
+            }
+        __syncwarp();
+#pragma unroll
+        for (int j = 0; j < NKT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int r = g + 8 * (e >> 1), kk = 8 * j + 2 * t + (e & 1);
+                const float x = (sc[j][e] + qe[r * QW + kk - r + 15]) / root;
+                sc[j][e] = j0 + kk < T ? x : NEG;
+            }
+        __syncwarp();      // the tile is rewritten by the next chunk's scores
+    };
+
+    // sweep 1: each row's max and sum (rows g, g + 8; the sum per lane)
+    float m_run[2] = {NEG, NEG}, l_run[2] = {0.f, 0.f};
+    for (int j0 = 0; j0 < T; j0 += TK) {
+        stage(j0, false);
+        if (!rows_live) continue;
+        float sc[NKT][4];
+        scores(j0, sc);
+        float cmax[2] = {NEG, NEG};
+#pragma unroll
+        for (int j = 0; j < NKT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) cmax[e >> 1] = fmaxf(cmax[e >> 1], sc[j][e]);
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+            cmax[hr] = fmaxf(cmax[hr], __shfl_xor_sync(FULL, cmax[hr], 1));
+            cmax[hr] = fmaxf(cmax[hr], __shfl_xor_sync(FULL, cmax[hr], 2));
+            const float m_new = fmaxf(m_run[hr], cmax[hr]);
+            l_run[hr] *= expf(m_run[hr] - m_new);
+            m_run[hr] = m_new;
+        }
+#pragma unroll
+        for (int j = 0; j < NKT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) l_run[e >> 1] += expf(sc[j][e] - m_run[e >> 1]);
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) l_run[hr] = row_sum(l_run[hr], 4);
+
+    // sweep 2: P = exp(s - m) / l; O += bf16(P) . V and, with the sums,
+    // R += tf32(P - bf16(P)) . V.  The keys of tile j in the order 2t, 2t+1:
+    // A's (g, t), (g+8, t), (g, t+4), (g+8, t+4) are P's elements 0, 2, 1, 3
+    const bool keep = a.sums != nullptr;
+    float o[NOT][4], rest[NOT][4];
+    zero(o);
+    zero(rest);
+    for (int j0 = 0; j0 < T; j0 += TK) {
+        stage(j0, true);
+        if (!rows_live) continue;
+        float sc[NKT][4];
+        scores(j0, sc);
+#pragma unroll
+        for (int j = 0; j < NKT; ++j) {
+            unsigned pa[4], ra[4], vb[NOT][2];
+#pragma unroll
+            for (int x = 0; x < 4; ++x) {
+                const int e = (x >> 1) | ((x & 1) << 1);     // 0, 2, 1, 3
+                const float p = expf(sc[j][e] - m_run[e >> 1]) / l_run[e >> 1];
+                const float pb = bf16r(p);
+                pa[x] = __float_as_uint(pb);
+                ra[x] = tf32(p - pb);
+            }
+#pragma unroll
+            for (int n = 0; n < NOT; ++n) {
+                vb[n][0] = __float_as_uint(v_rows(8 * j, 0, n));
+                vb[n][1] = __float_as_uint(v_rows(8 * j, 1, n));
+            }
+#pragma unroll
+            for (int n = 0; n < NOT; ++n) mma(o[n], pa, vb[n]);
+            if (keep) {
+#pragma unroll
+                for (int n = 0; n < NOT; ++n) mma(rest[n], ra, vb[n]);
+            }
+        }
+    }
+
+    if (!rows_live) return;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+        const int i = i0 + m0 + g + 8 * hr;
+        if (i >= T) continue;
+        const long long row = (((long long)b * T + i) * H + h) * DH + 2 * t;
+#pragma unroll
+        for (int j = 0; j < NOT; ++j) {
+            *reinterpret_cast<float2*>(a.out + row + 8 * j) =
+                make_float2(o[j][2 * hr], o[j][2 * hr + 1]);
+            if (keep)
+                *reinterpret_cast<float2*>(a.sums + row + 8 * j) =
+                    make_float2(o[j][2 * hr] + rest[j][2 * hr],
+                                o[j][2 * hr + 1] + rest[j][2 * hr + 1]);
+        }
+        if (a.lse != nullptr && t == 0)
+            a.lse[((long long)b * H + h) * T + i] = m_run[hr] + logf(l_run[hr]);
+    }
+}
+
 }  // namespace
 
 extern "C" int ttx_flash_rel_attention_fwd(
@@ -345,6 +624,37 @@ extern "C" int ttx_flash_rel_attention_fwd(
         if (err != cudaSuccess) return (int)err;
         const dim3 grid((T + TQ - 1) / TQ, H, B);
         flash_fwd_tc<DH><<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
+        return (int)cudaGetLastError();
+    });
+}
+
+// The bf16 form: q, k, v and the tables bf16; out float32; with lse (then
+// sums, the float32 P's product with v, too) or without both.
+extern "C" int ttx_flash_rel_attention_fwd_bf16(
+        const void* q, const void* k, const void* v, long long sq, long long sk,
+        long long sv, const void* re, const void* u, const void* rb, void* out,
+        void* lse, void* sums, int B, int T, int H, int Dh, void* stream) {
+    ArgsBf16 a;
+    a.q = static_cast<const __nv_bfloat16*>(q);
+    a.k = static_cast<const __nv_bfloat16*>(k);
+    a.v = static_cast<const __nv_bfloat16*>(v);
+    a.sq = sq; a.sk = sk; a.sv = sv;
+    a.re = static_cast<const __nv_bfloat16*>(re);
+    a.u = static_cast<const __nv_bfloat16*>(u);
+    a.rb = static_cast<const __nv_bfloat16*>(rb);
+    a.out = static_cast<float*>(out);
+    a.lse = static_cast<float*>(lse);
+    a.sums = static_cast<float*>(sums);
+    a.B = B; a.T = T; a.H = H;
+    if ((lse == nullptr) != (sums == nullptr)) return (int)cudaErrorInvalidValue;
+    return with_head_dim(Dh, [&](auto dh) {
+        constexpr int DH = decltype(dh)::value;
+        const int smem = (int)sizeof(SmemBf16<DH>);
+        cudaError_t err = cudaFuncSetAttribute(
+            flash_fwd_bf16<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return (int)err;
+        const dim3 grid((T + TQ - 1) / TQ, H, B);
+        flash_fwd_bf16<DH><<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
         return (int)cudaGetLastError();
     });
 }

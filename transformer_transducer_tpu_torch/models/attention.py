@@ -25,9 +25,9 @@ parameters with the JAX module's rounding points, by explicit casts
 (``ops/precision.py``): each projection is a bf16 product followed by a
 separate bf16 bias add, the scores and the einsums run in bf16, the softmax
 in float32 cast back, and the residual stream and the LayerNorms stay
-float32.  The banded kernel takes float32
-(JAX casts its operands up); the flash kernels' bf16 forms are not ported
-yet, so the flash branch refuses bf16.
+float32.  The banded kernel takes float32 (JAX casts its operands up); the
+flash kernels take bf16 in their bf16 forms, which round where JAX's
+Pallas kernels round (``ops/cuda/flash_rel_attention.py``).
 """
 
 from __future__ import annotations
@@ -125,15 +125,11 @@ class RelLearnableSelfAttention(nn.Module):
         r_bias = to_compute(slice_pos_table(r_bias, t), cd)
 
         if band is None and attn_mask is None and self.flash:
-            if cd != torch.float32:
-                raise NotImplementedError(
-                    "bf16 flash attention (the bf16 forms of the flash forward "
-                    "and backward kernels, 8 and 9) is ported in a later slice "
-                    "of the PyTorch port (6b-ii, the next one); compute in bf16 "
-                    "with the band or the dense path")
+            # under bf16 every operand bf16, r_w_bias too (JAX's
+            # r_w_bias.astype(cd)): the kernels' bf16 forms
             from transformer_transducer_tpu_torch.ops.cuda.flash_rel_attention import (
                 flash_rel_attention)
-            vec = flash_rel_attention(q, k, v, r_emb, r_w_bias, r_bias)
+            vec = flash_rel_attention(q, k, v, r_emb, to_compute(r_w_bias, cd), r_bias)
         elif band is not None:
             # float32 operands, as JAX casts them up before its banded kernel
             # (under float32 the strided views go in as they are)

@@ -96,10 +96,13 @@ def library() -> ctypes.CDLL:
             # ... out, lse, B, T, H, Dh, [left, right,] stream
             "ttx_banded_attention_fwd": inputs + [ptr, ptr] + [i32] * 6 + [ptr],
             "ttx_flash_rel_attention_fwd": inputs + [ptr, ptr] + [i32] * 4 + [ptr],
+            # ... out, lse, sums, B, T, H, Dh, stream
+            "ttx_flash_rel_attention_fwd_bf16": inputs + [ptr] * 3 + [i32] * 4 + [ptr],
             # ... out, lse, dout, dq, dk, dv, dre, du, drb, [part,] B, T, H,
             # Dh, [left, right,] stream
             "ttx_banded_attention_bwd": inputs + [ptr] * 10 + [i32] * 6 + [ptr],
             "ttx_flash_rel_attention_bwd": inputs + [ptr] * 9 + [i32] * 4 + [ptr],
+            "ttx_flash_rel_attention_bwd_bf16": inputs + [ptr] * 9 + [i32] * 4 + [ptr],
             # sb, sl, alpha, B, D, U1, stream
             "ttx_rnnt_alpha": [ptr, ptr, ptr, i32, i32, i32, ptr],
             # sb, sl, inject, beta, B, D, U1, stream

@@ -11,32 +11,38 @@ from transformer_transducer_tpu_torch.ops.cuda import build
 HALO = 64   # band bound of the banded kernels: 0 <= left, right <= HALO
 
 
-def check_inputs(q, k, v, r_emb, r_w_bias, r_bias) -> None:
+def check_inputs(q, k, v, r_emb, r_w_bias, r_bias,
+                 dtypes: Tuple[torch.dtype, ...] = (torch.float32,)) -> None:
     """Shapes and dtype every device takes: q, k, v (B, T, H, Dh); r_emb
-    (T, H, Dh); r_w_bias (H, Dh); r_bias (T, H); all float32 on one device."""
+    (T, H, Dh); r_w_bias (H, Dh); r_bias (T, H); all of one dtype among
+    ``dtypes``, on one device."""
     if q.dim() != 4:
         raise ValueError(f"q must be (B, T, H, Dh), got {tuple(q.shape)}")
     b, t, h, dh = q.shape
     want = {"q": (q, (b, t, h, dh)), "k": (k, (b, t, h, dh)),
             "v": (v, (b, t, h, dh)), "r_emb": (r_emb, (t, h, dh)),
             "r_w_bias": (r_w_bias, (h, dh)), "r_bias": (r_bias, (t, h))}
+    names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+    if q.dtype not in dtypes:
+        raise TypeError(f"q must be {names}, got {q.dtype}")
     for name, (x, shape) in want.items():
         if tuple(x.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {x.dtype}")
+        if x.dtype != q.dtype:
+            raise TypeError(f"{name} must be {q.dtype} as q is, got {x.dtype}")
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
 
 
 def row_stride(x: torch.Tensor, name: str) -> int:
     """Row stride of a (B, T, H, Dh) tensor whose heads are packed: the
-    kernels take strided views of the fused qkv projection in place."""
+    kernels take strided views of the fused qkv projection in place, rows
+    of whole 16 bytes (4 float32, 8 bf16 elements)."""
     b, t, h, dh = x.shape
     s = x.stride()
-    if s[3] != 1 or s[2] != dh or s[0] != t * s[1] or s[1] % 4 != 0:
-        raise ValueError(f"{name} needs packed heads and a row stride that is "
-                         f"a multiple of 4, got strides {s}")
+    if s[3] != 1 or s[2] != dh or s[0] != t * s[1] or (s[1] * x.element_size()) % 16:
+        raise ValueError(f"{name} needs packed heads and a row stride of whole "
+                         f"16 bytes, got strides {s} of {x.dtype}")
     return s[1]
 
 
@@ -66,12 +72,15 @@ def kernel_args(q, k, v, r_emb, r_w_bias, r_bias):
 
 
 def launch_forward(fn: str, inputs: Sequence[torch.Tensor], band: Tuple[int, ...],
-                   with_lse: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor], bool]:
-    """Run forward kernel ``fn`` (``ttx_banded_attention_fwd`` or
-    ``ttx_flash_rel_attention_fwd``) on
-    ``inputs = (q, k, v, r_emb, r_w_bias, r_bias)``.  Returns the output
-    (B, T, H, Dh), the row log-sum-exp (B, H, T) the backward needs (when
-    ``with_lse``) and whether a kernel was launched (not for empty inputs)."""
+                   with_lse: bool, outputs: Sequence[Optional[torch.Tensor]] = ()
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor], bool]:
+    """Run forward kernel ``fn`` (``ttx_banded_attention_fwd``,
+    ``ttx_flash_rel_attention_fwd`` or its ``_bf16`` form) on
+    ``inputs = (q, k, v, r_emb, r_w_bias, r_bias)``.  Returns the float32
+    output (B, T, H, Dh), the row log-sum-exp (B, H, T) the backward needs
+    (when ``with_lse``) and whether a kernel was launched (not for empty
+    inputs).  ``outputs`` are further buffers the kernel takes after the
+    lse (None for a null pointer)."""
     ptrs = kernel_args(*inputs)
     lib = build.library()
     q = inputs[0]
@@ -83,7 +92,8 @@ def launch_forward(fn: str, inputs: Sequence[torch.Tensor], band: Tuple[int, ...
         return out, lse, False
     stream = torch.cuda.current_stream(q.device).cuda_stream
     build.check(getattr(lib, fn)(*ptrs, out.data_ptr(),
-                                 None if lse is None else lse.data_ptr(),
+                                 *(None if x is None else x.data_ptr()
+                                   for x in (lse, *outputs)),
                                  b, t, h, dh, *band, stream), fn)
     return out, lse, True
 
@@ -92,11 +102,13 @@ def launch_backward(fn: str, saved: Sequence[torch.Tensor], grad: torch.Tensor,
                     band: Tuple[int, ...],
                     scratch: Optional[int] = None) -> Tuple[Tuple[torch.Tensor, ...], bool]:
     """Run backward kernel ``fn`` on ``saved = (q, k, v, r_emb, r_w_bias,
-    r_bias, out, lse)`` and the output gradient.  Returns the gradients of
-    the six inputs (q, k, v contiguous; tables as sliced) and whether a
-    kernel was launched.
+    r_bias, out, lse)`` and the output gradient (in q's dtype; ``out`` and
+    ``lse`` float32).  Returns the gradients of the six inputs in their
+    dtype (q, k, v contiguous; tables as sliced) and whether a kernel was
+    launched.
 
-    Without ``scratch`` the kernel adds into the gradients, which start at
+    The kernel sums into float32 buffers, cast to the inputs' dtype after
+    the launch.  Without ``scratch`` it adds into them, and they start at
     zero.  With it, the kernel writes every gradient entry once (they start
     uninitialised) and takes a float32 work buffer of ``scratch`` floats
     after them."""
@@ -105,16 +117,16 @@ def launch_backward(fn: str, saved: Sequence[torch.Tensor], grad: torch.Tensor,
         raise RuntimeError("the forward kept no row statistics: it ran with "
                            "no input that requires a gradient")
     grad = grad.contiguous()
-    if grad.dtype != torch.float32 or grad.shape != out.shape:
-        raise ValueError(f"the output gradient must be float32 {tuple(out.shape)}")
+    if grad.dtype != q.dtype or grad.shape != out.shape:
+        raise ValueError(f"the output gradient must be {q.dtype} {tuple(out.shape)}")
     ptrs = kernel_args(q, k, v, r_emb, r_w_bias, r_bias)
     lib = build.library()
     _aligned(grad, "the output gradient")
     like = (out, out, out, r_emb, r_w_bias, r_bias)
     if out.numel() == 0:
-        return tuple(torch.zeros_like(x) for x in like), False
+        return tuple(torch.zeros_like(x, dtype=q.dtype) for x in like), False
     alloc = torch.zeros_like if scratch is None else torch.empty_like
-    grads = tuple(alloc(x) for x in like)
+    grads = tuple(alloc(x, dtype=torch.float32) for x in like)
     work = (None if scratch is None else
             torch.empty(scratch, dtype=torch.float32, device=q.device))
     b, t, h, dh = q.shape
@@ -123,4 +135,4 @@ def launch_backward(fn: str, saved: Sequence[torch.Tensor], grad: torch.Tensor,
                                  grad.data_ptr(), *(g.data_ptr() for g in grads),
                                  *([] if work is None else [work.data_ptr()]),
                                  b, t, h, dh, *band, stream), fn)
-    return grads, True
+    return tuple(g.to(q.dtype) for g in grads), True
