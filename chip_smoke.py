@@ -937,13 +937,15 @@ def check_bf16_forward(gen):
     bf16 forward on strided bf16 views: output, lse and float32 sums
     (``BF16_FWD_RTOL``, the output also one P's rounding a row and under a
     quarter of the bf16-to-float32 distance), at Dh 64 and 32, at T
-    around its 128-row query tiles and 32-key chunks; the wrapper without
-    the lse gives the same output bits.  Returns the largest abs error."""
+    around its 64-row query tiles and 64-key chunks (and 32-key ones), the
+    table ring's wraps at 410 and 513; the wrapper without the lse gives
+    the same output bits.  Returns the largest abs error."""
     import torch
     from transformer_transducer_tpu_torch.ops.cuda import flash_rel_attention as fa
     worst = 0.0
     for dh in (DH, 32):
-        for tlen in (1, 15, 16, 17, 31, 32, 33, 37, 63, 64, 65, 127, 128, 129, 410, 513):
+        for tlen in (1, 15, 16, 17, 31, 32, 33, 37, 63, 64, 65, 127, 128, 129, 191, 192, 193,
+                     410, 513):
             args = bf16_attention_inputs(tlen, 410, gen, dh=dh)
             out, lse, sums = fa.flash_forward_bf16(*args, with_lse=True)
             without = fa.flash_rel_attention(*args)
@@ -3701,12 +3703,24 @@ def bf16_flash_bytes(b, f32_outputs, bf16_io, table_passes):
     return 2 * bf16_io * rows + 4 * f32_outputs * rows + 2 * table_passes * tables
 
 
+def bf16_forward_occupancy(dh) -> dict:
+    """The bf16 forward's shared memory a block and blocks an SM (the
+    occupancy API, ``ttx_flash_rel_attention_fwd_bf16_info``)."""
+    import ctypes
+    from transformer_transducer_tpu_torch.ops.cuda import build
+    out = (ctypes.c_int * 3)()
+    build.check(build.library().ttx_flash_rel_attention_fwd_bf16_info(dh, out),
+                "ttx_flash_rel_attention_fwd_bf16_info")
+    return {"shared_bytes": out[0], "blocks_per_sm": out[1]}
+
+
 def time_bf16_flash(gen, errs, launches, tc, smi):
     """Phase 14, the kernels' rows of the bf16 forms: each alone under a
     CUDA graph (the forward at B 8 without the lse, as served, and at B 4
     with it, as trained; the backward at B 4), its plain bf16 form, its
     bound at the bf16 and at the TF32 rate, and as yardstick SDPA in bf16
-    with BD as a precomputed additive mask, forward and backward."""
+    with BD as a precomputed additive mask, forward and backward; the
+    forward's registers, ``HMMA``, shared memory and blocks an SM beside."""
     import torch
     from transformer_transducer_tpu_torch.models.attention import rel_shift
     from transformer_transducer_tpu_torch.ops.cuda import flash_rel_attention as fa
@@ -3737,7 +3751,7 @@ def time_bf16_flash(gen, errs, launches, tc, smi):
     bound_ms, bound_by, tf32_ms = bf16_bound(bf16_flash_bytes(B, 1, 3, 1), fwd_ops(B))
     bound_b4, _, _ = bf16_bound(bf16_flash_bytes(B_TRAIN, 2, 3, 1) + 4 * B_TRAIN * H * T_MAIN,
                                 fwd_ops(B_TRAIN))
-    fwd = tc["flash forward bf16"]
+    fwd = dict(tc["flash forward bf16"], **bf16_forward_occupancy(DH))
     records.append({
         "name": "flash_rel_attention_fwd_bf16", "route": "cuda",
         "source": f"{PKG}/csrc/flash_rel_attention_fwd.cu",
@@ -3752,8 +3766,9 @@ def time_bf16_flash(gen, errs, launches, tc, smi):
         f"({bound_by}, bf16 rate; {tf32_ms:.4f} ms at the TF32 rate), "
         f"{100 * bound_ms / ms:.1f} % of it; at B={B_TRAIN} with the lse and sums "
         f"{ms_b4:.4f} ms (bound {bound_b4:.4f} ms); SDPA bf16 with BD as a precomputed mask "
-        f"(yardstick) {yard_ms:.4f} ms; {fwd['hmma']} HMMA, {fwd['registers']} registers; "
-        f"{launches['flash_fwd_bf16']} launches in phase 14 ({smi})")
+        f"(yardstick) {yard_ms:.4f} ms; {fwd['hmma']} HMMA, {fwd['registers']} registers, "
+        f"{fwd['shared_bytes']} bytes of shared memory a block, {fwd['blocks_per_sm']} blocks "
+        f"an SM; {launches['flash_fwd_bf16']} launches in phase 14 ({smi})")
     del args
 
     out, lse, sums = fa.flash_forward_bf16(*args4, with_lse=True)

@@ -1166,9 +1166,9 @@ def _bf16_args(leaves):
     return (*qkv.unbind(2), slice_pos_table(re, tlen), u, slice_pos_table(rb, tlen))
 
 
-# the forward's 128-row query tiles and 32-key chunks
+# the forward's 64-row query tiles and 64-key chunks
 @pytest.mark.parametrize("dh", [32, 64])
-@pytest.mark.parametrize("tlen", [1, 2, 31, 32, 33, 64, 65, 127, 128, 129, 200, 410])
+@pytest.mark.parametrize("tlen", [1, 2, 31, 32, 33, 63, 64, 65, 127, 128, 129, 193, 200, 410])
 def test_flash_bf16_forward_matches_plain(gen, tlen, dh):
     """Output (the rounded P's), row lse and the float32 P's sums of the bf16
     forward on strided bf16 views, against the plain bf16 forward: the

@@ -167,21 +167,22 @@ def tf32_rna(x: torch.Tensor) -> torch.Tensor:
 
 
 def tc_product(a: torch.Tensor, b: torch.Tensor, terms: str,
-               acc: torch.Tensor = None) -> torch.Tensor:
-    """(..., M, K) . (..., K, N) as the kernels' mma.sync.m16n8k8 tiles
-    compute it: an fp32 accumulator (``acc``, else zeros) that takes each
-    8-deep step's exact products; ``terms`` "3x" adds lo.hi + hi.lo + hi.hi
-    of the split operands, "1x" hi.hi."""
+               acc: torch.Tensor = None, step: int = 8) -> torch.Tensor:
+    """(..., M, K) . (..., K, N) as the kernels' mma.sync tiles compute it:
+    an fp32 accumulator (``acc``, else zeros) that takes each ``step``-deep
+    step's exact products (8 for m16n8k8 TF32, 16 for m16n8k16 bf16, whose
+    operands are bf16 values and so their own TF32 hi); ``terms`` "3x" adds
+    lo.hi + hi.lo + hi.hi of the split operands, "1x" hi.hi."""
     a_hi, b_hi = tf32_rna(a), tf32_rna(b)
     a_lo, b_lo = tf32_rna(a - a_hi), tf32_rna(b - b_hi)
     pairs = [(a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)] if terms == "3x" else [(a_hi, b_hi)]
     c = torch.zeros(*torch.broadcast_shapes(a.shape[:-2], b.shape[:-2]), a.shape[-2],
                     b.shape[-1], dtype=torch.float32) if acc is None else acc
-    for k in range(0, a.shape[-1], 8):
+    for k in range(0, a.shape[-1], step):
         for x, y in pairs:
             # products of two TF32 values are exact in fp64; the step's sum
             # enters the fp32 accumulator once
-            c = c + (x[..., k:k + 8].double() @ y[..., k:k + 8, :].double()).float()
+            c = c + (x[..., k:k + step].double() @ y[..., k:k + step, :].double()).float()
     return c
 
 

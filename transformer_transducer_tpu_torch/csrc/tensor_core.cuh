@@ -3,7 +3,8 @@
 // cp.async copies, the BD table row of an offset, and the warp-level TF32
 // tensor-core products in 3xTF32 that the flash kernels
 // (csrc/flash_rel_attention_fwd.cu, csrc/flash_rel_attention_bwd.cu) and the
-// additive logZ (csrc/additive_logz.cu) are made of.
+// additive logZ (csrc/additive_logz.cu) are made of; and the swizzled bf16
+// tiles, ldmatrix loads and bf16 products of the flash forward's bf16 form.
 //
 // 3xTF32: an fp32 operand x is split into hi = x rounded to TF32 (to
 // nearest, ties away: the bits of cvt.rna.tf32.f32, taken by integer
@@ -15,11 +16,14 @@
 // tests/test_torch_port_flash_bwd_tiles.py emulates both).  Both halves are
 // rounded: fed raw fp32, the tensor core drops the low 13 bits.
 //
-// bf16 operands (the flash kernels' bf16 forms): a bf16 value has 8
+// bf16 operands of the flash backward's bf16 form: a bf16 value has 8
 // significant bits, so it is exact in TF32 (11), and one TF32 product of
 // bf16-valued operands is exact with fp32 accumulation, as a bf16 product
 // is; the ONE flag of the products below takes that single pass on the
-// operands' bits.  bf16 inputs are widened to fp32 as they are loaded.
+// operands' bits.  There bf16 inputs are widened to fp32 as they are
+// loaded.  The flash forward's bf16 form keeps its operands bf16 in shared
+// memory instead and multiplies them with mma.m16n8k16 .bf16 (the last
+// section: swizzled 16-byte chunks, ldmatrix, bf16x2 packing).
 //
 // Fragments (PTX ISA, mma.m16n8k8 .tf32): lane 4g + t holds A rows g, g+8
 // at columns t, t+4, B rows t, t+4 at column g, and C rows g, g+8 at
@@ -104,7 +108,7 @@ __device__ __forceinline__ float row_sum(float x, int n) {
 
 // 16 bytes from global to shared memory without a register round trip,
 // zeros where ok is false (src then only has to be a valid address).
-__device__ __forceinline__ void cp16(float* dst, const float* src, bool ok) {
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
     const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                  :: "r"(d), "l"(src), "r"(ok ? 16 : 0));
@@ -368,5 +372,68 @@ __device__ __forceinline__ void mma3(float (&c)[NT][4], const unsigned (&ah)[4],
 #pragma unroll
     for (int j = 0; j < NT; ++j) mma(c[j], ah, bh[j]);
 }
+
+// ---- bf16 tiles for mma.m16n8k16 (the flash forward's bf16 form)
+//
+// A tile row of NCH 16-byte chunks (8 bf16 each; NCH = 4 or 8, Dh 32 or
+// 64) keeps chunk c at c ^ (the row's bits): ldmatrix reads 8 rows of 16
+// bytes a phase, and any 8 consecutive rows at one chunk land in the 8
+// distinct 16-byte bank groups of a 128-byte line (at NCH 4 two rows share
+// a line, so the row's bits 1-2 pick the chunk and bit 0 the half).
+//
+// Fragments (PTX ISA, mma.m16n8k16 .bf16): lane 4g + t holds A (16 x 16,
+// row-major) rows g, g+8 at columns 2t, 2t+1 (a0, a1) and 8+2t, 9+2t (a2,
+// a3); B (16 x 8) rows 2t, 2t+1 (b0) and 8+2t, 9+2t (b1) at column g; C rows
+// g, g+8 at columns 2t, 2t+1, as the TF32 shape's.  Each 32-bit register
+// holds two bf16, the lower column in the low half.  ldmatrix .x4 gives
+// lane 4g + t row g, elements 2t, 2t+1 of the 8 x 8 matrix whose rows lanes
+// 8i .. 8i+7 address, in register i (.trans: row 2t, 2t+1 at column g).
+template <int NCH>
+__device__ __forceinline__ int swz16(int row) {
+    static_assert(NCH == 4 || NCH == 8, "rows of 64 or 128 bytes");
+    return (NCH == 8 ? row : row >> 1) & (NCH - 1);
+}
+
+template <int NCH>
+__device__ __forceinline__ int at16(int row, int c) {
+    return row * NCH + (c ^ swz16<NCH>(row));
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm4(unsigned (&r)[4], unsigned addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm4t(unsigned (&r)[4], unsigned addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm2(unsigned (&r)[2], unsigned addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+                 : "=r"(r[0]), "=r"(r[1]) : "r"(addr));
+}
+
+// c += a . b, bf16 operands, fp32 accumulators; the products are exact.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (lo, hi) rounded to bf16 (to nearest even, as astype rounds), lo in the
+// low half; and the two halves back as fp32.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const unsigned*>(&p);
+}
+__device__ __forceinline__ float lo_bf16(unsigned x) { return __uint_as_float(x << 16); }
+__device__ __forceinline__ float hi_bf16(unsigned x) { return __uint_as_float(x & 0xffff0000u); }
 
 }  // namespace ttx

@@ -133,6 +133,9 @@ def library() -> ctypes.CDLL:
         # B, T, U1, V, info -> words of the logZ's workspace
         lib.ttx_additive_logz_workspace.argtypes = [i32] * 4 + [ctypes.POINTER(i64)]
         lib.ttx_additive_logz_workspace.restype = i64
+        # Dh, out (shared bytes, blocks a multiprocessor, registers)
+        lib.ttx_flash_rel_attention_fwd_bf16_info.argtypes = [i32, ctypes.POINTER(i32)]
+        lib.ttx_flash_rel_attention_fwd_bf16_info.restype = i32
         lib.ttx_error_string.argtypes = [i32]
         lib.ttx_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -24,7 +24,10 @@ Two forms, chosen by the inputs' dtype (all six alike):
   to bf16, D_i = sum_j P_ij dP_ij with the float32 P, dS and P rounded to
   bf16 before every product, and each gradient cast to bf16.  The forward
   also keeps the float32 P's product with v (``sums``) for the backward's
-  D.  :func:`flash_bf16_forward_plain` and :func:`flash_bf16_backward_plain`
+  D.  The bf16 forward's products run on the bf16 tensor cores
+  (``mma.m16n8k16``, operands bf16 in shared memory), the backward's as one
+  exact TF32 pass on bf16 values.  :func:`flash_bf16_forward_plain` and
+  :func:`flash_bf16_backward_plain`
   are the plain versions, the backward written out (autograd through the
   forward would not round dS).
 

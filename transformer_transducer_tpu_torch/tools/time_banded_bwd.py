@@ -15,9 +15,13 @@ most ``MAX_STARTS`` start vectors), beside the plan's.  With ``--pass
 lattice_alpha`` or ``--pass lattice_beta`` it times an RNN-T lattice sweep
 (``ttx_rnnt_alpha``, ``ttx_rnnt_beta``); a shape is then B,T,U (U1 = U + 1)
 and the inputs are ``chip_smoke.py::lattice_inputs``'s, the first sequence
-full length; with several checkouts each also saves its outputs, and the
-largest |difference| of every checkout's from the first's is printed after
-them.  Each checkout given
+full length.  With ``--pass bf16_fwd`` it times the flash forward's bf16
+form (``ttx_flash_rel_attention_fwd_bf16``) without the lse, as served, and
+with the lse and sums, as trained; a shape is then B,T,H,Dh and q, k, v
+are strided views of one bf16 projection, as ``chip_smoke.py`` draws them.
+With several checkouts a lattice sweep or the bf16 forward also saves its
+outputs, and the largest |difference| of every checkout's from the first's
+is printed after them.  Each checkout given
 runs in its own process (the packages share a name), builds its own kernels
 into its own ``build/`` and is timed at every shape; the checkouts run in
 the order given, so ``--roots old new new old`` compares two versions on
@@ -27,7 +31,8 @@ one card in one run.
         --roots build/parent . . build/parent [--pass fwd] \\
         --shapes 4,410,8,64 4,410,8,32 4,48,2,32 --band 10 2
 
-A shape is B,T,H,Dh (inputs fp32, drawn from a seed), B,T,U1,V for
+A shape is B,T,H,Dh (inputs fp32, drawn from a seed; bf16 for
+``--pass bf16_fwd``), B,T,U1,V for
 ``--pass logz``, B,T,S for ``--pass alpha`` and ``--pass beta`` or B,T,U
 for the lattice passes.  Prints one line a checkout and shape, then the
 card's name and power limit.
@@ -47,12 +52,14 @@ REPO = os.path.dirname(os.path.dirname(HERE))
 
 
 LATTICE = ("lattice_alpha", "lattice_beta")
+SAVED = LATTICE + ("bf16_fwd",)        # passes whose outputs are compared
 
 
 def time_one(root: str, shapes, band, which: str, chunks=(), save=None) -> None:
-    """Time the ``which`` pass ("fwd", "bwd", "logz", "alpha", "beta" or a
-    lattice sweep) of the package under ``root`` at each shape; a lattice
-    sweep's outputs go to ``save``, if given."""
+    """Time the ``which`` pass ("fwd", "bwd", "logz", "alpha", "beta", a
+    lattice sweep or "bf16_fwd") of the package under ``root`` at each
+    shape; a lattice sweep's or the bf16 forward's outputs go to ``save``,
+    if given."""
     sys.path.insert(0, REPO)
     import torch
     from chip_smoke import band_inputs, graph_ms, lattice_inputs   # this checkout's
@@ -72,6 +79,23 @@ def time_one(root: str, shapes, band, which: str, chunks=(), save=None) -> None:
             outputs[f"{b},{t},{u}"] = run().cpu()
             print(json.dumps({"root": root, "pass": which, "B": b, "T": t, "U1": u + 1,
                               "ms": graph_ms(run)}), flush=True)
+        if save:
+            torch.save(outputs, save)
+        return
+    if which == "bf16_fwd":
+        from transformer_transducer_tpu_torch.ops.cuda import flash_rel_attention as fa
+        outputs = {}
+        for b, t, h, dh in shapes:
+            mk = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(torch.bfloat16)
+            q, k, v = mk(b, t, 3, h, dh).unbind(2)
+            args = (q, k, v, mk(t, h, dh), mk(h, dh), mk(t, h))
+            with torch.no_grad():
+                ms = graph_ms(lambda: fa.flash_forward_bf16(*args, with_lse=False))
+                ms_lse = graph_ms(lambda: fa.flash_forward_bf16(*args, with_lse=True))
+                outputs[f"{b},{t},{h},{dh}"] = torch.stack(
+                    [x.cpu() for x in fa.flash_forward_bf16(*args, with_lse=True)[::2]])
+            print(json.dumps({"root": root, "pass": which, "B": b, "T": t, "H": h, "Dh": dh,
+                              "ms": ms, "ms_with_lse": ms_lse}), flush=True)
         if save:
             torch.save(outputs, save)
         return
@@ -126,10 +150,10 @@ def main() -> int:
     ap.add_argument("--roots", nargs="+", default=["."],
                     help="checkouts whose port package is timed, in this order")
     ap.add_argument("--pass", dest="which",
-                    choices=("fwd", "bwd", "logz", "alpha", "beta") + LATTICE,
+                    choices=("fwd", "bwd", "logz", "alpha", "beta") + SAVED,
                     default="bwd",
                     help="the wrapper timed: the banded forward or backward, the logZ, "
-                    "a band sweep or a lattice sweep")
+                    "a band sweep, a lattice sweep or the flash forward's bf16 form")
     ap.add_argument("--shapes", nargs="+", default=["4,410,8,64"],
                     help="B,T,H,Dh (B,T,U1,V for logz, B,T,S for alpha and beta, B,T,U "
                     "for the lattice sweeps)")
@@ -155,7 +179,7 @@ def main() -> int:
             cmd = [sys.executable, os.path.abspath(__file__), "--one", root, "--pass",
                    a.which, "--shapes", *a.shapes, "--band", *map(str, a.band),
                    "--chunks", *map(str, a.chunks)]
-            if a.which in LATTICE and len(a.roots) > 1:
+            if a.which in SAVED and len(a.roots) > 1:
                 saved.append(os.path.join(tmp, f"{i}.pt"))
                 cmd += ["--save", saved[-1]]
             if subprocess.run(cmd).returncode != 0:
