@@ -10,7 +10,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    csrc`` (timed; one ``nvcc`` a source, all at once), with ptxas's
    registers and spills, and the ``HMMA`` (tensor-core) instructions of the
    flash forward and backward at Dh = 64, float32 and bf16 forms
-   (``cuobjdump -sass``; none in any fails the run), and the SASS instructions and ``RED``/``ATOM``
+   (``cuobjdump -sass``; none in any fails the run, and so does a spill in
+   the bf16 backward or an ``HMMA`` there that is not ``m16n8k16`` bf16),
+   and the SASS instructions and ``RED``/``ATOM``
    (atomic) instructions of the banded forward, of the banded
    backward's two kernels, of the additive logZ's four kernels, of each
    band sweep's two and of the lattice sweeps' instantiations (any atomic
@@ -45,8 +47,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    four attention kernels at head width 32 as well as 64; the flash
    kernels' bf16 forms against their plain bf16 forms on strided bf16
    views at Dh 64 and 32 and T = 1, 15-17, 31-33, 37, 63-65, 127-129, 410,
-   513 (``BF16_FWD_RTOL``, ``BF16_GRAD_RTOL``: the forward's output, lse
-   and float32 sums, the backward's six gradients);
+   513, the forward also at 191-193, the backward at 95-97, 191-193 and
+   255-257 (``BF16_FWD_RTOL``, ``BF16_GRAD_RTOL``: the forward's output,
+   lse and float32 sums, the backward's six gradients; the backward's dk
+   and dv, written once by the block that owns their keys, to the bit in
+   two calls);
 4. the slice at full width: ``configs/joint_streaming.yaml`` (18 layers,
    d_model 512, V 6485) with seeded random weights, 8 synthetic utterances
    of 60-410 frames through the host frontend and batched greedy
@@ -249,8 +254,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    geometry, Dh 32), float32 checkpoints, and ``apps/predict.py`` on its
    ``epoch_1`` (kernel 6, twice); the bf16 forms alone under a CUDA graph
    with their bounds at the bf16 and TF32 rates and bf16 SDPA as
-   yardstick; a JSON line before the kernels' line, whose launches count
-   the phase's main paths (``phase14_launches``).
+   yardstick (the backward also as its three kernels alone, without the
+   wrapper's allocations, and its main kernel alone), with registers,
+   ``HMMA``, shared bytes and blocks an SM; a JSON line before the kernels'
+   line, whose launches count the phase's main paths
+   (``phase14_launches``).
 
 Each phase logs the seconds since the run began.
 
@@ -591,31 +599,33 @@ def ptxas_entries(text: str, symbol: str):
 
 
 @functools.lru_cache(maxsize=None)
-def sass_by_function(lib_path) -> dict:
+def sass_by_function(lib_path, full: bool = False) -> dict:
     """The static count of each opcode in each kernel's SASS (``cuobjdump
     -sass`` on the built library, run once; a predicate guard is skipped),
-    keyed by the kernel's ``Function :`` line."""
+    keyed by the kernel's ``Function :`` line; with ``full`` each opcode
+    with its modifiers (``HMMA.16816.F32.BF16``)."""
     from transformer_transducer_tpu_torch.ops.cuda import build
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
     out, count = {}, None
-    op_re = re.compile(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)")
+    op_re = re.compile(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)([.\w]*)")
     for line in sass.splitlines():
         if "Function :" in line:
             count = out.setdefault(line, collections.Counter())
         elif count is not None:
             op = op_re.match(line)
             if op:
-                count[op.group(1)] += 1
+                count[op.group(1) + (op.group(2) if full else "")] += 1
     return out
 
 
-def sass_opcodes(lib_path, symbol: str) -> collections.Counter:
-    """The static count of each opcode in the SASS of the kernels whose
-    mangled names hold a match of the pattern ``symbol``."""
+def sass_opcodes(lib_path, symbol: str, full: bool = False) -> collections.Counter:
+    """The static count of each opcode (with ``full``, with its modifiers)
+    in the SASS of the kernels whose mangled names hold a match of the
+    pattern ``symbol``."""
     total = collections.Counter()
-    for line, count in sass_by_function(lib_path).items():
+    for line, count in sass_by_function(lib_path, full).items():
         if re.search(symbol, line):
             total += count
     return total
@@ -976,21 +986,27 @@ def check_bf16_backward(gen):
     magnitude or one bf16 step of the element, plus one rounding inside the
     sums (``bf16_grad_allowance``) and ``GRAD_FLOOR``, and the
     leaves of 10,000 elements or more under a quarter of the
-    bf16-to-float32 distance, at Dh 64 and 32, at T around its 32-row query
-    tiles and 64-key chunks.  Returns the largest abs error."""
+    bf16-to-float32 distance, at Dh 64 and 32, at T around its 64-key
+    blocks and 32-row query steps (and the table ring's wraps at 410 and
+    513); dk and dv, which the block that owns their keys writes once, to
+    the bit in a second call.  Returns the largest abs error."""
     import torch
     from transformer_transducer_tpu_torch.models.attention import slice_pos_table
     from transformer_transducer_tpu_torch.ops.cuda import flash_rel_attention as fa
     worst = 0.0
     names = ("dq", "dk", "dv", "d_r_emb", "d_r_w_bias", "d_r_bias")
     for dh in (DH, 32):
-        for tlen in (1, 15, 16, 17, 31, 32, 33, 37, 63, 64, 65, 127, 128, 129, 410, 513):
+        for tlen in (1, 15, 16, 17, 31, 32, 33, 37, 63, 64, 65, 95, 96, 97, 127, 128, 129,
+                     191, 192, 193, 255, 256, 257, 410, 513):
             mk = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(torch.bfloat16)
             leaves = [mk(B_TRAIN, tlen, 3, H, dh).requires_grad_(), mk(T_MAIN, H, dh)
                       .requires_grad_(), mk(H, dh).requires_grad_(),
                       mk(T_MAIN, H).requires_grad_()]
             gout = torch.randn(B_TRAIN, tlen, H, dh, generator=gen, device="cuda")
             got = attention_grads(fa.flash_rel_attention, leaves, gout)
+            again = attention_grads(fa.flash_rel_attention, leaves, gout)
+            require(torch.equal(got[2], again[2]) and torch.equal(got[3], again[3]),
+                    f"bf16 flash backward Dh={dh} T={tlen}: dk or dv moved in a second call")
             ref = attention_grads(fa.flash_rel_attention_plain, leaves, gout)
             f32 = [x.detach().float().requires_grad_() for x in leaves]
             ref32 = attention_grads(fa.flash_rel_attention_plain, f32,
@@ -3703,15 +3719,42 @@ def bf16_flash_bytes(b, f32_outputs, bf16_io, table_passes):
     return 2 * bf16_io * rows + 4 * f32_outputs * rows + 2 * table_passes * tables
 
 
-def bf16_forward_occupancy(dh) -> dict:
-    """The bf16 forward's shared memory a block and blocks an SM (the
-    occupancy API, ``ttx_flash_rel_attention_fwd_bf16_info``)."""
+def bf16_occupancy(which, dh) -> dict:
+    """A bf16 flash kernel's shared memory a block and blocks an SM (the
+    occupancy API, ``ttx_flash_rel_attention_{which}_bf16_info``, which
+    "fwd" or "bwd")."""
     import ctypes
     from transformer_transducer_tpu_torch.ops.cuda import build
     out = (ctypes.c_int * 3)()
-    build.check(build.library().ttx_flash_rel_attention_fwd_bf16_info(dh, out),
-                "ttx_flash_rel_attention_fwd_bf16_info")
+    fn = f"ttx_flash_rel_attention_{which}_bf16_info"
+    build.check(getattr(build.library(), fn)(dh, out), fn)
     return {"shared_bytes": out[0], "blocks_per_sm": out[1]}
+
+
+def bf16_backward_parts(args, sums, lse, gout) -> dict:
+    """The bf16 backward's kernels alone, each under a CUDA graph on
+    buffers made once (none of the wrapper's allocations): the three of a
+    call (the pre-pass, the main kernel, the casts), the main kernel alone,
+    the pre-pass alone and the casts alone (``_stages``)."""
+    import torch
+    from transformer_transducer_tpu_torch.ops.cuda import build, common
+    lib = build.library()
+    b, t, h, dh = args[0].shape
+    ptrs = common.kernel_args(*args)
+    outs = [torch.empty_like(x, dtype=torch.bfloat16) for x in (sums, sums, sums, *args[3:])]
+    work = torch.empty(lib.ttx_flash_rel_attention_bwd_bf16_workspace(b, t, h, dh),
+                       dtype=torch.float32, device=sums.device)
+    grad = gout.float().contiguous()
+
+    def run(stages):
+        build.check(lib.ttx_flash_rel_attention_bwd_bf16_stages(
+            stages, *ptrs, sums.data_ptr(), lse.data_ptr(), grad.data_ptr(),
+            *(o.data_ptr() for o in outs), work.data_ptr(), b, t, h, dh,
+            torch.cuda.current_stream().cuda_stream), "ttx_flash_rel_attention_bwd_bf16_stages")
+
+    run(7)
+    return {"ms_kernels_alone": graph_ms(lambda: run(7)), "ms_main_kernel": graph_ms(lambda: run(2)),
+            "ms_prepass": graph_ms(lambda: run(1)), "ms_casts": graph_ms(lambda: run(4))}
 
 
 def time_bf16_flash(gen, errs, launches, tc, smi):
@@ -3751,7 +3794,7 @@ def time_bf16_flash(gen, errs, launches, tc, smi):
     bound_ms, bound_by, tf32_ms = bf16_bound(bf16_flash_bytes(B, 1, 3, 1), fwd_ops(B))
     bound_b4, _, _ = bf16_bound(bf16_flash_bytes(B_TRAIN, 2, 3, 1) + 4 * B_TRAIN * H * T_MAIN,
                                 fwd_ops(B_TRAIN))
-    fwd = dict(tc["flash forward bf16"], **bf16_forward_occupancy(DH))
+    fwd = dict(tc["flash forward bf16"], **bf16_occupancy("fwd", DH))
     records.append({
         "name": "flash_rel_attention_fwd_bf16", "route": "cuda",
         "source": f"{PKG}/csrc/flash_rel_attention_fwd.cu",
@@ -3784,7 +3827,8 @@ def time_bf16_flash(gen, errs, launches, tc, smi):
     # does not need them); about 16 Dh FLOP a cell, as backward_bound
     bound_ms, bound_by, tf32_ms = bf16_bound(bf16_flash_bytes(B_TRAIN, 0, 7, 2),
                                              B_TRAIN * H * T_MAIN * T_MAIN * 16 * DH)
-    bwd = tc["flash backward bf16"]
+    bwd = dict(tc["flash backward bf16"], **bf16_occupancy("bwd", DH),
+               **bf16_backward_parts(args4, sums, lse, gout))
     records.append({
         "name": "flash_rel_attention_bwd_bf16", "route": "cuda",
         "source": f"{PKG}/csrc/flash_rel_attention_bwd.cu",
@@ -3793,12 +3837,16 @@ def time_bf16_flash(gen, errs, launches, tc, smi):
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "bound_tf32_ms": tf32_ms, "share_of_bound": bound_ms / ms,
         "sdpa_bf16_bd_mask_yardstick_ms": yard_ms, **bwd})
-    log(f"  flash_rel_attention_bwd_bf16: kernel {ms:.4f} ms (alone, CUDA graph, with the "
-        f"wrapper's gradient buffers and casts, B={B_TRAIN}), plain {plain_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}, bf16 rate; {tf32_ms:.4f} ms at the TF32 rate), "
-        f"{100 * bound_ms / ms:.1f} % of it; SDPA bf16 backward with BD as a precomputed "
-        f"mask (yardstick) {yard_ms:.4f} ms; {bwd['hmma']} HMMA, {bwd['registers']} "
-        f"registers; {launches['flash_bwd_bf16']} launches in phase 14 ({smi})")
+    log(f"  flash_rel_attention_bwd_bf16: kernel {ms:.4f} ms (alone, CUDA graph, the "
+        f"wrapper with its buffers, B={B_TRAIN}); its three kernels {bwd['ms_kernels_alone']:.4f} "
+        f"ms (the main kernel {bwd['ms_main_kernel']:.4f}, the pre-pass "
+        f"{bwd['ms_prepass']:.4f}, the casts {bwd['ms_casts']:.4f}); plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}, bf16 rate; {tf32_ms:.4f} ms at the TF32 rate), "
+        f"{100 * bound_ms / ms:.1f} % of it ({100 * bound_ms / bwd['ms_kernels_alone']:.1f} % "
+        f"for the kernels alone); SDPA bf16 backward with BD as a precomputed mask "
+        f"(yardstick) {yard_ms:.4f} ms; {bwd['hmma']} HMMA, {bwd['registers']} registers, "
+        f"{bwd['shared_bytes']} bytes of shared memory a block, {bwd['blocks_per_sm']} blocks "
+        f"an SM; {launches['flash_bwd_bf16']} launches in phase 14 ({smi})")
     return records
 
 
@@ -3854,9 +3902,9 @@ def main() -> int:
     # the flash kernels' products run on the tensor cores (mma.sync); Dh 64
     tc = {}
     for name, symbol in (("flash forward", "flash_fwd_tcILi64E"),
-                         ("flash backward", "flash_bwd_tcILi64ELb0E"),
+                         ("flash backward", "flash_bwd_tcILi64EE"),
                          ("flash forward bf16", "flash_fwd_bf16ILi64E"),
-                         ("flash backward bf16", "flash_bwd_tcILi64ELb1E")):
+                         ("flash backward bf16", "flash_bwd_bf16ILi64E")):
         ops = sass_opcodes(lib_path, symbol)
         (regs, spill_st, spill_ld), = ptxas_entries(ptxas, symbol)
         tc[name] = {"hmma": ops["HMMA"], "sass": sum(ops.values()), "registers": regs,
@@ -3866,6 +3914,14 @@ def main() -> int:
             f"of spill stores + loads; most: "
             + ", ".join(f"{op} {n}" for op, n in ops.most_common(12)))
         require(ops["HMMA"] > 0, f"the {name} has no tensor-core instruction")
+    # the bf16 backward: no spill, every product m16n8k16 on bf16 operands
+    shapes = {op: n for op, n in sass_opcodes(lib_path, "flash_bwd_bf16ILi64E", True).items()
+              if op.startswith("HMMA")}
+    tc["flash backward bf16"]["hmma_shapes"] = shapes
+    log(f"  flash backward bf16: HMMA forms {shapes}")
+    require(tc["flash backward bf16"]["spill_bytes"] == 0, "the bf16 flash backward spills")
+    require(set(shapes) == {"HMMA.16816.F32.BF16"},
+            f"the bf16 flash backward has products other than m16n8k16 bf16: {shapes}")
     # the banded forward and backward (SIMT, Dh 64): no atomic instruction
     # in the forward or in either of the backward's two kernels
     simt = {}

@@ -11,15 +11,26 @@ version and against ``jax.grad`` through the JAX package's Pallas kernel in
 interpret mode, on the same numpy inputs (fp32, ``TOL``: rtol 2e-4, atol
 2e-5).
 
-The bf16 form's schedule (``flash_bwd_tc<Dh, true>``) runs through the same
-emulation with ``bf16=True``: q + u rounded to bf16, dO rounded to bf16,
-the scores and dS divided by sqrt(Dh), D_i from the float32 P's product
-with v (the forward's sums), P and dS rounded to bf16 before every product
-(exact on bf16 values, so one TF32 pass), the gradients cast to bf16.  It
-is held against the plain bf16 backward and ``jax.grad`` through the
-Pallas kernels on bf16 inputs, each gradient within 2e-3 of its leaf's
-largest magnitude or one bf16 step of the element (the final cast), plus
-1e-5.
+The bf16 form (``bbw::flash_bwd_bf16`` and its pre-pass) has a schedule of
+its own, emulated by ``emulate_flash_bwd_bf16``: key-major blocks of TK =
+64 keys that walk query steps of TQ = 32 rows; the scores transposed (keys
+as rows: S^T = K . qu^T + BD^T, dP^T = V . dO^T); BD^T read along the
+diagonals of QE over the step's 96 skewed columns, whose table rows come
+from a ring of four 32-row pieces by offset (piece st + 1 copied while
+step st reads pieces st - 2 .. st); dV and dK summed over every step and
+written once; dq a pass a step (dS . K and DSk's own columns to row r, its
+next columns to row r + 1); d re and d rb summed in a ring of three
+pieces that leave once a block as the window slides (``_emitted_after``);
+d u from the keys' column sums of dS; every product an m16n8k16 bf16 tile
+(an fp32 accumulator that takes each 16-deep step's exact products); the
+pre-pass's bf16 dO and q + u, and D_i from the forward's float32 P . v
+sums.  It is held against the plain bf16 backward and ``jax.grad`` through
+the Pallas kernels on bf16 inputs, each gradient within 2e-3 of its
+leaf's largest magnitude or one bf16 step of the element (the final
+cast), plus 1e-5, at Dh 16, 32 and 64 and at lengths on both sides of the
+key and query tiles; ``test_bf16_rings_hold_each_steps_offsets`` checks
+the rings' indices: every column reads its offset's table row, and each
+live offset leaves once a block.
 
 It also holds the kernel's 3xTF32 products to the card's tolerance (atol
 1e-4 * max|ref| + 1e-5, rtol 1e-4): ``cvt.rna.tf32.f32`` is emulated on the
@@ -37,6 +48,7 @@ import torch
 
 from transformer_transducer_tpu.ops.pallas.flash_rel_attention import (
     flash_rel_attention as jax_flash)
+from transformer_transducer_tpu_torch.ops.cuda import flash_rel_attention as fa
 from transformer_transducer_tpu_torch.ops.cuda.flash_rel_attention import (
     flash_rel_attention_plain)
 
@@ -61,18 +73,15 @@ def _tile_chunks(tlen, tq):
             yield i0, j0, rows, x < 1 - omin
 
 
-def emulate_flash_bwd(q, k, v, re, u, rb, dout, tq, bf16=False):
+def emulate_flash_bwd(q, k, v, re, u, rb, dout, tq):
     """The kernel's schedule: q, k, v, dout (B, T, H, Dh); re (T, H, Dh), u
     (H, Dh), rb (T, H) sliced to T rows.  Returns (dq, dk, dv, d re, d u,
     d rb).  The forward's output and row log-sum-exp come from the same
-    tiles.  ``bf16``: the bf16 form on float32 tensors holding bf16 values
-    (the forward's output then the float32 P's sums)."""
+    tiles."""
     b, tlen, h, dh = q.shape
     scale = 1.0 / dh ** 0.5
-    root = float(np.sqrt(dh))
-    rnd = (lambda x: x.to(torch.bfloat16).float()) if bf16 else (lambda x: x)
-    dout, qu_all = rnd(dout), rnd(q + u)
-    div = (lambda x: x / root) if bf16 else (lambda x: x * scale)
+    qu_all = q + u
+    div = lambda x: x * scale
     qh, kh, vh, gh = (x.transpose(1, 2) for x in (q, k, v, dout))   # (B, H, T, Dh)
     pad = lambda x, n: torch.nn.functional.pad(x, (0, 0, 0, n))
     qp, kp, vp, gp = pad(qh, tq + 1), pad(kh, TK), pad(vh, TK), pad(gh, tq)
@@ -112,8 +121,7 @@ def emulate_flash_bwd(q, k, v, re, u, rb, dout, tq, bf16=False):
         p = torch.exp(sc - lse[:, :, i0:i0 + tq, None]) * live
         go = gp[:, :, i0:i0 + tq]
         dp = go @ vp[:, :, j0:j0 + TK].transpose(-1, -2)
-        ds = rnd(div(p * (dp - di[:, :, i0:i0 + tq, None])))
-        p = rnd(p)
+        ds = div(p * (dp - di[:, :, i0:i0 + tq, None]))
         dv[:, :, j0:j0 + TK] += p.transpose(-1, -2) @ go
         dk[:, :, j0:j0 + TK] += ds.transpose(-1, -2) @ qup[:, :, i0:i0 + tq]
         dq_ac = ds @ kp[:, :, j0:j0 + TK]
@@ -129,7 +137,7 @@ def emulate_flash_bwd(q, k, v, re, u, rb, dout, tq, bf16=False):
         dre.index_add_(0, rows[valid], g_re.transpose(0, 1)[valid])
         drb.index_add_(0, rows[valid], dsk.sum((0, 2)).t()[valid])
     back = lambda x: x[:, :, :tlen].transpose(1, 2)
-    return tuple(rnd(x) for x in (back(dq), back(dk), back(dv), dre, du, drb))
+    return back(dq), back(dk), back(dv), dre, du, drb
 
 
 def _inputs(shape, tlen, seed):
@@ -169,34 +177,209 @@ def test_emulated_tiles_match_plain_and_jax(shape, tq, tlen):
         np.testing.assert_allclose(a.numpy(), j, err_msg=f"{name} vs jax", **TOL)
 
 
+# the bf16 form's tiles: keys a block, query rows a step, offsets a piece
+# of the rings, a step's skewed columns (three pieces), the slots of the
+# table ring (one piece more, copied meanwhile) and of the gradient ring
+TK_BF, TQ_BF, PIECE = 64, 32, 32
+NX_BF = TQ_BF + TK_BF
+E_SLOTS, G_SLOTS = NX_BF // PIECE + 1, NX_BF // PIECE
+# key tiles and query steps end at multiples of 64 and 32
+T_VALUES_BF16 = [1, 17, 31, 32, 33, 63, 64, 65, 96, 97, 129]
+HEAD_DIMS_BF16 = [16, 32, 64]
+
+
+def _origin(j0, m):
+    """The offset of piece m's first row in the block of keys from j0."""
+    return j0 - (TQ_BF - 1) - PIECE * m
+
+
+def _column_piece(st, x):
+    """The piece that holds column x (offset j0 - i0 - TQ + 1 + x) at step st."""
+    return st - x // PIECE
+
+
+def _emitted_after(st, nsteps):
+    """The pieces whose offsets no later step touches: the window's top
+    piece after each step, all three after the last."""
+    return [st - 2] + ([st - 1, st] if st == nsteps - 1 else [])
+
+
+def _ring_rows(st, slots):
+    """Ring row of each of the step's NX columns (a ring of ``slots`` pieces)."""
+    x = torch.arange(NX_BF)
+    return torch.remainder(_column_piece(st, x), slots) * PIECE + x % PIECE
+
+
+def emulate_flash_bwd_bf16(q, k, v, re, u, rb, dout, lse, sums):
+    """The bf16 form's schedule on float32 tensors holding bf16 values: q,
+    k, v, dout (B, T, H, Dh); re (T, H, Dh), u (H, Dh), rb (T, H); lse (B, H,
+    T) and sums (B, T, H, Dh) as the bf16 forward keeps them.  Returns (dq,
+    dk, dv, d re, d u, d rb), each rounded to bf16."""
+    b, tlen, h, dh = q.shape
+    root = float(np.sqrt(dh))
+    rnd = lambda x: x.to(torch.bfloat16).float()
+    prod = functools.partial(tc_product, terms="1x", step=16)
+    # the pre-pass
+    qu, go = rnd(q + u), rnd(dout)
+    dd = (go * sums).sum(-1).transpose(1, 2)                          # (B, H, T)
+    nsteps = -(-tlen // TQ_BF)
+    ntiles = -(-tlen // TK_BF)
+    tq_pad, tk_pad = nsteps * TQ_BF, ntiles * TK_BF
+    pad = lambda x, n: torch.nn.functional.pad(x.transpose(1, 2), (0, 0, 0, n - tlen))
+    qh, quh, goh = pad(q, tq_pad + 1), pad(qu, tq_pad), pad(go, tq_pad)   # (B, H, T', Dh)
+    kh, vh = pad(k, tk_pad), pad(v, tk_pad)
+    lse_p, dd_p = (torch.nn.functional.pad(x, (0, tq_pad - tlen)) for x in (lse, dd))
+    dq = torch.zeros(b, h, tq_pad + 1, dh)
+    dk, dv = torch.zeros(b, h, tk_pad, dh), torch.zeros(b, h, tk_pad, dh)
+    dre, du, drb = torch.zeros_like(re), torch.zeros(h, dh), torch.zeros_like(rb)
+    kk_i = torch.arange(TK_BF)[:, None]                  # the scores' rows: keys
+    r_i = torch.arange(TQ_BF)[None, :]                   # their columns: queries
+    skew = kk_i - r_i + TQ_BF - 1                        # column of cell (kk, r)
+    cols = torch.arange(NX_BF)
+    for j0 in range(0, tlen, TK_BF):
+        kt, vt = kh[:, :, j0:j0 + TK_BF], vh[:, :, j0:j0 + TK_BF]
+        e_ring = torch.zeros(h, E_SLOTS * PIECE, dh)
+        eb_ring = torch.zeros(h, E_SLOTS * PIECE)
+        g_ring = torch.zeros(b, h, G_SLOTS * PIECE, dh)
+        gb_ring = torch.zeros(b, h, G_SLOTS * PIECE)
+
+        def rows_of(m):
+            return bd_rows(tlen, _origin(j0, m) + torch.arange(PIECE))
+
+        def fill(m):
+            at = slice(m % E_SLOTS * PIECE, (m % E_SLOTS + 1) * PIECE)
+            e_ring[:, at] = gather_rows(re, rows_of(m)).transpose(0, 1)
+            eb_ring[:, at] = gather_rows(rb, rows_of(m)).t()
+
+        def emit(m):
+            at = slice(m % G_SLOTS * PIECE, (m % G_SLOTS + 1) * PIECE)
+            rows = rows_of(m)
+            ok = rows >= 0
+            dre.index_add_(0, rows[ok], g_ring[:, :, at].sum(0).transpose(0, 1)[ok])
+            drb.index_add_(0, rows[ok], gb_ring[:, :, at].sum(0).t()[ok])
+            g_ring[:, :, at] = 0.0
+            gb_ring[:, :, at] = 0.0
+
+        for m in range(1 - NX_BF // PIECE, 1):
+            fill(m)
+        dk_acc, dv_acc = torch.zeros(b, h, TK_BF, dh), torch.zeros(b, h, TK_BF, dh)
+        cs = torch.zeros(b, h, TK_BF)
+        for st in range(nsteps):
+            i0 = st * TQ_BF
+            own = cols < i0 + TQ_BF - j0                 # offset <= 0: q_i, else q_{i+1}
+            e = e_ring[:, _ring_rows(st, E_SLOTS)]        # (H, NX, Dh)
+            eb = eb_ring[:, _ring_rows(st, E_SLOTS)]
+            qt, qn = qh[:, :, i0:i0 + TQ_BF], qh[:, :, i0 + 1:i0 + TQ_BF + 1]
+            qut, got = quh[:, :, i0:i0 + TQ_BF], goh[:, :, i0:i0 + TQ_BF]
+            # A: QE + rb over the skewed columns, own/next by column
+            qe = torch.where(own, prod(qt, e.transpose(-1, -2)),
+                             prod(qn, e.transpose(-1, -2))) + eb[None, :, None, :]
+            # B: the transposed scores, P, dS; dV and dK
+            s_t = prod(kt, qut.transpose(-1, -2)) + qe[:, :, r_i, skew]
+            dp_t = prod(vt, got.transpose(-1, -2))
+            live = ((j0 + kk_i) < tlen) & ((i0 + r_i) < tlen)
+            p = torch.where(live, torch.exp(s_t / root - lse_p[:, :, None, i0:i0 + TQ_BF]), 0.0)
+            ds = rnd(p * (dp_t - dd_p[:, :, None, i0:i0 + TQ_BF]) / root)
+            cs += ds.sum(-1)
+            dv_acc = prod(rnd(p), got, acc=dv_acc)
+            dk_acc = prod(ds, qut, acc=dk_acc)
+            dsk = torch.zeros(b, h, TQ_BF, NX_BF)
+            dsk[:, :, r_i.expand_as(skew), skew] = ds
+            # C: dq (rows r; the next columns to row r + 1), the gradient ring
+            acc = prod(dsk * own, e, acc=prod(ds.transpose(-1, -2), kt))
+            dq[:, :, i0:i0 + TQ_BF] += acc
+            dq[:, :, i0 + 1:i0 + TQ_BF + 1] += prod(dsk * ~own, e)
+            dsk_t = dsk.transpose(-1, -2)
+            g_rows = _ring_rows(st, G_SLOTS)
+            g_ring[:, :, g_rows] += torch.where(own[:, None], prod(dsk_t, qt), prod(dsk_t, qn))
+            gb_ring[:, :, g_rows] += prod(dsk_t, torch.ones(TQ_BF, 1))[..., 0]
+            # D: the pieces that leave the window; piece st + 1 was copied
+            # into a slot no column of step st reads
+            for m in _emitted_after(st, nsteps):
+                emit(m)
+            if st + 1 < nsteps:
+                fill(st + 1)
+        dk[:, :, j0:j0 + TK_BF], dv[:, :, j0:j0 + TK_BF] = dk_acc, dv_acc
+        du += (cs[..., None] * kt).sum((0, 2))
+    back = lambda x: x[:, :, :tlen].transpose(1, 2)
+    return tuple(rnd(x) for x in (back(dq), back(dk), back(dv), dre, du, drb))
+
+
 @functools.lru_cache(maxsize=None)
-def _references_bf16(shape, tlen):
+def _references_bf16(dh, tlen):
     """bf16-valued inputs (unit scale) and output gradient, the plain bf16
-    backward's gradients and JAX's bf16 gradients (interpret mode)."""
-    b, h, dh = shape
+    forward's lse and sums, the plain bf16 backward's gradients and JAX's
+    bf16 gradients (interpret mode)."""
+    b, h = 2, 2
     rng = np.random.RandomState(tlen + dh + 2)
     shapes = [(b, tlen, h, dh)] * 3 + [(tlen, h, dh), (h, dh), (tlen, h)]
     args = [np.asarray(jnp.asarray(rng.randn(*s), jnp.bfloat16).astype(jnp.float32))
             for s in shapes]
     g = rng.randn(b, tlen, h, dh).astype(np.float32)
     leaves = [t(x).to(torch.bfloat16).requires_grad_() for x in args]
+    _, lse, sums = fa.flash_bf16_forward_plain(*(x.detach() for x in leaves))
     flash_rel_attention_plain(*leaves).backward(t(g))
     _, vjp = jax.vjp(lambda *a: jax_flash(*a, True), *(jnp.asarray(x, jnp.bfloat16)
                                                        for x in args))
     jax_grads = [np.asarray(x, np.float32) for x in vjp(jnp.asarray(g))]
-    return args, g, [x.grad.float().numpy() for x in leaves], jax_grads
+    return args, g, lse, sums, [x.grad.float().numpy() for x in leaves], jax_grads
 
 
-@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "B%dH%dDh%d" % s)
-@pytest.mark.parametrize("tq", [16, 32])
-@pytest.mark.parametrize("tlen", T_VALUES)
-def test_emulated_bf16_tiles_match_plain_and_jax(shape, tq, tlen):
-    args, g, plain, jax_grads = _references_bf16(shape, tlen)
-    got = emulate_flash_bwd(*map(t, args), t(g), tq, bf16=True)
+@pytest.mark.parametrize("dh", HEAD_DIMS_BF16)
+@pytest.mark.parametrize("tlen", T_VALUES_BF16)
+def test_emulated_bf16_tiles_match_plain_and_jax(dh, tlen):
+    args, g, lse, sums, plain, jax_grads = _references_bf16(dh, tlen)
+    got = emulate_flash_bwd_bf16(*map(t, args), t(g), lse, sums)
     for name, a, p, j in zip(NAMES, got, plain, jax_grads):
         for what, ref in (("plain", p), ("jax", j)):
             slack = np.maximum(2e-3 * np.abs(ref).max(), bf16_step(ref)) + 1e-5
             hold_bf16(f"{name} vs {what}", a.numpy(), ref, slack)
+
+
+@pytest.mark.parametrize("tlen", [1, 31, 33, 64, 97, 300, 410, 513])
+def test_bf16_rings_hold_each_steps_offsets(tlen):
+    """The bf16 form's rings, block by block: at step st column x reads the
+    table ring's row of its offset j0 - i0 - TQ + 1 + x (the piece copied
+    during the step is in a slot no column reads); its gradient goes to
+    the gradient ring's row that holds that offset since the offset
+    entered the window, and each offset of the block leaves once, after its
+    last step; every offset some live cell of the block has leaves."""
+    nsteps = -(-tlen // TQ_BF)
+    for j0 in range(0, tlen, TK_BF):
+        e_ring = [None] * (E_SLOTS * PIECE)
+        g_ring = [None] * (G_SLOTS * PIECE)         # offset a row holds since its zeroing
+        left = []
+
+        def fill(m):
+            for p in range(PIECE):
+                e_ring[m % E_SLOTS * PIECE + p] = _origin(j0, m) + p
+
+        for m in range(1 - NX_BF // PIECE, 1):
+            fill(m)
+        for st in range(nsteps):
+            i0 = st * TQ_BF
+            o = j0 - i0 - TQ_BF + 1 + torch.arange(NX_BF)
+            assert [e_ring[x] for x in _ring_rows(st, E_SLOTS).tolist()] == o.tolist()
+            if st + 1 < nsteps:
+                copied = set(range((st + 1) % E_SLOTS * PIECE, ((st + 1) % E_SLOTS + 1) * PIECE))
+                assert not copied & set(_ring_rows(st, E_SLOTS).tolist())
+            for x, row in enumerate(_ring_rows(st, G_SLOTS).tolist()):
+                assert int(o[x]) not in left            # no step after it leaves
+                if g_ring[row] is None:
+                    g_ring[row] = int(o[x])
+                assert g_ring[row] == int(o[x])
+            for m in _emitted_after(st, nsteps):
+                at = m % G_SLOTS * PIECE
+                for p in range(PIECE):
+                    off = _origin(j0, m) + p
+                    assert g_ring[at + p] in (None, off)
+                    left.append(off)
+                    g_ring[at + p] = None
+            if st + 1 < nsteps:
+                fill(st + 1)
+        assert len(left) == len(set(left))
+        live = {j - i for j in range(j0, min(j0 + TK_BF, tlen)) for i in range(tlen)}
+        assert live <= set(left)
 
 
 def test_own_next_split_is_by_column():

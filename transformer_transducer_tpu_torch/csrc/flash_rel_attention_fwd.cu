@@ -432,14 +432,6 @@ struct __align__(16) Smem {
     float qe[NW][16 * QW];      // each warp's QE + rb over its skewed columns
 };
 
-// bf16(x + w) of 8 bf16 pairs, added in fp32 (q + u as JAX adds it)
-__device__ __forceinline__ uint4 add_bf16x8(uint4 x, uint4 w) {
-    auto add2 = [](unsigned p, unsigned q) {
-        return pack_bf16(lo_bf16(p) + lo_bf16(q), hi_bf16(p) + hi_bf16(q));
-    };
-    return make_uint4(add2(x.x, w.x), add2(x.y, w.y), add2(x.z, w.z), add2(x.w, w.w));
-}
-
 template <int DH>
 __global__ void __launch_bounds__(NTHREADS, 2)
 flash_fwd_bf16(Args a) {

@@ -4,7 +4,7 @@
 // tensor-core products in 3xTF32 that the flash kernels
 // (csrc/flash_rel_attention_fwd.cu, csrc/flash_rel_attention_bwd.cu) and the
 // additive logZ (csrc/additive_logz.cu) are made of; and the swizzled bf16
-// tiles, ldmatrix loads and bf16 products of the flash forward's bf16 form.
+// tiles, ldmatrix loads and bf16 products of the flash kernels' bf16 forms.
 //
 // 3xTF32: an fp32 operand x is split into hi = x rounded to TF32 (to
 // nearest, ties away: the bits of cvt.rna.tf32.f32, taken by integer
@@ -16,14 +16,10 @@
 // tests/test_torch_port_flash_bwd_tiles.py emulates both).  Both halves are
 // rounded: fed raw fp32, the tensor core drops the low 13 bits.
 //
-// bf16 operands of the flash backward's bf16 form: a bf16 value has 8
-// significant bits, so it is exact in TF32 (11), and one TF32 product of
-// bf16-valued operands is exact with fp32 accumulation, as a bf16 product
-// is; the ONE flag of the products below takes that single pass on the
-// operands' bits.  There bf16 inputs are widened to fp32 as they are
-// loaded.  The flash forward's bf16 form keeps its operands bf16 in shared
-// memory instead and multiplies them with mma.m16n8k16 .bf16 (the last
-// section: swizzled 16-byte chunks, ldmatrix, bf16x2 packing).
+// The flash kernels' bf16 forms keep their operands bf16 in shared memory
+// and multiply them with mma.m16n8k16 .bf16, exact products with fp32
+// accumulation (the last section: swizzled 16-byte chunks, ldmatrix, bf16x2
+// packing).
 //
 // Fragments (PTX ISA, mma.m16n8k8 .tf32): lane 4g + t holds A rows g, g+8
 // at columns t, t+4, B rows t, t+4 at column g, and C rows g, g+8 at
@@ -65,30 +61,10 @@ __device__ __forceinline__ float4 ldg4(const float* p) {
     return __ldg(reinterpret_cast<const float4*>(p));
 }
 
-// 4 bf16 values at p (8-byte aligned), widened to fp32: element 0 is the
-// low half of the first word.
-__device__ __forceinline__ float4 widen4(uint2 r) {
-    return make_float4(__uint_as_float(r.x << 16), __uint_as_float(r.x & 0xffff0000u),
-                       __uint_as_float(r.y << 16), __uint_as_float(r.y & 0xffff0000u));
-}
-
-__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
-    return widen4(*reinterpret_cast<const uint2*>(p));
-}
-
-__device__ __forceinline__ float4 ldg4(const __nv_bfloat16* p) {
-    return widen4(__ldg(reinterpret_cast<const uint2*>(p)));
-}
-
 __device__ __forceinline__ float ldg1(const float* p) { return __ldg(p); }
 
 __device__ __forceinline__ float ldg1(const __nv_bfloat16* p) {
     return __uint_as_float((unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
-}
-
-// x rounded to bf16 (to nearest even, as astype rounds), held in fp32.
-__device__ __forceinline__ float bf16r(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 __device__ __forceinline__ void st4(float* p, float4 x) {
@@ -226,57 +202,41 @@ struct KView {
 // One 8-deep step of a warp's tile product in 3xTF32: c[j] += lo.hi' +
 // hi.lo' + hi.hi' for the tiles j at columns n0 + 8j, the small terms
 // first.  The tiles interleave, so consecutive mma of a step are
-// independent.  With ONE (bf16-valued operands) the single exact product
-// of the operands' bits.
-template <bool ONE, int NT, class FA, class FB>
+// independent.
+template <int NT, class FA, class FB>
 __device__ __forceinline__ void mma_step(float (&c)[NT][4], const FA& A, const FB& B, int k) {
-    if constexpr (ONE) {
-        unsigned a[4], b[NT][2];
-        a[0] = __float_as_uint(A(k, 0, 0));
-        a[1] = __float_as_uint(A(k, 0, 1));
-        a[2] = __float_as_uint(A(k, 1, 0));
-        a[3] = __float_as_uint(A(k, 1, 1));
+    unsigned ah[4], al[4], bh[NT][2], bl[NT][2];
+    split(A(k, 0, 0), ah[0], al[0]);
+    split(A(k, 0, 1), ah[1], al[1]);
+    split(A(k, 1, 0), ah[2], al[2]);
+    split(A(k, 1, 1), ah[3], al[3]);
 #pragma unroll
-        for (int j = 0; j < NT; ++j) {
-            b[j][0] = __float_as_uint(B(k, 0, j));
-            b[j][1] = __float_as_uint(B(k, 1, j));
-        }
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma(c[j], a, b[j]);
-    } else {
-        unsigned ah[4], al[4], bh[NT][2], bl[NT][2];
-        split(A(k, 0, 0), ah[0], al[0]);
-        split(A(k, 0, 1), ah[1], al[1]);
-        split(A(k, 1, 0), ah[2], al[2]);
-        split(A(k, 1, 1), ah[3], al[3]);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-            split(B(k, 0, j), bh[j][0], bl[j][0]);
-            split(B(k, 1, j), bh[j][1], bl[j][1]);
-        }
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma(c[j], al, bh[j]);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma(c[j], ah, bl[j]);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma(c[j], ah, bh[j]);
+    for (int j = 0; j < NT; ++j) {
+        split(B(k, 0, j), bh[j][0], bl[j][0]);
+        split(B(k, 1, j), bh[j][1], bl[j][1]);
     }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma(c[j], al, bh[j]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma(c[j], ah, bl[j]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma(c[j], ah, bh[j]);
 }
 
 // c[j] += A[m0:m0+16, 0:K] . B[0:K, n0+8j:n0+8j+8], one warp, A and B
 // views (or masks of views) placed at m0 and n0.
-template <int K, bool ONE = false, int NT, class FA, class FB>
+template <int K, int NT, class FA, class FB>
 __device__ __forceinline__ void warp_mma(float (&c)[NT][4], const FA& A, const FB& B) {
 #pragma unroll
-    for (int k = 0; k < K; k += 8) mma_step<ONE>(c, A, B, k);
+    for (int k = 0; k < K; k += 8) mma_step(c, A, B, k);
 }
 
 // The same over k in [k_lo, k_hi), multiples of 8 known only at run time.
-template <bool ONE = false, int NT, class FA, class FB>
+template <int NT, class FA, class FB>
 __device__ __forceinline__ void warp_mma_range(float (&c)[NT][4], const FA& A, const FB& B,
                                                int k_lo, int k_hi) {
 #pragma unroll 2
-    for (int k = k_lo; k < k_hi; k += 8) mma_step<ONE>(c, A, B, k);
+    for (int k = k_lo; k < k_hi; k += 8) mma_step(c, A, B, k);
 }
 
 // Add a warp's accumulator tiles to memory as float4 atomics: lanes 2s and
@@ -373,7 +333,7 @@ __device__ __forceinline__ void mma3(float (&c)[NT][4], const unsigned (&ah)[4],
     for (int j = 0; j < NT; ++j) mma(c[j], ah, bh[j]);
 }
 
-// ---- bf16 tiles for mma.m16n8k16 (the flash forward's bf16 form)
+// ---- bf16 tiles for mma.m16n8k16 (the flash kernels' bf16 forms)
 //
 // A tile row of NCH 16-byte chunks (8 bf16 each; NCH = 4 or 8, Dh 32 or
 // 64) keeps chunk c at c ^ (the row's bits): ldmatrix reads 8 rows of 16
@@ -435,5 +395,13 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 }
 __device__ __forceinline__ float lo_bf16(unsigned x) { return __uint_as_float(x << 16); }
 __device__ __forceinline__ float hi_bf16(unsigned x) { return __uint_as_float(x & 0xffff0000u); }
+
+// bf16(x + w) of 8 bf16 pairs, added in fp32 (q + u as JAX adds it)
+__device__ __forceinline__ uint4 add_bf16x8(uint4 x, uint4 w) {
+    auto add2 = [](unsigned p, unsigned q) {
+        return pack_bf16(lo_bf16(p) + lo_bf16(q), hi_bf16(p) + hi_bf16(q));
+    };
+    return make_uint4(add2(x.x, w.x), add2(x.y, w.y), add2(x.z, w.z), add2(x.w, w.w));
+}
 
 }  // namespace ttx

@@ -102,7 +102,11 @@ def library() -> ctypes.CDLL:
             # Dh, [left, right,] stream
             "ttx_banded_attention_bwd": inputs + [ptr] * 10 + [i32] * 6 + [ptr],
             "ttx_flash_rel_attention_bwd": inputs + [ptr] * 9 + [i32] * 4 + [ptr],
-            "ttx_flash_rel_attention_bwd_bf16": inputs + [ptr] * 9 + [i32] * 4 + [ptr],
+            # ... sums, lse, grad, dq, dk, dv, dre, du, drb, work, B, T, H, Dh,
+            # stream ([stages,] first for the parts alone)
+            "ttx_flash_rel_attention_bwd_bf16": inputs + [ptr] * 10 + [i32] * 4 + [ptr],
+            "ttx_flash_rel_attention_bwd_bf16_stages":
+                [i32] + inputs + [ptr] * 10 + [i32] * 4 + [ptr],
             # sb, sl, alpha, B, D, U1, stream
             "ttx_rnnt_alpha": [ptr, ptr, ptr, i32, i32, i32, ptr],
             # sb, sl, inject, beta, B, D, U1, stream
@@ -133,9 +137,14 @@ def library() -> ctypes.CDLL:
         # B, T, U1, V, info -> words of the logZ's workspace
         lib.ttx_additive_logz_workspace.argtypes = [i32] * 4 + [ctypes.POINTER(i64)]
         lib.ttx_additive_logz_workspace.restype = i64
+        # B, T, H, Dh -> floats of the bf16 flash backward's work buffer
+        lib.ttx_flash_rel_attention_bwd_bf16_workspace.argtypes = [i32] * 4
+        lib.ttx_flash_rel_attention_bwd_bf16_workspace.restype = i64
         # Dh, out (shared bytes, blocks a multiprocessor, registers)
-        lib.ttx_flash_rel_attention_fwd_bf16_info.argtypes = [i32, ctypes.POINTER(i32)]
-        lib.ttx_flash_rel_attention_fwd_bf16_info.restype = i32
+        for name in ("ttx_flash_rel_attention_fwd_bf16_info",
+                     "ttx_flash_rel_attention_bwd_bf16_info"):
+            getattr(lib, name).argtypes = [i32, ctypes.POINTER(i32)]
+            getattr(lib, name).restype = i32
         lib.ttx_error_string.argtypes = [i32]
         lib.ttx_error_string.restype = ctypes.c_char_p
         _lib = lib

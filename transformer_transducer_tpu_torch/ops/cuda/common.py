@@ -99,8 +99,8 @@ def launch_forward(fn: str, inputs: Sequence[torch.Tensor], band: Tuple[int, ...
 
 
 def launch_backward(fn: str, saved: Sequence[torch.Tensor], grad: torch.Tensor,
-                    band: Tuple[int, ...],
-                    scratch: Optional[int] = None) -> Tuple[Tuple[torch.Tensor, ...], bool]:
+                    band: Tuple[int, ...], scratch: Optional[int] = None,
+                    native: bool = False) -> Tuple[Tuple[torch.Tensor, ...], bool]:
     """Run backward kernel ``fn`` on ``saved = (q, k, v, r_emb, r_w_bias,
     r_bias, out, lse)`` and the output gradient (in q's dtype; ``out`` and
     ``lse`` float32).  Returns the gradients of the six inputs in their
@@ -111,14 +111,19 @@ def launch_backward(fn: str, saved: Sequence[torch.Tensor], grad: torch.Tensor,
     the launch.  Without ``scratch`` it adds into them, and they start at
     zero.  With it, the kernel writes every gradient entry once (they start
     uninitialised) and takes a float32 work buffer of ``scratch`` floats
-    after them."""
+    after them.  With ``native`` as well (the flash backward's bf16 form)
+    the kernel writes the six gradients once in the inputs' dtype itself:
+    dk and dv from the block that owns their keys, dq and the tables'
+    gradients cast from float32 sums it keeps in the work buffer; the
+    output gradient is float32 then, as given."""
     q, k, v, r_emb, r_w_bias, r_bias, out, lse = saved
     if lse is None:
         raise RuntimeError("the forward kept no row statistics: it ran with "
                            "no input that requires a gradient")
     grad = grad.contiguous()
-    if grad.dtype != q.dtype or grad.shape != out.shape:
-        raise ValueError(f"the output gradient must be {q.dtype} {tuple(out.shape)}")
+    want = torch.float32 if native else q.dtype
+    if grad.dtype != want or grad.shape != out.shape:
+        raise ValueError(f"the output gradient must be {want} {tuple(out.shape)}")
     ptrs = kernel_args(q, k, v, r_emb, r_w_bias, r_bias)
     lib = build.library()
     _aligned(grad, "the output gradient")
@@ -126,7 +131,7 @@ def launch_backward(fn: str, saved: Sequence[torch.Tensor], grad: torch.Tensor,
     if out.numel() == 0:
         return tuple(torch.zeros_like(x, dtype=q.dtype) for x in like), False
     alloc = torch.zeros_like if scratch is None else torch.empty_like
-    grads = tuple(alloc(x, dtype=torch.float32) for x in like)
+    grads = tuple(alloc(x, dtype=q.dtype if native else torch.float32) for x in like)
     work = (None if scratch is None else
             torch.empty(scratch, dtype=torch.float32, device=q.device))
     b, t, h, dh = q.shape
@@ -135,4 +140,4 @@ def launch_backward(fn: str, saved: Sequence[torch.Tensor], grad: torch.Tensor,
                                  grad.data_ptr(), *(g.data_ptr() for g in grads),
                                  *([] if work is None else [work.data_ptr()]),
                                  b, t, h, dh, *band, stream), fn)
-    return tuple(g.to(q.dtype) for g in grads), True
+    return tuple(g if native else g.to(q.dtype) for g in grads), True

@@ -24,12 +24,14 @@ Two forms, chosen by the inputs' dtype (all six alike):
   to bf16, D_i = sum_j P_ij dP_ij with the float32 P, dS and P rounded to
   bf16 before every product, and each gradient cast to bf16.  The forward
   also keeps the float32 P's product with v (``sums``) for the backward's
-  D.  The bf16 forward's products run on the bf16 tensor cores
-  (``mma.m16n8k16``, operands bf16 in shared memory), the backward's as one
-  exact TF32 pass on bf16 values.  :func:`flash_bf16_forward_plain` and
-  :func:`flash_bf16_backward_plain`
-  are the plain versions, the backward written out (autograd through the
-  forward would not round dS).
+  D.  The products of both run on the bf16 tensor cores
+  (``mma.m16n8k16``, operands bf16 in shared memory).  The backward is
+  three launches: a pre-pass (dO and ``q + u`` rounded, D, the float32
+  sums zeroed), the kernel, whose blocks own 64 keys each and write dk and
+  dv once, and the casts of dq and the tables' gradients, summed across
+  blocks in float32.  :func:`flash_bf16_forward_plain` and
+  :func:`flash_bf16_backward_plain` are the plain versions, the backward
+  written out (autograd through the forward would not round dS).
 
 Dispatch: a CPU tensor takes :func:`flash_rel_attention_plain`; a CUDA
 tensor runs the kernels behind a ``torch.autograd.Function`` or raises.
@@ -48,6 +50,7 @@ import torch
 
 from transformer_transducer_tpu_torch.models.attention import (
     rel_attention_dense, rel_shift)
+from transformer_transducer_tpu_torch.ops.cuda import build
 from transformer_transducer_tpu_torch.ops.cuda.common import (
     check_inputs, launch_backward, launch_forward)
 
@@ -171,12 +174,15 @@ flash_forward_bf16.launches = 0
 
 
 def flash_backward_bf16(q, k, v, r_emb, r_w_bias, r_bias, sums, lse, grad):
-    """The bf16 backward kernel: bf16 gradients of the six inputs from the
+    """The bf16 backward kernels: bf16 gradients of the six inputs from the
     forward's float32 P . v sums and row log-sum-exp; the output gradient
-    is rounded to bf16 first, as JAX rounds it."""
+    is rounded to bf16 by the kernels' pre-pass, as JAX rounds it."""
+    b, t, h, dh = q.shape
+    work = build.library().ttx_flash_rel_attention_bwd_bf16_workspace(b, t, h, dh)
     grads, launched = launch_backward(
         "ttx_flash_rel_attention_bwd_bf16",
-        (q, k, v, r_emb, r_w_bias, r_bias, sums, lse), grad.to(BF16), ())
+        (q, k, v, r_emb, r_w_bias, r_bias, sums, lse), grad.float(), (),
+        scratch=work, native=True)
     flash_backward_bf16.launches += int(launched)
     flash_rel_attention_backward.launches += int(launched)
     return grads

@@ -19,9 +19,12 @@ full length.  With ``--pass bf16_fwd`` it times the flash forward's bf16
 form (``ttx_flash_rel_attention_fwd_bf16``) without the lse, as served, and
 with the lse and sums, as trained; a shape is then B,T,H,Dh and q, k, v
 are strided views of one bf16 projection, as ``chip_smoke.py`` draws them.
-With several checkouts a lattice sweep or the bf16 forward also saves its
-outputs, and the largest |difference| of every checkout's from the first's
-is printed after them.  Each checkout given
+With ``--pass bf16_bwd`` it times the flash backward's bf16 form
+(``flash_backward_bf16``, the wrapper as training calls it) on the same
+inputs, the forward's lse and sums and a float32 output gradient.
+With several checkouts a lattice sweep or a bf16 flash pass also saves its
+outputs (the backward's six gradients), and the largest |difference| of
+every checkout's from the first's is printed after them.  Each checkout given
 runs in its own process (the packages share a name), builds its own kernels
 into its own ``build/`` and is timed at every shape; the checkouts run in
 the order given, so ``--roots old new new old`` compares two versions on
@@ -32,7 +35,7 @@ one card in one run.
         --shapes 4,410,8,64 4,410,8,32 4,48,2,32 --band 10 2
 
 A shape is B,T,H,Dh (inputs fp32, drawn from a seed; bf16 for
-``--pass bf16_fwd``), B,T,U1,V for
+``--pass bf16_fwd`` and ``bf16_bwd``), B,T,U1,V for
 ``--pass logz``, B,T,S for ``--pass alpha`` and ``--pass beta`` or B,T,U
 for the lattice passes.  Prints one line a checkout and shape, then the
 card's name and power limit.
@@ -52,14 +55,14 @@ REPO = os.path.dirname(os.path.dirname(HERE))
 
 
 LATTICE = ("lattice_alpha", "lattice_beta")
-SAVED = LATTICE + ("bf16_fwd",)        # passes whose outputs are compared
+SAVED = LATTICE + ("bf16_fwd", "bf16_bwd")     # passes whose outputs are compared
 
 
 def time_one(root: str, shapes, band, which: str, chunks=(), save=None) -> None:
     """Time the ``which`` pass ("fwd", "bwd", "logz", "alpha", "beta", a
-    lattice sweep or "bf16_fwd") of the package under ``root`` at each
-    shape; a lattice sweep's or the bf16 forward's outputs go to ``save``,
-    if given."""
+    lattice sweep, "bf16_fwd" or "bf16_bwd") of the package under ``root``
+    at each shape; a lattice sweep's or a bf16 flash pass's outputs go to
+    ``save``, if given."""
     sys.path.insert(0, REPO)
     import torch
     from chip_smoke import band_inputs, graph_ms, lattice_inputs   # this checkout's
@@ -82,20 +85,30 @@ def time_one(root: str, shapes, band, which: str, chunks=(), save=None) -> None:
         if save:
             torch.save(outputs, save)
         return
-    if which == "bf16_fwd":
+    if which in ("bf16_fwd", "bf16_bwd"):
         from transformer_transducer_tpu_torch.ops.cuda import flash_rel_attention as fa
         outputs = {}
         for b, t, h, dh in shapes:
             mk = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(torch.bfloat16)
             q, k, v = mk(b, t, 3, h, dh).unbind(2)
             args = (q, k, v, mk(t, h, dh), mk(h, dh), mk(t, h))
+            key = f"{b},{t},{h},{dh}"
+            rec = {"root": root, "pass": which, "B": b, "T": t, "H": h, "Dh": dh}
             with torch.no_grad():
-                ms = graph_ms(lambda: fa.flash_forward_bf16(*args, with_lse=False))
-                ms_lse = graph_ms(lambda: fa.flash_forward_bf16(*args, with_lse=True))
-                outputs[f"{b},{t},{h},{dh}"] = torch.stack(
-                    [x.cpu() for x in fa.flash_forward_bf16(*args, with_lse=True)[::2]])
-            print(json.dumps({"root": root, "pass": which, "B": b, "T": t, "H": h, "Dh": dh,
-                              "ms": ms, "ms_with_lse": ms_lse}), flush=True)
+                if which == "bf16_fwd":
+                    rec["ms"] = graph_ms(lambda: fa.flash_forward_bf16(*args, with_lse=False))
+                    rec["ms_with_lse"] = graph_ms(
+                        lambda: fa.flash_forward_bf16(*args, with_lse=True))
+                    outputs[key] = torch.stack(
+                        [x.cpu() for x in fa.flash_forward_bf16(*args, with_lse=True)[::2]])
+                else:
+                    _, lse, sums = fa.flash_forward_bf16(*args, with_lse=True)
+                    gout = torch.randn(b, t, h, dh, generator=gen, device="cuda")
+                    run = lambda: fa.flash_backward_bf16(*args, sums, lse, gout)
+                    rec["ms"] = graph_ms(run)
+                    for name, x in zip(("dq", "dk", "dv", "dre", "du", "drb"), run()):
+                        outputs[f"{key} {name}"] = x.float().cpu()
+            print(json.dumps(rec), flush=True)
         if save:
             torch.save(outputs, save)
         return
@@ -153,7 +166,7 @@ def main() -> int:
                     choices=("fwd", "bwd", "logz", "alpha", "beta") + SAVED,
                     default="bwd",
                     help="the wrapper timed: the banded forward or backward, the logZ, "
-                    "a band sweep, a lattice sweep or the flash forward's bf16 form")
+                    "a band sweep, a lattice sweep or a bf16 form of the flash kernels")
     ap.add_argument("--shapes", nargs="+", default=["4,410,8,64"],
                     help="B,T,H,Dh (B,T,U1,V for logz, B,T,S for alpha and beta, B,T,U "
                     "for the lattice sweeps)")
