@@ -259,6 +259,28 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    ``HMMA``, shared bytes and blocks an SM; a JSON line before the kernels'
    line, whose launches count the phase's main paths
    (``phase14_launches``).
+15. the host-side remainder (``check_host_remainder``): (a) the native
+   runtime (``runtime/native.py``) built with g++ into an empty directory,
+   its compiler, seconds and ``os.cpu_count()``; (b) ``ttx_logmel`` on
+   phase 4's 8 waves, both variants, against the numpy path (rtol and atol
+   2e-4), and the batch's host ms, numpy against native, median of 5, in
+   one thread and in the loader's 8; (c) the native batch CER against
+   numpy on 1,000 seeded pairs and on phase 4's decodes, equal; (d)
+   ``apps/train.py --flash --profile DIR`` for 2 epochs of phase 7's
+   corpus with ``TTX_NATIVE_FEATURES=1``, in a process of its own
+   (``profiled_training``): the trace parses, its kernel
+   events hold ``flash_fwd_tc``, ``flash_bwd_tc`` and both lattice sweeps
+   (``wavefront``) exactly as often as their counters rose in the
+   profiled epoch, the native log-mel (loader) and CER (evaluation)
+   counts rose, the profiled epoch's seconds beside the unprofiled one's;
+   (e) ``tools/average_checkpoints.py --nbest 2`` over the two epochs,
+   every leaf the float64 mean rounded to float32, and ``apps/predict.py
+   --checkpoint <average> --full-context`` giving the text of ``recognize``
+   with the averaged weights; (f) a reference-layout ``.chkpt`` of phase
+   4's weights through ``tools/convert_checkpoint.py``, served with phase
+   4's tokens under the band and at full context.  A JSON line before the
+   kernels' line, whose launches count the phase's main paths
+   (``phase15_launches``).
 
 Each phase logs the seconds since the run began.
 
@@ -3701,6 +3723,339 @@ def check_bf16_remat(cfg, state, batch, device, smi):
     return launches, summary
 
 
+# kernel events of a torch.profiler trace, by the launch counter each
+# answers to: the hand-written kernel's name, kernels a launch
+TRACE_KERNELS = {
+    "flash_fwd": (re.compile(r"\bflash_fwd_tc<"), 1),
+    "flash_bwd": (re.compile(r"\bflash_bwd_tc<"), 1),
+    "alpha": (re.compile(r"\bwavefront<\d+, (?:true|false), false>"), 1),
+    "beta": (re.compile(r"\bwavefront<\d+, (?:true|false), true>"), 1),
+}
+
+
+@contextlib.contextmanager
+def native_features(on: bool):
+    """``TTX_NATIVE_FEATURES`` set to 1 (or unset) inside the block."""
+    saved = os.environ.pop("TTX_NATIVE_FEATURES", None)
+    if on:
+        os.environ["TTX_NATIVE_FEATURES"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("TTX_NATIVE_FEATURES", None)
+        if saved is not None:
+            os.environ["TTX_NATIVE_FEATURES"] = saved
+
+
+def profiled_training(argv) -> dict:
+    """``apps/train.py`` with ``argv`` in this process, with
+    ``TTX_NATIVE_FEATURES=1``: the seconds, the launches and whether the
+    profiler ran, by epoch; the launches and native calls of the whole run;
+    the experiment directory and the steps (phase 15 (d))."""
+    import torch
+    from transformer_transducer_tpu_torch.apps import train as train_app
+    from transformer_transducer_tpu_torch.runtime import native
+    from transformer_transducer_tpu_torch.training.trainer import Trainer
+    epochs = {}
+    train_epoch = Trainer.train_epoch
+
+    def timed_epoch(self, epoch, loader):
+        torch.cuda.synchronize()
+        counts, start = read_counts(), time.perf_counter()
+        out = train_epoch(self, epoch, loader)
+        torch.cuda.synchronize()
+        epochs[epoch] = {"s": time.perf_counter() - start,
+                         "profiled": torch.autograd.profiler._is_profiler_enabled,
+                         "counts": {k: n - counts[k] for k, n in read_counts().items()}}
+        return out
+
+    Trainer.train_epoch = timed_epoch
+    native.reset_calls()
+    reset_counts()
+    try:
+        start = time.perf_counter()
+        with native_features(True):
+            trainer = train_app.main(argv)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - start
+    finally:
+        Trainer.train_epoch = train_epoch
+    return {"cli_s": cli_s, "epochs": epochs, "counts": read_counts(),
+            "calls": native.read_calls(), "exp_dir": trainer.exp_dir,
+            "global_step": trainer.global_step}
+
+
+def check_host_remainder(cfg, state, offset, phase4, device, smi):
+    """Phase 15: the native C++ runtime, the profiled epoch, checkpoint
+    averaging and conversion (see the module's docstring).  ``phase4``
+    holds phase 4's batch ``x``, ``t_len`` and tokens by mode.  Returns the
+    launches of its main paths by counter name, and the summary."""
+    import pathlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    from transformer_transducer_tpu_torch.apps import predict as predict_app
+    from transformer_transducer_tpu_torch.data.loader import DataLoader
+    from transformer_transducer_tpu_torch.data.wav import read_wave
+    from transformer_transducer_tpu_torch.decoding.greedy import recognize
+    from transformer_transducer_tpu_torch.models.factory import load_family
+    from transformer_transducer_tpu_torch.models.transducer import build_transducer
+    from transformer_transducer_tpu_torch.ops import features_np as F
+    from transformer_transducer_tpu_torch.runtime import native
+    from transformer_transducer_tpu_torch.tools import average_checkpoints, convert_checkpoint
+    from transformer_transducer_tpu_torch.utils import checkpoint as ckpt_lib
+    from transformer_transducer_tpu_torch.utils import metrics
+    from transformer_transducer_tpu_torch.utils.config import (
+        load_config as load_cfg_file, stack_context, subsample_factor)
+    from transformer_transducer_tpu_torch.utils.vocab import Vocabulary
+    n_layer = cfg.model.enc.n_layer
+    n_mels = cfg.data.feature_dim
+    left, right = stack_context(cfg.data)
+    factor = subsample_factor(cfg.data)
+    band = (cfg.model.enc.left_context, cfg.model.enc.right_context)
+    max_tokens = cfg.data.max_target_length + 1
+    launches = collections.Counter()
+    summary = {"card": smi, "cpus": os.cpu_count()}
+
+    # (a) the build, into an empty directory
+    cxx = native.compiler()
+    require(cxx is not None, "no C++ compiler (g++) on this machine")
+    version = subprocess.run([cxx, "--version"], capture_output=True, text=True,
+                             check=True).stdout.splitlines()[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        saved, native.BUILD_DIR = native.BUILD_DIR, pathlib.Path(tmp)
+        try:
+            start = time.perf_counter()
+            native.build(cxx)
+            summary["build_s"] = time.perf_counter() - start
+        finally:
+            native.BUILD_DIR = saved
+    lib = native.library()
+    log(f"native runtime: {version} ({cxx}), {' '.join(native.CXX_FLAGS)}: built in "
+        f"{summary['build_s']:.2f} s; os.cpu_count() {os.cpu_count()}")
+
+    # (b) the log-mel of phase 4's waves, native against numpy.  ttx_logmel
+    # computes in float64 (float64 frames, FFT and mel sums), the numpy path
+    # in float32 (pocketfft's float32 FFT): where a mel bin holds little of a
+    # frame's energy, the float32 FFT's rounding moves its log by a few 1e-4
+    # (phase 4's waves at 128 mels), so an element outside the bar
+    # must be one where numpy's float32 is the farther from the same
+    # pipeline in float64, and ttx_logmel must hold the bar against that
+    waves = synthetic_waves(8, seed=0)
+    mel = F.mel_filterbank(16000, F.N_FFT, n_mels)
+
+    def logmel64(w, variant):
+        frames = F.frame_signal(w).astype(np.float64) * F.hann_window()[None]
+        spec = np.fft.rfft(frames, axis=-1)
+        m = (spec.real ** 2 + spec.imag ** 2) @ mel.T.astype(np.float64)
+        if variant == "masked":
+            return np.where(m > 0, np.log(np.where(m > 0, m, 1.0)), 0.0)
+        return np.log10(np.where(m == 0, np.finfo(np.float64).eps, m))
+
+    errs = collections.defaultdict(float)
+    outside = 0
+    with native_features(False):
+        for variant, fn in (("masked", F.logmel_masked), ("eps", F.logmel_eps)):
+            for w in waves:
+                got = lib.logmel(w, mel, F.N_FFT, F.HOP_LENGTH, variant)
+                want = fn(w, 16000, n_mels)
+                ref = logmel64(w, variant)
+                require(got is not None and got.shape == want.shape == ref.shape,
+                        f"ttx_logmel ({variant}) gave {None if got is None else got.shape}, "
+                        f"numpy {want.shape}")
+                to64, np_to64 = np.abs(got - ref), np.abs(want - ref)
+                require((to64 <= 2e-4 + 2e-4 * np.abs(ref)).all(),
+                        f"ttx_logmel ({variant}) off the float64 pipeline by {to64.max():.3e}")
+                off = np.abs(got - want) > 2e-4 + 2e-4 * np.abs(want)
+                require((np_to64[off] > to64[off]).all(),
+                        f"ttx_logmel ({variant}) off numpy by {np.abs(got - want).max():.3e} "
+                        "where numpy's float32 is not the farther from float64")
+                outside += int(off.sum())
+                errs["native_numpy"] = max(errs["native_numpy"], float(np.abs(got - want).max()))
+                errs["native_f64"] = max(errs["native_f64"], float(to64.max()))
+                errs["numpy_f64"] = max(errs["numpy_f64"], float(np_to64.max()))
+    threads = DataLoader([], 1).num_workers
+
+    def featurize(route, n_threads):
+        def run():
+            with native_features(route == "native"):
+                if n_threads == 1:
+                    return [F.logmel_eps(w, 16000, n_mels) for w in waves]
+                with ThreadPoolExecutor(n_threads) as pool:
+                    return list(pool.map(lambda w: F.logmel_eps(w, 16000, n_mels), waves))
+        return run
+
+    before = native.read_calls()["logmel"]
+    ms = host_ms({f"{route} x{n}": featurize(route, n) for route in ("numpy", "native")
+                  for n in (1, threads)}, samples=5)
+    require(native.read_calls()["logmel"] - before == 2 * 6 * len(waves),
+            "the native route did not run ttx_logmel once a wave")
+    summary["logmel_ms"] = {k: statistics.median(v) for k, v in ms.items()}
+    summary["logmel_max_abs_err"] = dict(errs, outside_bar=outside)
+    log(f"ttx_logmel on phase 4's 8 waves ({sum(map(len, waves))} samples), both variants "
+        f"(rtol 2e-4, atol 2e-4): max|err| against numpy {errs['native_numpy']:.3e} "
+        f"({outside} elements outside the bar, each where numpy's float32 is the farther "
+        f"from float64), against the pipeline in float64 {errs['native_f64']:.3e}; numpy "
+        f"against float64 {errs['numpy_f64']:.3e}; host ms for the batch (logmel_eps, "
+        f"median of 5, {smi}; 1 and {threads} threads): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in summary["logmel_ms"].items()))
+
+    # (c) the batch CER, native against numpy
+    rng = np.random.default_rng(1)
+    v = cfg.model.vocab_size
+    preds = [rng.integers(1, v, rng.integers(0, 43)).tolist() for _ in range(1000)]
+    refs = [rng.integers(1, v, rng.integers(0, 43)).tolist() for _ in range(1000)]
+    before = native.read_calls()["batch_levenshtein"]
+    cer = {"pairs": metrics.batch_cer(preds, refs),
+           "decodes": metrics.batch_cer(phase4["full-context"], phase4["band"])}
+    require(native.read_calls()["batch_levenshtein"] - before == 2,
+            "batch_cer did not take the native path once a batch")
+    plain = {"pairs": metrics.batch_cer_numpy(preds, refs),
+             "decodes": metrics.batch_cer_numpy(phase4["full-context"], phase4["band"])}
+    require(cer == plain, f"native batch CER {cer}, numpy {plain}")
+    ms = host_ms({"numpy": lambda: metrics.batch_cer_numpy(preds, refs),
+                  "native": lambda: metrics.batch_cer(preds, refs)}, samples=5)
+    summary["cer"] = cer
+    summary["cer_ms"] = {k: statistics.median(v) for k, v in ms.items()}
+    log(f"batch CER native = numpy: 1,000 seeded pairs {cer['pairs']}, phase 4's decodes "
+        f"(full context against band) {cer['decodes']}; the 1,000 pairs in "
+        f"{summary['cer_ms']['native']:.2f} ms native, {summary['cer_ms']['numpy']:.2f} ms numpy")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (d) the training entry point with --profile, in a process of its
+        # own, where the trace is the first torch.profiler session (run in
+        # this process after phases 1-14, the epoch's trace once lacked a
+        # few of its kernel records)
+        cfg_path = write_corpus(tmp, cfg)
+        trace_dir = os.path.join(tmp, "trace")
+        code = (f"import json, sys\nsys.path.insert(0, {HERE!r})\nimport chip_smoke\n"
+                "print(json.dumps(chip_smoke.profiled_training(sys.argv[1:])))\n")
+        proc = subprocess.run([sys.executable, "-c", code, "-config", cfg_path, "--flash",
+                               "--epochs", "2", "--profile", trace_dir],
+                              cwd=tmp, stdout=subprocess.PIPE, text=True, timeout=600)
+        require(proc.returncode == 0, f"apps/train.py --profile exited {proc.returncode}")
+        run = json.loads(proc.stdout.strip().splitlines()[-1])
+        epochs = {int(e): v for e, v in run["epochs"].items()}
+        cli_counts, calls = run["counts"], run["calls"]
+        launches.update(cli_counts)
+        exp = os.path.join(tmp, run["exp_dir"])
+        traces = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+        require(len(traces) == 1, f"--profile wrote {traces}")
+        trace_path = os.path.join(trace_dir, traces[0])
+        with open(trace_path, encoding="utf-8") as fh:
+            events = json.load(fh)["traceEvents"]
+        kernels = collections.Counter()
+        kernel_us = collections.Counter()
+        for e in events:
+            if e.get("cat") == "kernel":
+                kernels[e["name"]] += 1
+                kernel_us[e["name"]] += e.get("dur", 0)
+        prof = epochs[0]["counts"]
+        seen = {name: sum(n for k, n in kernels.items() if pattern.search(k))
+                for name, (pattern, _) in TRACE_KERNELS.items()}
+        summary.update(
+            cli_s=run["cli_s"], trace_mib=os.path.getsize(trace_path) / 2 ** 20,
+            trace_kernel_events=sum(kernels.values()), trace_kernels=seen,
+            profiled_epoch_launches={k: prof[k] for k in TRACE_KERNELS},
+            epoch_s=[epochs[e]["s"] for e in sorted(epochs)], native_calls=calls)
+        log(f"apps/train.py --flash --profile (its own process): 2 epochs in "
+            f"{run['cli_s']:.1f} s, {run['global_step']} steps; epoch seconds "
+            f"{summary['epoch_s']} (profiled: {[epochs[e]['profiled'] for e in sorted(epochs)]}); "
+            f"trace {summary['trace_mib']:.1f} MiB, {len(events)} events, "
+            f"{summary['trace_kernel_events']} kernel events; hand-written kernels in the "
+            f"trace {seen} against the profiled epoch's launches "
+            f"{summary['profiled_epoch_launches']}; native calls {calls}")
+        log("  the trace's kernels with the most device time: " + ", ".join(
+            f"{k[:60]} {us / 1e3:.2f} ms ({kernels[k]})" for k, us in kernel_us.most_common(6)))
+        require(sorted(epochs) == [0, 1] and epochs[0]["profiled"] and not epochs[1]["profiled"],
+                f"profiled epochs {[(e, epochs[e]['profiled']) for e in sorted(epochs)]}")
+        require(run["global_step"] == 2 * 4, f"{run['global_step']} steps")
+        for name, (_, per_launch) in TRACE_KERNELS.items():
+            require(prof[name] > 0 and seen[name] == prof[name] * per_launch,
+                    f"{name}: {seen[name]} kernel events in the trace, {prof[name]} launches "
+                    "in the profiled epoch")
+        require(calls["logmel"] >= 2 * 24 and calls["batch_levenshtein"] >= 2,
+                f"the native counters did not move in the loader and the evaluation: {calls}")
+
+        # (e) average the two epochs and serve the average
+        avg = average_checkpoints.main([exp, "--nbest", "2"])
+        with open(os.path.join(avg, "meta.json")) as fh:
+            meta = json.load(fh)
+        require(sorted(meta["averaged_from"]) == ["epoch_0", "epoch_1"], f"averaged {meta}")
+        eps = [ckpt_lib.load_checkpoint(os.path.join(exp, f"epoch_{e}"), "cpu") for e in (0, 1)]
+        got = ckpt_lib.load_checkpoint(avg, "cpu")
+        n_leaves = 0
+        for comp in ckpt_lib.COMPONENTS:
+            for key, leaf in got[comp].items():
+                mean = ((eps[0][comp][key].double() + eps[1][comp][key].double()) / 2).float()
+                require(torch.equal(leaf, mean), f"{comp}.{key} is not the float64 mean")
+                n_leaves += 1
+        cli_cfg = load_cfg_file(cfg_path)
+        with open(cli_cfg.data.dev, encoding="utf-8") as fh:
+            wav = fh.read().splitlines()[1].split(",")[0]
+        reset_counts()
+        text = predict_app.main(["--config", cfg_path, "--checkpoint", avg, "--wav", wav,
+                                 "--full-context"])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        launches.update(counts)
+        wave, rate = read_wave(wav)
+        feats = F.subsample(F.stack_frames(F.logmel_masked(wave, rate, n_mels), left, right),
+                            factor)
+        served = load_family(cli_cfg, feats.shape[1], avg, device=device, flash=True)
+        require(all(torch.equal(served.state_dict()[f"{c}.{k}"], v.to(device))
+                    for c in ckpt_lib.COMPONENTS for k, v in got[c].items()),
+                "load_family did not restore the averaged weights")
+        tokens = recognize(served, torch.from_numpy(feats[None]).to(device), [feats.shape[0]],
+                           max_tokens=max_tokens)[0]
+        want = "".join(Vocabulary.from_file(cli_cfg.data.vocab).decode(tokens))
+        log(f"tools/average_checkpoints.py --nbest 2: {n_leaves} leaves, each the float64 mean "
+            f"of epochs 0 and 1 in float32, and load_family's; apps/predict.py --full-context "
+            f"on the average (2 epochs on random labels: it may emit nothing): "
+            f"{len(text)} characters, {'the text of' if text == want else 'not the text of'} "
+            f"recognize with the averaged weights; launches {counts}")
+        require(text == want, f"predict on the average gave {text!r}, recognize {want!r}")
+        require(counts["flash_fwd"] == n_layer, f"predict launched {counts}")
+        del served, eps, got
+        torch.cuda.empty_cache()
+
+        # (f) phase 4's weights as a reference .chkpt, converted and served
+        model = build_transducer(cfg.model, device=device).eval()
+        model.load_state_dict(state)
+        with torch.no_grad():
+            model.joint.project_layer.bias[0] += offset           # phase 4's bias
+        opt = torch.optim.SGD(model.parameters(), lr=cfg.optim.lr, momentum=0.9)
+        chkpt = os.path.join(tmp, "phase4.chkpt")
+        torch.save({"encoder": model.encoder.state_dict(), "decoder": model.decoder.state_dict(),
+                    "joint": model.joint.state_dict(), "optimizer": opt.state_dict(),
+                    "epoch": 3, "step": 12}, chkpt)
+        out = convert_checkpoint.main([chkpt, os.path.join(tmp, "converted")])
+        x, t_len = phase4["x"], phase4["t_len"]
+        for name, flash in (("band", False), ("full-context", True)):
+            served = load_family(cfg, x.shape[-1], out, device=device, flash=flash).eval()
+            require(all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                                           served.state_dict().values())),
+                    "the converted checkpoint did not restore phase 4's weights")
+            reset_counts()
+            toks = recognize(served, x, t_len, band=None if flash else band,
+                             max_tokens=max_tokens)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            launches.update(counts)
+            kernel = "flash_fwd" if flash else "banded_fwd"
+            require(counts[kernel] == n_layer and sum(counts.values()) == n_layer,
+                    f"{name}: the converted model launched {counts}")
+            with torch.no_grad():
+                enc = served.encode(x) if flash else served.encode_banded(x, *band)
+            compare_tokens(f"converted .chkpt, {name}, against phase 4", toks, phase4[name],
+                           served, enc, enc, t_len, max_tokens)
+            del served
+        del model
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
 def bf16_bound(n_bytes, ops):
     """(least ms at the bf16 rate, "bytes" or "operations", least ms at the
     TF32 rate) of work that moves ``n_bytes`` and does ``ops`` FLOP."""
@@ -4714,6 +5069,30 @@ def main() -> int:
     slice_6b["phase_s"] = time.perf_counter() - start
     log(f"  phase 14: {slice_6b['phase_s']:.1f} s")
     log(json.dumps({"slice_6b": slice_6b}))
+
+    log(f"[{time.perf_counter() - run_start:.1f} s] phase 15")
+    # ---- 15. the native runtime, --profile, checkpoint averaging and conversion
+    start = time.perf_counter()
+    torch.cuda.empty_cache()
+    host_launches, host = check_host_remainder(
+        cfg, state, offset, {"x": x, "t_len": t_len, "band": tok_band,
+                             "full-context": tok_full}, device, smi)
+    host["phase_s"] = time.perf_counter() - start
+    for rec in records:
+        key = {"banded_attention_fwd": "banded_fwd", "flash_rel_attention_fwd": "flash_fwd",
+               "banded_attention_bwd": "banded_bwd", "flash_rel_attention_bwd": "flash_bwd",
+               "rnnt_alpha": "alpha", "rnnt_beta": "beta", "additive_logz": "logz",
+               "band_alpha": "band_alpha", "band_beta": "band_beta",
+               "flash_rel_attention_fwd_bf16": "flash_fwd_bf16",
+               "flash_rel_attention_bwd_bf16": "flash_bwd_bf16"}[rec["name"]]
+        # the float32 flash rows count their own form's launches (the bf16
+        # forms, also on flash_fwd and flash_bwd, have rows of their own)
+        own = host_launches.get(key, 0) - (host_launches.get(f"{key}_bf16", 0)
+                                           if not key.endswith("_bf16") else 0)
+        rec["phase15_launches"] = own
+        rec["launches"] += own
+    log(f"  phase 15: {host['phase_s']:.1f} s")
+    log(json.dumps({"host_remainder": host}))
 
     log(f"[{time.perf_counter() - run_start:.1f} s] all phases passed")
     log(json.dumps({"kernels": records}))

@@ -150,3 +150,22 @@ def test_tone_corpus_writer_is_scanned_and_bf16_training_raises_without_cuda(mon
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["-config", os.path.join(ROOT, "configs", "joint_streaming.yaml"),
                     "--bf16", "--remat"])
+
+
+def test_host_runtime_and_tools_are_scanned_and_raise_without_cuda(monkeypatch):
+    """The native runtime, the VAD, corpus prep and the checkpoint and plot
+    tools are among the modules scanned above (the C++ source is no Python
+    module: ``runtime/native.py`` builds it with g++, not with nvcc), and
+    the checkpoint tools take the card unless asked for the CPU."""
+    from transformer_transducer_tpu_torch.tools import average_checkpoints, convert_checkpoint
+    mods = set(_modules())
+    for mod in ("runtime.native", "ops.vad", "ops.misc", "data.prep",
+                "tools.average_checkpoints", "tools.convert_checkpoint",
+                "tools.plot_training", "tools.plot_features", "tools.tone_demo"):
+        assert "transformer_transducer_tpu_torch." + mod in mods
+    assert os.path.exists(os.path.join(PKG, "csrc", "ttx_runtime.cc"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        average_checkpoints.main(["--checkpoints", "a", "b"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert_checkpoint.main(["ref.chkpt", "out"])

@@ -4,7 +4,7 @@
     python -m transformer_transducer_tpu_torch.apps.train \\
         -config configs/joint_streaming.yaml -log train.log \\
         -mode retrain|continue [--flash | --banded] [--pruned-range N]
-        [--bf16] [--remat] [--augment] [--device cpu]
+        [--bf16] [--remat] [--augment] [--profile DIR] [--device cpu]
 
 ``--flash`` trains the unmasked encoder through the flash rel-attention
 kernels (forward and backward), ``--banded`` under the streaming band
@@ -17,6 +17,9 @@ both losses and the evaluation cast where the JAX package casts; the
 kernels of the banded and dense paths take float32, as JAX feeds them;
 with ``--flash`` the flash kernels' bf16 forms take bf16, as JAX's do).
 ``--remat`` recomputes each encoder layer in the backward.
+``--profile DIR`` trains the first epoch under ``torch.profiler`` and
+writes TensorBoard's ``*.pt.trace.json`` there (CPU and, on the card, CUDA
+activity: the hand-written kernels appear by name).
 ``--augment`` runs the waveform augmentation chain (``ops/augment.py``) on
 the training set; ``--set data.on_device_features=true`` ships raw waves
 and runs the log-mel on the card.  ``-mode continue`` also resumes from the
@@ -43,7 +46,6 @@ _LATER = {
     "pipe_micro": "pipeline parallelism (--pipe-micro)",
     "n_seq": "sequence parallelism (--n_seq)",
     "zero": "ZeRO-1 optimizer sharding (--zero)",
-    "profile": "the profiled epoch (--profile)",
 }
 
 
@@ -85,7 +87,9 @@ def parse_args(argv=None):
                     "(same as --set training.loss_pruned_range=N)")
     for flag in ("--n_model", "--n_data", "--n_pipe", "--pipe-micro", "--n_seq"):
         ap.add_argument(flag, type=int, default=None)
-    ap.add_argument("--profile", default=None, metavar="DIR")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="profile the first epoch (torch.profiler) and write "
+                    "TensorBoard's *.pt.trace.json to DIR")
     return ap.parse_args(argv)
 
 
@@ -119,7 +123,7 @@ def main(argv=None):
                       compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
                       remat=args.remat)
     trainer.logger.info("device: %s", trainer.device)
-    trainer.fit(epochs=args.epochs, augment=args.augment)
+    trainer.fit(epochs=args.epochs, augment=args.augment, profile_dir=args.profile)
     return trainer
 
 

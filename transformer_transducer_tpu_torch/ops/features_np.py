@@ -9,14 +9,23 @@ variants (``tt/utils.py:180-205``):
 
 The mel pipeline (hann STFT with centred reflect padding, power spectrum,
 Slaney-normalised mel filterbank) is written from the published definitions.
-Frame stacking and subsampling mirror ``tt/utils.py:120-150``.  Only the
-numpy path is ported; the JAX package's native C++ featurizer branch waits
-for a port of ``runtime/native.py``.
+Frame stacking and subsampling mirror ``tt/utils.py:120-150``.
+
+With ``TTX_NATIVE_FEATURES=1`` an int16 wave (the dataset's input) takes
+the C++ featurizer of ``runtime/native.py`` (``ttx_logmel``: the same
+filterbank, float64 throughout, close to this pipeline run in float64,
+where the numpy path's float32 FFT can move a mel bin that holds little of
+a frame's energy by a few 1e-4 in its log); a float wave takes numpy
+either way.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+
+from transformer_transducer_tpu_torch.runtime import native
 
 SAMPLE_RATE = 16000
 N_FFT = 512
@@ -92,9 +101,34 @@ def melspectrogram(wave: np.ndarray, sr: int = SAMPLE_RATE, n_fft: int = N_FFT,
     return (pspec @ mel_filterbank(sr, n_fft, n_mels).T).astype(np.float32)
 
 
+def _native_logmel(wave: np.ndarray, sr: int, n_mels: int, variant: str):
+    """The C++ frame-parallel featurizer (``ttx_logmel``) when
+    ``TTX_NATIVE_FEATURES=1`` and the wave is int16; None to take numpy
+    (also where the C function refuses a wave of ``N_FFT // 2`` samples or
+    fewer).
+
+    Off by default, as in the JAX package: its gain is frame parallelism
+    without the interpreter lock inside the loader's threads, which needs
+    cores to spare; one call alone is slower than numpy's SIMD FFT and
+    BLAS (``PERF.md`` §6), so enable it only where cores outnumber
+    the loader's threads.  A failed build raises
+    (``runtime/native.py``)."""
+    if os.environ.get("TTX_NATIVE_FEATURES") != "1":
+        return None
+    if not isinstance(wave, np.ndarray) or wave.dtype != np.int16:
+        return None
+    lib = native.library_or_none()
+    if lib is None:
+        return None
+    return lib.logmel(wave, mel_filterbank(sr, N_FFT, n_mels), N_FFT, HOP_LENGTH, variant)
+
+
 def logmel_masked(wave: np.ndarray, sr: int = SAMPLE_RATE, n_mels: int = N_MELS) -> np.ndarray:
     """Natural-log mel with non-positive bins set to 0 (reference
     ``get_feature``, ``tt/utils.py:180-191``)."""
+    out = _native_logmel(wave, sr, n_mels, "masked")
+    if out is not None:
+        return out
     mel = melspectrogram(wave.astype(np.float32), sr, n_mels=n_mels)
     out = np.zeros_like(mel)
     positive = mel > 0
@@ -105,6 +139,9 @@ def logmel_masked(wave: np.ndarray, sr: int = SAMPLE_RATE, n_mels: int = N_MELS)
 def logmel_eps(wave: np.ndarray, sr: int = SAMPLE_RATE, n_mels: int = N_MELS) -> np.ndarray:
     """log10 mel with zeros floored to float eps (reference ``get_feature2``,
     ``tt/utils.py:194-205``)."""
+    out = _native_logmel(wave, sr, n_mels, "eps")
+    if out is not None:
+        return out
     mel = melspectrogram(wave.astype(np.float32), sr, n_mels=n_mels)
     mel = np.where(mel == 0, np.finfo(np.float64).eps, mel)
     return np.log10(mel).astype(np.float32)

@@ -1,5 +1,5 @@
-"""The held-out tone corpus and its configs (port of the repo-root
-``tools/tone_demo.py``: ``_write_corpus`` and ``_config``).
+"""The held-out tone corpus, its configs, and the learning run (port of the
+repo-root ``tools/tone_demo.py``).
 
 Each label symbol is a sine tone at a distinct frequency (10 classes, 0.2 s
 a symbol, 2-6 symbols an utterance, a noise floor), so audio -> label is a
@@ -8,7 +8,7 @@ the same language.  The waves and CSVs are bit-equal to the JAX tool's at
 the same seed, so the port's learning runs train on the corpus the JAX
 records (``artifacts/tone_small``, ``artifacts/tpu_tone_demo``) trained on.
 
-    python -m transformer_transducer_tpu_torch.tools.tone_demo --out DIR \\
+    python -m transformer_transducer_tpu_torch.tools.tone_demo --out DIR \
         [--n-train 1024] [--n-dev 64] [--seed 0] [--geometry aishell|small]
 
 writes ``DIR/{vocab.txt,train.csv,dev.csv,test.csv,wav/}`` and
@@ -16,6 +16,16 @@ writes ``DIR/{vocab.txt,train.csv,dev.csv,test.csv,wav/}`` and
 paths as one JSON line.  Train on it with ``apps/train.py -config
 DIR/config.yaml``, or with a recorded config and ``--set data.vocab=...
 --set data.train=... --set data.dev=... --set data.test=...``.
+
+With ``--epochs N`` the tool runs the learning run itself, as the JAX tool's
+``main`` does: the corpus goes to ``DIR/corpus`` and the config to
+``DIR/config.yaml``, the port's training entry point runs as a subprocess
+from ``DIR`` with the production flags (``--bf16 --nan-guard
+--steps-per-call K --epochs N``, and ``--device`` passed through), then
+``DIR/summary.json`` gets the JAX tool's keys (first and last train loss,
+the dev CER curve, the final and best dev CER), ``metrics.jsonl`` and
+``train.log`` are copied beside it, the waves are removed, and the last
+line printed is ``{"final_dev_cer": ..., "best_dev_cer": ...}``.
 """
 
 from __future__ import annotations
@@ -24,6 +34,9 @@ import argparse
 import csv
 import json
 import os
+import shutil
+import subprocess
+import sys
 
 import numpy as np
 
@@ -31,6 +44,7 @@ from transformer_transducer_tpu_torch.data.wav import write_wave
 from transformer_transducer_tpu_torch.utils.config import Config, dump_config
 from transformer_transducer_tpu_torch.utils.vocab import Vocabulary
 
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 SYMS = list("abcdefghij")  # 10 tone classes
 SR = 16000
 TONE_LEN = 3200  # 0.2 s per symbol
@@ -121,6 +135,57 @@ def _config(vocab_path, csvs, geometry="aishell"):
     })
 
 
+def train(out: str, epochs: int, steps_per_call: int = 8, geometry: str = "aishell",
+          n_train: int = 1024, n_dev: int = 64, seed: int = 0, device=None) -> dict:
+    """The learning run of the JAX tool's ``main`` through the port's
+    training entry point; returns the summary it writes."""
+    out = os.path.abspath(out)
+    os.makedirs(out, exist_ok=True)
+    vocab_path, csvs = _write_corpus(os.path.join(out, "corpus"), n_train, n_dev, seed)
+    cfg_path = os.path.join(out, "config.yaml")
+    dump_config(_config(vocab_path, csvs, geometry=geometry), cfg_path)
+    flags = ["--bf16", "--nan-guard", "--steps-per-call", str(steps_per_call)]
+    cmd = [sys.executable, "-m", "transformer_transducer_tpu_torch.apps.train",
+           "-config", cfg_path, *flags, "--epochs", str(epochs)]
+    if device is not None:
+        cmd += ["--device", str(device)]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+    rc = subprocess.call(cmd, cwd=out, env=env)
+    if rc != 0:
+        raise SystemExit(rc)
+
+    exp = os.path.join(out, "egs", "tone_demo", "aishell_geo")
+    cers, losses = [], []
+    with open(os.path.join(exp, "metrics.jsonl")) as fh:
+        for line in fh:
+            row = json.loads(line)
+            if row.get("tag") == "cer":
+                cers.append((row["step"], row["value"]))
+            elif row.get("tag") == "train_loss":
+                losses.append((row["step"], row["value"]))
+    summary = {
+        "geometry": ("configs/aishell.yaml (d_model 512, 4-layer enc, joint 1024), "
+                     "vocab head 12" if geometry == "aishell"
+                     else "small control (d_model 64, 2-layer enc)"),
+        "corpus": f"10-class held-out tone corpus, {n_train} train / {n_dev} dev",
+        "flags": " ".join(flags),
+        "first_train_loss": losses[0][1] if losses else None,
+        "last_train_loss": losses[-1][1] if losses else None,
+        "dev_cer_curve": cers,
+        "final_dev_cer": cers[-1][1] if cers else None,
+        "best_dev_cer": min(v for _, v in cers) if cers else None,
+    }
+    with open(os.path.join(out, "summary.json"), "w") as fh:
+        json.dump(summary, fh, indent=1)
+    for name in ("metrics.jsonl", "train.log"):
+        shutil.copy(os.path.join(exp, name), os.path.join(out, name))
+    shutil.rmtree(os.path.join(out, "corpus", "wav"), ignore_errors=True)
+    print(json.dumps({"final_dev_cer": summary["final_dev_cer"],
+                      "best_dev_cer": summary["best_dev_cer"]}))
+    return summary
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", required=True)
@@ -128,7 +193,16 @@ def main(argv=None):
     ap.add_argument("--n-dev", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--geometry", default="aishell", choices=["aishell", "small"])
+    ap.add_argument("--epochs", type=int, default=None,
+                    help="run the learning run for N epochs (else write the "
+                    "corpus and config only)")
+    ap.add_argument("--steps-per-call", type=int, default=8)
+    ap.add_argument("--device", default=None,
+                    help="the training's torch device (default cuda; cpu to run there)")
     args = ap.parse_args(argv)
+    if args.epochs is not None:
+        return train(args.out, args.epochs, args.steps_per_call, args.geometry,
+                     args.n_train, args.n_dev, args.seed, args.device)
     out = os.path.abspath(args.out)
     vocab_path, csvs = _write_corpus(out, args.n_train, args.n_dev, args.seed)
     cfg_path = os.path.join(out, "config.yaml")

@@ -29,9 +29,16 @@ float32 parameters: the model (either family) and both losses cast where
 the JAX package casts, the optimizer and the checkpoints hold float32, and
 the evaluation decodes with the bf16 encoder and joint (the KV label cache
 runs in float32, as JAX's).  ``remat`` (``--remat``) recomputes each encoder
-layer in the backward.  The JAX package's mesh,
-pipeline, sequence-parallel and ZeRO paths and the profiler come in later
-slices and raise ``NotImplementedError`` here.
+layer in the backward.
+
+``fit(profile_dir=...)`` (``--profile DIR``) trains the run's first epoch
+under ``torch.profiler`` (CPU activity, and the card's with a CUDA device)
+and writes TensorBoard's ``*.pt.trace.json`` to ``DIR``
+(:meth:`Trainer.profile_epoch`).  The evaluation's CER runs on the token
+ids, so it takes the native edit distance (``utils/metrics.py``); the
+vocabulary maps ids to symbols one to one, so it equals the CER of the
+decoded text.  The JAX package's mesh, pipeline, sequence-parallel and
+ZeRO paths come in a later slice and raise ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -357,7 +364,7 @@ class Trainer:
                         for i in range(len(preds))]
                 pred_txt = [self.vocab.decode(p) for p in preds]
                 ref_txt = [self.vocab.decode(r) for r in refs]
-                dist, words = batch_cer(pred_txt, ref_txt)
+                dist, words = batch_cer(preds, refs)
                 total_dist += dist
                 total_words += words
                 for p, r in zip(pred_txt, ref_txt):
@@ -399,15 +406,48 @@ class Trainer:
         self.logger.info("Step checkpoint saved to %s (epoch %d, batch %d)",
                          path, epoch, batches_done)
 
+    def profile_epoch(self, epoch: int, loader, trace_dir: str) -> float:
+        """One training epoch under ``torch.profiler``: CPU activity, and
+        CUDA activity on a CUDA device, written when the epoch ends as
+        TensorBoard's ``*.pt.trace.json`` to ``trace_dir``.  A profiler that
+        cannot start or finish logs a warning and the epoch stands, as in
+        the JAX package; a failure of the training itself propagates."""
+        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        try:
+            prof = profile(activities=activities,
+                           on_trace_ready=tensorboard_trace_handler(trace_dir))
+            prof.__enter__()
+        except Exception as e:  # a build or a host without profiler support
+            self.logger.warning("profiler unavailable (%s); training unprofiled", e)
+            return self.train_epoch(epoch, loader)
+        try:
+            # a training failure is real: it propagates, never masked as a
+            # profiling warning
+            avg = self.train_epoch(epoch, loader)
+        finally:
+            try:
+                prof.__exit__(None, None, None)
+                self.logger.info("profiler trace written to %s", trace_dir)
+            except Exception as e:  # teardown only: the epoch is valid
+                self.logger.warning("profiler teardown failed (%s); continuing "
+                                    "without a trace", e)
+        return avg
+
     def fit(self, epochs: Optional[int] = None, augment: bool = False,
             eval_batches: Optional[int] = None,
             profile_dir: Optional[str] = None):
-        if profile_dir:
-            raise _later("the profiled epoch (--profile)")
+        """Train from ``start_epoch`` to ``epochs``; with ``profile_dir``
+        the first of these epochs runs under :meth:`profile_epoch`."""
         epochs = epochs or self.config.training.epochs
         train_loader, dev_loader = self.make_loaders(augment=augment)
         for epoch in range(self.start_epoch, epochs):
-            self.train_epoch(epoch, train_loader)
+            if profile_dir and epoch == self.start_epoch:
+                self.profile_epoch(epoch, train_loader, profile_dir)
+            else:
+                self.train_epoch(epoch, train_loader)
             # decay before save (the checkpoint carries the rate the next
             # epoch trains at); save before evaluate (an evaluation failure
             # must not lose the epoch)
