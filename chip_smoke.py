@@ -281,6 +281,32 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    4's tokens under the band and at full context.  A JSON line before the
    kernels' line, whose launches count the phase's main paths
    (``phase15_launches``).
+16. export and data parallelism (``check_export_dp``): (a) the flagship
+   (``flash=True``, full width and depth) through ``runtime/export.py``
+   on the card, its seconds and each ``.pt2`` file's MiB; a fresh process
+   loads the four programs (``run_exported``) and runs them on phase 4's
+   first utterance (410 frames), random tokens and random states: the
+   encoder's graph holds 18 ``ttx::flash_rel_attention_fwd`` nodes and a
+   call launches the flash forward 18 times and nothing else, the other
+   three launch nothing, and each output equals the live model's within
+   rtol = atol = 1e-5; the exported encoder, loaded here, timed in turns
+   with the live one (CUDA events), with each one's device busy time;
+   (b) two ranks on the one card through gloo (``dp_rank``):
+   3 ``--n_data 2 --zero --flash`` steps on their halves of phase 8's
+   batch at dropout 0 with no SpecAugment, each step's launches from 0
+   (18 + 18 flash, 1 + 1 lattice), the losses within 1e-4 and step 1's
+   gradient norm within 1e-3 (relative) of one process on the whole
+   batch, each rank's moment bytes at most 51 % of one process's, its
+   peak memory beside plain dp's (the same 3 steps without ``--zero``
+   first, their losses within the same bar); then, the group left, ``apps/train.py --flash --n_data 2
+   --zero`` for one epoch of phase 7's corpus over the two ranks, each
+   joining a group from the environment itself (gloo: two local ranks on
+   one card): 4 steps, a checkpoint with whole moments, one evaluation
+   line;
+   (c) a world-1 NCCL group (a ``FileStore``): 3 banded steps equal to the
+   bit to the same steps with no group.  A JSON line before the kernels'
+   line, whose launches count the phase's main paths
+   (``phase16_launches``).
 
 Each phase logs the seconds since the run began.
 
@@ -309,6 +335,7 @@ import io
 import json
 import os
 import re
+import socket
 import statistics
 import struct
 import subprocess
@@ -4056,6 +4083,344 @@ def check_host_remainder(cfg, state, offset, phase4, device, smi):
     return launches, summary
 
 
+EXPORTED = ("encoder", "encoder_streaming", "decoder", "joint")
+
+
+def run_exported(root) -> dict:
+    """Phase 16 (a), in a fresh process: ``load_exported`` of the four
+    programs under ``root``, each run once on ``inputs.pt`` with the
+    counts from 0 (the outputs to ``outputs.pt``), and the encoder graph's
+    ``ttx::flash_rel_attention_fwd`` nodes."""
+    import torch
+    from transformer_transducer_tpu_torch.runtime.export import load_exported
+    inputs = torch.load(os.path.join(root, "inputs.pt"))
+    start = time.perf_counter()
+    programs = {n: load_exported(os.path.join(root, f"{n}.pt2")) for n in EXPORTED}
+    load_s = time.perf_counter() - start
+    op = torch.ops.ttx.flash_rel_attention_fwd.default
+    nodes = sum(1 for n in programs["encoder"].graph.nodes if n.target is op)
+    args = {"encoder": ("x",), "encoder_streaming": ("x",), "decoder": ("tokens",),
+            "joint": ("e", "d")}
+    outputs, counts = {}, {}
+    with torch.no_grad():
+        for name, program in programs.items():
+            reset_counts()      # each program's call: counts from 0, read after
+            out = program(*(inputs[a].cuda() for a in args[name]))
+            torch.cuda.synchronize()
+            counts[name] = read_counts()
+            outputs[name] = out.cpu()
+    torch.save(outputs, os.path.join(root, "outputs.pt"))
+    return {"load_s": load_s, "op_nodes": nodes, "counts": counts}
+
+
+def dp_rank(job_path) -> dict:
+    """Phase 16 (b), one of the ranks that ``check_export_dp`` launches
+    (``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``, ``LOCAL_WORLD_SIZE``,
+    ``MASTER_*`` set; both on the one card): in a gloo group, 3 ``--n_data
+    2 --flash`` steps on its rows of phase 8's batch (dropout 0, no
+    SpecAugment), then the same 3 steps with ``--zero`` (counts from 0
+    around each), each run's moment bytes and peak memory; then, the group left, ``apps/train.py --flash --n_data 2
+    --zero`` for one epoch of phase 7's corpus, which joins a group of its
+    own from the environment (at the job's second port)."""
+    import torch
+    import torch.distributed as dist
+    from transformer_transducer_tpu_torch.apps import train as train_app
+    from transformer_transducer_tpu_torch.models.transducer import build_transducer
+    from transformer_transducer_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from transformer_transducer_tpu_torch.parallel.sharding import zero_param_shardings
+    from transformer_transducer_tpu_torch.training.optim import build_optimizer
+    from transformer_transducer_tpu_torch.training.train_step import (
+        TrainStepConfig, make_train_step)
+    from transformer_transducer_tpu_torch.utils.config import Config
+    job = torch.load(job_path, weights_only=False)     # this run's own file
+    dist.init_process_group("gloo", init_method="env://")
+    device = torch.device("cuda", 0)
+    mesh = make_mesh(n_data=2)
+    batch = shard_batch({k: v.to(device) for k, v in job["batch"].items()}, mesh)
+
+    def run(zero):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = build_transducer(Config(job["model"]), flash=True, device=device)
+        model.load_state_dict(job["state"])
+        model.train()
+        opt = build_optimizer(Config(job["optim"]), list(model.parameters()),
+                              max_grad_norm=200.0,
+                              zero=(mesh, zero_param_shardings(model, mesh)) if zero else None)
+        step = make_train_step(model, opt, TrainStepConfig(specaug=False), mesh=mesh)
+        steps = []
+        for _ in range(3):
+            reset_counts()
+            m = step(batch, None)
+            torch.cuda.synchronize()
+            steps.append((float(m["loss"]), float(m["grad_norm"]), read_counts()))
+        return steps, opt.moment_bytes(), torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # plain dp first, for its peak memory at the same rows; then ZeRO-1
+    plain_steps, plain_bytes, plain_peak = run(False)
+    steps, moment_bytes, peak = run(True)
+    out = {"rank": mesh.rank, "steps": steps, "moment_bytes": moment_bytes,
+           "peak_gib": peak, "plain_losses": [s[0] for s in plain_steps],
+           "plain_moment_bytes": plain_bytes, "plain_peak_gib": plain_peak,
+           "rows": int(batch["inputs"].shape[0])}
+    dist.barrier()
+    dist.destroy_process_group()
+    os.environ["MASTER_PORT"] = str(job["cli_port"])
+    os.chdir(job["cli_dir"])
+    reset_counts()
+    start = time.perf_counter()
+    trainer = train_app.main(["-config", job["cli_config"], "--flash", "--epochs", "1",
+                              "--n_data", "2", "--zero"])
+    torch.cuda.synchronize()
+    out["cli"] = {"s": time.perf_counter() - start, "counts": read_counts(),
+                  "backend": dist.get_backend() if dist.is_initialized() else None,
+                  "n_data": trainer.mesh.n_data, "zero": trainer.zero,
+                  "global_step": trainer.global_step, "exp_dir": trainer.exp_dir,
+                  "moment_bytes": trainer.optimizer.moment_bytes()}
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def reference_steps(cfg_model, optim_cfg, state, batch, device, mode="flash", mesh=None):
+    """3 single-process steps on the whole batch (dropout 0, no SpecAugment,
+    SGD as the trainer builds it): (loss, gradient norm) a step, the
+    optimizer's moment bytes."""
+    import torch
+    from transformer_transducer_tpu_torch.models.transducer import build_transducer
+    from transformer_transducer_tpu_torch.training.optim import build_optimizer
+    from transformer_transducer_tpu_torch.training.train_step import (
+        TrainStepConfig, make_train_step)
+    model = build_transducer(cfg_model, flash=mode == "flash", banded=mode == "banded",
+                             device=device)
+    model.load_state_dict(state)
+    model.train()
+    opt = build_optimizer(optim_cfg, list(model.parameters()), max_grad_norm=200.0)
+    step = make_train_step(model, opt, TrainStepConfig(specaug=False), mesh=mesh)
+    out = []
+    for _ in range(3):
+        m = step(batch, None)
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    return out, opt.moment_bytes()
+
+
+def check_export_dp(cfg, state, phase4, batch, device, smi):
+    """Phase 16: the export of the flagship and data-parallel training
+    with ZeRO-1 (see the module's docstring).  ``batch`` is phase 8's B 4
+    batch.  The two ranks start first, so that their start-up overlaps the
+    export's tracing, and the fresh process that runs the programs starts
+    as soon as they are written; the timings wait until all have ended.
+    Returns the main paths' launches and a summary."""
+    import torch
+    import torch.distributed as dist
+    from transformer_transducer_tpu_torch.models.transducer import build_transducer
+    from transformer_transducer_tpu_torch.ops.masks import context_mask, look_ahead_mask
+    from transformer_transducer_tpu_torch.parallel.mesh import make_mesh
+    from transformer_transducer_tpu_torch.runtime.export import (
+        export_transducer, load_exported)
+    from transformer_transducer_tpu_torch.utils.config import Config
+    launches = collections.Counter()
+    summary = {"device": smi}
+    band = (cfg.model.enc.left_context, cfg.model.enc.right_context)
+    n_layer, v = cfg.model.enc.n_layer, cfg.model.vocab_size
+    max_tokens = cfg.data.max_target_length + 1
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([HERE, os.environ.get("PYTHONPATH", "")]))
+    model_cfg = load_flagship().model
+    model_cfg.override("dropout", 0.0)
+    optim_cfg = Config({"type": "sgd", "lr": cfg.optim.lr, "momentum": 0.9})
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) two ranks on the one card through gloo (dp_rank)
+        cli_dir = os.path.join(tmp, "cli")
+        os.makedirs(cli_dir)
+        with socket.socket() as sock, socket.socket() as sock2:
+            sock.bind(("localhost", 0))
+            sock2.bind(("localhost", 0))
+            port, cli_port = sock.getsockname()[1], sock2.getsockname()[1]
+        job = {"model": model_cfg, "state": state, "optim": optim_cfg,
+               "batch": {k: v.cpu() for k, v in batch.items()},
+               "cli_dir": cli_dir, "cli_config": write_corpus(cli_dir, cfg),
+               "cli_port": cli_port}
+        job_path = os.path.join(tmp, "dp_job.pt")
+        torch.save(job, job_path)
+        code = (f"import json, sys\nsys.path.insert(0, {HERE!r})\nimport chip_smoke\n"
+                "print(json.dumps(chip_smoke.dp_rank(sys.argv[1])))\n")
+        dp_start = time.perf_counter()
+        child = None
+        procs = [subprocess.Popen([sys.executable, "-c", code, job_path], stdout=subprocess.PIPE,
+                                  text=True, env=dict(env, RANK=str(r), LOCAL_RANK=str(r),
+                                                      WORLD_SIZE="2", LOCAL_WORLD_SIZE="2",
+                                                      MASTER_ADDR="localhost",
+                                                      MASTER_PORT=str(port)))
+                 for r in range(2)]
+        try:
+            # (a) the flagship (flash=True) exported on the card while they
+            # start, and the live model's outputs
+            model = build_transducer(cfg.model, flash=True, device=device)
+            model.load_state_dict(state)
+            start = time.perf_counter()
+            paths = export_transducer(model, tmp, max_frames=T_MAIN, max_tokens=max_tokens,
+                                      d_in=cfg.model.enc.d_model, left_context=band[0],
+                                      right_context=band[1])
+            summary["export_s"] = time.perf_counter() - start
+            summary["mib"] = {n: os.path.getsize(p) / 2 ** 20 for n, p in paths.items()}
+            g = torch.Generator().manual_seed(16)
+            inputs = {"x": phase4["x"][:1].cpu(),
+                      "tokens": torch.randint(1, v, (1, max_tokens), generator=g),
+                      "e": torch.randn(1, cfg.model.enc.d_model, generator=g),
+                      "d": torch.randn(1, cfg.model.dec.d_model, generator=g)}
+            torch.save(inputs, os.path.join(tmp, "inputs.pt"))
+            code = (f"import json, sys\nsys.path.insert(0, {HERE!r})\nimport chip_smoke\n"
+                    "print(json.dumps(chip_smoke.run_exported(sys.argv[1])))\n")
+            child = subprocess.Popen([sys.executable, "-c", code, tmp], env=env,
+                                     stdout=subprocess.PIPE, text=True)
+            x = inputs["x"].to(device)
+            with torch.no_grad():
+                reset_counts()
+                live = {"encoder": model.encode(x)}
+                torch.cuda.synchronize()
+                live_counts = read_counts()
+                live["encoder_streaming"] = model.encode(
+                    x, context_mask(T_MAIN, *band, device=device))
+                live["decoder"] = model.predict(inputs["tokens"].to(device),
+                                                look_ahead_mask(max_tokens, device=device))
+                live["joint"] = model.joint_logits(inputs["e"].to(device),
+                                                   inputs["d"].to(device))
+            ref, ref_bytes = reference_steps(model_cfg, optim_cfg, state, batch, device)
+            outs = [p.communicate(timeout=400)[0] for p in procs]
+            exported_out = child.communicate(timeout=300)[0]
+        finally:
+            for p in procs + [child]:
+                if p is not None:
+                    p.kill()
+        summary["dp_s"] = time.perf_counter() - dp_start
+        launches.update(live_counts)
+        require(live_counts["flash_fwd"] == n_layer, f"live encode launched {live_counts}")
+        require(all(p.returncode == 0 for p in procs),
+                f"the data-parallel ranks exited {[p.returncode for p in procs]}")
+        ranks = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+        per_step = dict.fromkeys(read_counts(), 0)
+        per_step.update(flash_fwd=n_layer, flash_bwd=n_layer, alpha=1, beta=1)
+        for r in ranks:
+            for i, ((loss, norm, counts), (ref_loss, ref_norm)) in enumerate(
+                    zip(r["steps"], ref)):
+                rel = abs(loss - ref_loss) / abs(ref_loss)
+                log(f"  rank {r['rank']} step {i + 1}: loss {loss:.6f} / one process "
+                    f"{ref_loss:.6f} (rel {rel:.2e}), grad norm {norm:.5f} / {ref_norm:.5f}; "
+                    f"launches {counts}")
+                require(counts == per_step, f"rank {r['rank']} step {i + 1} launched {counts}")
+                require(rel <= LOSS_RTOL, f"dp step {i + 1}: losses differ by {rel:.2e}")
+                if i == 0:
+                    rel_n = abs(norm - ref_norm) / ref_norm
+                    require(rel_n <= NORM_RTOL, f"dp step 1: gradient norms differ by {rel_n:.2e}")
+                launches.update(counts)
+            cli = r["cli"]
+            launches.update(cli["counts"])
+            require(cli["backend"] == "gloo" and cli["n_data"] == 2 and cli["zero"]
+                    and cli["global_step"] == 4
+                    and all(cli["counts"][k] > 0 for k in ("flash_fwd", "flash_bwd", "alpha",
+                                                           "beta")),
+                    f"rank {r['rank']}: the training entry point ran {cli}")
+        for r in ranks:
+            rel = max(abs(a - b) / abs(b) for a, (b, _) in zip(r["plain_losses"], ref))
+            require(rel <= LOSS_RTOL, f"rank {r['rank']}: plain dp losses differ by {rel:.2e}")
+        share = [r["moment_bytes"] / ref_bytes for r in ranks]
+        require(all(s <= 0.51 for s in share), f"moment bytes a rank {share} of one process's")
+        exp = os.path.join(cli_dir, ranks[0]["cli"]["exp_dir"])
+        saved = torch.load(os.path.join(exp, "epoch_0", "model.pt"), map_location="cpu")
+        names = [n for n, _ in build_transducer(cfg.model, device="meta").named_parameters()]
+        require(len(saved["optimizer"]["state"]["trace"]) == len(names)
+                and all(t.shape == state[n].shape
+                        for t, n in zip(saved["optimizer"]["state"]["trace"], names)),
+                "the 2-rank run's checkpoint does not hold whole moments")
+        with open(os.path.join(exp, "train.log"), encoding="utf-8") as fh:
+            cer_lines = [l.strip() for l in fh if "-Validation-" in l]
+        require(len(cer_lines) == 1 and "nan" not in cer_lines[0].lower(),
+                f"the 2-rank run's evaluation: {cer_lines}")
+        summary.update(dp_steps=[r["steps"] for r in ranks], one_process=ref,
+                       moment_share=share, peak_gib=[r["peak_gib"] for r in ranks],
+                       plain_peak_gib=[r["plain_peak_gib"] for r in ranks],
+                       plain_moment_share=[r["plain_moment_bytes"] / ref_bytes for r in ranks],
+                       cli_s=[r["cli"]["s"] for r in ranks])
+        log(f"--n_data 2 --zero --flash, two gloo ranks on the one card ({summary['dp_s']:.1f} s "
+            f"with their start-up, beside the export): losses and step 1's gradient norm "
+            f"within {LOSS_RTOL} and {NORM_RTOL} of one process on the whole batch; moments a "
+            f"rank " + ", ".join(f"{100 * s:.4f} %" for s in share)
+            + " of one process's; peak memory a rank, ZeRO-1 / plain dp at the same rows "
+            + ", ".join(f"{r['peak_gib']:.4f} / {r['plain_peak_gib']:.4f} GiB" for r in ranks)
+            + f"; apps/train.py over the two ranks (its own {ranks[0]['cli']['backend']} "
+            f"group): 4 steps in "
+            + ", ".join(f"{r['cli']['s']:.1f} s" for r in ranks) + f", {cer_lines[0]}")
+
+        # (a) the programs in the fresh process (run_exported) against the
+        # live model; then, with the card to this process, the live and the
+        # exported encoder timed here in turns (live, exported, exported, live)
+        require(child.returncode == 0, f"the exported programs' process exited "
+                f"{child.returncode}")
+        run = json.loads(exported_out.strip().splitlines()[-1])
+        outputs = torch.load(os.path.join(tmp, "outputs.pt"))
+        errs = {}
+        for name in EXPORTED:
+            want = live[name].cpu()
+            got = outputs[name]
+            require(got.shape == want.shape and bool(torch.isfinite(got).all()),
+                    f"exported {name}: shape {tuple(got.shape)} or not finite")
+            errs[name] = (got - want).abs().max().item()
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5,
+                                       msg=lambda m: f"exported {name}: {m}")
+        enc_counts = run["counts"]["encoder"]
+        want = dict.fromkeys(enc_counts, 0)
+        want["flash_fwd"] = n_layer
+        require(run["op_nodes"] == n_layer and enc_counts == want,
+                f"the exported encoder holds {run['op_nodes']} op nodes and launched "
+                f"{enc_counts} a call (want {n_layer} flash forwards)")
+        for name in ("encoder_streaming", "decoder", "joint"):
+            require(not any(run["counts"][name].values()),
+                    f"exported {name} launched {run['counts'][name]}")
+        launches.update(enc_counts)
+        program = load_exported(paths["encoder"])
+        turns = {"live": [], "exported": []}
+        with torch.no_grad():
+            for name in ("live", "exported", "exported", "live"):
+                fn = (lambda: model.encode(x)) if name == "live" else (lambda: program(x))
+                turns[name].append(cuda_ms(fn, samples=10, reps=3))
+            busy = {"live": device_busy_ms(lambda: model.encode(x)),
+                    "exported": device_busy_ms(lambda: program(x))}
+        summary.update(export_max_abs_err=errs, load_s=run["load_s"], op_nodes=run["op_nodes"],
+                       encoder_ms_in_turns=turns, encoder_busy_ms=busy)
+        log(f"export of the flagship (flash=True) on the card in {summary['export_s']:.1f} s "
+            f"(beside the two ranks' start-up): "
+            + ", ".join(f"{n} {mib:.1f} MiB" for n, mib in summary["mib"].items())
+            + f"; a fresh process loaded them in {run['load_s']:.1f} s (beside the ranks); the "
+            f"encoder program "
+            f"holds {run['op_nodes']} ttx::flash_rel_attention_fwd nodes and launched "
+            f"{enc_counts['flash_fwd']} flash forwards a call; max|exported - live| "
+            + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+            + f" (rtol = atol = 1e-5); the encoder in turns here: live {turns['live'][0]:.3f}, exported "
+            f"{turns['exported'][0]:.3f}, {turns['exported'][1]:.3f}, live "
+            f"{turns['live'][1]:.3f} ms (CUDA events), device busy {busy['live']:.3f} ms live, "
+            f"{busy['exported']:.3f} ms exported ({smi})")
+        del model, live, outputs, program
+        torch.cuda.empty_cache()
+
+    # (c) a world-1 NCCL group (a FileStore) against no group: the banded
+    # path, whose kernels sum in a fixed order, to the bit
+    ref_banded, _ = reference_steps(model_cfg, optim_cfg, state, batch, device, "banded")
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh()
+            grouped, _ = reference_steps(model_cfg, optim_cfg, state, batch, device,
+                                         "banded", mesh=mesh)
+        finally:
+            dist.destroy_process_group()
+    require(mesh.n_data == 1 and grouped == ref_banded,
+            f"a world-1 NCCL group: {grouped} against {ref_banded} with none")
+    log(f"a world-1 NCCL group (FileStore): 3 banded steps' losses and gradient norms "
+        f"equal to the bit to no group's: {[l for l, _ in grouped]}")
+    return dict(launches), summary
+
+
 def bf16_bound(n_bytes, ops):
     """(least ms at the bf16 rate, "bytes" or "operations", least ms at the
     TF32 rate) of work that moves ``n_bytes`` and does ``ops`` FLOP."""
@@ -4173,7 +4538,7 @@ def time_bf16_flash(gen, errs, launches, tc, smi):
     gout = torch.randn(B_TRAIN, T_MAIN, H, DH, generator=gen, device="cuda")
     (qh, kh, vh), add = yard_inputs(args4)
     out_s = sdpa(qh, kh, vh, attn_mask=add)
-    ms = graph_ms(lambda: fa.flash_backward_bf16(*args4, sums, lse, gout))
+    ms = graph_ms(lambda: fa.flash_rel_attention_backward(*args4, sums, lse, gout))
     plain_ms = cuda_ms(lambda: fa.flash_bf16_backward_plain(*args4, gout))
     yard_ms = cuda_ms(lambda: torch.autograd.grad(
         out_s, (qh, kh, vh), gout.transpose(1, 2).to(torch.bfloat16), retain_graph=True))
@@ -5093,6 +5458,21 @@ def main() -> int:
         rec["launches"] += own
     log(f"  phase 15: {host['phase_s']:.1f} s")
     log(json.dumps({"host_remainder": host}))
+
+    log(f"[{time.perf_counter() - run_start:.1f} s] phase 16")
+    # ---- 16. export through torch.export; data parallelism with ZeRO-1
+    start = time.perf_counter()
+    torch.cuda.empty_cache()
+    export_launches, export_dp = check_export_dp(cfg, state, {"x": x}, batch, device, smi)
+    export_dp["phase_s"] = time.perf_counter() - start
+    for rec in records:
+        key = {"flash_rel_attention_fwd": "flash_fwd", "flash_rel_attention_bwd": "flash_bwd",
+               "rnnt_alpha": "alpha", "rnnt_beta": "beta"}.get(rec["name"])
+        # the float32 forms alone (the bf16 rows count none here)
+        rec["phase16_launches"] = export_launches.get(key, 0)
+        rec["launches"] += rec["phase16_launches"]
+    log(f"  phase 16: {export_dp['phase_s']:.1f} s")
+    log(json.dumps({"export_dp": export_dp}))
 
     log(f"[{time.perf_counter() - run_start:.1f} s] all phases passed")
     log(json.dumps({"kernels": records}))

@@ -1294,3 +1294,29 @@ def test_bf16_flash_step_through_the_kernels_matches_the_plain_versions(gen, rem
         assert torch.isfinite(g).all(), name
         torch.testing.assert_close(g, ref[name], rtol=0,
                                    atol=2.5e-2 * ref[name].abs().max().item(), msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["float32", "bf16"])
+def test_flash_ops_pass_opcheck_on_the_card(gen, dtype):
+    """``torch.library.opcheck`` of ``ttx::flash_rel_attention_fwd`` (with
+    and without the row statistics) and ``ttx::flash_rel_attention_bwd`` on
+    CUDA tensors: q, k, v strided views of one fused projection, at the
+    kernels' tile edge T = 33; the kernels launch."""
+    from transformer_transducer_tpu_torch.ops.cuda import flash_rel_attention as fa
+    mk = lambda *s: (torch.randn(*s, generator=gen, device="cuda") * 0.5).to(dtype)
+    qkv = mk(B, 33, 3, H, DH).requires_grad_()
+    tables = [slice_pos_table(mk(K_LEN, H, DH), 33).detach().requires_grad_(),
+              mk(H, DH).requires_grad_(), slice_pos_table(mk(K_LEN, H), 33).detach()]
+    args = (*qkv.unbind(2), *tables)
+    before = fa.flash_rel_attention.launches, fa.flash_rel_attention_backward.launches
+    for with_lse in (True, False):
+        torch.library.opcheck(torch.ops.ttx.flash_rel_attention_fwd.default,
+                              (*args, with_lse))
+    plain = [x.detach() for x in args]
+    out, lse, sums = torch.ops.ttx.flash_rel_attention_fwd(*plain, True)
+    gout = torch.randn(B, 33, H, DH, generator=gen, device="cuda")
+    torch.library.opcheck(torch.ops.ttx.flash_rel_attention_bwd.default,
+                          (*plain, sums if dtype == BF16 else out, lse, gout))
+    torch.cuda.synchronize()
+    assert fa.flash_rel_attention.launches > before[0]
+    assert fa.flash_rel_attention_backward.launches > before[1]

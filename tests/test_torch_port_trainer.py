@@ -2,7 +2,8 @@
 corpus with a tiny config: epochs with checkpoints, decode dumps and CER,
 ``-mode continue``, the exact mid-epoch resume of ``--save-steps``, a
 falling loss, checkpoint loading (also by ``apps/predict.py``), the pruned
-loss (``--pruned-range``), and the flags of later slices (parallelism)."""
+loss (``--pruned-range``), and the flags of later slices (tensor, pipeline
+and sequence parallelism)."""
 
 import glob
 import os
@@ -201,16 +202,19 @@ def test_load_model_and_components(corpus, tmp_path):
 
 @pytest.mark.parametrize("flag", [
     # --bf16, --remat and --bf16 --flash train now
-    # (tests/test_torch_port_bf16_training.py), and --profile profiles
-    # (tests/test_torch_port_profile.py)
-    ["--zero"], ["--n_model", "2"],
-    ["--n_data", "2"], ["--n_pipe", "2"], ["--pipe-micro", "2"], ["--n_seq", "2"]])
+    # (tests/test_torch_port_bf16_training.py), --profile profiles
+    # (tests/test_torch_port_profile.py), and --n_data and --zero train
+    # (tests/test_torch_port_parallel.py): beside them the later flags
+    # still raise
+    ["--zero", "--n_model", "2"], ["--n_model", "2"],
+    ["--n_data", "2", "--n_seq", "2"], ["--n_pipe", "2"], ["--pipe-micro", "2"],
+    ["--n_seq", "2"]])
 def test_flags_of_later_slices_raise(flag):
     with pytest.raises(NotImplementedError, match="later slice"):
         train_app.main(["--device", "cpu", *flag])
 
 
-@pytest.mark.parametrize("key,value", [("parallel.n_pipe", 2), ("parallel.zero", True)])
+@pytest.mark.parametrize("key,value", [("parallel.n_pipe", 2), ("parallel.n_seq", 2)])
 def test_trainer_raises_for_later_slices(corpus, tmp_path, key, value):
     with pytest.raises(NotImplementedError, match="later slice"):
         Trainer(_cfg(corpus, **{key: value}), exp_root=str(tmp_path), device="cpu")

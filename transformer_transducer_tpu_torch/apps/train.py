@@ -5,6 +5,10 @@
         -config configs/joint_streaming.yaml -log train.log \\
         -mode retrain|continue [--flash | --banded] [--pruned-range N]
         [--bf16] [--remat] [--augment] [--profile DIR] [--device cpu]
+        [--n_data N] [--zero]
+
+    torchrun --nproc_per_node N -m transformer_transducer_tpu_torch.apps.train \
+        -config ... --n_data N [--zero]
 
 ``--flash`` trains the unmasked encoder through the flash rel-attention
 kernels (forward and backward), ``--banded`` under the streaming band
@@ -32,6 +36,17 @@ An espnet-schema config (``model.mask``) trains the espnet family with the
 full or the pruned loss; ``apps/train_esptt.py`` runs this entry point with
 ``configs/espnet_aishell.yaml`` by default.  ``--flash`` and ``--banded``
 select the native family's attention kernels and do not apply to it.
+
+Data parallelism: under ``torchrun`` (or any launcher that sets ``RANK``,
+``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``) each process joins the
+group and takes the card ``LOCAL_RANK`` modulo the cards present; the
+backend is NCCL with a card a rank, gloo on the CPU or when several ranks
+share a card (``parallel/mesh.py::backend_for``).  ``--n_data N``
+(default: the largest divisor of the batch at most the world size) trains
+on N data ranks, ``--zero`` (or ``--set parallel.zero=true``) splits the
+optimizer's moments over them (ZeRO-1).
+``--n_model``, ``--n_pipe``, ``--pipe-micro`` and ``--n_seq`` come in later
+slices and raise.
 """
 
 from __future__ import annotations
@@ -41,11 +56,9 @@ import argparse
 # flags of the JAX entry point whose paths come in later slices of the port
 _LATER = {
     "n_model": "tensor parallelism (--n_model)",
-    "n_data": "data parallelism (--n_data)",
     "n_pipe": "pipeline parallelism (--n_pipe)",
     "pipe_micro": "pipeline parallelism (--pipe-micro)",
     "n_seq": "sequence parallelism (--n_seq)",
-    "zero": "ZeRO-1 optimizer sharding (--zero)",
 }
 
 
@@ -81,11 +94,16 @@ def parse_args(argv=None):
                     help="bfloat16 compute (parameters stay float32)")
     ap.add_argument("--remat", action="store_true",
                     help="recompute the encoder layers in the backward")
-    ap.add_argument("--zero", action="store_true", default=None)
+    ap.add_argument("--zero", action="store_true", default=None,
+                    help="ZeRO-1: split the optimizer's moments over the data "
+                    "ranks (same as --set parallel.zero=true)")
+    ap.add_argument("--n_data", type=int, default=None,
+                    help="data-parallel ranks (default: the largest divisor of "
+                    "the batch at most the world size)")
     ap.add_argument("--pruned-range", type=int, default=None, metavar="N",
                     help="pruned transducer loss with a width-N label band "
                     "(same as --set training.loss_pruned_range=N)")
-    for flag in ("--n_model", "--n_data", "--n_pipe", "--pipe-micro", "--n_seq"):
+    for flag in ("--n_model", "--n_pipe", "--pipe-micro", "--n_seq"):
         ap.add_argument(flag, type=int, default=None)
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="profile the first epoch (torch.profiler) and write "
@@ -118,10 +136,13 @@ def main(argv=None):
         cfg.override("training.nan_guard", True)
 
     import torch
+    from transformer_transducer_tpu_torch.parallel import mesh as mesh_lib
+    device = mesh_lib.local_device(args.device)
+    mesh_lib.init_distributed(torch.device(device if device is not None else "cuda"))
     trainer = Trainer(cfg, mode=args.mode, log_file=args.log, flash=args.flash,
-                      banded=args.banded, device=args.device,
+                      banded=args.banded, device=device,
                       compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
-                      remat=args.remat)
+                      remat=args.remat, n_data=args.n_data, zero=args.zero)
     trainer.logger.info("device: %s", trainer.device)
     trainer.fit(epochs=args.epochs, augment=args.augment, profile_dir=args.profile)
     return trainer

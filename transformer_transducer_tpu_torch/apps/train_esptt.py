@@ -9,8 +9,10 @@
 The loop of ``apps/train.py``: the trainer picks the model family from the
 config (a ``model.mask`` block is the espnet family); ``--bf16`` trains it
 with bfloat16 compute over float32 parameters, and ``--remat`` does not
-apply to it (logged), as in the JAX trainer.  Without a
-``-config``/``--config`` argument it trains ``configs/espnet_aishell.yaml``.
+apply to it (logged), as in the JAX trainer; ``--n_data N`` and
+``--zero`` train it data-parallel under ``torchrun``, as ``apps/train.py``
+does.  Without a ``-config``/``--config`` argument it trains
+``configs/espnet_aishell.yaml``.
 """
 
 from __future__ import annotations

@@ -33,16 +33,26 @@ Two forms, chosen by the inputs' dtype (all six alike):
   :func:`flash_bf16_backward_plain` are the plain versions, the backward
   written out (autograd through the forward would not round dS).
 
-Dispatch: a CPU tensor takes :func:`flash_rel_attention_plain`; a CUDA
-tensor runs the kernels behind a ``torch.autograd.Function`` or raises.
+Dispatch: both forms run as ``torch.library`` custom ops,
+``ttx::flash_rel_attention_fwd`` (kernel 8 or 8b) and
+``ttx::flash_rel_attention_bwd`` (kernel 9 or 9b), tied by
+``register_autograd``; with fake implementations, so ``torch.export`` keeps
+them as nodes of an exported program (``runtime/export.py``).  A CPU tensor
+takes the plain version inside the op; a CUDA tensor launches the kernel or
+raises.  The pointers, stride checks and ``ctypes`` calls live only in the
+ops' CUDA branches, which also count the launches: tracing under fake
+tensors counts nothing, and every call of a loaded program counts.
 ``flash_rel_attention.launches`` counts forward launches of both forms and
 ``flash_rel_attention_backward.launches`` backward launches of both;
 ``flash_forward_bf16.launches`` and ``flash_backward_bf16.launches`` count
-the bf16 forms alone.
+the bf16 forms alone.  On the CPU the forward keeps no row statistics: its
+backward recomputes from the inputs.
 """
 
 from __future__ import annotations
 
+import contextlib
+import types
 from typing import Optional, Tuple
 
 import numpy as np
@@ -138,16 +148,143 @@ def flash_rel_attention_plain(q, k, v, r_emb, r_w_bias, r_bias) -> torch.Tensor:
     return rel_attention_dense(q, k, v, r_emb, r_w_bias, r_bias)
 
 
-def flash_rel_attention_backward(q, k, v, r_emb, r_w_bias, r_bias, out, lse,
-                                 grad):
-    """The float32 backward kernel: gradients of q, k, v, r_emb, r_w_bias,
-    r_bias (tables as sliced to T rows) from the forward's inputs, output
-    and row log-sum-exp."""
-    grads, launched = launch_backward(
-        "ttx_flash_rel_attention_bwd",
-        (q, k, v, r_emb, r_w_bias, r_bias, out, lse), grad, ())
+def _or_none(x: torch.Tensor) -> Optional[torch.Tensor]:
+    """An op's empty placeholder output (an output it did not keep) as None."""
+    return None if x.dim() == 1 and x.numel() == 0 else x
+
+
+@contextlib.contextmanager
+def _autograd_inside_op():
+    """Autograd inside an op's implementation, which the dispatcher runs
+    with autograd's dispatch keys excluded: the CPU backward takes
+    autograd's gradients of the recomputed plain version, as a CPU step
+    took them before the ops existed."""
+    keys = torch._C
+    exclude = keys._dispatch_tls_local_exclude_set().remove(
+        keys.DispatchKey.AutogradFunctionality)
+    with keys._ForceDispatchKeyGuard(keys._dispatch_tls_local_include_set(), exclude), \
+            torch.enable_grad():
+        yield
+
+
+def _placeholder(q: torch.Tensor) -> torch.Tensor:
+    return q.new_empty((0,), dtype=torch.float32)
+
+
+@torch.library.custom_op("ttx::flash_rel_attention_fwd", mutates_args=())
+def flash_rel_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            r_emb: torch.Tensor, r_w_bias: torch.Tensor,
+                            r_bias: torch.Tensor, with_lse: bool
+                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel 8 (float32) or 8b (bf16, by the inputs' dtype) as an op:
+    ``(out, lse, sums)``, the float32 output (B, T, H, Dh) and, with
+    ``with_lse`` on the card, the row log-sum-exp (B, H, T) and, for bf16
+    inputs, the float32 P's product with v (B, T, H, Dh) that the backward
+    reads; an output not kept is an empty (0,) tensor (a backward on the
+    card then runs the forward again to take them).  A CUDA tensor launches
+    the kernel (and counts the launch) or raises; a CPU tensor takes the
+    plain version and keeps nothing for the backward, which recomputes."""
+    inputs = (q, k, v, r_emb, r_w_bias, r_bias)
+    if q.device.type == "cpu":
+        out = (flash_bf16_forward_plain(*inputs)[0] if q.dtype == BF16
+               else rel_attention_dense(*inputs))
+        return out.contiguous(), _placeholder(q), _placeholder(q)
+    if q.dtype == BF16:
+        b, t, h, dh = q.shape
+        sums = (torch.empty((b, t, h, dh), dtype=torch.float32, device=q.device)
+                if with_lse else None)
+        out, lse, launched = launch_forward(
+            "ttx_flash_rel_attention_fwd_bf16", inputs, (), with_lse=with_lse,
+            outputs=(sums,))
+        flash_forward_bf16.launches += int(launched)
+    else:
+        out, lse, launched = launch_forward("ttx_flash_rel_attention_fwd", inputs, (),
+                                            with_lse=with_lse)
+        sums = None
+    flash_rel_attention.launches += int(launched)
+    return (out, _placeholder(q) if lse is None else lse,
+            _placeholder(q) if sums is None else sums)
+
+
+@flash_rel_attention_fwd.register_fake
+def _(q, k, v, r_emb, r_w_bias, r_bias, with_lse):
+    b, t, h, dh = q.shape
+    f32 = dict(dtype=torch.float32)
+    keep = with_lse and q.device.type != "cpu"
+    return (q.new_empty((b, t, h, dh), **f32),
+            q.new_empty((b, h, t) if keep else (0,), **f32),
+            q.new_empty((b, t, h, dh) if keep and q.dtype == BF16 else (0,), **f32))
+
+
+@torch.library.custom_op("ttx::flash_rel_attention_bwd", mutates_args=())
+def flash_rel_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            r_emb: torch.Tensor, r_w_bias: torch.Tensor,
+                            r_bias: torch.Tensor, saved: torch.Tensor,
+                            lse: torch.Tensor, grad: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                       torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel 9 (float32) or 9b (bf16) as an op: the gradients of q, k, v,
+    r_emb, r_w_bias, r_bias (tables as sliced to T rows; in the inputs'
+    dtype, contiguous) from the forward's inputs, what it kept (``saved``:
+    the output for float32, the P . v sums for bf16), its row log-sum-exp
+    and the output gradient.  A CUDA tensor launches the kernels (and counts
+    the launch) or raises; a CPU tensor takes the plain version: autograd
+    through the dense branch (float32) or the written-out bf16 backward,
+    recomputed from the inputs (``saved`` and ``lse`` unread)."""
+    inputs = (q, k, v, r_emb, r_w_bias, r_bias)
+    if q.device.type == "cpu":
+        with _autograd_inside_op():
+            if q.dtype == BF16:
+                grads = flash_bf16_backward_plain(*inputs, grad)
+            else:
+                leaves = [x.detach().requires_grad_() for x in inputs]
+                grads = torch.autograd.grad(rel_attention_dense(*leaves), leaves, grad)
+        return tuple(g.contiguous() for g in grads)
+    if q.dtype == BF16:
+        b, t, h, dh = q.shape
+        work = build.library().ttx_flash_rel_attention_bwd_bf16_workspace(b, t, h, dh)
+        grads, launched = launch_backward(
+            "ttx_flash_rel_attention_bwd_bf16", (*inputs, saved, _or_none(lse)),
+            grad.float(), (), scratch=work, native=True)
+        flash_backward_bf16.launches += int(launched)
+    else:
+        grads, launched = launch_backward(
+            "ttx_flash_rel_attention_bwd", (*inputs, saved, _or_none(lse)), grad, ())
     flash_rel_attention_backward.launches += int(launched)
     return grads
+
+
+@flash_rel_attention_bwd.register_fake
+def _(q, k, v, r_emb, r_w_bias, r_bias, saved, lse, grad):
+    return tuple(q.new_empty(x.shape) for x in (q, k, v, r_emb, r_w_bias, r_bias))
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, r_emb, r_w_bias, r_bias, _ = inputs
+    out, lse, sums = output
+    ctx.save_for_backward(q, k, v, r_emb, r_w_bias, r_bias,
+                          sums if q.dtype == BF16 else out, lse)
+
+
+def _backward(ctx, grad, _grad_lse, _grad_sums):
+    *inputs, saved, lse = ctx.saved_tensors
+    if _or_none(lse) is None and inputs[0].device.type != "cpu":
+        # a forward on the card called without the row statistics: take
+        # them again (the CPU backward recomputes from the inputs)
+        out, lse, sums = torch.ops.ttx.flash_rel_attention_fwd(*inputs, True)
+        saved = sums if inputs[0].dtype == BF16 else out
+    return (*torch.ops.ttx.flash_rel_attention_bwd(*inputs, saved, lse, grad), None)
+
+
+flash_rel_attention_fwd.register_autograd(_backward, setup_context=_setup_context)
+
+
+def flash_rel_attention_backward(q, k, v, r_emb, r_w_bias, r_bias, saved, lse, grad):
+    """The backward op on its own (kernel 9, or 9b for bf16 inputs, on the
+    card): the six gradients from the forward's inputs, what it kept and
+    its row log-sum-exp (see :func:`flash_rel_attention_bwd`)."""
+    return torch.ops.ttx.flash_rel_attention_bwd(q, k, v, r_emb, r_w_bias, r_bias,
+                                                 saved, lse, grad)
 
 
 flash_rel_attention_backward.launches = 0
@@ -156,77 +293,37 @@ flash_rel_attention_backward.launches = 0
 def flash_forward_bf16(q, k, v, r_emb, r_w_bias, r_bias, with_lse: bool
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                                   Optional[torch.Tensor]]:
-    """The bf16 forward kernel: the float32 output and, with ``with_lse``,
-    the row log-sum-exp and the float32 P's product with v that the bf16
-    backward reads."""
-    b, t, h, dh = q.shape
-    sums = (torch.empty((b, t, h, dh), dtype=torch.float32, device=q.device)
-            if with_lse else None)
-    out, lse, launched = launch_forward(
-        "ttx_flash_rel_attention_fwd_bf16", (q, k, v, r_emb, r_w_bias, r_bias), (),
-        with_lse=with_lse, outputs=(sums,))
-    flash_forward_bf16.launches += int(launched)
-    flash_rel_attention.launches += int(launched)
-    return out, lse, sums
+    """The forward op on bf16 inputs on its own: the float32 output and,
+    with ``with_lse``, the row log-sum-exp and the float32 P's product with
+    v that the bf16 backward reads (None without, and on the CPU)."""
+    out, lse, sums = torch.ops.ttx.flash_rel_attention_fwd(
+        q, k, v, r_emb, r_w_bias, r_bias, with_lse)
+    return out, _or_none(lse), _or_none(sums)
 
 
 flash_forward_bf16.launches = 0
 
 
-def flash_backward_bf16(q, k, v, r_emb, r_w_bias, r_bias, sums, lse, grad):
-    """The bf16 backward kernels: bf16 gradients of the six inputs from the
-    forward's float32 P . v sums and row log-sum-exp; the output gradient
-    is rounded to bf16 by the kernels' pre-pass, as JAX rounds it."""
-    b, t, h, dh = q.shape
-    work = build.library().ttx_flash_rel_attention_bwd_bf16_workspace(b, t, h, dh)
-    grads, launched = launch_backward(
-        "ttx_flash_rel_attention_bwd_bf16",
-        (q, k, v, r_emb, r_w_bias, r_bias, sums, lse), grad.float(), (),
-        scratch=work, native=True)
-    flash_backward_bf16.launches += int(launched)
-    flash_rel_attention_backward.launches += int(launched)
-    return grads
-
-
-flash_backward_bf16.launches = 0
-
-
-class _FlashRelAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, r_emb, r_w_bias, r_bias):
-        inputs = (q, k, v, r_emb, r_w_bias, r_bias)
-        with_lse = any(ctx.needs_input_grad)
-        if q.dtype == BF16:
-            out, lse, saved = flash_forward_bf16(*inputs, with_lse=with_lse)
-        else:
-            out, lse, launched = launch_forward(
-                "ttx_flash_rel_attention_fwd", inputs, (), with_lse=with_lse)
-            flash_rel_attention.launches += int(launched)
-            saved = out
-        ctx.save_for_backward(*inputs, saved, lse)
-        return out
-
-    @staticmethod
-    def backward(ctx, grad):
-        saved = ctx.saved_tensors
-        if saved[0].dtype == BF16:
-            return flash_backward_bf16(*saved, grad)
-        return flash_rel_attention_backward(*saved, grad)
+# kernel 9b's launches alone; its op is :func:`flash_rel_attention_backward`
+flash_backward_bf16 = types.SimpleNamespace(launches=0)
 
 
 def flash_rel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         r_emb: torch.Tensor, r_w_bias: torch.Tensor,
                         r_bias: torch.Tensor) -> torch.Tensor:
-    """Full-attention rel-position MHA (pre out-projection), differentiable.
+    """Full-attention rel-position MHA (pre out-projection), differentiable,
+    through the ``ttx::flash_rel_attention_fwd`` op (its backward the
+    ``ttx::flash_rel_attention_bwd`` op); the forward keeps its row
+    statistics only when a gradient can be asked for.
 
     Args: q/k/v (B, T, H, Dh); tables sliced to T rows
     (``models.attention.slice_pos_table``); all float32 or all bf16.
     Returns (B, T, H, Dh) float32.
     """
     check_inputs(q, k, v, r_emb, r_w_bias, r_bias, dtypes=(torch.float32, BF16))
-    if q.device.type == "cpu":
-        return flash_rel_attention_plain(q, k, v, r_emb, r_w_bias, r_bias)
-    return _FlashRelAttention.apply(q, k, v, r_emb, r_w_bias, r_bias)
+    inputs = (q, k, v, r_emb, r_w_bias, r_bias)
+    with_lse = torch.is_grad_enabled() and any(x.requires_grad for x in inputs)
+    return torch.ops.ttx.flash_rel_attention_fwd(*inputs, with_lse)[0]
 
 
 flash_rel_attention.launches = 0

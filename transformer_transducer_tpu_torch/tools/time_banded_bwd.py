@@ -20,8 +20,9 @@ form (``ttx_flash_rel_attention_fwd_bf16``) without the lse, as served, and
 with the lse and sums, as trained; a shape is then B,T,H,Dh and q, k, v
 are strided views of one bf16 projection, as ``chip_smoke.py`` draws them.
 With ``--pass bf16_bwd`` it times the flash backward's bf16 form
-(``flash_backward_bf16``, the wrapper as training calls it) on the same
-inputs, the forward's lse and sums and a float32 output gradient.
+(``flash_rel_attention_backward``, the op as training calls it; in a
+checkout from before the ops, its ``flash_backward_bf16`` wrapper) on the
+same inputs, the forward's lse and sums and a float32 output gradient.
 With several checkouts a lattice sweep or a bf16 flash pass also saves its
 outputs (the backward's six gradients), and the largest |difference| of
 every checkout's from the first's is printed after them.  Each checkout given
@@ -104,7 +105,9 @@ def time_one(root: str, shapes, band, which: str, chunks=(), save=None) -> None:
                 else:
                     _, lse, sums = fa.flash_forward_bf16(*args, with_lse=True)
                     gout = torch.randn(b, t, h, dh, generator=gen, device="cuda")
-                    run = lambda: fa.flash_backward_bf16(*args, sums, lse, gout)
+                    bwd = (fa.flash_backward_bf16 if callable(fa.flash_backward_bf16)
+                           else fa.flash_rel_attention_backward)
+                    run = lambda: bwd(*args, sums, lse, gout)
                     rec["ms"] = graph_ms(run)
                     for name, x in zip(("dq", "dk", "dv", "dre", "du", "drb"), run()):
                         outputs[f"{key} {name}"] = x.float().cpu()

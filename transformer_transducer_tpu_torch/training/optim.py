@@ -17,6 +17,23 @@ not ``torch.optim``'s:
 
 Parameters are updated in place; the moments are lists of tensors beside
 them, updated with ``torch._foreach_*`` ops.
+
+ZeRO-1 (``parallel.zero``, ``zero=(mesh, slices)`` from
+``parallel/sharding.py::zero_param_shardings``): each data rank holds its
+slice of every moment, updates its slice of each parameter from the whole
+averaged gradient (the clip's norm is the whole gradient's, as every rank
+holds it; the clip scales the slices alone) and then gathers the
+parameters: each rank writes its updated slices into zeros and an
+all-reduce sums them, in buckets of ``GATHER_BUCKET`` elements, so no
+parameter-size buffer is held (gloo has no all-gather of CUDA tensors, and
+NCCL refuses two ranks on one card; the sum adds zeros, so it is exact but
+for the sign of a zero; it moves about twice an all-gather's bytes, which
+NCCL with a card a rank could use instead).  Leaves that do not divide
+stay whole and are updated alike on every rank.  The gradient accumulator
+of ``grad_accum_steps`` stays whole.  ``state_dict`` gathers the moments,
+so a checkpoint has the single-process format, and ``load_state_dict``
+takes a whole state and keeps this rank's slices: ``-mode continue`` works
+at any world size.
 """
 
 from __future__ import annotations
@@ -24,11 +41,13 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.98, 1e-8
+GATHER_BUCKET = 1 << 23     # elements a ZeRO-1 gather sums at once (32 MiB)
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -44,7 +63,7 @@ class Optimizer:
                  weight_decay: float = 0.0, rho: float = 0.9, eps: float = 1e-6,
                  max_grad_norm: Optional[float] = None,
                  schedule: Optional[Callable[[int], float]] = None,
-                 grad_accum_steps: int = 1):
+                 grad_accum_steps: int = 1, zero: Optional[Tuple] = None):
         if kind not in ("sgd", "adam", "adadelta"):
             raise NotImplementedError(f"optimizer type {kind!r}")
         self.params = list(params)
@@ -59,7 +78,10 @@ class Optimizer:
         self.count = 0          # applied updates
         self.mini_step = 0      # batches accumulated towards the next update
         self.last_lr = schedule(0) if schedule else self.lr
-        zeros = lambda: [torch.zeros_like(p) for p in self.params]
+        # ZeRO-1: (mesh, this rank's slice of each parameter or None)
+        self.mesh, self.slices = zero or (None, [None] * len(self.params))
+        zeros = lambda: [torch.zeros_like(self._mine(p, s))
+                         for p, s in zip(self.params, self.slices)]
         self.state: Dict[str, List[torch.Tensor]] = {}
         if kind == "sgd" and self.momentum:
             self.state["trace"] = zeros()
@@ -68,7 +90,20 @@ class Optimizer:
         elif kind == "adadelta":
             self.state["e_g"], self.state["e_x"] = zeros(), zeros()
         if self.accum > 1:
-            self.state["acc"] = zeros()
+            self.state["acc"] = [torch.zeros_like(p) for p in self.params]
+
+    @staticmethod
+    def _mine(x: torch.Tensor, piece) -> torch.Tensor:
+        return x if piece is None else piece.of(x)
+
+    @property
+    def zero(self) -> bool:
+        return self.mesh is not None and any(s is not None for s in self.slices)
+
+    def moment_bytes(self) -> int:
+        """Bytes of the moments this rank holds (not the accumulator)."""
+        return sum(t.numel() * t.element_size() for key, ts in self.state.items()
+                   if key != "acc" for t in ts)
 
     # -- the learning rate, as optax ``inject_hyperparams`` holds it
     @property
@@ -100,13 +135,17 @@ class Optimizer:
         self._update(grads)
 
     def _update(self, grads: List[torch.Tensor]) -> None:
-        if self.max_grad_norm:
-            norm = global_norm(grads)
+        norm = global_norm(grads) if self.max_grad_norm else None
+        # ZeRO-1: from here on this rank's slices (views of the parameters);
+        # the clip's norm is the whole gradient's, its scaling the slices'
+        params = [self._mine(p, s) for p, s in zip(self.params, self.slices)]
+        grads = [self._mine(g, s) for g, s in zip(grads, self.slices)]
+        if norm is not None:
             factor = torch.where(norm < self.max_grad_norm, torch.ones_like(norm),
                                  self.max_grad_norm / norm)
             grads = torch._foreach_mul(grads, factor)
         if self.weight_decay:
-            grads = torch._foreach_add(grads, self.params, alpha=self.weight_decay)
+            grads = torch._foreach_add(grads, params, alpha=self.weight_decay)
         if self.kind == "sgd":
             updates = grads
             if self.momentum:
@@ -137,15 +176,50 @@ class Optimizer:
             torch._foreach_addcmul_(e_x, updates, updates, value=1 - self.rho)
         lr = self.schedule(self.count) if self.schedule else self.lr
         self.last_lr = lr
-        torch._foreach_add_(self.params, updates, alpha=-lr)
+        torch._foreach_add_(params, updates, alpha=-lr)
+        if self.zero:
+            for i, whole in self._gather(params):
+                self.params[i].copy_(whole)
         self.count += 1
 
+    def _gather(self, parts: Sequence[torch.Tensor]
+                ) -> Iterator[Tuple[int, torch.Tensor]]:
+        """``(i, whole)`` for each split leaf i: the whole tensor, in the
+        parameter's shape, from every rank's slices ``parts``.  Each rank
+        writes its slices into zeros and an all-reduce sums them, a bucket
+        of at most ``GATHER_BUCKET`` elements (or one larger leaf) at a
+        time, so that the gather holds no parameter-size buffer."""
+        split = [i for i, s in enumerate(self.slices) if s is not None]
+        while split:
+            bucket, n = [], 0
+            while split and (not bucket
+                             or n + self.params[split[0]].numel() <= GATHER_BUCKET):
+                bucket.append(split.pop(0))
+                n += self.params[bucket[-1]].numel()
+            flat = self.params[0].new_zeros(n)
+            wholes, offset = [], 0
+            for i in bucket:
+                size = self.params[i].numel()
+                wholes.append(flat[offset:offset + size].view_as(self.params[i]))
+                self.slices[i].of(wholes[-1]).copy_(parts[i])
+                offset += size
+            dist.all_reduce(flat, group=self.mesh.group)
+            yield from zip(bucket, wholes)
+
     # -- checkpoints
+    @torch.no_grad()
     def state_dict(self) -> dict:
+        """The state in the single-process format: under ZeRO-1 the moments
+        gathered whole (a collective: every data rank calls it)."""
+        state = {}
+        for key, tensors in self.state.items():
+            state[key] = [t.clone() for t in tensors]
+            if self.zero and key != "acc":
+                for i, whole in self._gather(tensors):
+                    state[key][i] = whole.clone()
         return {"kind": self.kind, "count": self.count,
                 "mini_step": self.mini_step, "lr": self.lr,
-                "last_lr": self.last_lr,
-                "state": {k: [t.clone() for t in v] for k, v in self.state.items()}}
+                "last_lr": self.last_lr, "state": state}
 
     def load_state_dict(self, sd: dict) -> None:
         if sd["kind"] != self.kind or set(sd["state"]) != set(self.state):
@@ -155,8 +229,9 @@ class Optimizer:
         self.count, self.mini_step = int(sd["count"]), int(sd["mini_step"])
         self.lr, self.last_lr = float(sd["lr"]), float(sd["last_lr"])
         for key, tensors in sd["state"].items():
-            for dst, src in zip(self.state[key], tensors, strict=True):
-                dst.copy_(src)
+            slices = self.slices if key != "acc" else [None] * len(tensors)
+            for dst, src, piece in zip(self.state[key], tensors, slices, strict=True):
+                dst.copy_(self._mine(src.to(dst.device), piece))
 
 
 def step_decay_lr(step: int, warmup_steps: float = 4e3, hold_steps: float = 3e4,
@@ -175,8 +250,9 @@ def step_decay_lr(step: int, warmup_steps: float = 4e3, hold_steps: float = 3e4,
 
 def build_optimizer(config, params: Sequence[torch.Tensor],
                     max_grad_norm: Optional[float] = None,
-                    grad_accum_steps: int = 1) -> Optimizer:
-    """sgd/adam/adadelta from a reference-schema ``optim:`` block.
+                    grad_accum_steps: int = 1, zero: Optional[Tuple] = None) -> Optimizer:
+    """sgd/adam/adadelta from a reference-schema ``optim:`` block
+    (``zero``: ZeRO-1's ``(mesh, slices)``, see :class:`Optimizer`).
 
     ``schedule: step_decay`` selects :func:`step_decay_lr` per update, with
     ``lr`` as its ``max_lr`` (knobs ``warmup_steps``, ``hold_steps``,
@@ -198,7 +274,7 @@ def build_optimizer(config, params: Sequence[torch.Tensor],
                      weight_decay=config.weight_decay or 0.0,
                      rho=config.rho or 0.9, eps=config.eps or 1e-6,
                      max_grad_norm=max_grad_norm, schedule=schedule,
-                     grad_accum_steps=grad_accum_steps)
+                     grad_accum_steps=grad_accum_steps, zero=zero)
 
 
 @dataclasses.dataclass

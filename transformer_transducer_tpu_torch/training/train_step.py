@@ -10,6 +10,15 @@ the pruned loss (``ops/rnnt_loss_pruned.rnnt_loss_pruned``), so no
 ``t_len``/``u_len``.  The espnet family encodes with the input lengths (its
 pad masks), runs the loss over ``encoded_lengths`` and applies its joint's
 activation (JAX ``make_loss_fn``).
+
+Data parallelism (``mesh`` from ``parallel/mesh.py``, one process a data
+rank): each rank runs the step on its rows of the global batch; the
+gradients and the loss are averaged over the data ranks in one all-reduce
+before the global norm, the clip and the nan guard, so every rank takes
+the same decision and the same update.  The loss is mean-reduced over
+equal shards, so the mean of the ranks' losses is the global batch's.
+SpecAugment draws one stripe set a batch from the step's generator, which
+every rank seeds alike: the stripes are the single-process run's.
 """
 
 from __future__ import annotations
@@ -24,6 +33,8 @@ from transformer_transducer_tpu_torch.ops.features import extract_batch_padded
 from transformer_transducer_tpu_torch.ops.rnnt_loss import rnnt_loss_fused
 from transformer_transducer_tpu_torch.ops.rnnt_loss_pruned import rnnt_loss_pruned
 from transformer_transducer_tpu_torch.ops.specaug import spec_augment
+from transformer_transducer_tpu_torch.parallel.mesh import (
+    Mesh, all_reduce_mean_, gather_rows, shard_batch)
 from transformer_transducer_tpu_torch.training.optim import Optimizer, global_norm
 
 
@@ -112,12 +123,16 @@ def make_loss_fn(model, cfg: TrainStepConfig, reduction: str = "mean") -> Callab
 
 
 def make_train_step(model, optimizer: Optimizer,
-                    cfg: Optional[TrainStepConfig] = None) -> Callable:
+                    cfg: Optional[TrainStepConfig] = None,
+                    mesh: Optional[Mesh] = None) -> Callable:
     """``step(batch, gen) -> metrics``: one forward, backward and optimizer
     update of ``model`` in place.  ``metrics["grad_norm"]`` is the norm of
-    the raw, unclipped gradients."""
+    the raw, unclipped gradients.  With a data ``mesh`` of several ranks
+    ``batch`` is this rank's shard (``parallel/mesh.py::shard_batch``) and
+    the gradients and the loss are the data ranks' means."""
     cfg = cfg or TrainStepConfig()
     loss_fn = make_loss_fn(model, cfg)
+    parallel = mesh is not None and mesh.parallel
 
     def step(batch: Dict[str, torch.Tensor], gen: Optional[torch.Generator]):
         model.train()
@@ -127,6 +142,9 @@ def make_train_step(model, optimizer: Optimizer,
         loss.backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in optimizer.params]
+        if parallel:
+            loss = loss.detach().clone()
+            all_reduce_mean_([*grads, loss], mesh)
         grad_norm = global_norm(grads)
         metrics = {"loss": loss.detach(), "grad_norm": grad_norm}
         if cfg.nan_guard:
@@ -140,17 +158,22 @@ def make_train_step(model, optimizer: Optimizer,
     return step
 
 
-def make_eval_loss_step(model, cfg: Optional[TrainStepConfig] = None) -> Callable:
+def make_eval_loss_step(model, cfg: Optional[TrainStepConfig] = None,
+                        mesh: Optional[Mesh] = None) -> Callable:
     """``eval_step(batch) -> (B,)`` per-utterance losses: eval mode, no
     SpecAugment, no gradients.  The exact full NLL even when training is
     pruned: the pruned loss upper-bounds it by a band-dependent margin, which
-    would make dev losses incomparable across band widths."""
+    would make dev losses incomparable across band widths.  With a data
+    ``mesh`` of several ranks each rank takes its rows of the global
+    ``batch`` (which they divide) and every rank gets all B losses."""
     cfg = dataclasses.replace(cfg or TrainStepConfig(), loss_pruned_range=None)
     loss_fn = make_loss_fn(model, cfg, reduction="none")
 
     @torch.no_grad()
     def eval_step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         model.eval()
-        return loss_fn(batch, None, train=False)
+        if mesh is None or not mesh.parallel:
+            return loss_fn(batch, None, train=False)
+        return gather_rows(loss_fn(shard_batch(batch, mesh), None, train=False), mesh)
 
     return eval_step

@@ -37,23 +37,42 @@ and writes TensorBoard's ``*.pt.trace.json`` to ``DIR``
 (:meth:`Trainer.profile_epoch`).  The evaluation's CER runs on the token
 ids, so it takes the native edit distance (``utils/metrics.py``); the
 vocabulary maps ids to symbols one to one, so it equals the CER of the
-decoded text.  The JAX package's mesh, pipeline, sequence-parallel and
-ZeRO paths come in a later slice and raise ``NotImplementedError`` here.
+decoded text.
+
+Data parallelism (``n_data``, ``parallel/mesh.py``): one process a data
+rank, as ``torchrun`` starts them (the process group joined before the
+trainer is built, ``apps/train.py``).  Every rank loads the same global
+batch (same loader seed) and trains on its rows; the step averages the
+gradients and the loss over the ranks.  ``n_data`` defaults, as in the
+JAX trainer, to the largest divisor of the batch that is at most the world
+size; ranks past it train nothing.  ``zero`` (``parallel.zero``) splits the
+optimizer's moments over the data ranks (ZeRO-1, ``training/optim.py``).
+Rank 0 alone writes the log file, the metrics, the decode dumps and the
+checkpoints, which hold the moments whole (gathered by every rank), so a
+run continues at any world size.  The evaluation runs over the ranks on
+batches padded to ``data.batch_size`` (the padding rows dropped), so its
+loss and CER are the single-process run's.  The JAX package's tensor,
+pipeline and sequence parallelism come in later slices and raise
+``NotImplementedError`` here.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import time
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from transformer_transducer_tpu_torch.data.dataset import AudioDataset
 from transformer_transducer_tpu_torch.data.loader import DataLoader
 from transformer_transducer_tpu_torch.decoding.greedy import greedy_decode, tokens_to_lists
 from transformer_transducer_tpu_torch.models.espnet_variant import EspnetTransducer
 from transformer_transducer_tpu_torch.models.factory import build_family
+from transformer_transducer_tpu_torch.parallel import mesh as mesh_lib
+from transformer_transducer_tpu_torch.parallel.sharding import zero_param_shardings
 from transformer_transducer_tpu_torch.training import optim as optim_lib
 from transformer_transducer_tpu_torch.training.train_step import (
     TrainStepConfig, batch_to_device, featurize, make_eval_loss_step,
@@ -67,29 +86,44 @@ from transformer_transducer_tpu_torch.utils.metrics import batch_cer
 from transformer_transducer_tpu_torch.utils.vocab import Vocabulary
 
 
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is ported in a later slice of the "
-                               "PyTorch port")
-
-
 class Trainer:
     def __init__(self, config: Config, mode: str = "retrain",
                  log_file: str = "train.log", exp_root: str = "egs",
                  flash: bool = False, banded: bool = False, device=None,
-                 compute_dtype: torch.dtype = torch.float32, remat: bool = False):
-        self.device = resolve_device(device)
+                 compute_dtype: torch.dtype = torch.float32, remat: bool = False,
+                 n_data: Optional[int] = None, zero: Optional[bool] = None):
+        self.device = resolve_device(mesh_lib.local_device(device))
         pcfg = config.parallel or Config()
-        if (pcfg.n_pipe or 1) > 1 or (pcfg.n_seq or 1) > 1 or pcfg.zero:
-            raise _later("parallel training (parallel/)")
+        if (pcfg.n_pipe or 1) > 1 or (pcfg.n_seq or 1) > 1:
+            raise mesh_lib.later("pipeline and sequence parallelism (parallel.n_pipe, "
+                                 "parallel.n_seq)")
+        # parallel.zero (the argument wins): ZeRO-1, the optimizer's moments
+        # split over the data ranks
+        self.zero = bool(zero if zero is not None else pcfg.zero)
+        batch = config.data.batch_size or 1
+        if n_data is None:
+            # the largest data axis that divides the batch (JAX's default)
+            n_data = max(d for d in range(1, mesh_lib.world_size() + 1) if batch % d == 0)
+        self.mesh = mesh_lib.make_mesh(n_data=n_data)
+        if batch % self.mesh.n_data:
+            raise ValueError(f"data.batch_size={batch} must divide over "
+                             f"{self.mesh.n_data} data ranks")
+        self.is_main = self.mesh.rank == 0
         self.config = config
         self.mode = mode
         self.exp_dir = os.path.join(exp_root, config.data.name or "exp",
                                     config.training.save_model or "model")
         os.makedirs(self.exp_dir, exist_ok=True)
-        self.logger = init_logger(os.path.join(self.exp_dir, log_file))
-        dump_config(config, os.path.join(self.exp_dir, "config.yaml"))
+        self.logger = init_logger(os.path.join(self.exp_dir, log_file)
+                                  if self.is_main else None)
+        if self.is_main:
+            dump_config(config, os.path.join(self.exp_dir, "config.yaml"))
+        else:
+            self.logger.setLevel(logging.WARNING)   # rank 0 tells the run
         self.metrics = (MetricsWriter(self.exp_dir)
-                        if config.training.visualization else None)
+                        if config.training.visualization and self.is_main else None)
+        self.logger.info("Mesh: %s, ZeRO-1 %s, rank %d", self.mesh.shape,
+                         "on" if self.zero else "off", self.mesh.rank)
 
         self.vocab = Vocabulary.from_file(config.data.vocab)
         self.logger.info("Loaded vocabulary: %d units", len(self.vocab))
@@ -100,6 +134,7 @@ class Trainer:
         self.model = build_family(config, device=self.device, flash=flash,
                                   banded=banded, remat=remat,
                                   compute_dtype=compute_dtype).train()
+        self._spread_dropout(seed)
         self.is_espnet = isinstance(self.model, EspnetTransducer)
         if self.is_espnet and (flash or banded):
             self.logger.info("--flash/--banded select the native family's "
@@ -121,9 +156,13 @@ class Trainer:
         # nan-guard skip count) ticks per loader batch, the step schedule
         # per applied update.
         ga = int(config.training.grad_accum_steps or 1)
+        zero_plan = None
+        if self.zero and self.mesh.parallel:
+            zero_plan = (self.mesh, zero_param_shardings(self.model, self.mesh))
         self.optimizer = optim_lib.build_optimizer(
             config.optim, list(self.model.parameters()),
-            max_grad_norm=config.training.max_grad_norm, grad_accum_steps=ga)
+            max_grad_norm=config.training.max_grad_norm, grad_accum_steps=ga,
+            zero=zero_plan)
         if ga > 1:
             self.logger.info("Gradient accumulation: %d batches per update", ga)
         self.lr_ctl = optim_lib.LRController(
@@ -135,6 +174,11 @@ class Trainer:
         self._last_step_save = 0
         self._resume_batches = 0
         self._maybe_load()
+        if self.mesh.parallel and self.mesh.active:
+            # the replicas start from rank 0's weights
+            with torch.no_grad():
+                for p in self.model.parameters():
+                    dist.broadcast(p, src=0, group=self.mesh.group)
 
         tcfg = config.training
         # data.on_device_features: the loaders ship raw padded waves and the
@@ -160,11 +204,13 @@ class Trainer:
         self.max_skipped_steps = int(tcfg.max_skipped_steps or 25)
         self._consecutive_skips = 0
         self.total_skips = 0
-        self.train_step = make_train_step(self.model, self.optimizer, self.step_cfg)
+        self.train_step = make_train_step(self.model, self.optimizer, self.step_cfg,
+                                          mesh=self.mesh)
         # training.steps_per_call = K: K single steps between the step
         # checkpoint checks (the JAX package scans K updates in one program)
         self.steps_per_call = int(tcfg.steps_per_call or 1)
-        self.eval_loss_step = make_eval_loss_step(self.model, self.step_cfg)
+        self.eval_loss_step = make_eval_loss_step(self.model, self.step_cfg,
+                                                  mesh=self.mesh)
 
     # ------------------------------------------------------------------
     def _rng_state(self):
@@ -173,6 +219,12 @@ class Trainer:
             state["cuda"] = torch.cuda.get_rng_state(self.device)
         return state
 
+    def _spread_dropout(self, seed: int) -> None:
+        # dropout differs from rank to rank: rank r > 0 reseeds the torch
+        # and CUDA generators with seed + r; rank 0 draws as one process
+        if self.mesh.rank:
+            torch.manual_seed(seed + self.mesh.rank)
+
     def _set_rng_state(self, state) -> None:
         # generator states are CPU byte tensors, wherever the checkpoint
         # was mapped
@@ -180,6 +232,10 @@ class Trainer:
         torch.set_rng_state(state["torch"].cpu())
         if "cuda" in state and self.device.type == "cuda":
             torch.cuda.set_rng_state(state["cuda"].cpu(), self.device)
+        # the state is rank 0's: the other ranks spread again, from a seed
+        # that moves on with the step (seed + step * world + rank)
+        self._spread_dropout((self.config.training.seed or 1)
+                             + self.global_step * mesh_lib.world_size())
 
     def _load_components(self, state, comps) -> None:
         for comp in comps:
@@ -309,6 +365,7 @@ class Trainer:
 
         def run_single(batch):
             nonlocal total_loss, steps
+            batch = mesh_lib.shard_batch(batch, self.mesh)
             m = self.train_step(batch_to_device(batch, self.device), self.gen)
             self.global_step += 1
             steps += 1
@@ -339,26 +396,35 @@ class Trainer:
                  compute_loss: bool = True) -> float:
         """Eval loss, batched greedy decoding of the full-context encoder
         (an espnet encoder under its own band, with the lengths) and CER;
-        the transcripts go to ``decode_{epoch}.txt``."""
+        the transcripts go to ``decode_{epoch}.txt``.  Over several data
+        ranks each decodes its rows of the batch, padded to
+        ``data.batch_size``, and every rank gets every row's result."""
         total_dist, total_words = 0, 0
         total_loss, loss_utts = 0.0, 0
         dump_path = os.path.join(self.exp_dir, f"decode_{epoch}.txt")
         max_tokens = self.config.data.max_target_length + 1
-        with open(dump_path, "w", encoding="utf-8") as dump:
+        parallel = self.mesh.parallel
+        with open(dump_path if self.is_main else os.devnull, "w", encoding="utf-8") as dump:
             for bi, batch in enumerate(loader):
                 if max_batches is not None and bi >= max_batches:
                     break
+                valid = len(batch["inputs"])
+                if parallel:
+                    batch, valid = mesh_lib.pad_rows(batch, self.config.data.batch_size or 1)
                 dev_batch = batch_to_device(batch, self.device)
                 if compute_loss:
-                    losses = self.eval_loss_step(dev_batch)
+                    losses = self.eval_loss_step(dev_batch)[:valid]
                     total_loss += float(losses.sum())
                     loss_utts += len(losses)
                 self.model.eval()
+                mine = mesh_lib.shard_batch(dev_batch, self.mesh)
                 with torch.no_grad():
-                    inputs, t_len = featurize(dev_batch, self.frontend)
+                    inputs, t_len = featurize(mine, self.frontend)
                     enc, t_len = self.model.encode_for_decoding(inputs, t_len)
                 tokens, counts = greedy_decode(self.model, enc, t_len,
                                                max_tokens=max_tokens)
+                tokens, counts = (mesh_lib.gather_rows(x, self.mesh)[:valid]
+                                  for x in (tokens, counts))
                 preds = tokens_to_lists(tokens.cpu().numpy(), counts.cpu().numpy())
                 refs = [list(batch["targets"][i][:batch["targets_length"][i]])
                         for i in range(len(preds))]
@@ -383,7 +449,11 @@ class Trainer:
 
     def save(self, epoch: int):
         path = os.path.join(self.exp_dir, f"epoch_{epoch}")
-        ckpt_lib.save_checkpoint(path, self.model, self.optimizer, epoch=epoch,
+        # every rank gathers (a ZeRO optimizer's moments); rank 0 writes
+        opt_state = self.optimizer.state_dict()
+        if not self.is_main:
+            return
+        ckpt_lib.save_checkpoint(path, self.model, opt_state, epoch=epoch,
                                  step=self.global_step,
                                  extra={"lr": self.lr_ctl.lr})
         ckpt_lib.prune_step_checkpoints(self.exp_dir)
@@ -394,15 +464,18 @@ class Trainer:
         state, the data position and the random generators; only the newest
         one is kept."""
         path = os.path.join(self.exp_dir, f"step_{self.global_step}")
+        opt_state = self.optimizer.state_dict()     # every rank, as in save
+        self._last_step_save = self.global_step
+        if not self.is_main:
+            return
         ckpt_lib.save_checkpoint(
-            path, self.model, self.optimizer,
+            path, self.model, opt_state,
             # "epoch": the last completed epoch, as in epoch_* checkpoints
             epoch=epoch - 1, step=self.global_step,
             extra={"lr": self.lr_ctl.lr, "mid_epoch": epoch,
                    "batches_done": int(batches_done)},
             rng=self._rng_state())
         ckpt_lib.prune_step_checkpoints(self.exp_dir, keep=path)
-        self._last_step_save = self.global_step
         self.logger.info("Step checkpoint saved to %s (epoch %d, batch %d)",
                          path, epoch, batches_done)
 
@@ -442,6 +515,10 @@ class Trainer:
         """Train from ``start_epoch`` to ``epochs``; with ``profile_dir``
         the first of these epochs runs under :meth:`profile_epoch`."""
         epochs = epochs or self.config.training.epochs
+        if not self.mesh.active:
+            self.logger.warning("rank %d is past the data axis (%d ranks): it "
+                                "trains nothing", self.mesh.rank, self.mesh.n_data)
+            return
         train_loader, dev_loader = self.make_loaders(augment=augment)
         for epoch in range(self.start_epoch, epochs):
             if profile_dir and epoch == self.start_epoch:

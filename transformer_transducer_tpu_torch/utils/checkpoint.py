@@ -40,12 +40,14 @@ OPTIMIZER_FILE = "optimizer.msgpack"
 def save_checkpoint(path: str, model, optimizer=None, epoch: int = 0,
                     step: int = 0, extra: Optional[Dict[str, Any]] = None,
                     rng: Optional[Dict[str, torch.Tensor]] = None) -> str:
-    """Write a checkpoint directory; ``extra`` holds JSON scalars (also in
-    ``meta.json``), ``rng`` generator states.  Returns ``path``."""
+    """Write a checkpoint directory; ``optimizer`` is an optimizer or its
+    ``state_dict()``, ``extra`` holds JSON scalars (also in ``meta.json``),
+    ``rng`` generator states.  Returns ``path``."""
     os.makedirs(path, exist_ok=True)
     meta = {"epoch": int(epoch), "step": int(step), **(extra or {})}
     state = {comp: getattr(model, comp).state_dict() for comp in COMPONENTS}
-    state["optimizer"] = None if optimizer is None else optimizer.state_dict()
+    state["optimizer"] = (optimizer.state_dict() if hasattr(optimizer, "state_dict")
+                          else optimizer)
     state.update(meta)
     if rng is not None:
         state["rng"] = rng
