@@ -298,7 +298,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    gradient norm within 1e-3 (relative) of one process on the whole
    batch, each rank's moment bytes at most 51 % of one process's, its
    peak memory beside plain dp's (the same 3 steps without ``--zero``
-   first, their losses within the same bar); then, the group left, ``apps/train.py --flash --n_data 2
+   first, their losses within the same bar), and the same plain dp steps
+   with ``--banded`` (18 + 18 banded launches), held to one process's
+   banded steps; then, the group left, ``apps/train.py --flash --n_data 2
    --zero`` for one epoch of phase 7's corpus over the two ranks, each
    joining a group from the environment itself (gloo: two local ranks on
    one card): 4 steps, a checkpoint with whole moments, one evaluation
@@ -306,7 +308,32 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (c) a world-1 NCCL group (a ``FileStore``): 3 banded steps equal to the
    bit to the same steps with no group.  A JSON line before the kernels'
    line, whose launches count the phase's main paths
-   (``phase16_launches``).
+   (``phase16_launches``);
+17. tensor parallelism at flagship width (``--n_model 2``: 18 layers,
+   d_model 512, 8 heads, so 4 a rank), phase 8's B 4 batch, dropout 0,
+   SGD 0.9, clip 200, SpecAugment and dropout seeded as in phase 6:
+   (a) two ranks on the one card through gloo (``tp_rank``), 3 steps each
+   of ``--flash`` (kernels 8/9), ``--banded`` (6/7), ``--flash
+   --pruned-range 5`` (3-5 too), ``--bf16 --flash`` (8b/9b) and (c) the
+   espnet family (``configs/espnet_aishell.yaml``), each held to one
+   process on the same weights and batch (losses within 1e-4, step 1's
+   gradient norm within 1e-3, relative; under bf16 step 1 alone, as in
+   phase 14, steps 2-3 printed), each rank's launches a step
+   equal to one process's; each step's ms a rank, the share of it that the
+   logits' sums over the model group take (timed between
+   synchronisations), the parameter and SGD-trace bytes a rank against one
+   process's, the peak memory a rank above its baseline
+   (``max_memory_allocated``) against one process's;
+   (d) then, the group left, ``apps/train.py --flash --n_model 2`` for one
+   epoch of phase 7's corpus over the two ranks (gloo from the
+   environment): 4 steps, one evaluation line, an ``epoch_0`` that holds
+   the whole model, which one-process ``apps/predict.py --full-context``
+   serves (its text is ``recognize``'s with those weights);
+   (b) dp2 x tp2 on four ranks with ``--zero``: 3 flash steps on their
+   halves of the batch within the training bars of one process, each
+   rank's launches one process's, moment bytes (at most 30 % of one
+   process's trace) and peak memory a rank.  A JSON line before the
+   kernels' line (``phase17_launches``).
 
 Each phase logs the seconds since the run began.
 
@@ -1316,14 +1343,15 @@ def training_batch(cfg, device, seed, raw=False):
 
 
 def make_trainee(model_cfg, optim_cfg, state, mode, device, pruned_range=None,
-                 frontend=None, compute_dtype=None, remat=False):
+                 frontend=None, compute_dtype=None, remat=False, mesh=None, zero=False):
     """A model in train mode with ``state``, its SGD optimizer (momentum,
     clip 200 as the trainer builds it) and its train step (SpecAugment on;
     the pruned loss with simple scale 0.25 when ``pruned_range``; the
     on-device log-mel of raw waves with a ``frontend`` tuple; bf16 compute
     with ``compute_dtype``, per-layer encoder recomputation with
-    ``remat``).  An espnet-schema block (``mask``) builds the espnet family
-    (``mode`` and ``remat`` do not apply)."""
+    ``remat``; with a ``mesh`` this rank's part of the model and of the
+    batch's step, ZeRO-1 with ``zero``).  An espnet-schema block (``mask``)
+    builds the espnet family (``mode`` and ``remat`` do not apply)."""
     import torch
     compute_dtype = compute_dtype or torch.float32
     from transformer_transducer_tpu_torch.models.factory import build_family
@@ -1336,9 +1364,15 @@ def make_trainee(model_cfg, optim_cfg, state, mode, device, pruned_range=None,
                          compute_dtype=compute_dtype)
     model.load_state_dict(state)
     model.train()
-    opt = build_optimizer(optim_cfg, list(model.parameters()), max_grad_norm=200.0)
+    from transformer_transducer_tpu_torch.parallel.sharding import (
+        shard_model, tp_plan, zero_param_shardings)
+    if mesh is not None:
+        shard_model(model, mesh)
+    opt = build_optimizer(optim_cfg, list(model.parameters()), max_grad_norm=200.0,
+                          tp=tp_plan(model),
+                          zero=(mesh, zero_param_shardings(model, mesh)) if zero else None)
     cfg = TrainStepConfig(loss_pruned_range=pruned_range, frontend=frontend)
-    return model, opt, make_train_step(model, opt, cfg)
+    return model, opt, make_train_step(model, opt, cfg, mesh=mesh)
 
 
 def train_three_steps(model_cfg, optim_cfg, state, mode, batch, device, plain,
@@ -4138,10 +4172,11 @@ def dp_rank(job_path) -> dict:
     mesh = make_mesh(n_data=2)
     batch = shard_batch({k: v.to(device) for k, v in job["batch"].items()}, mesh)
 
-    def run(zero):
+    def run(zero, mode="flash"):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        model = build_transducer(Config(job["model"]), flash=True, device=device)
+        model = build_transducer(Config(job["model"]), flash=mode == "flash",
+                                 banded=mode == "banded", device=device)
         model.load_state_dict(job["state"])
         model.train()
         opt = build_optimizer(Config(job["optim"]), list(model.parameters()),
@@ -4159,10 +4194,12 @@ def dp_rank(job_path) -> dict:
     # plain dp first, for its peak memory at the same rows; then ZeRO-1
     plain_steps, plain_bytes, plain_peak = run(False)
     steps, moment_bytes, peak = run(True)
-    out = {"rank": mesh.rank, "steps": steps, "moment_bytes": moment_bytes,
+    # plain dp through the banded kernels, which sum in a fixed order
+    banded_steps = run(False, "banded")[0]
+    out = {"rank": mesh.data_rank, "steps": steps, "moment_bytes": moment_bytes,
            "peak_gib": peak, "plain_losses": [s[0] for s in plain_steps],
            "plain_moment_bytes": plain_bytes, "plain_peak_gib": plain_peak,
-           "rows": int(batch["inputs"].shape[0])}
+           "banded_steps": banded_steps, "rows": int(batch["inputs"].shape[0])}
     dist.barrier()
     dist.destroy_process_group()
     os.environ["MASTER_PORT"] = str(job["cli_port"])
@@ -4416,8 +4453,407 @@ def check_export_dp(cfg, state, phase4, batch, device, smi):
             dist.destroy_process_group()
     require(mesh.n_data == 1 and grouped == ref_banded,
             f"a world-1 NCCL group: {grouped} against {ref_banded} with none")
+    # plain dp through the banded kernels (no atomics) against one process
+    per_step = dict.fromkeys(read_counts(), 0)
+    per_step.update(banded_fwd=n_layer, banded_bwd=n_layer, alpha=1, beta=1)
+    summary["banded_dp"] = {}
+    for r in ranks:
+        rels = []
+        for i, ((loss, norm, counts), (ref_loss, ref_norm)) in enumerate(
+                zip(r["banded_steps"], ref_banded)):
+            rel, rel_n = abs(loss - ref_loss) / abs(ref_loss), abs(norm - ref_norm) / ref_norm
+            rels.append((rel, rel_n))
+            require(counts == per_step, f"banded dp rank {r['rank']} step {i + 1} launched "
+                    f"{counts}")
+            require(rel <= LOSS_RTOL, f"banded dp step {i + 1}: losses differ by {rel:.2e}")
+            if i == 0:
+                require(rel_n <= NORM_RTOL, f"banded dp step 1: norms differ by {rel_n:.2e}")
+            launches.update(counts)
+        summary["banded_dp"][r["rank"]] = rels
+    log("--n_data 2 --banded, plain dp: losses and gradient norms against one process, "
+        "relative, a step: " + "; ".join(
+            f"rank {k} " + ", ".join(f"{a:.2e} / {b:.2e}" for a, b in v)
+            for k, v in summary["banded_dp"].items())
+        + f" (flash dp's step 1 norm: " + ", ".join(
+            f"{abs(r['steps'][0][1] - ref[0][1]) / ref[0][1]:.2e}" for r in ranks) + ")")
     log(f"a world-1 NCCL group (FileStore): 3 banded steps' losses and gradient norms "
         f"equal to the bit to no group's: {[l for l, _ in grouped]}")
+    return dict(launches), summary
+
+
+class _TimedSums:
+    """``parallel/tensor.py``'s float32 sum over the model group, timed
+    (phase 17): milliseconds of every call and of the logits' (4-D: a
+    joint chunk's (B, C, U1 | S, V)), between device synchronisations."""
+
+    def __init__(self, fn, device):
+        self.fn, self.device = fn, device
+        self.reset()
+
+    def reset(self):
+        self.ms, self.logits_ms, self.logits_bytes = 0.0, 0.0, 0
+
+    def __call__(self, x, group):
+        sync(self.device)
+        start = time.perf_counter()
+        out = self.fn(x, group)
+        sync(self.device)
+        ms = 1e3 * (time.perf_counter() - start)
+        self.ms += ms
+        if x.dim() == 4:
+            self.logits_ms += ms
+            self.logits_bytes += x.numel() * 4
+        return out
+
+
+def sync(device):
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def reset_peak(device) -> int:
+    """Empty the allocator's cache and reset its peak; the bytes allocated
+    now (0 off the card)."""
+    import torch
+    if torch.device(device).type != "cuda":
+        return 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def peak_gib(device, base=0):
+    """Peak bytes the caching allocator handed out since the last reset,
+    above ``base``, in GiB (0 off the card)."""
+    import torch
+    if torch.device(device).type != "cuda":
+        return 0.0
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+
+def tp_steps(run, mesh, device, batch, sums, steps=3):
+    """3 steps of one phase 17 run on this rank of ``mesh`` (``run``:
+    model config and state, attention mode, pruned band, compute dtype,
+    ZeRO-1), SpecAugment and dropout seeded as ``train_three_steps`` seeds
+    them: per step (loss, norm, launch counts, step ms, all-reduce ms,
+    logits all-reduce ms, logits bytes), and the rank's parameter, moment
+    and peak bytes (above its baseline)."""
+    import torch
+    base = reset_peak(device)
+    model, opt, step = make_trainee(run["model"], run["optim"], run["state"], run["mode"],
+                                    device, run.get("pruned"),
+                                    compute_dtype=run.get("compute_dtype"), mesh=mesh,
+                                    zero=run.get("zero", False))
+    gen = torch.Generator().manual_seed(0)
+    torch.manual_seed(0)
+    out = []
+    for _ in range(steps):
+        reset_counts()
+        sums.reset()
+        sync(device)
+        start = time.perf_counter()
+        m = step(batch, gen)
+        sync(device)
+        ms = 1e3 * (time.perf_counter() - start)
+        out.append((float(m["loss"]), float(m["grad_norm"]), read_counts(), ms, sums.ms,
+                    sums.logits_ms, sums.logits_bytes))
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    result = {"steps": out, "param_bytes": param_bytes, "moment_bytes": opt.moment_bytes(),
+              "peak_gib": peak_gib(device, base)}
+    del model, opt, step
+    return result
+
+
+def tp_rank(job_path) -> dict:
+    """Phase 17, one of the ranks that ``check_tensor_parallel`` launches
+    (``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``, ``LOCAL_WORLD_SIZE``,
+    ``MASTER_*`` set; all on the one card): in a gloo group, the grid of
+    ``make_mesh(n_data=job["n_data"], n_model=2)``; once the job's ``go``
+    file exists (the one-process references are done), each of the job's
+    runs (:func:`tp_steps`), the model-group sums timed; then, with a
+    ``cli_config``, the group left, ``apps/train.py --flash --n_model 2``
+    for one epoch of phase 7's corpus, which joins a group of its own from
+    the environment (at the job's second port)."""
+    import torch
+    import torch.distributed as dist
+    from transformer_transducer_tpu_torch.apps import train as train_app
+    from transformer_transducer_tpu_torch.parallel import tensor as tensor_lib
+    from transformer_transducer_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    job = torch.load(job_path, weights_only=False)     # this run's own file
+    device = job["device"]
+    dist.init_process_group("gloo", init_method="env://")
+    mesh = make_mesh(n_data=job["n_data"], n_model=2)
+    sums = _TimedSums(tensor_lib._sum_over, device)
+    tensor_lib._sum_over = sums
+    waited = time.perf_counter()
+    while not os.path.exists(job["go"]):
+        require(time.perf_counter() - waited < 600, "phase 17: the references did not end")
+        time.sleep(0.2)
+    out = {"rank": dist.get_rank(), "data_rank": mesh.data_rank,
+           "model_rank": mesh.model_rank, "runs": {}}
+    for name, run in job["runs"].items():
+        batch = shard_batch({k: v.to(device) for k, v in job["batches"][run["batch"]].items()},
+                            mesh)
+        out["runs"][name] = tp_steps(run, mesh, device, batch, sums)
+        out["rows"] = int(batch["inputs"].shape[0])
+    tensor_lib._sum_over = sums.fn
+    dist.barrier()
+    dist.destroy_process_group()
+    if job.get("cli_config"):
+        os.environ["MASTER_PORT"] = str(job["cli_port"])
+        os.chdir(job["cli_dir"])
+        reset_counts()
+        start = time.perf_counter()
+        trainer = train_app.main(["-config", job["cli_config"], "--flash", "--epochs", "1",
+                                  "--n_model", "2", "--device", device])
+        sync(device)
+        out["cli"] = {"s": time.perf_counter() - start, "counts": read_counts(),
+                      "backend": dist.get_backend() if dist.is_initialized() else None,
+                      "n_data": trainer.mesh.n_data, "n_model": trainer.mesh.n_model,
+                      "global_step": trainer.global_step, "exp_dir": trainer.exp_dir}
+        dist.barrier()
+        dist.destroy_process_group()
+    return out
+
+
+def launch_ranks(world, job, tmp, env, name):
+    """Start ``world`` ranks of :func:`tp_rank` on ``job`` (saved under
+    ``tmp``), gloo on one card; returns the processes."""
+    import torch
+    with socket.socket() as sock, socket.socket() as sock2:
+        sock.bind(("localhost", 0))
+        sock2.bind(("localhost", 0))
+        port, job["cli_port"] = sock.getsockname()[1], sock2.getsockname()[1]
+    path = os.path.join(tmp, f"{name}.pt")
+    torch.save(job, path)
+    code = (f"import json, sys\nsys.path.insert(0, {HERE!r})\nimport chip_smoke\n"
+            "print(json.dumps(chip_smoke.tp_rank(sys.argv[1])))\n")
+    return [subprocess.Popen([sys.executable, "-c", code, path], stdout=subprocess.PIPE,
+                             text=True, env=dict(env, RANK=str(r), LOCAL_RANK=str(r),
+                                                 WORLD_SIZE=str(world),
+                                                 LOCAL_WORLD_SIZE=str(world),
+                                                 MASTER_ADDR="localhost",
+                                                 MASTER_PORT=str(port)))
+            for r in range(world)]
+
+
+def join_ranks(procs, timeout):
+    """The JSON results of :func:`launch_ranks`'s processes (every process
+    killed on the way out)."""
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    require(all(p.returncode == 0 for p in procs),
+            f"the tensor-parallel ranks exited {[p.returncode for p in procs]}")
+    return [json.loads(o.strip().splitlines()[-1]) for o in outs]
+
+
+def check_tensor_parallel(cfg, state, batch, device, smi):
+    """Phase 17: tensor parallelism at flagship width (see the module's
+    docstring).  ``batch`` is phase 8's B 4 batch.  Returns the main
+    paths' launches and a summary."""
+    import copy
+    import torch
+    from transformer_transducer_tpu_torch.apps import predict as predict_app
+    from transformer_transducer_tpu_torch.decoding.greedy import recognize
+    from transformer_transducer_tpu_torch.data.wav import read_wave
+    from transformer_transducer_tpu_torch.models.factory import load_family
+    from transformer_transducer_tpu_torch.models.transducer import build_transducer
+    from transformer_transducer_tpu_torch.ops import features_np as F
+    from transformer_transducer_tpu_torch.utils import checkpoint as ckpt_lib
+    from transformer_transducer_tpu_torch.utils.config import (
+        Config, load_config as load_cfg_file, stack_context, subsample_factor)
+    from transformer_transducer_tpu_torch.utils.convert import (
+        from_jax_params, random_jax_params)
+    from transformer_transducer_tpu_torch.utils.vocab import Vocabulary
+    launches = collections.Counter()
+    summary = {"device": smi}
+    n_layer = cfg.model.enc.n_layer
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([HERE, os.environ.get("PYTHONPATH", "")]))
+    model_cfg = load_flagship().model
+    model_cfg.override("dropout", 0.0)
+    optim_cfg = Config({"type": "sgd", "lr": cfg.optim.lr, "momentum": 0.9})
+    esp = load_config("configs", "espnet_aishell.yaml")
+    esp_cfg = copy.deepcopy(esp.model)
+    for blk in ("enc", "dec"):
+        for key in ("dropout_rate", "positional_dropout_rate", "attention_dropout_rate"):
+            esp_cfg[blk][key] = 0.0
+    esp_state = from_jax_params(random_jax_params(esp.model, seed=0))
+    esp_batch, _ = training_batch(esp, device, seed=1)
+    bf16 = torch.bfloat16
+    runs = {"flash": dict(mode="flash"), "banded": dict(mode="banded"),
+            f"flash, pruned {S_RANGE}": dict(mode="flash", pruned=S_RANGE),
+            "bf16 flash": dict(mode="flash", compute_dtype=bf16),
+            "espnet": dict(mode=None, model=esp_cfg, state=esp_state, batch="espnet")}
+    for run in runs.values():
+        run.setdefault("model", model_cfg)
+        run.setdefault("state", state)
+        run.setdefault("batch", "native")
+        run["optim"] = optim_cfg
+    batches = {"native": {k: v.cpu() for k, v in batch.items()},
+               "espnet": {k: v.cpu() for k, v in esp_batch.items()}}
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_dir = os.path.join(tmp, "cli")
+        os.makedirs(cli_dir)
+        go = os.path.join(tmp, "go")
+        job = {"device": str(device), "n_data": 1, "runs": runs, "batches": batches,
+               "go": go, "cli_dir": cli_dir, "cli_config": write_corpus(cli_dir, cfg)}
+        procs = launch_ranks(2, job, tmp, env, "tp2")
+        try:
+            # the one-process references while the ranks start (they wait
+            # for ``go`` before their timed steps)
+            ref = {}
+            for name, run in runs.items():
+                base = reset_peak(device)
+                ref[name] = train_three_steps(
+                    run["model"], optim_cfg, run["state"], run["mode"],
+                    batch if run["batch"] == "native" else esp_batch, device, False,
+                    run.get("pruned"), compute_dtype=run.get("compute_dtype"))
+                ref[name + " peak"] = peak_gib(device, base)
+            one_bytes = {"params": sum(v.numel() * 4 for v in state.values())}
+            one_bytes["trace"] = one_bytes["params"]
+            with open(go, "w") as fh:
+                fh.write("go")
+            ranks = join_ranks(procs, 900)
+        finally:
+            for p in procs:
+                p.kill()
+        summary["tp2_s"] = time.perf_counter() - start
+        for r in ranks:
+            for name, res in r["runs"].items():
+                for i, (got, want) in enumerate(zip(res["steps"], ref[name])):
+                    loss, norm, counts, ms, sum_ms, logits_ms, logits_bytes = got
+                    rel = abs(loss - want[0]) / abs(want[0])
+                    rel_n = abs(norm - want[1]) / want[1]
+                    log(f"  tp2 rank {r['rank']} {name} step {i + 1}: loss {loss:.6f} / one "
+                        f"process {want[0]:.6f} (rel {rel:.2e}), grad norm {norm:.5f} / "
+                        f"{want[1]:.5f} (rel {rel_n:.2e}); {ms:.2f} ms, sums over the model "
+                        f"group {sum_ms:.2f} ms, of which the logits' {logits_ms:.2f} ms "
+                        f"({logits_bytes / 2 ** 20:.1f} MiB); launches {counts}")
+                    require(counts == want[2], f"tp2 rank {r['rank']} {name} step {i + 1} "
+                            f"launched {counts}, one process {want[2]}")
+                    # bf16: step 1 alone, as phase 14 holds it (the first
+                    # clipped update turns roundings into bf16-sized steps)
+                    require(rel <= LOSS_RTOL or (runs[name].get("compute_dtype") and i),
+                            f"tp2 {name} step {i + 1}: losses differ by {rel:.2e}")
+                    if i == 0:
+                        require(rel_n <= NORM_RTOL, f"tp2 {name} step 1: gradient norms "
+                                f"differ by {rel_n:.2e}")
+                    launches.update(counts)
+            cli = r["cli"]
+            launches.update(cli["counts"])
+            require(cli["backend"] == "gloo" and cli["n_model"] == 2 and cli["n_data"] == 1
+                    and cli["global_step"] == 4
+                    and all(cli["counts"][k] > 0 for k in ("flash_fwd", "flash_bwd", "alpha",
+                                                           "beta")),
+                    f"rank {r['rank']}: the training entry point ran {cli}")
+        flash = [r["runs"]["flash"] for r in ranks]
+        share = [f["param_bytes"] / one_bytes["params"] for f in flash]
+        trace_share = [f["moment_bytes"] / one_bytes["trace"] for f in flash]
+        step_ms = {name: [[s[3] for s in r["runs"][name]["steps"]] for r in ranks]
+                   for name in runs}
+        logits_share = {name: [[s[5] / s[3] for s in r["runs"][name]["steps"]] for r in ranks]
+                        for name in runs}
+        summary.update(
+            one_process={n: [(l, g) for l, g, _ in ref[n]] for n in runs},
+            one_process_peak_gib={n: ref[n + " peak"] for n in runs},
+            tp2={n: [r["runs"][n]["steps"] for r in ranks] for n in runs},
+            tp2_peak_gib={n: [r["runs"][n]["peak_gib"] for r in ranks] for n in runs},
+            param_share=share, trace_share=trace_share, step_ms=step_ms,
+            logits_share=logits_share, cli_s=[r["cli"]["s"] for r in ranks])
+        log(f"tp2, two gloo ranks on the one card ({summary['tp2_s']:.1f} s with their "
+            f"start-up and the one-process references): losses (bf16: step 1's) and step 1's "
+            f"gradient norms within {LOSS_RTOL} and {NORM_RTOL} of one process, each rank's "
+            f"launches one process's; parameters a rank " + ", ".join(f"{100 * s:.4f} %" for s in share)
+            + ", SGD trace " + ", ".join(f"{100 * s:.4f} %" for s in trace_share)
+            + " of one process's; peak above the baseline, flash: ranks "
+            + ", ".join(f"{r['runs']['flash']['peak_gib']:.4f}" for r in ranks)
+            + f" GiB, one process {ref['flash peak']:.4f} GiB")
+        for name in runs:
+            log(f"  tp2 {name}: step ms a rank " + "; ".join(
+                ", ".join(f"{ms:.2f}" for ms in per) for per in step_ms[name])
+                + "; the logits' sums " + "; ".join(
+                    ", ".join(f"{100 * s:.1f} %" for s in per) for per in logits_share[name])
+                + f" of the step; one process's peak {ref[name + ' peak']:.4f} GiB, the "
+                "ranks' " + ", ".join(f"{r['runs'][name]['peak_gib']:.4f}" for r in ranks))
+
+        # (d) the 2-rank CLI's checkpoint: whole, served by one-process predict
+        exp = os.path.join(cli_dir, ranks[0]["cli"]["exp_dir"])
+        ckpt = os.path.join(exp, "epoch_0")
+        saved = ckpt_lib.load_checkpoint(ckpt, "cpu")
+        whole = build_transducer(cfg.model, device="meta").state_dict()
+        require(all(v.shape == whole[f"{c}.{k}"].shape for c in ckpt_lib.COMPONENTS
+                    for k, v in saved[c].items())
+                and len(saved["optimizer"]["state"]["trace"]) == len(whole),
+                "the tp2 run's checkpoint does not hold the whole model")
+        with open(os.path.join(exp, "train.log"), encoding="utf-8") as fh:
+            cer_lines = [l.strip() for l in fh if "-Validation-" in l]
+        require(len(cer_lines) == 1 and "nan" not in cer_lines[0].lower(),
+                f"the tp2 run's evaluation: {cer_lines}")
+        cli_cfg = load_cfg_file(job["cli_config"])
+        with open(cli_cfg.data.dev, encoding="utf-8") as fh:
+            wav = fh.read().splitlines()[1].split(",")[0]
+        reset_counts()
+        text = predict_app.main(["--config", job["cli_config"], "--checkpoint", ckpt,
+                                 "--wav", wav, "--full-context", "--device", str(device)])
+        sync(device)
+        counts = read_counts()
+        launches.update(counts)
+        wave, rate = read_wave(wav)
+        left, right = stack_context(cli_cfg.data)
+        feats = F.subsample(F.stack_frames(F.logmel_masked(wave, rate, cli_cfg.data.feature_dim),
+                                           left, right), subsample_factor(cli_cfg.data))
+        served = load_family(cli_cfg, feats.shape[1], ckpt, device=device, flash=True)
+        tokens = recognize(served, torch.from_numpy(feats[None]).to(device), [feats.shape[0]],
+                           max_tokens=cli_cfg.data.max_target_length + 1)[0]
+        want = "".join(Vocabulary.from_file(cli_cfg.data.vocab).decode(tokens))
+        require(text == want, f"predict on the tp2 checkpoint gave {text!r}, recognize {want!r}")
+        require(counts["flash_fwd"] == n_layer, f"predict launched {counts}")
+        log(f"apps/train.py --flash --n_model 2 over the two ranks (its own "
+            f"{ranks[0]['cli']['backend']} group): 4 steps in "
+            + ", ".join(f"{r['cli']['s']:.1f} s" for r in ranks) + f", {cer_lines[0]}; its "
+            f"epoch_0 holds the whole model and moments; one-process apps/predict.py "
+            f"--full-context on it: {len(text)} characters, the text of recognize with its "
+            f"weights; launches {counts}")
+        del served, saved
+        reset_peak(device)
+
+        # (b) dp2 x tp2 on four ranks, ZeRO-1: moment bytes and peak a rank
+        start4 = time.perf_counter()
+        job4 = {"device": str(device), "n_data": 2, "go": go, "batches": batches,
+                "runs": {"dp2 x tp2 zero": dict(runs["flash"], zero=True)}}
+        ranks4 = join_ranks(launch_ranks(4, job4, tmp, env, "dp2tp2"), 600)
+        summary["dp2tp2_s"] = time.perf_counter() - start4
+    for r in ranks4:
+        res = r["runs"]["dp2 x tp2 zero"]
+        for i, (got, want) in enumerate(zip(res["steps"], ref["flash"])):
+            loss, norm, counts = got[:3]
+            rel = abs(loss - want[0]) / abs(want[0])
+            require(counts == want[2], f"dp2 x tp2 rank {r['rank']} step {i + 1} launched "
+                    f"{counts}")
+            require(rel <= LOSS_RTOL, f"dp2 x tp2 step {i + 1}: losses differ by {rel:.2e}")
+            if i == 0:
+                rel_n = abs(norm - want[1]) / want[1]
+                require(rel_n <= NORM_RTOL, f"dp2 x tp2 step 1: norms differ by {rel_n:.2e}")
+            launches.update(counts)
+    share4 = [r["runs"]["dp2 x tp2 zero"]["moment_bytes"] / one_bytes["trace"] for r in ranks4]
+    summary.update(dp2tp2_moment_share=share4,
+                   dp2tp2_peak_gib=[r["runs"]["dp2 x tp2 zero"]["peak_gib"] for r in ranks4],
+                   dp2tp2_steps=[r["runs"]["dp2 x tp2 zero"]["steps"] for r in ranks4])
+    # JAX's rule keeps the row-parallel project_layer's odd 6485 rows whole:
+    # 29.88 % of one process's trace, from the shapes
+    require(all(s <= 0.30 for s in share4), f"dp2 x tp2 moments a rank {share4}")
+    log(f"dp2 x tp2 --zero --flash, four gloo ranks on the one card "
+        f"({summary['dp2tp2_s']:.1f} s with their start-up): losses and step 1's norm within "
+        f"the training bars, launches one process's; moments a rank "
+        + ", ".join(f"{100 * s:.4f} %" for s in share4) + " of one process's trace; peak "
+        "above the baseline " + ", ".join(f"{g:.4f}" for g in summary["dp2tp2_peak_gib"])
+        + f" GiB; step ms " + "; ".join(", ".join(f"{s[3]:.2f}" for s in st)
+                                       for st in summary["dp2tp2_steps"]) + f" ({smi})")
     return dict(launches), summary
 
 
@@ -5467,12 +5903,35 @@ def main() -> int:
     export_dp["phase_s"] = time.perf_counter() - start
     for rec in records:
         key = {"flash_rel_attention_fwd": "flash_fwd", "flash_rel_attention_bwd": "flash_bwd",
+               "banded_attention_fwd": "banded_fwd", "banded_attention_bwd": "banded_bwd",
                "rnnt_alpha": "alpha", "rnnt_beta": "beta"}.get(rec["name"])
         # the float32 forms alone (the bf16 rows count none here)
         rec["phase16_launches"] = export_launches.get(key, 0)
         rec["launches"] += rec["phase16_launches"]
     log(f"  phase 16: {export_dp['phase_s']:.1f} s")
     log(json.dumps({"export_dp": export_dp}))
+
+    log(f"[{time.perf_counter() - run_start:.1f} s] phase 17")
+    # ---- 17. tensor parallelism (--n_model 2), alone and on a dp2 x tp2 grid
+    start = time.perf_counter()
+    torch.cuda.empty_cache()
+    tp_launches, tensor_parallel = check_tensor_parallel(cfg, state, batch, device, smi)
+    tensor_parallel["phase_s"] = time.perf_counter() - start
+    for rec in records:
+        key = {"banded_attention_fwd": "banded_fwd", "flash_rel_attention_fwd": "flash_fwd",
+               "banded_attention_bwd": "banded_bwd", "flash_rel_attention_bwd": "flash_bwd",
+               "rnnt_alpha": "alpha", "rnnt_beta": "beta", "additive_logz": "logz",
+               "band_alpha": "band_alpha", "band_beta": "band_beta",
+               "flash_rel_attention_fwd_bf16": "flash_fwd_bf16",
+               "flash_rel_attention_bwd_bf16": "flash_bwd_bf16"}[rec["name"]]
+        # the float32 flash rows count their own form's launches (the bf16
+        # forms, also on flash_fwd and flash_bwd, have rows of their own)
+        own = tp_launches.get(key, 0) - (tp_launches.get(f"{key}_bf16", 0)
+                                         if not key.endswith("_bf16") else 0)
+        rec["phase17_launches"] = own
+        rec["launches"] += own
+    log(f"  phase 17: {tensor_parallel['phase_s']:.1f} s")
+    log(json.dumps({"tensor_parallel": tensor_parallel}))
 
     log(f"[{time.perf_counter() - run_start:.1f} s] all phases passed")
     log(json.dumps({"kernels": records}))

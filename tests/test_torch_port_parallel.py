@@ -68,9 +68,9 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ranks(world, cases, tmp_path):
-    """Run ``cases`` on ``world`` gloo ranks (one process each); rank r's
-    results, a list with one entry a case."""
+def start_ranks(world, cases, tmp_path):
+    """Start ``cases`` on ``world`` gloo ranks (one process each); returns
+    what :func:`join_ranks` takes."""
     job = str(tmp_path / "job.pt")
     torch.save({"cases": cases, "out": str(tmp_path / "rank")}, job)
     port = _free_port()
@@ -83,6 +83,19 @@ def run_ranks(world, cases, tmp_path):
         procs.append(subprocess.Popen([sys.executable, WORKER, job], env=env,
                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                       text=True))
+    return world, procs, tmp_path
+
+
+def run_ranks(world, cases, tmp_path):
+    """Run ``cases`` on ``world`` gloo ranks (one process each); rank r's
+    results, a list with one entry a case."""
+    return join_ranks(start_ranks(world, cases, tmp_path))
+
+
+def join_ranks(started):
+    """Rank r's results of a :func:`start_ranks` run, a list with one entry
+    a case; a run that does not end within ``JOIN_S`` fails."""
+    world, procs, tmp_path = started
     logs = []
     try:
         for p in procs:
@@ -360,7 +373,8 @@ def test_espnet_family_at_dp2(espnet, world2):
 def test_make_mesh_defaults_and_shrinks(world2, caplog):
     """The data axis defaults to the world size; an oversized request
     shrinks to it with JAX's warning (one process here, two in the gloo
-    run); the later axes raise."""
+    run); the later axes raise (tensor parallelism trains:
+    tests/test_torch_port_tensor_parallel.py)."""
     for r in world2:
         assert r[0]["default"] == 2 and r[0]["shrunk"] == 2
         assert any("shrinking the data axis to 2" in w for w in r[0]["warnings"])
@@ -368,7 +382,7 @@ def test_make_mesh_defaults_and_shrinks(world2, caplog):
         assert make_mesh().n_data == 1
         assert make_mesh(n_data=4).n_data == 1
     assert "shrinking the data axis to 1" in caplog.text
-    for kw in ({"n_model": 2}, {"n_pipe": 2}, {"n_seq": 2}):
+    for kw in ({"n_pipe": 2}, {"n_seq": 2}):
         with pytest.raises(NotImplementedError, match="later slice"):
             make_mesh(**kw)
 
@@ -382,11 +396,11 @@ def test_shard_batch_takes_jax_rows():
     placed = jax_mesh.shard_batch({"inputs": jnp.asarray(batch["inputs"])}, mesh_j)
     shards = {s.device: np.asarray(s.data) for s in placed["inputs"].addressable_shards}
     for rank, dev in enumerate(mesh_j.devices.reshape(-1)):
-        got = shard_batch(batch, Mesh(n_data=4, rank=rank))
+        got = shard_batch(batch, Mesh(n_data=4, data_rank=rank))
         np.testing.assert_array_equal(got["inputs"], shards[dev])
         assert got["targets"].tolist() == list(range(2 * rank, 2 * rank + 2))
     with pytest.raises(ValueError, match="divide"):
-        shard_batch({"x": np.zeros(6)}, Mesh(n_data=4, rank=0))
+        shard_batch({"x": np.zeros(6)}, Mesh(n_data=4, data_rank=0))
 
 
 @pytest.mark.parametrize("device, local, cards, want", [

@@ -204,9 +204,9 @@ def test_load_model_and_components(corpus, tmp_path):
     # --bf16, --remat and --bf16 --flash train now
     # (tests/test_torch_port_bf16_training.py), --profile profiles
     # (tests/test_torch_port_profile.py), and --n_data and --zero train
-    # (tests/test_torch_port_parallel.py): beside them the later flags
-    # still raise
-    ["--zero", "--n_model", "2"], ["--n_model", "2"],
+    # (tests/test_torch_port_parallel.py), and so does --n_model
+    # (tests/test_torch_port_tensor_parallel.py): beside them the later
+    # flags still raise
     ["--n_data", "2", "--n_seq", "2"], ["--n_pipe", "2"], ["--pipe-micro", "2"],
     ["--n_seq", "2"]])
 def test_flags_of_later_slices_raise(flag):

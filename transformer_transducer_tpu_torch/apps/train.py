@@ -5,10 +5,10 @@
         -config configs/joint_streaming.yaml -log train.log \\
         -mode retrain|continue [--flash | --banded] [--pruned-range N]
         [--bf16] [--remat] [--augment] [--profile DIR] [--device cpu]
-        [--n_data N] [--zero]
+        [--n_data N] [--n_model M] [--zero]
 
-    torchrun --nproc_per_node N -m transformer_transducer_tpu_torch.apps.train \
-        -config ... --n_data N [--zero]
+    torchrun --nproc_per_node N*M -m transformer_transducer_tpu_torch.apps.train \
+        -config ... --n_data N --n_model M [--zero]
 
 ``--flash`` trains the unmasked encoder through the flash rel-attention
 kernels (forward and backward), ``--banded`` under the streaming band
@@ -44,9 +44,13 @@ backend is NCCL with a card a rank, gloo on the CPU or when several ranks
 share a card (``parallel/mesh.py::backend_for``).  ``--n_data N``
 (default: the largest divisor of the batch at most the world size) trains
 on N data ranks, ``--zero`` (or ``--set parallel.zero=true``) splits the
-optimizer's moments over them (ZeRO-1).
-``--n_model``, ``--n_pipe``, ``--pipe-micro`` and ``--n_seq`` come in later
-slices and raise.
+optimizer's moments over them (ZeRO-1).  ``--n_model M`` shards each
+replica over M ranks (tensor parallelism, JAX's ``model`` axis: heads, the
+FFN's inner width and the joint's; ``parallel/sharding.py``), on a
+``(data, model)`` grid with ``model`` minor; it composes with ``--zero``,
+``--flash``, ``--banded``, ``--pruned-range``, ``--bf16`` and ``--remat``,
+and its checkpoints hold the whole model.  ``--n_pipe``, ``--pipe-micro``
+and ``--n_seq`` come in later slices and raise.
 """
 
 from __future__ import annotations
@@ -55,7 +59,6 @@ import argparse
 
 # flags of the JAX entry point whose paths come in later slices of the port
 _LATER = {
-    "n_model": "tensor parallelism (--n_model)",
     "n_pipe": "pipeline parallelism (--n_pipe)",
     "pipe_micro": "pipeline parallelism (--pipe-micro)",
     "n_seq": "sequence parallelism (--n_seq)",
@@ -103,7 +106,9 @@ def parse_args(argv=None):
     ap.add_argument("--pruned-range", type=int, default=None, metavar="N",
                     help="pruned transducer loss with a width-N label band "
                     "(same as --set training.loss_pruned_range=N)")
-    for flag in ("--n_model", "--n_pipe", "--pipe-micro", "--n_seq"):
+    ap.add_argument("--n_model", type=int, default=1,
+                    help="tensor-parallel ranks a replica (JAX's model axis)")
+    for flag in ("--n_pipe", "--pipe-micro", "--n_seq"):
         ap.add_argument(flag, type=int, default=None)
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="profile the first epoch (torch.profiler) and write "
@@ -142,7 +147,8 @@ def main(argv=None):
     trainer = Trainer(cfg, mode=args.mode, log_file=args.log, flash=args.flash,
                       banded=args.banded, device=device,
                       compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
-                      remat=args.remat, n_data=args.n_data, zero=args.zero)
+                      remat=args.remat, n_data=args.n_data, zero=args.zero,
+                      n_model=args.n_model)
     trainer.logger.info("device: %s", trainer.device)
     trainer.fit(epochs=args.epochs, augment=args.augment, profile_dir=args.profile)
     return trainer

@@ -28,6 +28,12 @@ in float32 cast back, and the residual stream and the LayerNorms stay
 float32.  The banded kernel takes float32 (JAX casts its operands up); the
 flash kernels take bf16 in their bf16 forms, which round where JAX's
 Pallas kernels round (``ops/cuda/flash_rel_attention.py``).
+
+Tensor parallelism (``parallel/sharding.py::shard_model`` sets ``tp``): a
+rank holds its heads (the head-aligned ``qkv`` rows, the tables' heads, the
+``o_net`` columns) and its part of ``d_inner``; the projections name their
+collectives (``parallel/tensor.py``), and each branch runs unchanged on the
+local heads (the kernels see H/N heads and a row stride of 3·(H/N)·Dh).
 """
 
 from __future__ import annotations
@@ -39,6 +45,8 @@ from torch import nn
 
 from transformer_transducer_tpu_torch.ops.precision import (
     NEG_INF, dense, neg_inf, scalar, to_compute, widen)
+from transformer_transducer_tpu_torch.parallel.tensor import (
+    column_input, row_parallel, sharded_dropout)
 
 
 def rel_shift(x: torch.Tensor) -> torch.Tensor:
@@ -98,6 +106,8 @@ class RelLearnableSelfAttention(nn.Module):
     """Multi-head self-attention with learnable relative-position tables
     (the tables are owned by :class:`TransformerXLLayer`)."""
 
+    tp = None     # the mesh once shard_model has narrowed it (column qkv, row o_net)
+
     def __init__(self, n_head: int, d_model: int, d_head: int,
                  dropout: float = 0.0, flash: bool = False,
                  compute_dtype: torch.dtype = torch.float32):
@@ -114,11 +124,12 @@ class RelLearnableSelfAttention(nn.Module):
                 attn_mask: Optional[torch.Tensor] = None,
                 band: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         b, t, _ = x.shape
-        h, dh = self.n_head, self.d_head
+        h, dh = r_w_bias.shape[0], self.d_head       # this rank's heads
         cd = self.compute_dtype
         # q, k, v stay strided views of the fused projection (row stride
         # 3*H*Dh); the kernels read them in place
-        q, k, v = dense(self.qkv_net, x, cd).view(b, t, 3, h, dh).unbind(2)
+        q, k, v = dense(self.qkv_net, column_input(x, self.tp, cd), cd).view(
+            b, t, 3, h, dh).unbind(2)
         # the tables in the compute dtype (bf16-rounded under bf16, as JAX's
         # casts round them); r_w_bias is cast where each branch uses it
         r_emb = to_compute(slice_pos_table(r_emb, t), cd)
@@ -141,7 +152,7 @@ class RelLearnableSelfAttention(nn.Module):
             vec = rel_attention_dense(q, k, v, r_emb, to_compute(r_w_bias, cd), r_bias,
                                       attn_mask)
 
-        out = self.drop(dense(self.o_net, vec.reshape(b, t, h * dh), cd))
+        out = self.drop(row_parallel(self.o_net, vec.reshape(b, t, h * dh), self.tp, cd))
         return self.layer_norm(x + out)
 
 
@@ -149,6 +160,8 @@ class PositionwiseFF(nn.Module):
     """FFN with a SHARED LayerNorm applied pre-activation and post-residual
     (``CoreNet`` indices follow the reference: Linear, ReLU, Dropout,
     Linear, Dropout)."""
+
+    tp = None     # the mesh once shard_model has narrowed it (column fc1, row fc2)
 
     def __init__(self, d_model: int, d_inner: int, dropout: float = 0.0,
                  compute_dtype: torch.dtype = torch.float32):
@@ -165,7 +178,8 @@ class PositionwiseFF(nn.Module):
         float32)."""
         cd = compute_dtype or self.compute_dtype
         fc1, relu, drop1, fc2, drop2 = self.CoreNet
-        h = drop2(dense(fc2, drop1(relu(dense(fc1, self.layer_norm(x), cd))), cd))
+        h = relu(dense(fc1, column_input(self.layer_norm(x), self.tp, cd), cd))
+        h = drop2(row_parallel(fc2, sharded_dropout(drop1, h, self.tp, -1), self.tp, cd))
         return self.layer_norm(x + widen(h))
 
 

@@ -31,6 +31,13 @@ bf16 product and a separate bf16 bias add, ``ops/precision.py``),
 the softmax in float32; the input layers, the residual stream and the
 LayerNorms stay float32.
 
+Under tensor parallelism (``parallel/sharding.py::shard_model``) a rank
+holds its heads of ``linear_q/k/v/pos`` and ``pos_bias_u/v`` and the
+matching columns of ``linear_out``, its part of ``w_1``/``w_2`` and of the
+joint's ``lin_enc``/``lin_dec``/``lin_out``; the products name their
+collectives (``parallel/tensor.py``), row-parallel biases added after the
+sum.  The input layers stay whole, as in JAX.
+
 The modules are plain tensor code: the JAX module has no Pallas kernel, so
 nothing here launches one.  Their ``state_dict`` keys are upstream espnet's
 (``encoders.{i}.self_attn.linear_q.weight``, ``feed_forward.w_1``,
@@ -57,6 +64,8 @@ from transformer_transducer_tpu_torch.ops.masks import (
 from transformer_transducer_tpu_torch.ops.precision import (
     NEG_INF, dense, neg_inf, scalar, to_compute, widen)
 from transformer_transducer_tpu_torch.ops.quant import QuantLinear, dense_kernel
+from transformer_transducer_tpu_torch.parallel.tensor import (
+    column_input, row_parallel, sharded_dropout)
 from transformer_transducer_tpu_torch.utils.device import resolve_device
 
 # (kernel, stride) of each VALID Conv2d of the subsampling stacks (espnet
@@ -100,6 +109,8 @@ def rel_shift_signed(x: torch.Tensor) -> torch.Tensor:
 
 
 class RelPosMultiHeadAttention(nn.Module):
+    tp = None     # the mesh once shard_model has narrowed it
+
     def __init__(self, n_head: int, d_model: int, dropout: float = 0.0,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -120,9 +131,10 @@ class RelPosMultiHeadAttention(nn.Module):
                 attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x (B, t, D), pos_emb (2t-1, D), attn_mask (t, t) or (B|1, t, t)."""
         b, t, _ = x.shape
-        h, dk = self.h, self.d_k
+        h, dk = self.pos_bias_u.shape[0], self.d_k   # this rank's heads
         cd = self.compute_dtype
-        x = to_compute(x, cd)   # once: JAX sums the three products' gradients in cd
+        # once: JAX sums the three products' gradients in cd
+        x = column_input(x, self.tp, cd)
         q = dense(self.linear_q, x, cd).view(b, t, h, dk)
         k = dense(self.linear_k, x, cd).view(b, t, h, dk)
         v = dense(self.linear_v, x, cd).view(b, t, h, dk)
@@ -140,11 +152,14 @@ class RelPosMultiHeadAttention(nn.Module):
         probs = torch.softmax(widen(scores), dim=-1)
         if attn_mask is not None:
             probs = probs.masked_fill(m, 0.0)       # espnet re-zeroes masked cells
-        out = torch.einsum("bnij,bjnd->bind", self.dropout(probs.to(scores.dtype)), v)
-        return widen(dense(self.linear_out, out.reshape(b, t, h * dk), cd))
+        probs = sharded_dropout(self.dropout, probs.to(scores.dtype), self.tp, 1)
+        out = torch.einsum("bnij,bjnd->bind", probs, v)
+        return widen(row_parallel(self.linear_out, out.reshape(b, t, h * dk), self.tp, cd))
 
 
 class EspnetFeedForward(nn.Module):
+    tp = None     # the mesh once shard_model has narrowed it
+
     def __init__(self, d_model: int, d_inner: int, dropout: float = 0.0,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -158,7 +173,9 @@ class EspnetFeedForward(nn.Module):
         """``compute_dtype`` overrides the module's (the label cache runs
         float32)."""
         cd = compute_dtype or self.compute_dtype
-        return widen(dense(self.w_2, self.dropout(torch.relu(dense(self.w_1, x, cd))), cd))
+        h = torch.relu(dense(self.w_1, column_input(x, self.tp, cd), cd))
+        return widen(row_parallel(self.w_2, sharded_dropout(self.dropout, h, self.tp, -1),
+                                  self.tp, cd))
 
 
 class EspnetEncoderLayer(nn.Module):
@@ -311,6 +328,8 @@ class AdditiveJointNetwork(nn.Module):
     JAX model) splits the same way; so does a bf16 one (the halves and
     their sum rounded to bf16, as in the JAX model)."""
 
+    tp = None     # the mesh once shard_model has narrowed it
+
     def __init__(self, enc_dim: int, dec_dim: int, joint_space_size: int,
                  vocab_size: int, activation: str = "tanh",
                  compute_dtype: torch.dtype = torch.float32):
@@ -326,17 +345,19 @@ class AdditiveJointNetwork(nn.Module):
         return isinstance(self.lin_out, QuantLinear)
 
     def project_enc(self, enc_state: torch.Tensor) -> torch.Tensor:
-        return dense(self.lin_enc, enc_state, self.compute_dtype)
+        cd = self.compute_dtype
+        return dense(self.lin_enc, column_input(enc_state, self.tp, cd), cd)
 
     def project_dec(self, dec_state: torch.Tensor) -> torch.Tensor:
-        return dense(self.lin_dec, dec_state, self.compute_dtype)
+        cd = self.compute_dtype
+        return dense(self.lin_dec, column_input(dec_state, self.tp, cd), cd)
 
     def first_layer(self, enc_half: torch.Tensor, dec_half: torch.Tensor) -> torch.Tensor:
         return enc_half + dec_half
 
     def logits_from(self, pre: torch.Tensor) -> torch.Tensor:
-        return widen(dense(self.lin_out, ACTIVATIONS[self.activation](pre),
-                           self.compute_dtype))
+        return widen(row_parallel(self.lin_out, ACTIVATIONS[self.activation](pre),
+                                  self.tp, self.compute_dtype))
 
     def forward(self, enc: torch.Tensor, dec: torch.Tensor) -> torch.Tensor:
         he, hd = self.project_enc(enc), self.project_dec(dec)
@@ -354,6 +375,8 @@ class EspnetTransducer(nn.Module):
     ``label_cache``, ``joint_logits``, ``joint_logits_from`` and
     ``joint_params``), plus ``encoded_lengths`` (conv input layers shorten
     the encoder output)."""
+
+    tp = None     # the mesh once shard_model has narrowed it
 
     def __init__(self, vocab_size: int, enc_kwargs: dict, dec_kwargs: dict,
                  joint_space_size: int, joint_activation: str = "tanh",

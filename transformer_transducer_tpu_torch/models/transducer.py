@@ -22,6 +22,12 @@ at the JAX module's rounding points (``ops/precision.py``), and
 ``remat`` recomputes each encoder layer in the backward
 (``torch.utils.checkpoint``), as JAX's ``nn.remat``; the label encoder is
 not recomputed.
+
+Under tensor parallelism (``parallel/sharding.py::shard_model``) the joint's
+``forward_layer`` is column-parallel and ``project_layer`` row-parallel
+(``project_layer``'s bias added after the sum); a tied projection takes the
+replicated embedding through ``copy_to_model`` and then this rank's inner
+columns, so its gradient sums every rank's.
 """
 
 from __future__ import annotations
@@ -35,8 +41,10 @@ from torch.utils.checkpoint import checkpoint
 from transformer_transducer_tpu_torch.decoding import label_cache
 from transformer_transducer_tpu_torch.models.attention import TransformerXLLayer
 from transformer_transducer_tpu_torch.ops.masks import look_ahead_mask
-from transformer_transducer_tpu_torch.ops.precision import dense, to_compute, widen
+from transformer_transducer_tpu_torch.ops.precision import dense, widen
 from transformer_transducer_tpu_torch.ops.quant import QuantLinear, dense_kernel
+from transformer_transducer_tpu_torch.parallel.tensor import (
+    column_input, copy_to_model, row_parallel, row_product)
 from transformer_transducer_tpu_torch.utils.device import resolve_device
 
 
@@ -96,6 +104,8 @@ class JointNetwork(nn.Module):
     cast to float32; a tied projection is a bf16 product plus the float32
     bias."""
 
+    tp = None     # the mesh once shard_model has narrowed it
+
     def __init__(self, input_size: int, inner_dim: int, vocab_size: int,
                  tied: bool = False, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -115,9 +125,10 @@ class JointNetwork(nn.Module):
             t, u = enc_state.shape[1], dec_state.shape[1]
             enc_state = enc_state[:, :, None, :].expand(-1, -1, u, -1)
             dec_state = dec_state[:, None, :, :].expand(-1, t, -1, -1)
-        return self.logits_from(dense(self.forward_layer,
-                                      torch.cat([enc_state, dec_state], -1),
-                                      self.compute_dtype), tied_projection)
+        cat = column_input(torch.cat([enc_state, dec_state], -1), self.tp,
+                           self.compute_dtype)
+        return self.logits_from(dense(self.forward_layer, cat, self.compute_dtype),
+                                tied_projection)
 
     # forward_layer(cat(e, d)) == project_enc(e) + project_dec(d): a decoder
     # that holds one side fixed applies that side's half once.  An int8
@@ -174,8 +185,8 @@ class JointNetwork(nn.Module):
         cd = self.compute_dtype
         h = torch.tanh(pre)
         if tied_projection is not None:
-            return widen(h @ to_compute(tied_projection.t(), cd) + self.project_bias)
-        return widen(dense(self.project_layer, h, cd))
+            return widen(row_product(h, tied_projection.t(), self.tp, cd) + self.project_bias)
+        return widen(row_parallel(self.project_layer, h, self.tp, cd))
 
 
 class Transducer(nn.Module):
@@ -199,6 +210,7 @@ class Transducer(nn.Module):
 
     sos = 0                       # the history starts from blank
     joint_activation = "tanh"
+    tp = None                     # the mesh once shard_model has narrowed it
 
     def __init__(self, vocab_size: int, enc: Tuple[int, ...],
                  dec: Tuple[int, ...], joint_inner: int, dropout: float = 0.0,
@@ -297,13 +309,21 @@ class Transducer(nn.Module):
         w1 = dense_kernel(joint.forward_layer).t()              # (enc+dec, inner)
         d_enc = w1.shape[0] - self.decoder.dec_embedding.weight.shape[1]
         if self.share_embedding:
-            w2, b2 = self.decoder.dec_embedding.weight.t(), joint.project_bias
+            w2, b2 = self._tied_projection().t(), joint.project_bias
         else:
             w2, b2 = dense_kernel(joint.project_layer).t(), joint.project_layer.bias
         return w1[:d_enc], w1[d_enc:], joint.forward_layer.bias, w2, b2
 
     def _tied_projection(self) -> Optional[torch.Tensor]:
-        return self.decoder.dec_embedding.weight if self.share_embedding else None
+        """The tied output weight (V, inner): the label embedding, under
+        tensor parallelism this rank's inner columns of it."""
+        if not self.share_embedding:
+            return None
+        emb = self.decoder.dec_embedding.weight
+        if self.tp is None:
+            return emb
+        inner = self.joint.forward_layer.weight.shape[0]
+        return copy_to_model(emb, self.tp).narrow(1, self.tp.model_rank * inner, inner)
 
 
 def build_transducer(model_cfg, flash: bool = False, device=None,

@@ -24,6 +24,7 @@ from transformer_transducer_tpu_torch.ops.cuda.rnnt_kernel import (
     NEG, alpha_scan, beta_scan)
 from transformer_transducer_tpu_torch.ops.activations import ACTIVATIONS
 from transformer_transducer_tpu_torch.ops.precision import to_compute, widen
+from transformer_transducer_tpu_torch.parallel.tensor import copy_to_model, reduce_from_model
 
 
 def _skew(lp: torch.Tensor) -> torch.Tensor:
@@ -200,7 +201,7 @@ def fused_grid_logprobs(enc: torch.Tensor, dec: torch.Tensor, jp,
                         labels: torch.Tensor, blank: int = 0,
                         chunk_size: int = 32, remat: bool = True,
                         activation: str = "tanh",
-                        compute_dtype: torch.dtype = torch.float32
+                        compute_dtype: torch.dtype = torch.float32, tp=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Blank/label log-prob grids straight from encoder / label-encoder
     states, T-chunk by T-chunk; with ``remat`` each chunk is recomputed in
@@ -213,19 +214,27 @@ def fused_grid_logprobs(enc: torch.Tensor, dec: torch.Tensor, jp,
     bf16, and the float32 ``b1`` and decoder half promote the sum to
     float32, so the activation and the output product run in float32, the
     latter over bf16-rounded ``w_out`` (cast inside each chunk, as JAX casts
-    it in its chunk function)."""
+    it in its chunk function).
+
+    ``tp``: the mesh of a tensor-parallel joint (``joint_params`` of a
+    sharded model: this rank's inner columns of ``w_enc``, ``w_dec`` and
+    ``b1``, its rows of ``w_out``).  The states go in through
+    ``copy_to_model`` and each chunk's partial logits are summed over the
+    model group before ``b_out`` and the logsumexp, in the forward and in
+    its recompute, as GSPMD sums them."""
     act = ACTIVATIONS[activation]
     cd = compute_dtype
     w_enc, w_dec, b1, w_out, b_out = jp
     b, t, _ = enc.shape
     u1 = dec.shape[1]
     labels_pad = _pad_labels(labels, u1, blank)
+    enc, dec = copy_to_model(enc, tp), copy_to_model(dec, tp)
     dec_proj = to_compute(dec, cd) @ to_compute(w_dec, cd) + b1     # (B, U1, inner)
 
     def chunk_fn(enc_chunk, dec_proj, w_enc, w_out, b_out):
         h = act((to_compute(enc_chunk, cd) @ to_compute(w_enc, cd))[:, :, None, :]
                 + dec_proj[:, None, :, :])
-        logits = h @ widen(to_compute(w_out, cd)) + b_out             # (B, C, U1, V)
+        logits = reduce_from_model(h @ widen(to_compute(w_out, cd)), tp) + b_out  # (B, C, U1, V)
         lse = torch.logsumexp(logits, dim=-1)
         idx = labels_pad[:, None, :, None].expand(-1, enc_chunk.shape[1], -1, -1)
         return (logits[..., blank] - lse,
@@ -245,10 +254,11 @@ def rnnt_loss_fused(enc: torch.Tensor, dec: torch.Tensor, jp,
                     labels: torch.Tensor, t_len, u_len, blank: int = 0,
                     chunk_size: int = 32, reduction: str = "mean",
                     remat: bool = True, activation: str = "tanh",
-                    compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                    compute_dtype: torch.dtype = torch.float32, tp=None) -> torch.Tensor:
     """End-to-end training loss from encoder/label-encoder states: the joint
     fused into the loss (no (B,T,U,V) tensor) and the lattice on the grids
-    (float32 grids under any ``compute_dtype``)."""
+    (float32 grids under any ``compute_dtype``; ``tp``: see
+    :func:`fused_grid_logprobs`)."""
     lp_b, lp_l = fused_grid_logprobs(enc, dec, jp, labels, blank, chunk_size,
-                                     remat, activation, compute_dtype)
+                                     remat, activation, compute_dtype, tp)
     return _reduce(rnnt_loss_grid(lp_b, lp_l, t_len, u_len), reduction)

@@ -35,6 +35,8 @@ from torch.utils.checkpoint import checkpoint
 
 from transformer_transducer_tpu_torch.ops.activations import ACTIVATIONS
 from transformer_transducer_tpu_torch.ops.precision import to_compute, widen
+from transformer_transducer_tpu_torch.parallel.tensor import (
+    copy_to_model, reduce_from_model, row_product)
 from transformer_transducer_tpu_torch.ops.cuda.band_kernel import (
     band_alpha, band_beta)
 from transformer_transducer_tpu_torch.ops.cuda.logz_kernel import additive_logz
@@ -50,18 +52,22 @@ from transformer_transducer_tpu_torch.ops.rnnt_loss import (
 
 def simple_grid_logprobs(enc: torch.Tensor, dec: torch.Tensor, jp,
                          labels: torch.Tensor, blank: int = 0,
-                         compute_dtype: torch.dtype = torch.float32
+                         compute_dtype: torch.dtype = torch.float32, tp=None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Blank/label log-prob grids (each (B, T, U+1)) of the linearized joint
     ``A[t] + L[u]`` (no activation).  Under bf16, JAX's promotion: A is a
     bf16 chain cast to float32; the float32 ``b1`` promotes L to a float32
-    product over bf16-rounded ``w_out``.  The logZ takes float32 grids."""
+    product over bf16-rounded ``w_out``.  The logZ takes float32 grids.
+    ``tp``: a tensor-parallel joint's mesh: both grids' products by
+    ``w_out`` are summed over the model group before ``b_out``, so the
+    logZ runs on whole, replicated grids."""
     w_enc, w_dec, b1, w_out, b_out = jp
     cd = compute_dtype
-    a_grid = widen((to_compute(enc, cd) @ to_compute(w_enc, cd))
-                   @ to_compute(w_out, cd))                             # (B, T, V)
-    l_grid = ((to_compute(dec, cd) @ to_compute(w_dec, cd) + b1)
-              @ widen(to_compute(w_out, cd)) + b_out)                   # (B, U1, V)
+    enc, dec = copy_to_model(enc, tp), copy_to_model(dec, tp)
+    a_grid = widen(row_product(to_compute(enc, cd) @ to_compute(w_enc, cd), w_out,
+                               tp, cd))                                 # (B, T, V)
+    l_grid = reduce_from_model((to_compute(dec, cd) @ to_compute(w_dec, cd) + b1)
+                               @ widen(to_compute(w_out, cd)), tp) + b_out  # (B, U1, V)
     b, t, _ = a_grid.shape
     u1 = dec.shape[1]
     labels_pad = _pad_labels(labels, u1, blank)
@@ -156,13 +162,13 @@ def banded_grid_logprobs(enc: torch.Tensor, dec: torch.Tensor, jp,
                          u_len: torch.Tensor, s_range: int, blank: int = 0,
                          chunk_size: int = 32, remat: bool = True,
                          activation: str = "tanh",
-                         compute_dtype: torch.dtype = torch.float32
+                         compute_dtype: torch.dtype = torch.float32, tp=None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Blank/label log-prob grids on the band only (each (B, T, s_range)):
     cell (t, s) is lattice cell (t, rs[t] + s).  The real joint, with its
     activation, T-chunk by T-chunk; with ``remat`` each chunk is recomputed
-    in the backward (``torch.utils.checkpoint``).  ``compute_dtype``: the
-    casts of ``ops/rnnt_loss.py::fused_grid_logprobs``."""
+    in the backward (``torch.utils.checkpoint``).  ``compute_dtype`` and
+    ``tp``: as in ``ops/rnnt_loss.py::fused_grid_logprobs``."""
     w_enc, w_dec, b1, w_out, b_out = jp
     cd = compute_dtype
     b, t, _ = enc.shape
@@ -171,6 +177,7 @@ def banded_grid_logprobs(enc: torch.Tensor, dec: torch.Tensor, jp,
     labels_pad = _pad_labels(labels, u1, blank)
     u_len = torch.as_tensor(u_len, device=dev).long()
     rs = torch.as_tensor(rs, device=dev).long()
+    enc, dec = copy_to_model(enc, tp), copy_to_model(dec, tp)
     dec_proj = to_compute(dec, cd) @ to_compute(w_dec, cd) + b1     # (B, U1, inner)
     act = ACTIVATIONS[activation]
     bi = torch.arange(b, device=dev)[:, None, None]
@@ -181,7 +188,7 @@ def banded_grid_logprobs(enc: torch.Tensor, dec: torch.Tensor, jp,
         uidx_c = torch.clamp(uidx, max=u1 - 1)
         h = act((to_compute(enc_chunk, cd) @ to_compute(w_enc, cd))[:, :, None, :]
                 + dec_proj[bi, uidx_c])
-        logits = h @ widen(to_compute(w_out, cd)) + b_out             # (B, C, S, V)
+        logits = reduce_from_model(h @ widen(to_compute(w_out, cd)), tp) + b_out  # (B, C, S, V)
         lse = torch.logsumexp(logits, dim=-1)
         lp_b = logits[..., blank] - lse
         lab = labels_pad[bi, uidx_c]
@@ -319,7 +326,7 @@ def rnnt_loss_pruned(enc: torch.Tensor, dec: torch.Tensor, jp, labels: torch.Ten
                      chunk_size: int = 32, reduction: str = "mean",
                      remat: bool = True, activation: str = "tanh",
                      simple_scale: float = 0.0,
-                     compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                     compute_dtype: torch.dtype = torch.float32, tp=None) -> torch.Tensor:
     """Training loss with the joint evaluated only on the pruned band.
 
     ``simple_scale > 0`` adds that multiple of the linearized-joint NLL
@@ -328,18 +335,20 @@ def rnnt_loss_pruned(enc: torch.Tensor, dec: torch.Tensor, jp, labels: torch.Ten
     the logZ backward and the saved occupancies.  With 0 the simple pipeline
     runs without autograd: the bounds are its only consumer.
     ``compute_dtype``: bf16 joint products with JAX's promotion (see the
-    stage functions); every kernel gets float32."""
+    stage functions); every kernel gets float32.  ``tp``: a tensor-parallel
+    joint's mesh (the stage functions'): kernels 3-5 run on whole,
+    replicated grids."""
     dev = enc.device
     t_len = torch.clamp(torch.as_tensor(t_len, device=dev).long(), max=enc.shape[1])
     u_len = torch.clamp(torch.as_tensor(u_len, device=dev).long(),
                         max=dec.shape[1] - 1)
     with torch.set_grad_enabled(bool(simple_scale) and torch.is_grad_enabled()):
-        sp_b, sp_l = simple_grid_logprobs(enc, dec, jp, labels, blank, compute_dtype)
+        sp_b, sp_l = simple_grid_logprobs(enc, dec, jp, labels, blank, compute_dtype, tp)
         simple_losses, occ = simple_loss_and_occ(sp_b, sp_l, t_len, u_len)
     rs = bounds_from_occ(occ, t_len, u_len, s_range)
     lp_b, lp_l = banded_grid_logprobs(enc, dec, jp, labels, rs, u_len, s_range,
                                       blank, chunk_size, remat, activation,
-                                      compute_dtype)
+                                      compute_dtype, tp)
     losses = rnnt_loss_banded(lp_b, lp_l, rs, t_len, u_len)
     if simple_scale:
         losses = losses + simple_scale * simple_losses

@@ -1,14 +1,21 @@
-"""The data axis on ``torch.distributed`` (port of ``parallel/mesh.py``).
+"""The data and model axes on ``torch.distributed`` (port of
+``parallel/mesh.py``).
 
 The JAX package runs one process over an N-device mesh and lets XLA emit
 the collectives.  The port runs N processes, as ``torchrun`` launches them
 (one a card, or several on one card through gloo), and names the
 collectives itself: the gradients' mean (``training/train_step.py``), the
-ZeRO-1 gather (``training/optim.py``) and the evaluation's rows.  With no
-process group the world size is 1 and no collective is called.
+ZeRO-1 gather (``training/optim.py``), the evaluation's rows, and the
+tensor-parallel sums (``parallel/tensor.py``).  With no process group the
+world size is 1 and no collective is called.
 
-Axes: ``data`` (the batch) is ported; ``model``, ``pipe`` and ``seq``
-(tensor, pipeline and sequence parallelism) come in later slices and
+The ranks form JAX's ``(data, model)`` grid: ``np.asarray(devices)
+.reshape(n_data, n_model)`` puts ``model`` minor, so world rank ``r`` sits
+at data index ``r // n_model`` and model index ``r % n_model``.  The ranks
+of one data index form a model group: they hold the shards of one replica
+and take the same rows.  The ranks of one model index form a data group:
+they hold the same shards and average their gradients.  The ``pipe`` and
+``seq`` axes (pipeline and sequence parallelism) come in later slices and
 raise here.
 """
 
@@ -77,62 +84,103 @@ def local_device(device=None) -> Optional[str]:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The data axis: ``n_data`` ranks of the default group (the first
-    ``n_data``), this process's ``rank`` on it and their ``group`` (None:
-    the default group).  A rank at or past ``n_data`` is left unused, as
-    JAX leaves a pool's remainder devices."""
+    """This process's place on the ``(data, model)`` grid: its indices on
+    both axes and its two groups (None: the default group, when one axis
+    spans the whole world, or no group at all).  A rank past the grid
+    (``data_rank >= n_data``) is left unused, as JAX leaves a pool's
+    remainder devices."""
 
     n_data: int = 1
-    rank: int = 0
-    group: Any = None
+    data_rank: int = 0
+    data_group: Any = None
+    n_model: int = 1
+    model_rank: int = 0
+    model_group: Any = None
+
+    def __deepcopy__(self, memo):
+        return self          # immutable; a copied model shares the groups
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {DATA_AXIS: self.n_data, MODEL_AXIS: 1}
+        return {DATA_AXIS: self.n_data, MODEL_AXIS: self.n_model}
 
     @property
     def active(self) -> bool:
-        return self.rank < self.n_data
+        return self.data_rank < self.n_data
+
+    @property
+    def is_main(self) -> bool:
+        """The grid's first rank, which writes logs and checkpoints."""
+        return self.data_rank == 0 and self.model_rank == 0
 
     @property
     def parallel(self) -> bool:
-        """Whether collectives run (more than one rank on the data axis)."""
+        """Whether the data axis's collectives run (more than one data
+        rank)."""
         return self.n_data > 1
+
+    @property
+    def tensor_parallel(self) -> bool:
+        """Whether the model axis's collectives run (more than one model
+        rank)."""
+        return self.n_model > 1
 
 
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1, *,
               n_pipe: int = 1, n_seq: int = 1) -> Mesh:
-    """The data axis over the default group's ranks.
+    """The ``(data, model)`` grid over the default group's ranks.
 
-    ``n_data`` defaults to the world size; an oversized request shrinks to
-    the largest fit with JAX's warning (the remainder ranks unused).
-    ``n_model``, ``n_pipe`` and ``n_seq`` above 1 raise: their paths come
-    in later slices."""
-    for n, what in ((n_model, "tensor parallelism (n_model)"),
-                    (n_pipe, "pipeline parallelism (n_pipe)"),
+    ``n_model`` is never shrunk (it sets the parameters' layout): a world
+    smaller than it raises JAX's ``ValueError``.  ``n_data`` defaults to
+    the world over ``n_model``; an oversized request shrinks to the largest
+    fit with JAX's warning (the remainder ranks unused).  ``n_pipe`` and
+    ``n_seq`` above 1 raise: their paths come in later slices.  Every rank
+    makes every group, in the same order (``new_group`` is collective):
+    one model group a data index, then one data group a model index."""
+    for n, what in ((n_pipe, "pipeline parallelism (n_pipe)"),
                     (n_seq, "sequence parallelism (n_seq)")):
         if (n or 1) > 1:
             raise later(what)
+    n_model = int(n_model or 1)
     world = world_size()
+    if world < n_model:
+        raise ValueError(f"model x pipe x seq axes need {n_model} devices, "
+                         f"have {world}")
+    fit = world // n_model
     if n_data is None:
-        n_data = world
-    elif n_data > world:
+        n_data = fit
+    elif n_data * n_model > world:
         _log.warning("mesh %dx%d needs %d devices, have %d; shrinking the "
                      "data axis to %d (%d device(s) left unused)",
-                     n_data, 1, n_data, world, world, 0)
-        n_data = world
+                     n_data, n_model, n_data * n_model, world, fit,
+                     world - fit * n_model)
+        n_data = fit
+    n_data = int(n_data)
     rank = world_rank()
-    group = None
-    if 1 < n_data < world:
-        # every rank takes part in making a group, members or not
-        group = dist.new_group(list(range(n_data)))
-    return Mesh(n_data=int(n_data), rank=rank, group=group)
+    data_rank, model_rank = divmod(rank, n_model)
+    grid = np.arange(n_data * n_model).reshape(n_data, n_model)
+    model_group = data_group = None
+    if n_model > 1:
+        for d in range(n_data):
+            group = dist.new_group(grid[d].tolist())
+            if d == data_rank:
+                model_group = group
+    # the data axis spans the default group only with no model axis and no
+    # rank left over
+    if n_data > 1 and (n_model > 1 or n_data < world):
+        for m in range(n_model):
+            group = dist.new_group(grid[:, m].tolist())
+            if m == model_rank and data_rank < n_data:
+                data_group = group
+    return Mesh(n_data=n_data, data_rank=data_rank, data_group=data_group,
+                n_model=n_model, model_rank=model_rank, model_group=model_group)
 
 
 def shard_batch(batch: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
     """This rank's rows of a global batch (numpy arrays or tensors with a
-    leading batch axis): rank r keeps ``r*B/n : (r+1)*B/n``, the rows that
-    ``P('data')`` gives device r in JAX."""
+    leading batch axis): data index r keeps ``r*B/n : (r+1)*B/n``, the rows
+    that ``P('data')`` gives JAX's devices of data index r; the ranks of a
+    model group take the same rows."""
     if not mesh.parallel:
         return batch
     out = {}
@@ -142,17 +190,17 @@ def shard_batch(batch: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
             raise ValueError(f"{key}: {size} rows do not divide over "
                              f"{mesh.n_data} data ranks")
         part = size // mesh.n_data
-        out[key] = value[mesh.rank * part:(mesh.rank + 1) * part]
+        out[key] = value[mesh.data_rank * part:(mesh.data_rank + 1) * part]
     return out
 
 
 def all_reduce_mean_(tensors: Sequence[torch.Tensor], mesh: Mesh) -> None:
-    """Average ``tensors`` over the data ranks in place, in one all-reduce
+    """Average ``tensors`` over the data group in place, in one all-reduce
     of their concatenation (sum, then divide by n)."""
     if not mesh.parallel or not tensors:
         return
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
-    dist.all_reduce(flat, group=mesh.group)
+    dist.all_reduce(flat, group=mesh.data_group)
     flat /= mesh.n_data
     offset = 0
     for t in tensors:
@@ -162,16 +210,17 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor], mesh: Mesh) -> None:
 
 
 def gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The global batch's rows of a per-rank ``x`` (rank r's rows at
-    ``r*b : (r+1)*b``), on every rank: an all-reduce of zero-padded rows,
+    """The global batch's rows of a per-rank ``x`` (data index r's rows at
+    ``r*b : (r+1)*b``), on every rank of the data group: an all-reduce of
+    zero-padded rows,
     which gloo also runs on CUDA tensors.  Exact (each sum adds zeros),
     but for the sign of a zero."""
     if not mesh.parallel:
         return x
     b = x.shape[0]
     full = x.new_zeros((b * mesh.n_data, *x.shape[1:]))
-    full[mesh.rank * b:(mesh.rank + 1) * b] = x
-    dist.all_reduce(full, group=mesh.group)
+    full[mesh.data_rank * b:(mesh.data_rank + 1) * b] = x
+    dist.all_reduce(full, group=mesh.data_group)
     return full
 
 

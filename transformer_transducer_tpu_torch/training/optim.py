@@ -34,6 +34,14 @@ of ``grad_accum_steps`` stays whole.  ``state_dict`` gathers the moments,
 so a checkpoint has the single-process format, and ``load_state_dict``
 takes a whole state and keeps this rank's slices: ``-mode continue`` works
 at any world size.
+
+Tensor parallelism (``tp=(mesh, slices)`` from
+``parallel/sharding.py::tp_slices``): the parameters are this model rank's
+slices, and so are their moments (ZeRO-1's data slices are taken of them).
+The global norm, of the clip and of the metrics, is the whole model's: the
+squares of the sharded leaves summed over the model group, the replicated
+leaves' counted once.  ``state_dict`` gathers the moments over the data
+group and then over the model group, so a checkpoint holds them whole.
 """
 
 from __future__ import annotations
@@ -46,13 +54,25 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from transformer_transducer_tpu_torch.parallel.sharding import whole_leaf
+
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.98, 1e-8
 GATHER_BUCKET = 1 << 23     # elements a ZeRO-1 gather sums at once (32 MiB)
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (optax ``global_norm``)."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
+def global_norm(tensors: Sequence[torch.Tensor], tp: Optional[Tuple] = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax ``global_norm``);
+    with ``tp=(mesh, slices)`` the whole model's, from this model rank's
+    slices (a collective over the model group)."""
+    norms = torch.stack(torch._foreach_norm(list(tensors)))
+    if tp is None:
+        return torch.linalg.vector_norm(norms)
+    mesh, slices = tp
+    split = torch.tensor([s is not None for s in slices], device=norms.device)
+    squares = norms.square()
+    total = torch.where(split, squares, torch.zeros_like(squares)).sum()
+    dist.all_reduce(total, group=mesh.model_group)
+    return (total + torch.where(split, torch.zeros_like(squares), squares).sum()).sqrt()
 
 
 class Optimizer:
@@ -63,7 +83,8 @@ class Optimizer:
                  weight_decay: float = 0.0, rho: float = 0.9, eps: float = 1e-6,
                  max_grad_norm: Optional[float] = None,
                  schedule: Optional[Callable[[int], float]] = None,
-                 grad_accum_steps: int = 1, zero: Optional[Tuple] = None):
+                 grad_accum_steps: int = 1, zero: Optional[Tuple] = None,
+                 tp: Optional[Tuple] = None):
         if kind not in ("sgd", "adam", "adadelta"):
             raise NotImplementedError(f"optimizer type {kind!r}")
         self.params = list(params)
@@ -80,6 +101,8 @@ class Optimizer:
         self.last_lr = schedule(0) if schedule else self.lr
         # ZeRO-1: (mesh, this rank's slice of each parameter or None)
         self.mesh, self.slices = zero or (None, [None] * len(self.params))
+        # tensor parallelism: (mesh, each parameter's model slice or None)
+        self.tp = tp
         zeros = lambda: [torch.zeros_like(self._mine(p, s))
                          for p, s in zip(self.params, self.slices)]
         self.state: Dict[str, List[torch.Tensor]] = {}
@@ -135,7 +158,7 @@ class Optimizer:
         self._update(grads)
 
     def _update(self, grads: List[torch.Tensor]) -> None:
-        norm = global_norm(grads) if self.max_grad_norm else None
+        norm = global_norm(grads, self.tp) if self.max_grad_norm else None
         # ZeRO-1: from here on this rank's slices (views of the parameters);
         # the clip's norm is the whole gradient's, its scaling the slices'
         params = [self._mine(p, s) for p, s in zip(self.params, self.slices)]
@@ -203,20 +226,25 @@ class Optimizer:
                 wholes.append(flat[offset:offset + size].view_as(self.params[i]))
                 self.slices[i].of(wholes[-1]).copy_(parts[i])
                 offset += size
-            dist.all_reduce(flat, group=self.mesh.group)
+            dist.all_reduce(flat, group=self.mesh.data_group)
             yield from zip(bucket, wholes)
 
     # -- checkpoints
     @torch.no_grad()
     def state_dict(self) -> dict:
-        """The state in the single-process format: under ZeRO-1 the moments
-        gathered whole (a collective: every data rank calls it)."""
+        """The state in the single-process format: under ZeRO-1 and tensor
+        parallelism the moments gathered whole (a collective: every rank
+        calls it)."""
         state = {}
         for key, tensors in self.state.items():
             state[key] = [t.clone() for t in tensors]
             if self.zero and key != "acc":
                 for i, whole in self._gather(tensors):
                     state[key][i] = whole.clone()
+            if self.tp is not None:
+                mesh, pieces = self.tp
+                state[key] = [t if piece is None else whole_leaf(t, piece, mesh)
+                              for t, piece in zip(state[key], pieces)]
         return {"kind": self.kind, "count": self.count,
                 "mini_step": self.mini_step, "lr": self.lr,
                 "last_lr": self.last_lr, "state": state}
@@ -228,10 +256,12 @@ class Optimizer:
                              f"with {sorted(self.state)}")
         self.count, self.mini_step = int(sd["count"]), int(sd["mini_step"])
         self.lr, self.last_lr = float(sd["lr"]), float(sd["last_lr"])
+        model_pieces = self.tp[1] if self.tp is not None else [None] * len(self.params)
         for key, tensors in sd["state"].items():
             slices = self.slices if key != "acc" else [None] * len(tensors)
-            for dst, src, piece in zip(self.state[key], tensors, slices, strict=True):
-                dst.copy_(self._mine(src.to(dst.device), piece))
+            for dst, src, piece, mp in zip(self.state[key], tensors, slices, model_pieces,
+                                           strict=True):
+                dst.copy_(self._mine(self._mine(src.to(dst.device), mp), piece))
 
 
 def step_decay_lr(step: int, warmup_steps: float = 4e3, hold_steps: float = 3e4,
@@ -250,9 +280,11 @@ def step_decay_lr(step: int, warmup_steps: float = 4e3, hold_steps: float = 3e4,
 
 def build_optimizer(config, params: Sequence[torch.Tensor],
                     max_grad_norm: Optional[float] = None,
-                    grad_accum_steps: int = 1, zero: Optional[Tuple] = None) -> Optimizer:
+                    grad_accum_steps: int = 1, zero: Optional[Tuple] = None,
+                    tp: Optional[Tuple] = None) -> Optimizer:
     """sgd/adam/adadelta from a reference-schema ``optim:`` block
-    (``zero``: ZeRO-1's ``(mesh, slices)``, see :class:`Optimizer`).
+    (``zero``: ZeRO-1's ``(mesh, slices)``, ``tp``: tensor parallelism's;
+    see :class:`Optimizer`).
 
     ``schedule: step_decay`` selects :func:`step_decay_lr` per update, with
     ``lr`` as its ``max_lr`` (knobs ``warmup_steps``, ``hold_steps``,
@@ -274,7 +306,7 @@ def build_optimizer(config, params: Sequence[torch.Tensor],
                      weight_decay=config.weight_decay or 0.0,
                      rho=config.rho or 0.9, eps=config.eps or 1e-6,
                      max_grad_norm=max_grad_norm, schedule=schedule,
-                     grad_accum_steps=grad_accum_steps, zero=zero)
+                     grad_accum_steps=grad_accum_steps, zero=zero, tp=tp)
 
 
 @dataclasses.dataclass

@@ -19,6 +19,14 @@ the same decision and the same update.  The loss is mean-reduced over
 equal shards, so the mean of the ranks' losses is the global batch's.
 SpecAugment draws one stripe set a batch from the step's generator, which
 every rank seeds alike: the stripes are the single-process run's.
+
+Tensor parallelism (a model that ``parallel/sharding.py::shard_model``
+narrowed, ``model.tp``): the loss runs the joint's collectives over the
+model group, the mean above runs over the data group (each rank averages
+its own shards), the global norm is the whole model's
+(``training/optim.py::global_norm``) and the nan guard's decision is the
+model group's, after the data mean: a non-finite value on any rank of the
+grid makes every rank skip.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from transformer_transducer_tpu_torch.ops.features import extract_batch_padded
 from transformer_transducer_tpu_torch.ops.rnnt_loss import rnnt_loss_fused
@@ -35,6 +44,7 @@ from transformer_transducer_tpu_torch.ops.rnnt_loss_pruned import rnnt_loss_prun
 from transformer_transducer_tpu_torch.ops.specaug import spec_augment
 from transformer_transducer_tpu_torch.parallel.mesh import (
     Mesh, all_reduce_mean_, gather_rows, shard_batch)
+from transformer_transducer_tpu_torch.parallel.tensor import tensor_parallel
 from transformer_transducer_tpu_torch.training.optim import Optimizer, global_norm
 
 
@@ -114,7 +124,7 @@ def make_loss_fn(model, cfg: TrainStepConfig, reduction: str = "mean") -> Callab
         kw = dict(chunk_size=cfg.loss_chunk_size, reduction=reduction,
                   remat=cfg.loss_remat and torch.is_grad_enabled(),
                   activation=model.joint_activation,
-                  compute_dtype=model.compute_dtype)
+                  compute_dtype=model.compute_dtype, tp=model.tp)
         if cfg.loss_pruned_range:
             return rnnt_loss_pruned(*args, s_range=int(cfg.loss_pruned_range),
                                     simple_scale=cfg.loss_simple_scale, **kw)
@@ -145,10 +155,13 @@ def make_train_step(model, optimizer: Optimizer,
         if parallel:
             loss = loss.detach().clone()
             all_reduce_mean_([*grads, loss], mesh)
-        grad_norm = global_norm(grads)
+        grad_norm = global_norm(grads, optimizer.tp)
         metrics = {"loss": loss.detach(), "grad_norm": grad_norm}
         if cfg.nan_guard:
-            ok = bool(torch.isfinite(loss) & torch.isfinite(grad_norm))
+            bad = (~(torch.isfinite(loss) & torch.isfinite(grad_norm))).float()
+            if tensor_parallel(model.tp):
+                dist.all_reduce(bad, op=dist.ReduceOp.MAX, group=model.tp.model_group)
+            ok = not bool(bad)
             metrics["skipped"] = int(not ok)
             if not ok:
                 return metrics

@@ -51,13 +51,27 @@ Rank 0 alone writes the log file, the metrics, the decode dumps and the
 checkpoints, which hold the moments whole (gathered by every rank), so a
 run continues at any world size.  The evaluation runs over the ranks on
 batches padded to ``data.batch_size`` (the padding rows dropped), so its
-loss and CER are the single-process run's.  The JAX package's tensor,
+loss and CER are the single-process run's.
+
+Tensor parallelism (``n_model``, JAX's ``model`` axis): the world is a
+``(data, model)`` grid (``parallel/mesh.py``); each model group holds one
+replica, narrowed by ``parallel/sharding.py::shard_model`` after the whole
+weights are built (and loaded: a checkpoint is read whole and narrowed).
+``n_data`` then defaults to the largest divisor of the batch that is at
+most the world over ``n_model``.  Dropout and SpecAugment are seeded by the
+data index, so the ranks of a model group draw the same masks on their
+replicated activations.  Checkpoints hold the whole model and moments
+(gathered by every rank), so a tensor-parallel run continues in one process
+and the other way round.  The evaluation's loss runs sharded; its greedy
+decoding runs on a gathered copy of the weights, made once an evaluation
+(JAX decodes sharded; the CER is the same function).  The JAX package's
 pipeline and sequence parallelism come in later slices and raise
 ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import os
 import time
@@ -72,7 +86,9 @@ from transformer_transducer_tpu_torch.decoding.greedy import greedy_decode, toke
 from transformer_transducer_tpu_torch.models.espnet_variant import EspnetTransducer
 from transformer_transducer_tpu_torch.models.factory import build_family
 from transformer_transducer_tpu_torch.parallel import mesh as mesh_lib
-from transformer_transducer_tpu_torch.parallel.sharding import zero_param_shardings
+from transformer_transducer_tpu_torch.parallel.sharding import (
+    gather_model, gathered_state_dict, narrow_state_dict, shard_model, tp_plan,
+    zero_param_shardings)
 from transformer_transducer_tpu_torch.training import optim as optim_lib
 from transformer_transducer_tpu_torch.training.train_step import (
     TrainStepConfig, batch_to_device, featurize, make_eval_loss_step,
@@ -91,7 +107,8 @@ class Trainer:
                  log_file: str = "train.log", exp_root: str = "egs",
                  flash: bool = False, banded: bool = False, device=None,
                  compute_dtype: torch.dtype = torch.float32, remat: bool = False,
-                 n_data: Optional[int] = None, zero: Optional[bool] = None):
+                 n_data: Optional[int] = None, zero: Optional[bool] = None,
+                 n_model: int = 1):
         self.device = resolve_device(mesh_lib.local_device(device))
         pcfg = config.parallel or Config()
         if (pcfg.n_pipe or 1) > 1 or (pcfg.n_seq or 1) > 1:
@@ -101,14 +118,16 @@ class Trainer:
         # split over the data ranks
         self.zero = bool(zero if zero is not None else pcfg.zero)
         batch = config.data.batch_size or 1
+        n_model = int(n_model or 1)
         if n_data is None:
             # the largest data axis that divides the batch (JAX's default)
-            n_data = max(d for d in range(1, mesh_lib.world_size() + 1) if batch % d == 0)
-        self.mesh = mesh_lib.make_mesh(n_data=n_data)
+            avail = max(mesh_lib.world_size() // n_model, 1)
+            n_data = max(d for d in range(1, avail + 1) if batch % d == 0)
+        self.mesh = mesh_lib.make_mesh(n_data=n_data, n_model=n_model)
         if batch % self.mesh.n_data:
             raise ValueError(f"data.batch_size={batch} must divide over "
                              f"{self.mesh.n_data} data ranks")
-        self.is_main = self.mesh.rank == 0
+        self.is_main = self.mesh.is_main
         self.config = config
         self.mode = mode
         self.exp_dir = os.path.join(exp_root, config.data.name or "exp",
@@ -123,7 +142,7 @@ class Trainer:
         self.metrics = (MetricsWriter(self.exp_dir)
                         if config.training.visualization and self.is_main else None)
         self.logger.info("Mesh: %s, ZeRO-1 %s, rank %d", self.mesh.shape,
-                         "on" if self.zero else "off", self.mesh.rank)
+                         "on" if self.zero else "off", mesh_lib.world_rank())
 
         self.vocab = Vocabulary.from_file(config.data.vocab)
         self.logger.info("Loaded vocabulary: %d units", len(self.vocab))
@@ -150,6 +169,11 @@ class Trainer:
         n_dec = sum(p.numel() for p in self.model.decoder.parameters())
         self.logger.info("# parameters: total %d | encoder %d | decoder %d | "
                          "joint %d", n_total, n_enc, n_dec, n_total - n_enc - n_dec)
+        if self.mesh.active:
+            # the whole weights built alike on every rank (one seed), then
+            # this model rank's slices (none with one model rank); a
+            # checkpoint is read whole and narrowed
+            shard_model(self.model, self.mesh)
 
         # training.grad_accum_steps: the mean of K batches' gradients per
         # update (optax MultiSteps).  global_step (and --save-steps and the
@@ -162,7 +186,7 @@ class Trainer:
         self.optimizer = optim_lib.build_optimizer(
             config.optim, list(self.model.parameters()),
             max_grad_norm=config.training.max_grad_norm, grad_accum_steps=ga,
-            zero=zero_plan)
+            zero=zero_plan, tp=tp_plan(self.model))
         if ga > 1:
             self.logger.info("Gradient accumulation: %d batches per update", ga)
         self.lr_ctl = optim_lib.LRController(
@@ -175,10 +199,11 @@ class Trainer:
         self._resume_batches = 0
         self._maybe_load()
         if self.mesh.parallel and self.mesh.active:
-            # the replicas start from rank 0's weights
+            # the replicas start from data index 0's weights (its rank in
+            # this model index's data group: world rank model_rank)
             with torch.no_grad():
                 for p in self.model.parameters():
-                    dist.broadcast(p, src=0, group=self.mesh.group)
+                    dist.broadcast(p, src=self.mesh.model_rank, group=self.mesh.data_group)
 
         tcfg = config.training
         # data.on_device_features: the loaders ship raw padded waves and the
@@ -220,10 +245,12 @@ class Trainer:
         return state
 
     def _spread_dropout(self, seed: int) -> None:
-        # dropout differs from rank to rank: rank r > 0 reseeds the torch
-        # and CUDA generators with seed + r; rank 0 draws as one process
-        if self.mesh.rank:
-            torch.manual_seed(seed + self.mesh.rank)
+        # dropout differs from data rank to data rank: data index r > 0
+        # reseeds the torch and CUDA generators with seed + r; index 0 draws
+        # as one process.  The ranks of a model group draw alike, so their
+        # replicated activations stay equal.
+        if self.mesh.data_rank:
+            torch.manual_seed(seed + self.mesh.data_rank)
 
     def _set_rng_state(self, state) -> None:
         # generator states are CPU byte tensors, wherever the checkpoint
@@ -232,14 +259,19 @@ class Trainer:
         torch.set_rng_state(state["torch"].cpu())
         if "cuda" in state and self.device.type == "cuda":
             torch.cuda.set_rng_state(state["cuda"].cpu(), self.device)
-        # the state is rank 0's: the other ranks spread again, from a seed
-        # that moves on with the step (seed + step * world + rank)
+        # the state is rank 0's: the other data ranks spread again, from a
+        # seed that moves on with the step (seed + step * n_data + data rank)
         self._spread_dropout((self.config.training.seed or 1)
-                             + self.global_step * mesh_lib.world_size())
+                             + self.global_step * self.mesh.n_data)
+
+    def _load_component(self, comp: str, state) -> None:
+        """A whole component's ``state``, narrowed to a sharded model."""
+        getattr(self.model, comp).load_state_dict(
+            narrow_state_dict(self.model, state, comp + "."))
 
     def _load_components(self, state, comps) -> None:
         for comp in comps:
-            getattr(self.model, comp).load_state_dict(state[comp])
+            self._load_component(comp, state[comp])
 
     def _maybe_load(self):
         tcfg = self.config.training
@@ -278,11 +310,11 @@ class Trainer:
             self.logger.info("Loaded model from %s", tcfg.load_model)
         else:
             if tcfg.load_encoder:
-                self.model.encoder.load_state_dict(ckpt_lib.load_component(
+                self._load_component("encoder", ckpt_lib.load_component(
                     tcfg.load_encoder, "encoder", self.device))
                 self.logger.info("Loaded encoder from %s", tcfg.load_encoder)
             if tcfg.load_decoder:
-                self.model.decoder.load_state_dict(ckpt_lib.load_component(
+                self._load_component("decoder", ckpt_lib.load_component(
                     tcfg.load_decoder, "decoder", self.device))
                 self.logger.info("Loaded decoder from %s", tcfg.load_decoder)
 
@@ -404,6 +436,10 @@ class Trainer:
         dump_path = os.path.join(self.exp_dir, f"decode_{epoch}.txt")
         max_tokens = self.config.data.max_target_length + 1
         parallel = self.mesh.parallel
+        # greedy decoding on whole weights: a gathered copy under tensor
+        # parallelism (every rank gathers), the model itself otherwise
+        decoder = (gather_model(copy.deepcopy(self.model)).eval()
+                   if self.model.tp is not None else self.model)
         with open(dump_path if self.is_main else os.devnull, "w", encoding="utf-8") as dump:
             for bi, batch in enumerate(loader):
                 if max_batches is not None and bi >= max_batches:
@@ -416,12 +452,12 @@ class Trainer:
                     losses = self.eval_loss_step(dev_batch)[:valid]
                     total_loss += float(losses.sum())
                     loss_utts += len(losses)
-                self.model.eval()
+                decoder.eval()
                 mine = mesh_lib.shard_batch(dev_batch, self.mesh)
                 with torch.no_grad():
                     inputs, t_len = featurize(mine, self.frontend)
-                    enc, t_len = self.model.encode_for_decoding(inputs, t_len)
-                tokens, counts = greedy_decode(self.model, enc, t_len,
+                    enc, t_len = decoder.encode_for_decoding(inputs, t_len)
+                tokens, counts = greedy_decode(decoder, enc, t_len,
                                                max_tokens=max_tokens)
                 tokens, counts = (mesh_lib.gather_rows(x, self.mesh)[:valid]
                                   for x in (tokens, counts))
@@ -447,13 +483,20 @@ class Trainer:
                 self.metrics.add_scalar("eval_loss", avg_loss, epoch)
         return cer
 
+    def _whole_model(self):
+        """The model, or under tensor parallelism its whole state dict (a
+        collective: every rank gathers)."""
+        return gathered_state_dict(self.model) if self.model.tp is not None else self.model
+
     def save(self, epoch: int):
         path = os.path.join(self.exp_dir, f"epoch_{epoch}")
-        # every rank gathers (a ZeRO optimizer's moments); rank 0 writes
+        # every rank gathers (a ZeRO optimizer's moments, a sharded model);
+        # rank 0 writes
         opt_state = self.optimizer.state_dict()
+        model = self._whole_model()
         if not self.is_main:
             return
-        ckpt_lib.save_checkpoint(path, self.model, opt_state, epoch=epoch,
+        ckpt_lib.save_checkpoint(path, model, opt_state, epoch=epoch,
                                  step=self.global_step,
                                  extra={"lr": self.lr_ctl.lr})
         ckpt_lib.prune_step_checkpoints(self.exp_dir)
@@ -465,11 +508,12 @@ class Trainer:
         one is kept."""
         path = os.path.join(self.exp_dir, f"step_{self.global_step}")
         opt_state = self.optimizer.state_dict()     # every rank, as in save
+        model = self._whole_model()
         self._last_step_save = self.global_step
         if not self.is_main:
             return
         ckpt_lib.save_checkpoint(
-            path, self.model, opt_state,
+            path, model, opt_state,
             # "epoch": the last completed epoch, as in epoch_* checkpoints
             epoch=epoch - 1, step=self.global_step,
             extra={"lr": self.lr_ctl.lr, "mid_epoch": epoch,
@@ -517,7 +561,7 @@ class Trainer:
         epochs = epochs or self.config.training.epochs
         if not self.mesh.active:
             self.logger.warning("rank %d is past the data axis (%d ranks): it "
-                                "trains nothing", self.mesh.rank, self.mesh.n_data)
+                                "trains nothing", mesh_lib.world_rank(), self.mesh.n_data)
             return
         train_loader, dev_loader = self.make_loaders(augment=augment)
         for epoch in range(self.start_epoch, epochs):

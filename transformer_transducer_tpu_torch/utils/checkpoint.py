@@ -26,7 +26,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Mapping, Optional, Sequence
 
 import torch
 
@@ -40,12 +40,18 @@ OPTIMIZER_FILE = "optimizer.msgpack"
 def save_checkpoint(path: str, model, optimizer=None, epoch: int = 0,
                     step: int = 0, extra: Optional[Dict[str, Any]] = None,
                     rng: Optional[Dict[str, torch.Tensor]] = None) -> str:
-    """Write a checkpoint directory; ``optimizer`` is an optimizer or its
-    ``state_dict()``, ``extra`` holds JSON scalars (also in ``meta.json``),
-    ``rng`` generator states.  Returns ``path``."""
+    """Write a checkpoint directory; ``model`` is a model or a whole
+    model's ``state_dict`` (a tensor-parallel run's, gathered),
+    ``optimizer`` an optimizer or its ``state_dict()``, ``extra`` holds
+    JSON scalars (also in ``meta.json``), ``rng`` generator states.
+    Returns ``path``."""
     os.makedirs(path, exist_ok=True)
     meta = {"epoch": int(epoch), "step": int(step), **(extra or {})}
-    state = {comp: getattr(model, comp).state_dict() for comp in COMPONENTS}
+    if isinstance(model, Mapping):
+        state = {comp: {k[len(comp) + 1:]: v for k, v in model.items()
+                        if k.startswith(comp + ".")} for comp in COMPONENTS}
+    else:
+        state = {comp: getattr(model, comp).state_dict() for comp in COMPONENTS}
     state["optimizer"] = (optimizer.state_dict() if hasattr(optimizer, "state_dict")
                           else optimizer)
     state.update(meta)
