@@ -306,9 +306,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    one card): 4 steps, a checkpoint with whole moments, one evaluation
    line;
    (c) a world-1 NCCL group (a ``FileStore``): 3 banded steps equal to the
-   bit to the same steps with no group.  A JSON line before the kernels'
-   line, whose launches count the phase's main paths
-   (``phase16_launches``);
+   bit to the same steps with no group;
+   (d) the split yardstick (``split_yardstick``, in rank 0's process with
+   no group): step 1's gradients as the mean ``(g0 + g1) / 2`` in float32
+   of one process's gradients on each rank's two rows, and on all four;
+   banded dp against it equal to the bit (every leaf, the loss and the
+   norm), flash dp within 1e-4 (loss) and 1e-3 (norm); leaf by leaf
+   against both, the leaves equal to the bit and the largest relative
+   error with its leaf, printed.  A JSON line before the kernels' line,
+   whose launches count the phase's main paths (``phase16_launches``);
 17. tensor parallelism at flagship width (``--n_model 2``: 18 layers,
    d_model 512, 8 heads, so 4 a rank), phase 8's B 4 batch, dropout 0,
    SGD 0.9, clip 200, SpecAugment and dropout seeded as in phase 6:
@@ -333,7 +339,35 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    halves of the batch within the training bars of one process, each
    rank's launches one process's, moment bytes (at most 30 % of one
    process's trace) and peak memory a rank.  A JSON line before the
-   kernels' line (``phase17_launches``).
+   kernels' line (``phase17_launches``);
+18. pipeline parallelism at flagship width (``--n_pipe 2``: 9 of the 18
+   layers a stage), phase 8's B 4 batch, dropout 0, SGD 0.9, clip 200,
+   SpecAugment and dropout seeded as in phase 6:
+   (a) two ranks on the one card through gloo (``pp_rank``), ``--pipe-micro
+   4`` (B 1 microbatches, a bubble of 1/5), 3 steps each of ``--flash``,
+   ``--banded``, ``--flash --pruned-range 5``, ``--bf16 --flash`` and the
+   espnet family (8 blocks, 4 a stage), each held to phase 17's one
+   process on the same weights, batch and seeds (losses within 1e-4, step
+   1's gradient norm within 1e-3; under bf16 step 1 alone) and printed
+   beside one process running the same microbatches through the encoder
+   one by one (``make_pipelined_train_step`` on one stage), to which
+   banded step 1's loss is equal to the bit; each stage's launches a step
+   (9 layers x 4 microbatches of each attention kernel forward and
+   backward, the loss kernels on the last stage alone); every hop's bytes
+   on arrival equal to the bit to what its neighbour sent (SHA-256 of
+   each); each step's ms a rank, the hops' ms (timed between
+   synchronisations) and bytes, the parameter bytes a rank against one
+   process's, the peak memory a rank above its baseline;
+   (c) then, the group left, ``apps/train.py --flash --n_pipe 2`` for one
+   epoch of phase 7's corpus over the two ranks (gloo from the
+   environment): 4 steps, one evaluation line, an ``epoch_0`` that holds
+   the whole model, which one-process ``apps/predict.py --full-context``
+   serves (its text is ``recognize``'s with those weights);
+   (b) dp2 x pp2 on four ranks with ``--zero --pipe-micro 2``: 3 flash
+   steps within the training bars of one process, each stage's launches
+   (9 x 2 a kernel), every hop equal to the bit, moment bytes (at most
+   35 % of one process's trace) and peak memory a rank.  A JSON line
+   before the kernels' line (``phase18_launches``).
 
 Each phase logs the seconds since the run began.
 
@@ -1343,15 +1377,19 @@ def training_batch(cfg, device, seed, raw=False):
 
 
 def make_trainee(model_cfg, optim_cfg, state, mode, device, pruned_range=None,
-                 frontend=None, compute_dtype=None, remat=False, mesh=None, zero=False):
+                 frontend=None, compute_dtype=None, remat=False, mesh=None, zero=False,
+                 micro=0):
     """A model in train mode with ``state``, its SGD optimizer (momentum,
     clip 200 as the trainer builds it) and its train step (SpecAugment on;
     the pruned loss with simple scale 0.25 when ``pruned_range``; the
     on-device log-mel of raw waves with a ``frontend`` tuple; bf16 compute
     with ``compute_dtype``, per-layer encoder recomputation with
     ``remat``; with a ``mesh`` this rank's part of the model and of the
-    batch's step, ZeRO-1 with ``zero``).  An espnet-schema block (``mask``)
-    builds the espnet family (``mode`` and ``remat`` do not apply)."""
+    batch's step, its stage's layers on a pipe axis, ZeRO-1 with ``zero``;
+    ``micro`` microbatches a pipelined step, and with no pipe axis the
+    pipelined step on one stage: the microbatches one by one in one
+    process).  An espnet-schema block (``mask``) builds the espnet family
+    (``mode`` and ``remat`` do not apply)."""
     import torch
     compute_dtype = compute_dtype or torch.float32
     from transformer_transducer_tpu_torch.models.factory import build_family
@@ -1364,26 +1402,33 @@ def make_trainee(model_cfg, optim_cfg, state, mode, device, pruned_range=None,
                          compute_dtype=compute_dtype)
     model.load_state_dict(state)
     model.train()
+    from transformer_transducer_tpu_torch.parallel.mesh import Mesh
     from transformer_transducer_tpu_torch.parallel.sharding import (
-        shard_model, tp_plan, zero_param_shardings)
+        pipe_model, pipe_plan, shard_model, tp_plan, zero_param_shardings)
+    from transformer_transducer_tpu_torch.training.train_step import (
+        make_pipelined_train_step)
     if mesh is not None:
         shard_model(model, mesh)
+        pipe_model(model, mesh)
     opt = build_optimizer(optim_cfg, list(model.parameters()), max_grad_norm=200.0,
-                          tp=tp_plan(model),
+                          tp=tp_plan(model), pipe=pipe_plan(model),
                           zero=(mesh, zero_param_shardings(model, mesh)) if zero else None)
-    cfg = TrainStepConfig(loss_pruned_range=pruned_range, frontend=frontend)
+    cfg = TrainStepConfig(loss_pruned_range=pruned_range, frontend=frontend, pipe_micro=micro)
+    if micro and (mesh is None or not mesh.pipelined):
+        return model, opt, make_pipelined_train_step(model, opt, cfg, mesh or Mesh(), micro)
     return model, opt, make_train_step(model, opt, cfg, mesh=mesh)
 
 
 def train_three_steps(model_cfg, optim_cfg, state, mode, batch, device, plain,
                       pruned_range=None, hooks=(), frontend=None, compute_dtype=None,
-                      remat=False, steps=3):
-    """Phases 6, 6b, 11 and 14: ``steps`` steps from ``state`` with the SpecAugment
-    stream and the dropout generators seeded alike, inside the contexts
-    ``hooks``; per step (loss, raw gradient norm, launch counts)."""
+                      remat=False, steps=3, micro=0):
+    """Phases 6, 6b, 11, 14 and 18: ``steps`` steps from ``state`` with the
+    SpecAugment stream and the dropout generators seeded alike, inside the
+    contexts ``hooks`` (``micro``: the microbatches one by one through the
+    pipelined step); per step (loss, raw gradient norm, launch counts)."""
     import torch
     model, opt, step = make_trainee(model_cfg, optim_cfg, state, mode, device,
-                                    pruned_range, frontend, compute_dtype, remat)
+                                    pruned_range, frontend, compute_dtype, remat, micro=micro)
     gen = torch.Generator().manual_seed(0)
     torch.manual_seed(0)                    # dropout, on the host and the card
     out = []
@@ -4183,23 +4228,34 @@ def dp_rank(job_path) -> dict:
                               max_grad_norm=200.0,
                               zero=(mesh, zero_param_shardings(model, mesh)) if zero else None)
         step = make_train_step(model, opt, TrainStepConfig(specaug=False), mesh=mesh)
-        steps = []
-        for _ in range(3):
+        steps, grads = [], None
+        for i in range(3):
             reset_counts()
             m = step(batch, None)
             torch.cuda.synchronize()
             steps.append((float(m["loss"]), float(m["grad_norm"]), read_counts()))
-        return steps, opt.moment_bytes(), torch.cuda.max_memory_allocated() / 2 ** 30
+            if i == 0:      # step 1's gradients after the data mean
+                grads = [torch.zeros_like(p) if p.grad is None else p.grad.clone()
+                         for p in model.parameters()]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        return steps, opt.moment_bytes(), peak, grads
 
     # plain dp first, for its peak memory at the same rows; then ZeRO-1
-    plain_steps, plain_bytes, plain_peak = run(False)
-    steps, moment_bytes, peak = run(True)
+    plain_steps, plain_bytes, plain_peak, flash_grads = run(False)
+    steps, moment_bytes, peak, _ = run(True)
     # plain dp through the banded kernels, which sum in a fixed order
-    banded_steps = run(False, "banded")[0]
+    banded_steps, _, _, banded_grads = run(False, "banded")
     out = {"rank": mesh.data_rank, "steps": steps, "moment_bytes": moment_bytes,
            "peak_gib": peak, "plain_losses": [s[0] for s in plain_steps],
            "plain_moment_bytes": plain_bytes, "plain_peak_gib": plain_peak,
            "banded_steps": banded_steps, "rows": int(batch["inputs"].shape[0])}
+    if mesh.data_rank == 0:
+        # the split yardstick, in this process with no group: step 1 as
+        # the mean of one process's gradients on each rank's rows
+        out["split"] = {mode: split_yardstick(job, mode, device, grads, dp_steps[0])
+                        for mode, grads, dp_steps in (("banded", banded_grads, banded_steps),
+                                                      ("flash", flash_grads, plain_steps))}
+    del flash_grads, banded_grads
     dist.barrier()
     dist.destroy_process_group()
     os.environ["MASTER_PORT"] = str(job["cli_port"])
@@ -4216,6 +4272,56 @@ def dp_rank(job_path) -> dict:
                   "moment_bytes": trainer.optimizer.moment_bytes()}
     dist.barrier()
     dist.destroy_process_group()
+    return out
+
+
+def split_yardstick(job, mode, device, dp_grads, dp_step) -> dict:
+    """Phase 16's split yardstick in one process: step 1's gradients on
+    each of the two ranks' 2-row halves of phase 8's batch, their mean
+    ``(g0 + g1) / 2`` in float32 (what the gloo all-reduce of two terms and
+    ``all_reduce_mean_``'s division compute) and the gradients on all 4
+    rows; ``dp_grads`` (data-parallel step 1's, leaf by leaf) against both:
+    the leaves equal to the bit, and the largest relative error
+    (``max|dp - ref| / max|ref|``) and its leaf; the losses and norms."""
+    import torch
+    from transformer_transducer_tpu_torch.models.transducer import build_transducer
+    from transformer_transducer_tpu_torch.training.optim import global_norm
+    from transformer_transducer_tpu_torch.training.train_step import (
+        TrainStepConfig, make_loss_fn)
+    from transformer_transducer_tpu_torch.utils.config import Config
+    model = build_transducer(Config(job["model"]), flash=mode == "flash",
+                             banded=mode == "banded", device=device)
+    model.load_state_dict(job["state"])
+    model.train()
+    names = [n for n, _ in model.named_parameters()]
+    loss_fn = make_loss_fn(model, TrainStepConfig(specaug=False))
+    batch = {k: v.to(device) for k, v in job["batch"].items()}
+    rows = batch["inputs"].shape[0]
+
+    def grads(part):
+        model.zero_grad(set_to_none=True)
+        loss = loss_fn({k: v[part] for k, v in batch.items()}, None)
+        loss.backward()
+        return loss.detach(), [torch.zeros_like(p) if p.grad is None else p.grad.clone()
+                               for p in model.parameters()]
+    l0, g0 = grads(slice(0, rows // 2))
+    l1, g1 = grads(slice(rows // 2, rows))
+    split = [(a + b) / 2 for a, b in zip(g0, g1)]
+    del g0, g1
+    whole_loss, whole = grads(slice(0, rows))
+
+    def against(ref):
+        rels = [float((d - r).abs().max() / r.abs().max().clamp_min(1e-30))
+                for d, r in zip(dp_grads, ref)]
+        worst = max(range(len(rels)), key=lambda i: rels[i])
+        return {"equal_leaves": sum(torch.equal(d, r) for d, r in zip(dp_grads, ref)),
+                "leaves": len(ref), "max_rel": rels[worst], "leaf": names[worst],
+                "norm": float(global_norm(ref))}
+    out = {"split": dict(against(split), loss=float((l0 + l1) / 2)),
+           "whole": dict(against(whole), loss=float(whole_loss)),
+           "dp": {"loss": dp_step[0], "norm": dp_step[1]}}
+    del model, split, whole
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4478,6 +4584,30 @@ def check_export_dp(cfg, state, phase4, batch, device, smi):
             f"{abs(r['steps'][0][1] - ref[0][1]) / ref[0][1]:.2e}" for r in ranks) + ")")
     log(f"a world-1 NCCL group (FileStore): 3 banded steps' losses and gradient norms "
         f"equal to the bit to no group's: {[l for l, _ in grouped]}")
+    # the split yardstick (rank 0's, in one process): step 1 of dp against
+    # the mean of one process's gradients on the ranks' halves, and
+    # against the 4-row step, leaf by leaf
+    split = next(r["split"] for r in ranks if "split" in r)
+    summary["split_yardstick"] = split
+    for mode, res in split.items():
+        for ref in ("split", "whole"):
+            got = res[ref]
+            log(f"  {mode} dp step 1 against the {'2 + 2-row split' if ref == 'split' else '4-row step'}"
+                f": {got['equal_leaves']} of {got['leaves']} leaves equal to the bit; largest "
+                f"relative error {got['max_rel']:.3e} ({got['leaf']}); loss "
+                f"{res['dp']['loss']!r} / {got['loss']!r}, norm {res['dp']['norm']!r} / "
+                f"{got['norm']!r}")
+        rel = abs(res["dp"]["loss"] - res["split"]["loss"]) / abs(res["split"]["loss"])
+        rel_n = abs(res["dp"]["norm"] - res["split"]["norm"]) / res["split"]["norm"]
+        if mode == "banded":
+            # no atomics: the ranks' gradients are one process's, and the
+            # all-reduce of two terms and the halving are exact
+            require(res["split"]["equal_leaves"] == res["split"]["leaves"] and rel == 0
+                    and rel_n == 0, f"banded dp step 1 against the split: {res['split']}, "
+                    f"dp {res['dp']}")
+        else:
+            require(rel <= LOSS_RTOL and rel_n <= NORM_RTOL,
+                    f"flash dp step 1 against the split: loss {rel:.2e}, norm {rel_n:.2e}")
     return dict(launches), summary
 
 
@@ -4617,9 +4747,10 @@ def tp_rank(job_path) -> dict:
     return out
 
 
-def launch_ranks(world, job, tmp, env, name):
-    """Start ``world`` ranks of :func:`tp_rank` on ``job`` (saved under
-    ``tmp``), gloo on one card; returns the processes."""
+def launch_ranks(world, job, tmp, env, name, fn="tp_rank"):
+    """Start ``world`` ranks of :func:`tp_rank` (or of the function named
+    ``fn``) on ``job`` (saved under ``tmp``), gloo on one card; returns the
+    processes."""
     import torch
     with socket.socket() as sock, socket.socket() as sock2:
         sock.bind(("localhost", 0))
@@ -4628,7 +4759,7 @@ def launch_ranks(world, job, tmp, env, name):
     path = os.path.join(tmp, f"{name}.pt")
     torch.save(job, path)
     code = (f"import json, sys\nsys.path.insert(0, {HERE!r})\nimport chip_smoke\n"
-            "print(json.dumps(chip_smoke.tp_rank(sys.argv[1])))\n")
+            f"print(json.dumps(chip_smoke.{fn}(sys.argv[1])))\n")
     return [subprocess.Popen([sys.executable, "-c", code, path], stdout=subprocess.PIPE,
                              text=True, env=dict(env, RANK=str(r), LOCAL_RANK=str(r),
                                                  WORLD_SIZE=str(world),
@@ -4647,15 +4778,16 @@ def join_ranks(procs, timeout):
         for p in procs:
             p.kill()
     require(all(p.returncode == 0 for p in procs),
-            f"the tensor-parallel ranks exited {[p.returncode for p in procs]}")
+            f"the ranks exited {[p.returncode for p in procs]}")
     return [json.loads(o.strip().splitlines()[-1]) for o in outs]
 
 
-def check_tensor_parallel(cfg, state, batch, device, smi):
-    """Phase 17: tensor parallelism at flagship width (see the module's
-    docstring).  ``batch`` is phase 8's B 4 batch.  Returns the main
-    paths' launches and a summary."""
-    import copy
+def serve_cli_checkpoint(cfg, job, ranks, device, name):
+    """The ``epoch_0`` that a multi-rank ``apps/train.py`` run (its ranks'
+    ``cli`` results) wrote holds the whole model and moments and one
+    evaluation line, and one-process ``apps/predict.py --full-context``
+    serves it with ``recognize``'s text; (predict's launches, its text,
+    the evaluation line)."""
     import torch
     from transformer_transducer_tpu_torch.apps import predict as predict_app
     from transformer_transducer_tpu_torch.decoding.greedy import recognize
@@ -4665,13 +4797,55 @@ def check_tensor_parallel(cfg, state, batch, device, smi):
     from transformer_transducer_tpu_torch.ops import features_np as F
     from transformer_transducer_tpu_torch.utils import checkpoint as ckpt_lib
     from transformer_transducer_tpu_torch.utils.config import (
-        Config, load_config as load_cfg_file, stack_context, subsample_factor)
+        load_config as load_cfg_file, stack_context, subsample_factor)
+    from transformer_transducer_tpu_torch.utils.vocab import Vocabulary
+    exp = os.path.join(job["cli_dir"], ranks[0]["cli"]["exp_dir"])
+    ckpt = os.path.join(exp, "epoch_0")
+    saved = ckpt_lib.load_checkpoint(ckpt, "cpu")
+    whole = build_transducer(cfg.model, device="meta").state_dict()
+    require(all(v.shape == whole[f"{c}.{k}"].shape for c in ckpt_lib.COMPONENTS
+                for k, v in saved[c].items())
+            and len(saved["optimizer"]["state"]["trace"]) == len(whole)
+            and all(t.shape == w.shape for t, w in
+                    zip(saved["optimizer"]["state"]["trace"], whole.values())),
+            f"the {name} run's checkpoint does not hold the whole model")
+    with open(os.path.join(exp, "train.log"), encoding="utf-8") as fh:
+        cer_lines = [l.strip() for l in fh if "-Validation-" in l]
+    require(len(cer_lines) == 1 and "nan" not in cer_lines[0].lower(),
+            f"the {name} run's evaluation: {cer_lines}")
+    cli_cfg = load_cfg_file(job["cli_config"])
+    with open(cli_cfg.data.dev, encoding="utf-8") as fh:
+        wav = fh.read().splitlines()[1].split(",")[0]
+    reset_counts()
+    text = predict_app.main(["--config", job["cli_config"], "--checkpoint", ckpt,
+                             "--wav", wav, "--full-context", "--device", str(device)])
+    sync(device)
+    counts = read_counts()
+    wave, rate = read_wave(wav)
+    left, right = stack_context(cli_cfg.data)
+    feats = F.subsample(F.stack_frames(F.logmel_masked(wave, rate, cli_cfg.data.feature_dim),
+                                       left, right), subsample_factor(cli_cfg.data))
+    served = load_family(cli_cfg, feats.shape[1], ckpt, device=device, flash=True)
+    tokens = recognize(served, torch.from_numpy(feats[None]).to(device), [feats.shape[0]],
+                       max_tokens=cli_cfg.data.max_target_length + 1)[0]
+    want = "".join(Vocabulary.from_file(cli_cfg.data.vocab).decode(tokens))
+    require(text == want, f"predict on the {name} checkpoint gave {text!r}, recognize {want!r}")
+    require(counts["flash_fwd"] == cfg.model.enc.n_layer, f"predict launched {counts}")
+    return counts, text, cer_lines[0]
+
+
+def check_tensor_parallel(cfg, state, batch, device, smi):
+    """Phase 17: tensor parallelism at flagship width (see the module's
+    docstring).  ``batch`` is phase 8's B 4 batch.  Returns the main
+    paths' launches and a summary, whose ``one_process`` holds the
+    one-process runs (phase 18 holds its ranks to them too)."""
+    import copy
+    import torch
+    from transformer_transducer_tpu_torch.utils.config import Config
     from transformer_transducer_tpu_torch.utils.convert import (
         from_jax_params, random_jax_params)
-    from transformer_transducer_tpu_torch.utils.vocab import Vocabulary
     launches = collections.Counter()
     summary = {"device": smi}
-    n_layer = cfg.model.enc.n_layer
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([HERE, os.environ.get("PYTHONPATH", "")]))
     model_cfg = load_flagship().model
     model_cfg.override("dropout", 0.0)
@@ -4759,7 +4933,7 @@ def check_tensor_parallel(cfg, state, batch, device, smi):
         logits_share = {name: [[s[5] / s[3] for s in r["runs"][name]["steps"]] for r in ranks]
                         for name in runs}
         summary.update(
-            one_process={n: [(l, g) for l, g, _ in ref[n]] for n in runs},
+            one_process={n: ref[n] for n in runs},
             one_process_peak_gib={n: ref[n + " peak"] for n in runs},
             tp2={n: [r["runs"][n]["steps"] for r in ranks] for n in runs},
             tp2_peak_gib={n: [r["runs"][n]["peak_gib"] for r in ranks] for n in runs},
@@ -4782,44 +4956,14 @@ def check_tensor_parallel(cfg, state, batch, device, smi):
                 "ranks' " + ", ".join(f"{r['runs'][name]['peak_gib']:.4f}" for r in ranks))
 
         # (d) the 2-rank CLI's checkpoint: whole, served by one-process predict
-        exp = os.path.join(cli_dir, ranks[0]["cli"]["exp_dir"])
-        ckpt = os.path.join(exp, "epoch_0")
-        saved = ckpt_lib.load_checkpoint(ckpt, "cpu")
-        whole = build_transducer(cfg.model, device="meta").state_dict()
-        require(all(v.shape == whole[f"{c}.{k}"].shape for c in ckpt_lib.COMPONENTS
-                    for k, v in saved[c].items())
-                and len(saved["optimizer"]["state"]["trace"]) == len(whole),
-                "the tp2 run's checkpoint does not hold the whole model")
-        with open(os.path.join(exp, "train.log"), encoding="utf-8") as fh:
-            cer_lines = [l.strip() for l in fh if "-Validation-" in l]
-        require(len(cer_lines) == 1 and "nan" not in cer_lines[0].lower(),
-                f"the tp2 run's evaluation: {cer_lines}")
-        cli_cfg = load_cfg_file(job["cli_config"])
-        with open(cli_cfg.data.dev, encoding="utf-8") as fh:
-            wav = fh.read().splitlines()[1].split(",")[0]
-        reset_counts()
-        text = predict_app.main(["--config", job["cli_config"], "--checkpoint", ckpt,
-                                 "--wav", wav, "--full-context", "--device", str(device)])
-        sync(device)
-        counts = read_counts()
+        counts, text, cer_line = serve_cli_checkpoint(cfg, job, ranks, device, "tp2")
         launches.update(counts)
-        wave, rate = read_wave(wav)
-        left, right = stack_context(cli_cfg.data)
-        feats = F.subsample(F.stack_frames(F.logmel_masked(wave, rate, cli_cfg.data.feature_dim),
-                                           left, right), subsample_factor(cli_cfg.data))
-        served = load_family(cli_cfg, feats.shape[1], ckpt, device=device, flash=True)
-        tokens = recognize(served, torch.from_numpy(feats[None]).to(device), [feats.shape[0]],
-                           max_tokens=cli_cfg.data.max_target_length + 1)[0]
-        want = "".join(Vocabulary.from_file(cli_cfg.data.vocab).decode(tokens))
-        require(text == want, f"predict on the tp2 checkpoint gave {text!r}, recognize {want!r}")
-        require(counts["flash_fwd"] == n_layer, f"predict launched {counts}")
         log(f"apps/train.py --flash --n_model 2 over the two ranks (its own "
             f"{ranks[0]['cli']['backend']} group): 4 steps in "
-            + ", ".join(f"{r['cli']['s']:.1f} s" for r in ranks) + f", {cer_lines[0]}; its "
+            + ", ".join(f"{r['cli']['s']:.1f} s" for r in ranks) + f", {cer_line}; its "
             f"epoch_0 holds the whole model and moments; one-process apps/predict.py "
             f"--full-context on it: {len(text)} characters, the text of recognize with its "
             f"weights; launches {counts}")
-        del served, saved
         reset_peak(device)
 
         # (b) dp2 x tp2 on four ranks, ZeRO-1: moment bytes and peak a rank
@@ -4854,6 +4998,331 @@ def check_tensor_parallel(cfg, state, batch, device, smi):
         "above the baseline " + ", ".join(f"{g:.4f}" for g in summary["dp2tp2_peak_gib"])
         + f" GiB; step ms " + "; ".join(", ".join(f"{s[3]:.2f}" for s in st)
                                        for st in summary["dp2tp2_steps"]) + f" ({smi})")
+    return dict(launches), summary
+
+
+class _TimedHops:
+    """``parallel/pipeline.py``'s hops, timed between device
+    synchronisations (phase 18): milliseconds and bytes of every hop, and
+    each hop's digest (SHA-256 of its bytes as sent, or as received) with
+    whether this rank sent it, in order, so that a neighbour's sends can be
+    held to this rank's receives."""
+
+    def __init__(self, fn, device):
+        self.fn, self.device = fn, device
+        self.reset()
+
+    def reset(self):
+        self.ms, self.bytes, self.count = 0.0, 0, 0
+        self.record = []
+
+    def __call__(self, tensor, src, group):
+        import hashlib
+        import torch.distributed as dist
+        sent = dist.get_rank() == src
+        sync(self.device)
+        start = time.perf_counter()
+        self.fn(tensor, src, group)
+        sync(self.device)
+        self.ms += 1e3 * (time.perf_counter() - start)
+        self.bytes += tensor.numel() * tensor.element_size()
+        self.count += 1
+        digest = hashlib.sha256(tensor.detach().cpu().numpy().tobytes()).hexdigest()
+        self.record.append((sent, digest))
+
+
+def pp_steps(run, mesh, device, batch, hops, steps=3):
+    """3 steps of one phase 18 run on this rank's stage of ``mesh``
+    (``run``: model config and state, attention mode, pruned band, compute
+    dtype, ZeRO-1, microbatches), SpecAugment and dropout seeded as
+    ``train_three_steps`` seeds them: per step (loss, norm, launch counts,
+    step ms, hop ms, hop bytes, hops), the hops' digests in order, and the
+    rank's parameter, moment and peak bytes (above its baseline)."""
+    import torch
+    base = reset_peak(device)
+    model, opt, step = make_trainee(run["model"], run["optim"], run["state"], run["mode"],
+                                    device, run.get("pruned"),
+                                    compute_dtype=run.get("compute_dtype"), mesh=mesh,
+                                    zero=run.get("zero", False), micro=run["micro"])
+    gen = torch.Generator().manual_seed(0)
+    torch.manual_seed(0)
+    out, record = [], []
+    for _ in range(steps):
+        reset_counts()
+        hops.reset()
+        sync(device)
+        start = time.perf_counter()
+        m = step(batch, gen)
+        sync(device)
+        ms = 1e3 * (time.perf_counter() - start)
+        out.append((float(m["loss"]), float(m["grad_norm"]), read_counts(), ms, hops.ms,
+                    hops.bytes, hops.count))
+        record += hops.record
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    result = {"steps": out, "hops": record, "param_bytes": param_bytes,
+              "moment_bytes": opt.moment_bytes(), "peak_gib": peak_gib(device, base)}
+    del model, opt, step
+    return result
+
+
+def pp_rank(job_path) -> dict:
+    """Phase 18, one of the ranks that ``check_pipeline`` launches
+    (``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``, ``LOCAL_WORLD_SIZE``,
+    ``MASTER_*`` set; all on the one card): in a gloo group, the grid of
+    ``make_mesh(n_data=job["n_data"], n_pipe=2)``; once the job's ``go``
+    file exists, each of the job's runs (:func:`pp_steps`), the hops timed
+    and digested; then, with a ``cli_config``, the group left,
+    ``apps/train.py --flash --n_pipe 2`` for one epoch of phase 7's
+    corpus, which joins a group of its own from the environment (at the
+    job's second port)."""
+    import torch
+    import torch.distributed as dist
+    from transformer_transducer_tpu_torch.apps import train as train_app
+    from transformer_transducer_tpu_torch.parallel import pipeline as pipeline_lib
+    from transformer_transducer_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    job = torch.load(job_path, weights_only=False)     # this run's own file
+    device = job["device"]
+    dist.init_process_group("gloo", init_method="env://")
+    mesh = make_mesh(n_data=job["n_data"], n_pipe=2)
+    hops = _TimedHops(pipeline_lib._hop, device)
+    pipeline_lib._hop = hops
+    waited = time.perf_counter()
+    while not os.path.exists(job["go"]):
+        require(time.perf_counter() - waited < 600, "phase 18: the references did not end")
+        time.sleep(0.2)
+    out = {"rank": dist.get_rank(), "data_rank": mesh.data_rank,
+           "pipe_rank": mesh.pipe_rank, "runs": {}}
+    for name, run in job["runs"].items():
+        batch = shard_batch({k: v.to(device) for k, v in job["batches"][run["batch"]].items()},
+                            mesh)
+        out["runs"][name] = pp_steps(run, mesh, device, batch, hops)
+        out["rows"] = int(batch["inputs"].shape[0])
+    pipeline_lib._hop = hops.fn
+    dist.barrier()
+    dist.destroy_process_group()
+    if job.get("cli_config"):
+        os.environ["MASTER_PORT"] = str(job["cli_port"])
+        os.chdir(job["cli_dir"])
+        reset_counts()
+        start = time.perf_counter()
+        trainer = train_app.main(["-config", job["cli_config"], "--flash", "--epochs", "1",
+                                  "--n_pipe", "2", "--device", device])
+        sync(device)
+        out["cli"] = {"s": time.perf_counter() - start, "counts": read_counts(),
+                      "backend": dist.get_backend() if dist.is_initialized() else None,
+                      "n_data": trainer.mesh.n_data, "n_pipe": trainer.mesh.n_pipe,
+                      "pipe_micro": trainer.pipe_micro, "global_step": trainer.global_step,
+                      "exp_dir": trainer.exp_dir}
+        dist.barrier()
+        dist.destroy_process_group()
+    return out
+
+
+PP_ATTENTION = ("banded_fwd", "banded_bwd", "flash_fwd", "flash_bwd", "flash_fwd_bf16",
+                "flash_bwd_bf16")
+
+
+def stage_launches(one, n_layer, micro, last) -> dict:
+    """A stage's launches a step from one process's (``one``): each
+    attention kernel 18 times a step there, ``n_layer / 2 * micro`` here
+    (its 9 layers at each microbatch); the loss kernels on the last stage
+    alone, as often as in one process."""
+    out = {}
+    for key, n in one.items():
+        if key in PP_ATTENTION:
+            out[key] = n // n_layer * (n_layer // 2) * micro if n else 0
+        else:
+            out[key] = n if last else 0
+    return out
+
+
+def check_pipeline(cfg, state, batch, device, smi, one_process):
+    """Phase 18: pipeline parallelism at flagship width (see the module's
+    docstring).  ``batch`` is phase 8's B 4 batch, ``one_process`` phase
+    17's one-process runs on the same weights, batch and seeds.  Returns
+    the main paths' launches and a summary."""
+    import copy
+    import torch
+    from transformer_transducer_tpu_torch.utils.config import Config
+    from transformer_transducer_tpu_torch.utils.convert import (
+        from_jax_params, random_jax_params)
+    launches = collections.Counter()
+    summary = {"device": smi}
+    n_layer, micro = cfg.model.enc.n_layer, 4
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([HERE, os.environ.get("PYTHONPATH", "")]))
+    model_cfg = load_flagship().model
+    model_cfg.override("dropout", 0.0)
+    optim_cfg = Config({"type": "sgd", "lr": cfg.optim.lr, "momentum": 0.9})
+    esp = load_config("configs", "espnet_aishell.yaml")
+    esp_cfg = copy.deepcopy(esp.model)
+    for blk in ("enc", "dec"):
+        for key in ("dropout_rate", "positional_dropout_rate", "attention_dropout_rate"):
+            esp_cfg[blk][key] = 0.0
+    esp_state = from_jax_params(random_jax_params(esp.model, seed=0))
+    esp_batch, _ = training_batch(esp, device, seed=1)
+    esp_blocks = esp.model.enc.num_blocks
+    bf16 = torch.bfloat16
+    runs = {"flash": dict(mode="flash"), "banded": dict(mode="banded"),
+            f"flash, pruned {S_RANGE}": dict(mode="flash", pruned=S_RANGE),
+            "bf16 flash": dict(mode="flash", compute_dtype=bf16),
+            "espnet": dict(mode=None, model=esp_cfg, state=esp_state, batch="espnet")}
+    for run in runs.values():
+        run.setdefault("model", model_cfg)
+        run.setdefault("state", state)
+        run.setdefault("batch", "native")
+        run["optim"], run["micro"] = optim_cfg, micro
+    batches = {"native": {k: v.cpu() for k, v in batch.items()},
+               "espnet": {k: v.cpu() for k, v in esp_batch.items()}}
+    one_bytes = {"native": sum(v.numel() * 4 for v in state.values()),
+                 "espnet": sum(v.numel() * 4 for v in esp_state.values())}
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_dir = os.path.join(tmp, "cli")
+        os.makedirs(cli_dir)
+        go = os.path.join(tmp, "go")
+        job = {"device": str(device), "n_data": 1, "runs": runs, "batches": batches,
+               "go": go, "cli_dir": cli_dir, "cli_config": write_corpus(cli_dir, cfg)}
+        procs = launch_ranks(2, job, tmp, env, "pp2", "pp_rank")
+        try:
+            # the yardstick while the ranks start: one process running the
+            # same microbatches through the encoder one by one
+            yard = {}
+            for name, run in runs.items():
+                yard[name] = train_three_steps(
+                    run["model"], optim_cfg, run["state"], run["mode"],
+                    batch if run["batch"] == "native" else esp_batch, device, False,
+                    run.get("pruned"), compute_dtype=run.get("compute_dtype"), micro=micro)
+            with open(go, "w") as fh:
+                fh.write("go")
+            ranks = join_ranks(procs, 900)
+        finally:
+            for p in procs:
+                p.kill()
+        summary["pp2_s"] = time.perf_counter() - start
+        by_stage = sorted(ranks, key=lambda r: r["pipe_rank"])
+        for name, run in runs.items():
+            for r in by_stage:
+                res = r["runs"][name]
+                layers = esp_blocks if run["batch"] == "espnet" else n_layer
+                for i, (got, want, yd) in enumerate(zip(res["steps"], one_process[name],
+                                                        yard[name])):
+                    loss, norm, counts, ms, hop_ms, hop_bytes, n_hops = got
+                    rel = abs(loss - want[0]) / abs(want[0])
+                    rel_n = abs(norm - want[1]) / want[1]
+                    log(f"  pp2 stage {r['pipe_rank']} {name} step {i + 1}: loss {loss!r} / one "
+                        f"process {want[0]!r} (rel {rel:.2e}) / microbatched {yd[0]!r}, grad "
+                        f"norm {norm:.6f} / {want[1]:.6f} (rel {rel_n:.2e}) / {yd[1]:.6f}; "
+                        f"{ms:.2f} ms, {n_hops} hops {hop_ms:.2f} ms "
+                        f"({hop_bytes / max(n_hops, 1):.0f} bytes each); launches {counts}")
+                    expect = stage_launches(want[2], layers, micro, r["pipe_rank"] == 1)
+                    require(counts == expect, f"pp2 stage {r['pipe_rank']} {name} step {i + 1} "
+                            f"launched {counts}, want {expect}")
+                    require(rel <= LOSS_RTOL or (run.get("compute_dtype") and i),
+                            f"pp2 {name} step {i + 1}: losses differ by {rel:.2e}")
+                    if i == 0:
+                        require(rel_n <= NORM_RTOL, f"pp2 {name} step 1: gradient norms "
+                                f"differ by {rel_n:.2e}")
+                    launches.update(counts)
+            # banded: no atomics, so step 1 equals the microbatched process
+            # to the bit
+            first = by_stage[-1]["runs"][name]["steps"][0][0]
+            if name == "banded":
+                require(first == yard[name][0][0], f"pp2 banded step 1: loss {first!r}, "
+                        f"microbatched {yard[name][0][0]!r}")
+            # every hop arrives as its neighbour sent it
+            a, b = (r["runs"][name]["hops"] for r in by_stage)
+            require(len(a) == len(b) and all(x[0] != y[0] and x[1] == y[1]
+                                             for x, y in zip(a, b)),
+                    f"pp2 {name}: a hop arrived other than it was sent")
+        flash = [r["runs"]["flash"] for r in by_stage]
+        share = {name: [r["runs"][name]["param_bytes"] / one_bytes[
+            "espnet" if name == "espnet" else "native"] for r in by_stage] for name in runs}
+        step_ms = {name: [[s[3] for s in r["runs"][name]["steps"]] for r in by_stage]
+                   for name in runs}
+        hop_ms = {name: [[s[4] for s in r["runs"][name]["steps"]] for r in by_stage]
+                  for name in runs}
+        hop_bytes = flash[0]["steps"][0][5] / flash[0]["steps"][0][6]
+        summary.update(
+            microbatched={n: [(l, g) for l, g, _ in yard[n]] for n in runs},
+            pp2={n: [r["runs"][n]["steps"] for r in by_stage] for n in runs},
+            pp2_peak_gib={n: [r["runs"][n]["peak_gib"] for r in by_stage] for n in runs},
+            param_share=share, step_ms=step_ms, hop_ms=hop_ms, hop_bytes=hop_bytes,
+            bubble=1 / (micro + 1), cli_s=[r["cli"]["s"] for r in by_stage])
+        log(f"pp2 --pipe-micro {micro}, two gloo ranks on the one card ({summary['pp2_s']:.1f} s "
+            f"with their start-up and the microbatched references): losses (bf16: step 1's) "
+            f"and step 1's gradient norms within {LOSS_RTOL} and {NORM_RTOL} of one process, "
+            f"banded step 1 equal to the bit to one process running the microbatches one by "
+            f"one, each stage's attention launches {n_layer // 2 * micro} forward and "
+            f"{n_layer // 2 * micro} backward a step and the loss kernels on the last stage "
+            f"alone, every hop equal to the bit on arrival; parameters a rank, flagship "
+            + ", ".join(f"{100 * s:.4f} %" for s in share["flash"]) + ", espnet "
+            + ", ".join(f"{100 * s:.4f} %" for s in share["espnet"]) + f" of one process; "
+            f"{hop_bytes:.0f} bytes a hop; bubble 1/{micro + 1}")
+        for name in runs:
+            log(f"  pp2 {name}: step ms by stage " + "; ".join(
+                ", ".join(f"{ms:.2f}" for ms in per) for per in step_ms[name])
+                + "; hops ms " + "; ".join(", ".join(f"{ms:.2f}" for ms in per)
+                                          for per in hop_ms[name])
+                + "; peak above the baseline " + ", ".join(
+                    f"{r['runs'][name]['peak_gib']:.4f}" for r in by_stage) + " GiB")
+
+        # (c) the 2-rank CLI's checkpoint: whole, served by one-process predict
+        for r in by_stage:
+            cli = r["cli"]
+            launches.update(cli["counts"])
+            require(cli["backend"] == "gloo" and cli["n_pipe"] == 2 and cli["n_data"] == 1
+                    and cli["pipe_micro"] == 4 and cli["global_step"] == 4
+                    and cli["counts"]["flash_fwd"] > 0 and cli["counts"]["flash_bwd"] > 0
+                    and (r["pipe_rank"] == 0 or cli["counts"]["alpha"] > 0),
+                    f"stage {r['pipe_rank']}: the training entry point ran {cli}")
+        counts, text, cer_line = serve_cli_checkpoint(cfg, job, by_stage, device, "pp2")
+        launches.update(counts)
+        log(f"apps/train.py --flash --n_pipe 2 over the two ranks (its own "
+            f"{by_stage[0]['cli']['backend']} group): 4 steps in "
+            + ", ".join(f"{r['cli']['s']:.1f} s" for r in by_stage) + f", {cer_line}; its "
+            f"epoch_0 holds the whole model and moments; one-process apps/predict.py "
+            f"--full-context on it: {len(text)} characters, the text of recognize with its "
+            f"weights; launches {counts}")
+        reset_peak(device)
+
+        # (b) dp2 x pp2 on four ranks, ZeRO-1, 2 microbatches
+        start4 = time.perf_counter()
+        job4 = {"device": str(device), "n_data": 2, "go": go, "batches": batches,
+                "runs": {"dp2 x pp2 zero": dict(runs["flash"], zero=True, micro=2)}}
+        ranks4 = join_ranks(launch_ranks(4, job4, tmp, env, "dp2pp2", "pp_rank"), 600)
+        summary["dp2pp2_s"] = time.perf_counter() - start4
+    for r in ranks4:
+        res = r["runs"]["dp2 x pp2 zero"]
+        for i, (got, want) in enumerate(zip(res["steps"], one_process["flash"])):
+            loss, norm, counts = got[:3]
+            rel = abs(loss - want[0]) / abs(want[0])
+            expect = stage_launches(want[2], n_layer, 2, r["pipe_rank"] == 1)
+            require(counts == expect, f"dp2 x pp2 rank {r['rank']} step {i + 1} launched "
+                    f"{counts}, want {expect}")
+            require(rel <= LOSS_RTOL, f"dp2 x pp2 step {i + 1}: losses differ by {rel:.2e}")
+            if i == 0:
+                rel_n = abs(norm - want[1]) / want[1]
+                require(rel_n <= NORM_RTOL, f"dp2 x pp2 step 1: norms differ by {rel_n:.2e}")
+            launches.update(counts)
+    for d in range(2):
+        a, b = (r["runs"]["dp2 x pp2 zero"]["hops"]
+                for r in sorted((r for r in ranks4 if r["data_rank"] == d),
+                                key=lambda r: r["pipe_rank"]))
+        require(len(a) == len(b) and all(x[0] != y[0] and x[1] == y[1] for x, y in zip(a, b)),
+                f"dp2 x pp2 data index {d}: a hop arrived other than it was sent")
+    share4 = [r["runs"]["dp2 x pp2 zero"]["moment_bytes"] / one_bytes["native"] for r in ranks4]
+    summary.update(dp2pp2_moment_share=share4,
+                   dp2pp2_peak_gib=[r["runs"]["dp2 x pp2 zero"]["peak_gib"] for r in ranks4],
+                   dp2pp2_steps=[r["runs"]["dp2 x pp2 zero"]["steps"] for r in ranks4])
+    require(all(s <= 0.35 for s in share4), f"dp2 x pp2 moments a rank {share4}")
+    log(f"dp2 x pp2 --zero --flash --pipe-micro 2, four gloo ranks on the one card "
+        f"({summary['dp2pp2_s']:.1f} s with their start-up): losses and step 1's norm within "
+        f"the training bars, each stage's attention launches {n_layer // 2 * 2} + "
+        f"{n_layer // 2 * 2} a step, every hop equal to the bit; moments a rank "
+        + ", ".join(f"{100 * s:.4f} %" for s in share4) + " of one process's trace; peak "
+        "above the baseline " + ", ".join(f"{g:.4f}" for g in summary["dp2pp2_peak_gib"])
+        + f" GiB; step ms " + "; ".join(", ".join(f"{s[3]:.2f}" for s in st)
+                                       for st in summary["dp2pp2_steps"]) + f" ({smi})")
     return dict(launches), summary
 
 
@@ -5932,6 +6401,29 @@ def main() -> int:
         rec["launches"] += own
     log(f"  phase 17: {tensor_parallel['phase_s']:.1f} s")
     log(json.dumps({"tensor_parallel": tensor_parallel}))
+
+    log(f"[{time.perf_counter() - run_start:.1f} s] phase 18")
+    # ---- 18. pipeline parallelism (--n_pipe 2), alone and on a dp2 x pp2 grid
+    start = time.perf_counter()
+    torch.cuda.empty_cache()
+    pp_launches, pipeline = check_pipeline(cfg, state, batch, device, smi,
+                                           tensor_parallel["one_process"])
+    pipeline["phase_s"] = time.perf_counter() - start
+    for rec in records:
+        key = {"banded_attention_fwd": "banded_fwd", "flash_rel_attention_fwd": "flash_fwd",
+               "banded_attention_bwd": "banded_bwd", "flash_rel_attention_bwd": "flash_bwd",
+               "rnnt_alpha": "alpha", "rnnt_beta": "beta", "additive_logz": "logz",
+               "band_alpha": "band_alpha", "band_beta": "band_beta",
+               "flash_rel_attention_fwd_bf16": "flash_fwd_bf16",
+               "flash_rel_attention_bwd_bf16": "flash_bwd_bf16"}[rec["name"]]
+        # the float32 flash rows count their own form's launches (the bf16
+        # forms, also on flash_fwd and flash_bwd, have rows of their own)
+        own = pp_launches.get(key, 0) - (pp_launches.get(f"{key}_bf16", 0)
+                                         if not key.endswith("_bf16") else 0)
+        rec["phase18_launches"] = own
+        rec["launches"] += own
+    log(f"  phase 18: {pipeline['phase_s']:.1f} s")
+    log(json.dumps({"pipeline": pipeline, "phase18_launches": pp_launches}))
 
     log(f"[{time.perf_counter() - run_start:.1f} s] all phases passed")
     log(json.dumps({"kernels": records}))

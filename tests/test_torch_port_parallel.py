@@ -155,7 +155,8 @@ def world2(native, espnet, tmp_path_factory):
     """One 2-rank run: the mesh checks, plain dp and ZeRO-1 with SGD and with
     Adam, ZeRO-1 with 2 accumulated batches an update, a NaN row on rank 1
     under the nan guard, the espnet family under ZeRO-1, and ZeRO-1 with
-    Adam gathering in buckets of 1000 elements."""
+    Adam gathering in buckets of 1000 elements, and one banded dp step
+    that returns its gradients."""
     esp_cfg, _, esp_state = espnet
     cases = [
         {"kind": "mesh"},
@@ -168,6 +169,7 @@ def world2(native, espnet, tmp_path_factory):
         {"kind": "steps", "model_cfg": esp_cfg, "state": esp_state,
          "batch": _espnet_batch(), "optim": SGD, "zero": True, "n_data": 2, "steps": 3},
         _steps_case(native, ADAM, True, 2, bucket=GATHER_SMALL),
+        _steps_case(native, SGD, False, 2, steps=1, grads=True, flash=False, banded=True),
     ]
     return run_ranks(2, cases, tmp_path_factory.mktemp("world2"))
 
@@ -370,11 +372,42 @@ def test_espnet_family_at_dp2(espnet, world2):
                                        err_msg=name, **TREE_TOL)
 
 
+def test_dp_gradients_equal_the_one_process_split_mean(native, world2):
+    """The split yardstick: step 1's gradients of banded dp over 2 ranks
+    (after the all-reduce and the division) equal to the bit, leaf by leaf,
+    the mean ``(g0 + g1) / 2`` in float32 of one process's gradients on
+    each rank's rows; the 8-row step's gradients differ from it only by
+    the reassociation of the batch sums."""
+    cfg, _, _, state = native
+    from transformer_transducer_tpu_torch.models.transducer import build_transducer
+    from transformer_transducer_tpu_torch.training.train_step import make_loss_fn
+    model = build_transducer(Config(copy.deepcopy(cfg)), banded=True, device="cpu")
+    model.load_state_dict(state)
+    model.train()
+    loss_fn = make_loss_fn(model, TrainStepConfig(specaug=False))
+    batch = batch_to_device(_batch(), "cpu")
+
+    def grads(rows):
+        model.zero_grad(set_to_none=True)
+        loss_fn({k: v[rows] for k, v in batch.items()}, None).backward()
+        return {n: p.grad.clone() for n, p in model.named_parameters()}
+    g0, g1 = grads(slice(0, B // 2)), grads(slice(B // 2, B))
+    whole = grads(slice(0, B))
+    for r in world2:
+        got = r[9]["grads"]
+        assert set(got) == set(whole)
+        for name, g in got.items():
+            assert torch.equal(g, (g0[name] + g1[name]) / 2), name
+            np.testing.assert_allclose(g.numpy(), whole[name].numpy(), err_msg=name,
+                                       rtol=1e-4, atol=1e-6)
+
+
 def test_make_mesh_defaults_and_shrinks(world2, caplog):
     """The data axis defaults to the world size; an oversized request
     shrinks to it with JAX's warning (one process here, two in the gloo
-    run); the later axes raise (tensor parallelism trains:
-    tests/test_torch_port_tensor_parallel.py)."""
+    run); the sequence axis raises (tensor and pipeline parallelism train:
+    tests/test_torch_port_tensor_parallel.py, tests/test_torch_port_pipeline.py),
+    and a pipe axis wider than the world raises JAX's error."""
     for r in world2:
         assert r[0]["default"] == 2 and r[0]["shrunk"] == 2
         assert any("shrinking the data axis to 2" in w for w in r[0]["warnings"])
@@ -382,9 +415,10 @@ def test_make_mesh_defaults_and_shrinks(world2, caplog):
         assert make_mesh().n_data == 1
         assert make_mesh(n_data=4).n_data == 1
     assert "shrinking the data axis to 1" in caplog.text
-    for kw in ({"n_pipe": 2}, {"n_seq": 2}):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            make_mesh(**kw)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        make_mesh(n_seq=2)
+    with pytest.raises(ValueError, match="model x pipe x seq axes need 2 devices, have 1"):
+        make_mesh(n_pipe=2)
 
 
 def test_shard_batch_takes_jax_rows():

@@ -204,11 +204,11 @@ def test_load_model_and_components(corpus, tmp_path):
     # --bf16, --remat and --bf16 --flash train now
     # (tests/test_torch_port_bf16_training.py), --profile profiles
     # (tests/test_torch_port_profile.py), and --n_data and --zero train
-    # (tests/test_torch_port_parallel.py), and so does --n_model
-    # (tests/test_torch_port_tensor_parallel.py): beside them the later
-    # flags still raise
-    ["--n_data", "2", "--n_seq", "2"], ["--n_pipe", "2"], ["--pipe-micro", "2"],
-    ["--n_seq", "2"]])
+    # (tests/test_torch_port_parallel.py), and so do --n_model
+    # (tests/test_torch_port_tensor_parallel.py) and --n_pipe / --pipe-micro
+    # (tests/test_torch_port_pipeline.py): beside them --n_seq still raises
+    ["--n_data", "2", "--n_seq", "2"], ["--n_pipe", "2", "--n_seq", "2"],
+    ["--pipe-micro", "2", "--n_seq", "2"], ["--n_seq", "2"]])
 def test_flags_of_later_slices_raise(flag):
     with pytest.raises(NotImplementedError, match="later slice"):
         train_app.main(["--device", "cpu", *flag])
@@ -216,8 +216,11 @@ def test_flags_of_later_slices_raise(flag):
 
 @pytest.mark.parametrize("key,value", [("parallel.n_pipe", 2), ("parallel.n_seq", 2)])
 def test_trainer_raises_for_later_slices(corpus, tmp_path, key, value):
+    # parallel.n_pipe trains (tests/test_torch_port_pipeline.py); beside it
+    # and alone, parallel.n_seq still raises
     with pytest.raises(NotImplementedError, match="later slice"):
-        Trainer(_cfg(corpus, **{key: value}), exp_root=str(tmp_path), device="cpu")
+        Trainer(_cfg(corpus, **{key: value, "parallel.n_seq": 2}), exp_root=str(tmp_path),
+                device="cpu")
 
 
 def test_cli_trains_the_pruned_loss(corpus, tmp_path, monkeypatch):

@@ -5,10 +5,12 @@
         -config configs/joint_streaming.yaml -log train.log \\
         -mode retrain|continue [--flash | --banded] [--pruned-range N]
         [--bf16] [--remat] [--augment] [--profile DIR] [--device cpu]
-        [--n_data N] [--n_model M] [--zero]
+        [--n_data N] [--n_model M | --n_pipe P [--pipe-micro K]] [--zero]
 
     torchrun --nproc_per_node N*M -m transformer_transducer_tpu_torch.apps.train \
         -config ... --n_data N --n_model M [--zero]
+    torchrun --nproc_per_node N*P -m transformer_transducer_tpu_torch.apps.train \
+        -config ... --n_data N --n_pipe P [--pipe-micro K] [--zero]
 
 ``--flash`` trains the unmasked encoder through the flash rel-attention
 kernels (forward and backward), ``--banded`` under the streaming band
@@ -49,8 +51,15 @@ replica over M ranks (tensor parallelism, JAX's ``model`` axis: heads, the
 FFN's inner width and the joint's; ``parallel/sharding.py``), on a
 ``(data, model)`` grid with ``model`` minor; it composes with ``--zero``,
 ``--flash``, ``--banded``, ``--pruned-range``, ``--bf16`` and ``--remat``,
-and its checkpoints hold the whole model.  ``--n_pipe``, ``--pipe-micro``
-and ``--n_seq`` come in later slices and raise.
+and its checkpoints hold the whole model.  ``--n_pipe P`` splits the
+encoder's layers into P stages (pipeline parallelism, JAX's ``pipe`` axis;
+``parallel/pipeline.py``), on a ``(data, pipe)`` grid with ``pipe`` minor,
+each step JAX's GPipe schedule over ``--pipe-micro K`` microbatches
+(default 2P; or ``--set parallel.n_pipe=P`` / ``parallel.pipe_micro=K``);
+it composes with ``--zero``, ``--flash``, ``--banded``, ``--pruned-range``,
+``--bf16`` and both families, not with ``--n_model``; ``--remat`` does not
+apply inside the stages, and its checkpoints hold the whole model.
+``--n_seq`` comes in a later slice and raises.
 """
 
 from __future__ import annotations
@@ -59,8 +68,6 @@ import argparse
 
 # flags of the JAX entry point whose paths come in later slices of the port
 _LATER = {
-    "n_pipe": "pipeline parallelism (--n_pipe)",
-    "pipe_micro": "pipeline parallelism (--pipe-micro)",
     "n_seq": "sequence parallelism (--n_seq)",
 }
 
@@ -108,8 +115,13 @@ def parse_args(argv=None):
                     "(same as --set training.loss_pruned_range=N)")
     ap.add_argument("--n_model", type=int, default=1,
                     help="tensor-parallel ranks a replica (JAX's model axis)")
-    for flag in ("--n_pipe", "--pipe-micro", "--n_seq"):
-        ap.add_argument(flag, type=int, default=None)
+    ap.add_argument("--n_pipe", type=int, default=None,
+                    help="pipeline stages of the encoder (JAX's pipe axis; same as "
+                    "--set parallel.n_pipe=P)")
+    ap.add_argument("--pipe-micro", type=int, default=None,
+                    help="microbatches a pipelined step (default 2 * n_pipe; same as "
+                    "--set parallel.pipe_micro=K)")
+    ap.add_argument("--n_seq", type=int, default=None)
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="profile the first epoch (torch.profiler) and write "
                     "TensorBoard's *.pt.trace.json to DIR")
@@ -148,7 +160,8 @@ def main(argv=None):
                       banded=args.banded, device=device,
                       compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
                       remat=args.remat, n_data=args.n_data, zero=args.zero,
-                      n_model=args.n_model)
+                      n_model=args.n_model, n_pipe=args.n_pipe,
+                      pipe_micro=args.pipe_micro)
     trainer.logger.info("device: %s", trainer.device)
     trainer.fit(epochs=args.epochs, augment=args.augment, profile_dir=args.profile)
     return trainer

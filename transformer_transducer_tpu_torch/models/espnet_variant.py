@@ -419,6 +419,10 @@ class EspnetTransducer(nn.Module):
                               self.decoder_left_mask, 0)
         return dec
 
+    def encode_labels(self, text: torch.Tensor, text_lengths) -> torch.Tensor:
+        """The label states the loss takes (:meth:`encode_text`)."""
+        return self.encode_text(text, text_lengths)
+
     def encode_for_loss(self, speech: torch.Tensor, speech_lengths, text: torch.Tensor,
                         text_lengths):
         """``(enc, dec, t_len)`` for the loss: :meth:`encode_both` with the

@@ -237,10 +237,15 @@ class Transducer(nn.Module):
     def encode_both(self, inputs: torch.Tensor, targets: torch.Tensor):
         """Encoder + label-encoder states, the training hot path (the fused
         loss consumes them; no (B,T,U,V) tensor)."""
+        return self.encoder(inputs, band=self.band), self.encode_labels(targets)
+
+    def encode_labels(self, targets: torch.Tensor, u_len=None) -> torch.Tensor:
+        """Label-encoder states of the blank-prefixed targets under the
+        look-ahead mask (``u_len`` unused: padded labels are not masked, as
+        in the reference)."""
         prefixed = nn.functional.pad(targets, (1, 0))            # blank prefix
         label_mask = look_ahead_mask(prefixed.shape[1], device=targets.device)
-        return (self.encoder(inputs, band=self.band),
-                self.decoder(prefixed, label_mask))
+        return self.decoder(prefixed, label_mask)
 
     def encode_for_loss(self, inputs: torch.Tensor, t_len, targets: torch.Tensor,
                         u_len):

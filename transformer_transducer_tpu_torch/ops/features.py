@@ -115,6 +115,19 @@ def padded_wave_samples(max_frames: int, factor: int = 3,
     return cap, cap + n_fft
 
 
+def _frame_counts(n_samples: torch.Tensor, max_frames: int, factor: int):
+    """(log-mel frames, feature lengths) of waves of ``n_samples`` samples."""
+    raw_frames = (max_frames - 1) * factor + 1
+    frames_true = torch.clamp(raw_frame_count(n_samples), max=raw_frames)
+    return frames_true, torch.clamp((frames_true + factor - 1) // factor, max=max_frames)
+
+
+def feature_lengths(n_samples, max_frames: int, factor: int = 3) -> torch.Tensor:
+    """The ``(B,)`` feature lengths :func:`extract_batch_padded` gives
+    waves of ``n_samples`` samples, without the features."""
+    return _frame_counts(torch.as_tensor(n_samples).to(torch.long), max_frames, factor)[1]
+
+
 def extract_batch_padded(waves: torch.Tensor, n_samples: torch.Tensor,
                          max_frames: int, sr: int = SAMPLE_RATE,
                          n_mels: int = N_MELS, left: int = 3, right: int = 0,
@@ -133,8 +146,7 @@ def extract_batch_padded(waves: torch.Tensor, n_samples: torch.Tensor,
         raise ValueError(f"padded wave length {total} != {expect} expected for "
                          f"max_frames={max_frames} (see padded_wave_samples)")
     n_samples = torch.as_tensor(n_samples, device=waves.device).to(torch.long)
-    frames_true = torch.clamp(raw_frame_count(n_samples), max=raw_frames)
-    t_len = torch.clamp((frames_true + factor - 1) // factor, max=max_frames)
+    frames_true, t_len = _frame_counts(n_samples, max_frames, factor)
     mel = melspectrogram(waves, sr, n_mels=n_mels)
     logmel = log_eps(mel) if log_variant == "eps" else log_masked(mel)
     rows = torch.arange(raw_frames, device=waves.device)

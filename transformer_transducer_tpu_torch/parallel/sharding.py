@@ -1,4 +1,4 @@
-"""Parameter shardings on the ``(data, model)`` grid (port of
+"""Parameter shardings on the ``(data, model, pipe)`` grid (port of
 ``parallel/sharding.py``).
 
 **Tensor parallelism** (``param_specs``, :func:`shard_model`): JAX's rules
@@ -18,6 +18,17 @@ GSPMD reshards; the port takes head-aligned slices instead (rank m holds
 view and the kernels' row stride work unchanged at ``H/N`` heads.  The
 sharded dimension is JAX's; only ``qkv``'s element set differs.
 
+**Pipeline parallelism** (:func:`pipe_model`): a stage keeps its own
+encoder layers (``parallel/pipeline.py::stage_range``) and frees the
+others' storage (their parameters become empty tensors, so the model's
+parameter list and names stay whole-model aligned); every other leaf (the
+label encoder, the joint, the espnet input layer and ``after_norm``) is
+held on every stage.  JAX stacks the layers into one ``(n_layer, ...)``
+tree sharded on ``pipe``; the port keeps the canonical per-layer leaves,
+which is the layout JAX's ``_to_canonical`` writes to checkpoints, so
+:func:`gathered_state_dict` returns the whole model in that layout and
+:func:`narrow_state_dict` reads a whole checkpoint into a stage.
+
 **ZeRO-1** (:func:`zero_param_shardings`): parameters and gradients stay
 whole on every data rank; each moment (the SGD trace, Adam's mu and nu,
 Adadelta's accumulators) is split over the data ranks on one dimension of
@@ -28,6 +39,10 @@ read in the JAX layout of the leaf, so a port slice holds the same elements
 as the JAX device's shard (a torch ``Linear.weight`` is the transpose of a
 flax kernel, a ``Conv2d`` weight flax's (KH, KW, I, O) permuted to (O, I,
 KH, KW)).  A leaf with no such dimension stays whole on every data rank.
+On the ``(data, pipe)`` grid JAX's stacked leaf has ``pipe`` on its layer
+dimension, so its data dimension is the largest divisible one of the
+layer's own: the rule on the port's per-layer leaf.  A stage's freed
+leaves have no moments.
 """
 
 from __future__ import annotations
@@ -41,6 +56,7 @@ import torch.distributed as dist
 from torch import nn
 
 from transformer_transducer_tpu_torch.parallel.mesh import MODEL_AXIS, Mesh
+from transformer_transducer_tpu_torch.parallel.pipeline import encoder_layers, stage_range
 
 
 @dataclasses.dataclass(frozen=True)
@@ -262,14 +278,65 @@ def tp_plan(model: nn.Module) -> Optional[Tuple[Mesh, List[Optional[TPSlice]]]]:
     return None if getattr(model, "tp", None) is None else (model.tp, model.tp_slices)
 
 
+def pipe_model(model: nn.Module, mesh: Mesh) -> nn.Module:
+    """Keep this stage's encoder layers of a whole ``model`` in place and
+    free the other stages' (their parameters become empty tensors);
+    ``model.pipe`` is the mesh and ``model.pipe_shapes`` each parameter's
+    whole shape where it is a stage's (None where every stage holds it).
+    A mesh of one stage leaves the model whole."""
+    if not mesh.pipelined:
+        return model
+    layers = encoder_layers(model)
+    if len(layers) % mesh.n_pipe:
+        raise ValueError(f"n_layer={len(layers)} must divide over "
+                         f"{mesh.n_pipe} pipeline stages")
+    mine = set(stage_range(len(layers), mesh))
+    stage_of = {}
+    for i, layer in enumerate(layers):
+        for p in layer.parameters():
+            stage_of[id(p)] = i in mine
+    shapes = []
+    with torch.no_grad():
+        for p in model.parameters():
+            own = stage_of.get(id(p))
+            shapes.append(None if own is None else p.shape)
+            if own is False:
+                p.data = p.data.new_empty(0)
+    model.pipe, model.pipe_shapes = mesh, shapes
+    return model
+
+
+def pipe_plan(model: nn.Module) -> Optional[Tuple[Mesh, List[Optional[torch.Size]]]]:
+    """``(mesh, whole shapes)`` of a pipe-split model, as the optimizer
+    takes them (``training/optim.py``); None for a whole one."""
+    return None if getattr(model, "pipe", None) is None else (model.pipe, model.pipe_shapes)
+
+
+def stage_leaf(part: torch.Tensor, shape, mesh: Mesh) -> torch.Tensor:
+    """A stage's leaf whole on every rank of the pipe group: its stage
+    writes it into zeros and an all-reduce sums them (exact, but for the
+    sign of a zero)."""
+    whole = part.new_zeros(shape)
+    if part.numel():
+        whole.copy_(part)
+    dist.all_reduce(whole, group=mesh.pipe_group)
+    return whole
+
+
 def gathered_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
-    """The whole model's ``state_dict`` from a sharded one (a collective:
-    every rank of the model group calls it); the model stays sharded."""
+    """The whole model's ``state_dict`` from a sharded or pipe-split one
+    (a collective: every rank of the model or pipe group calls it); the
+    model stays as it is."""
     state = model.state_dict()
     names = [n for n, _ in model.named_parameters()]
     for name, piece in zip(names, sharded(model)):
         if piece is not None:
             state[name] = whole_leaf(state[name], piece, model.tp)
+    plan = pipe_plan(model)
+    if plan is not None:
+        for name, shape in zip(names, plan[1]):
+            if shape is not None:
+                state[name] = stage_leaf(state[name], shape, plan[0])
     return state
 
 
@@ -292,11 +359,19 @@ def gather_model(model: nn.Module) -> nn.Module:
 def narrow_state_dict(model: nn.Module, state: Mapping[str, torch.Tensor],
                       prefix: str = "") -> Dict[str, torch.Tensor]:
     """A whole ``state`` (keys under ``prefix`` of ``model``'s names)
-    narrowed to the slices of a sharded ``model``, to load into it."""
-    pieces = {n: s for (n, _), s in zip(model.named_parameters(), sharded(model))
-              if s is not None}
-    return {k: pieces[prefix + k].of(v) if prefix + k in pieces else v
-            for k, v in state.items()}
+    narrowed to the slices of a sharded ``model`` (empty where a
+    pipe-split ``model``'s stage does not hold the leaf), to load into it."""
+    params = dict(model.named_parameters())
+    pieces = {n: s for n, s in zip(params, sharded(model)) if s is not None}
+    out = {}
+    for k, v in state.items():
+        name = prefix + k
+        if name in pieces:
+            v = pieces[name].of(v)
+        elif name in params and params[name].numel() == 0 and v.numel():
+            v = v.new_empty(0)
+        out[k] = v
+    return out
 
 
 def zero_dim(shape: Sequence[int], n_data: int,
@@ -312,10 +387,14 @@ def zero_dim(shape: Sequence[int], n_data: int,
 
 def zero_param_shardings(model: nn.Module, mesh: Mesh) -> List[Optional[ZeroSlice]]:
     """This data rank's slice of each of ``model.parameters()`` (None:
-    whole), of this model rank's part of a sharded model."""
+    whole), of this model rank's part of a sharded model or this stage's
+    leaves of a pipe-split one."""
     dims = _port_dims(model)
     out: List[Optional[ZeroSlice]] = []
     for p, piece in zip(model.parameters(), sharded(model)):
+        if p.numel() == 0:          # another stage's leaf
+            out.append(None)
+            continue
         to_port = dims[id(p)]
         taken = None if piece is None else to_port.index(piece.dim)
         d = zero_dim([p.shape[i] for i in to_port], mesh.n_data, taken)

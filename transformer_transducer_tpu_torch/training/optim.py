@@ -42,6 +42,14 @@ The global norm, of the clip and of the metrics, is the whole model's: the
 squares of the sharded leaves summed over the model group, the replicated
 leaves' counted once.  ``state_dict`` gathers the moments over the data
 group and then over the model group, so a checkpoint holds them whole.
+
+Pipeline parallelism (``pipe=(mesh, shapes)`` from
+``parallel/sharding.py::pipe_plan``): a stage's parameter list holds the
+other stages' leaves as empty tensors, whose moments are empty too.  The
+global norm sums the stage-held leaves' squares over the pipe group and
+counts the leaves every stage holds once (the ``tp`` pattern);
+``state_dict`` gathers each stage's moments over the pipe group after the
+data group, and ``load_state_dict`` keeps this stage's.
 """
 
 from __future__ import annotations
@@ -54,24 +62,28 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from transformer_transducer_tpu_torch.parallel.sharding import whole_leaf
+from transformer_transducer_tpu_torch.parallel.sharding import stage_leaf, whole_leaf
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.98, 1e-8
 GATHER_BUCKET = 1 << 23     # elements a ZeRO-1 gather sums at once (32 MiB)
 
 
-def global_norm(tensors: Sequence[torch.Tensor], tp: Optional[Tuple] = None) -> torch.Tensor:
+def global_norm(tensors: Sequence[torch.Tensor], tp: Optional[Tuple] = None,
+                pipe: Optional[Tuple] = None) -> torch.Tensor:
     """sqrt of the sum of squares of every element (optax ``global_norm``);
     with ``tp=(mesh, slices)`` the whole model's, from this model rank's
-    slices (a collective over the model group)."""
+    slices (a collective over the model group); with ``pipe=(mesh,
+    shapes)`` the whole model's from this stage's leaves (a collective over
+    the pipe group)."""
     norms = torch.stack(torch._foreach_norm(list(tensors)))
-    if tp is None:
+    if tp is None and pipe is None:
         return torch.linalg.vector_norm(norms)
-    mesh, slices = tp
-    split = torch.tensor([s is not None for s in slices], device=norms.device)
+    mesh, pieces = tp or pipe
+    group = mesh.model_group if tp is not None else mesh.pipe_group
+    split = torch.tensor([s is not None for s in pieces], device=norms.device)
     squares = norms.square()
     total = torch.where(split, squares, torch.zeros_like(squares)).sum()
-    dist.all_reduce(total, group=mesh.model_group)
+    dist.all_reduce(total, group=group)
     return (total + torch.where(split, torch.zeros_like(squares), squares).sum()).sqrt()
 
 
@@ -84,7 +96,7 @@ class Optimizer:
                  max_grad_norm: Optional[float] = None,
                  schedule: Optional[Callable[[int], float]] = None,
                  grad_accum_steps: int = 1, zero: Optional[Tuple] = None,
-                 tp: Optional[Tuple] = None):
+                 tp: Optional[Tuple] = None, pipe: Optional[Tuple] = None):
         if kind not in ("sgd", "adam", "adadelta"):
             raise NotImplementedError(f"optimizer type {kind!r}")
         self.params = list(params)
@@ -103,6 +115,8 @@ class Optimizer:
         self.mesh, self.slices = zero or (None, [None] * len(self.params))
         # tensor parallelism: (mesh, each parameter's model slice or None)
         self.tp = tp
+        # pipeline parallelism: (mesh, each stage leaf's whole shape or None)
+        self.pipe = pipe
         zeros = lambda: [torch.zeros_like(self._mine(p, s))
                          for p, s in zip(self.params, self.slices)]
         self.state: Dict[str, List[torch.Tensor]] = {}
@@ -158,7 +172,7 @@ class Optimizer:
         self._update(grads)
 
     def _update(self, grads: List[torch.Tensor]) -> None:
-        norm = global_norm(grads, self.tp) if self.max_grad_norm else None
+        norm = global_norm(grads, self.tp, self.pipe) if self.max_grad_norm else None
         # ZeRO-1: from here on this rank's slices (views of the parameters);
         # the clip's norm is the whole gradient's, its scaling the slices'
         params = [self._mine(p, s) for p, s in zip(self.params, self.slices)]
@@ -245,6 +259,10 @@ class Optimizer:
                 mesh, pieces = self.tp
                 state[key] = [t if piece is None else whole_leaf(t, piece, mesh)
                               for t, piece in zip(state[key], pieces)]
+            if self.pipe is not None:
+                mesh, shapes = self.pipe
+                state[key] = [t if shape is None else stage_leaf(t, shape, mesh)
+                              for t, shape in zip(state[key], shapes)]
         return {"kind": self.kind, "count": self.count,
                 "mini_step": self.mini_step, "lr": self.lr,
                 "last_lr": self.last_lr, "state": state}
@@ -261,6 +279,8 @@ class Optimizer:
             slices = self.slices if key != "acc" else [None] * len(tensors)
             for dst, src, piece, mp in zip(self.state[key], tensors, slices, model_pieces,
                                            strict=True):
+                if dst.numel() == 0:        # another stage's leaf
+                    continue
                 dst.copy_(self._mine(self._mine(src.to(dst.device), mp), piece))
 
 
@@ -281,10 +301,10 @@ def step_decay_lr(step: int, warmup_steps: float = 4e3, hold_steps: float = 3e4,
 def build_optimizer(config, params: Sequence[torch.Tensor],
                     max_grad_norm: Optional[float] = None,
                     grad_accum_steps: int = 1, zero: Optional[Tuple] = None,
-                    tp: Optional[Tuple] = None) -> Optimizer:
+                    tp: Optional[Tuple] = None, pipe: Optional[Tuple] = None) -> Optimizer:
     """sgd/adam/adadelta from a reference-schema ``optim:`` block
-    (``zero``: ZeRO-1's ``(mesh, slices)``, ``tp``: tensor parallelism's;
-    see :class:`Optimizer`).
+    (``zero``: ZeRO-1's ``(mesh, slices)``, ``tp``: tensor parallelism's,
+    ``pipe``: pipeline parallelism's; see :class:`Optimizer`).
 
     ``schedule: step_decay`` selects :func:`step_decay_lr` per update, with
     ``lr`` as its ``max_lr`` (knobs ``warmup_steps``, ``hold_steps``,
@@ -306,7 +326,7 @@ def build_optimizer(config, params: Sequence[torch.Tensor],
                      weight_decay=config.weight_decay or 0.0,
                      rho=config.rho or 0.9, eps=config.eps or 1e-6,
                      max_grad_norm=max_grad_norm, schedule=schedule,
-                     grad_accum_steps=grad_accum_steps, zero=zero, tp=tp)
+                     grad_accum_steps=grad_accum_steps, zero=zero, tp=tp, pipe=pipe)
 
 
 @dataclasses.dataclass

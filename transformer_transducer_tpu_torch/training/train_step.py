@@ -27,6 +27,24 @@ its own shards), the global norm is the whole model's
 (``training/optim.py::global_norm``) and the nan guard's decision is the
 model group's, after the data mean: a non-finite value on any rank of the
 grid makes every rank skip.
+
+Pipeline parallelism (a mesh with a pipe axis and a model that
+``parallel/sharding.py::pipe_model`` split, :func:`make_pipelined_train_step`):
+each data rank's rows (``shard_batch``, contiguous) are cut into
+``pipe_micro`` microbatches (default ``2 * n_pipe``) and run through the
+stages on JAX's GPipe schedule (``parallel/pipeline.py``).  Stage 0 takes
+the features and SpecAugment; every stage takes the lengths (with
+``data.on_device_features`` from the sample counts, ``ops/features.py::
+feature_lengths``); the last stage runs the label encoder, the joint and
+the loss, once, on the whole of its rows.  The gradients of the leaves
+every stage holds (the label encoder, the joint, the espnet input layer
+and ``after_norm``; zero on the stages that did not use them) and the loss
+are summed over the pipe group in one all-reduce, exact but for the sign
+of a zero; then come the data mean, the whole model's norm and the nan
+guard, whose decision is the pipe group's.  JAX's microbatches are
+contiguous rows of the global batch split over the data axis, so its data
+ranks take other rows than the port's; only the rounding of the mean can
+tell the two apart.
 """
 
 from __future__ import annotations
@@ -38,12 +56,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from transformer_transducer_tpu_torch.ops.features import extract_batch_padded
+from transformer_transducer_tpu_torch.ops.features import extract_batch_padded, feature_lengths
 from transformer_transducer_tpu_torch.ops.rnnt_loss import rnnt_loss_fused
 from transformer_transducer_tpu_torch.ops.rnnt_loss_pruned import rnnt_loss_pruned
 from transformer_transducer_tpu_torch.ops.specaug import spec_augment
 from transformer_transducer_tpu_torch.parallel.mesh import (
-    Mesh, all_reduce_mean_, gather_rows, shard_batch)
+    Mesh, all_reduce_mean_, gather_rows, shard_batch, sum_over_pipe_)
+from transformer_transducer_tpu_torch.parallel.pipeline import (
+    Pipeline, broadcast_from_last, is_espnet)
 from transformer_transducer_tpu_torch.parallel.tensor import tensor_parallel
 from transformer_transducer_tpu_torch.training.optim import Optimizer, global_norm
 
@@ -74,6 +94,9 @@ class TrainStepConfig:
     # (ops/features.py::extract_batch_padded) before SpecAugment.  None: the
     # host features.
     frontend: Optional[Tuple] = None
+    # microbatches of the pipeline schedule on a mesh with a pipe axis
+    # (0: 2 * n_pipe); the bubble is (n_pipe - 1) / (pipe_micro + n_pipe - 1)
+    pipe_micro: int = 0
 
 
 def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -102,6 +125,32 @@ def featurize(batch: Dict[str, torch.Tensor], frontend: Optional[Tuple]):
                                 factor=factor, log_variant=variant)
 
 
+def frame_lengths(batch: Dict[str, torch.Tensor], frontend: Optional[Tuple]):
+    """``(frames, lengths)`` of a batch's features without computing them:
+    the padded frame count and the ``(B,)`` lengths :func:`featurize`
+    gives."""
+    if frontend is None:
+        return batch["inputs"].shape[1], batch["inputs_length"]
+    max_frames, factor = frontend[4], frontend[3]
+    return max_frames, feature_lengths(batch["inputs_length"], max_frames, factor)
+
+
+def states_loss(model, cfg: TrainStepConfig, enc, dec, batch, t_len,
+                reduction: str = "mean") -> torch.Tensor:
+    """The fused or, with ``loss_pruned_range``, the pruned loss of the
+    encoder and label states."""
+    args = (enc, dec, model.joint_params(), batch["targets"],
+            t_len, batch["targets_length"])
+    kw = dict(chunk_size=cfg.loss_chunk_size, reduction=reduction,
+              remat=cfg.loss_remat and torch.is_grad_enabled(),
+              activation=model.joint_activation,
+              compute_dtype=model.compute_dtype, tp=model.tp)
+    if cfg.loss_pruned_range:
+        return rnnt_loss_pruned(*args, s_range=int(cfg.loss_pruned_range),
+                                simple_scale=cfg.loss_simple_scale, **kw)
+    return rnnt_loss_fused(*args, **kw)
+
+
 def make_loss_fn(model, cfg: TrainStepConfig, reduction: str = "mean") -> Callable:
     """``loss_fn(batch, gen, train=True)``: the on-device frontend (with
     ``cfg.frontend``), SpecAugment (training only, from the
@@ -119,28 +168,55 @@ def make_loss_fn(model, cfg: TrainStepConfig, reduction: str = "mean") -> Callab
         # layer shortens its output: the loss runs over the lengths it gives
         enc, dec, t_len = model.encode_for_loss(inputs, t_len, batch["targets"],
                                                 batch["targets_length"])
-        args = (enc, dec, model.joint_params(), batch["targets"],
-                t_len, batch["targets_length"])
-        kw = dict(chunk_size=cfg.loss_chunk_size, reduction=reduction,
-                  remat=cfg.loss_remat and torch.is_grad_enabled(),
-                  activation=model.joint_activation,
-                  compute_dtype=model.compute_dtype, tp=model.tp)
-        if cfg.loss_pruned_range:
-            return rnnt_loss_pruned(*args, s_range=int(cfg.loss_pruned_range),
-                                    simple_scale=cfg.loss_simple_scale, **kw)
-        return rnnt_loss_fused(*args, **kw)
+        return states_loss(model, cfg, enc, dec, batch, t_len, reduction)
     return loss_fn
+
+
+def pipelined_loss(model, cfg: TrainStepConfig, mesh: Mesh, n_micro: int,
+                   batch: Dict[str, torch.Tensor], gen: Optional[torch.Generator],
+                   dropout: Optional[torch.Generator], train: bool,
+                   reduction: str = "mean"):
+    """This stage's part of the loss through the pipeline: ``(pipe, enc,
+    loss)``, the loss and the encoder output (a leaf) on the last stage
+    (None on the others).  Stage 0 featurizes and, in training,
+    SpecAugments; the others take the lengths alone."""
+    inputs = None
+    if mesh.first_stage:
+        inputs, t_len = featurize(batch, cfg.frontend)
+        t_in = inputs.shape[1]
+        if train and cfg.specaug:
+            inputs = spec_augment(gen, inputs, cfg.max_mask_time,
+                                  cfg.max_mask_frequency, cfg.mask_num)
+    else:
+        t_in, t_len = frame_lengths(batch, cfg.frontend)
+    espnet = is_espnet(model)
+    pipe = Pipeline(model, mesh, n_micro, dropout)
+    enc = pipe.forward(inputs, batch["targets"].shape[0], t_in,
+                       lengths=t_len if espnet else None,
+                       band=None if espnet else model.band)
+    if not mesh.last_stage:
+        return pipe, None, None
+    dec = model.encode_labels(batch["targets"], batch["targets_length"])
+    if espnet:
+        t_len = model.encoded_lengths(t_len, t_in)
+    return pipe, enc, states_loss(model, cfg, enc, dec, batch, t_len, reduction)
 
 
 def make_train_step(model, optimizer: Optimizer,
                     cfg: Optional[TrainStepConfig] = None,
-                    mesh: Optional[Mesh] = None) -> Callable:
+                    mesh: Optional[Mesh] = None,
+                    generator: Optional[torch.Generator] = None) -> Callable:
     """``step(batch, gen) -> metrics``: one forward, backward and optimizer
     update of ``model`` in place.  ``metrics["grad_norm"]`` is the norm of
     the raw, unclipped gradients.  With a data ``mesh`` of several ranks
     ``batch`` is this rank's shard (``parallel/mesh.py::shard_batch``) and
-    the gradients and the loss are the data ranks' means."""
+    the gradients and the loss are the data ranks' means.  A mesh with a
+    pipe axis trains through :func:`make_pipelined_train_step`
+    (``generator``: its dropout generator)."""
     cfg = cfg or TrainStepConfig()
+    if mesh is not None and mesh.pipelined:
+        return make_pipelined_train_step(model, optimizer, cfg, mesh,
+                                         cfg.pipe_micro or 2 * mesh.n_pipe, generator)
     loss_fn = make_loss_fn(model, cfg)
     parallel = mesh is not None and mesh.parallel
 
@@ -171,6 +247,58 @@ def make_train_step(model, optimizer: Optimizer,
     return step
 
 
+def make_pipelined_train_step(model, optimizer: Optimizer, cfg: TrainStepConfig,
+                              mesh: Mesh, n_micro: int,
+                              generator: Optional[torch.Generator] = None) -> Callable:
+    """``step(batch, gen) -> metrics`` through the encoder's stages (see
+    the module's docstring): ``batch`` is this data rank's rows, cut into
+    ``n_micro`` microbatches.  ``generator`` draws the stages' dropout
+    seeds (default: one seeded by the data index).  A mesh of one stage
+    runs the same microbatches one by one in one process."""
+    if mesh.pipelined and optimizer.pipe is None:
+        raise ValueError("a pipelined step needs a model split by "
+                         "parallel/sharding.py::pipe_model and its optimizer's pipe plan")
+    if generator is None:
+        generator = torch.Generator().manual_seed(mesh.data_rank)
+    shapes = optimizer.pipe[1] if optimizer.pipe is not None else None
+
+    def step(batch: Dict[str, torch.Tensor], gen: Optional[torch.Generator]):
+        model.train()
+        for p in optimizer.params:
+            p.grad = None
+        pipe, enc, loss = pipelined_loss(model, cfg, mesh, n_micro, batch, gen,
+                                         generator, train=True)
+        if loss is not None:
+            loss.backward()
+            pipe.backward(enc.grad)
+            loss = loss.detach().clone()
+        else:
+            pipe.backward()
+            loss = torch.zeros((), device=batch["targets"].device)
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in optimizer.params]
+        # the leaves every stage holds, and the loss: summed over the pipe
+        # group (zero where a stage did not use them)
+        if shapes is not None:
+            sum_over_pipe_([g for g, shape in zip(grads, shapes) if shape is None] + [loss],
+                           mesh)
+        all_reduce_mean_([*grads, loss], mesh)
+        grad_norm = global_norm(grads, pipe=optimizer.pipe)
+        metrics = {"loss": loss, "grad_norm": grad_norm}
+        if cfg.nan_guard:
+            bad = (~(torch.isfinite(loss) & torch.isfinite(grad_norm))).float()
+            if mesh.pipelined:
+                dist.all_reduce(bad, op=dist.ReduceOp.MAX, group=mesh.pipe_group)
+            ok = not bool(bad)
+            metrics["skipped"] = int(not ok)
+            if not ok:
+                return metrics
+        optimizer.step(grads)
+        return metrics
+
+    return step
+
+
 def make_eval_loss_step(model, cfg: Optional[TrainStepConfig] = None,
                         mesh: Optional[Mesh] = None) -> Callable:
     """``eval_step(batch) -> (B,)`` per-utterance losses: eval mode, no
@@ -178,15 +306,24 @@ def make_eval_loss_step(model, cfg: Optional[TrainStepConfig] = None,
     pruned: the pruned loss upper-bounds it by a band-dependent margin, which
     would make dev losses incomparable across band widths.  With a data
     ``mesh`` of several ranks each rank takes its rows of the global
-    ``batch`` (which they divide) and every rank gets all B losses."""
+    ``batch`` (which they divide) and every rank gets all B losses; with a
+    pipe axis the encoder runs through the stages and the last stage's
+    losses go to every stage."""
     cfg = dataclasses.replace(cfg or TrainStepConfig(), loss_pruned_range=None)
     loss_fn = make_loss_fn(model, cfg, reduction="none")
 
     @torch.no_grad()
     def eval_step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         model.eval()
-        if mesh is None or not mesh.parallel:
+        if mesh is None or not (mesh.parallel or mesh.pipelined):
             return loss_fn(batch, None, train=False)
-        return gather_rows(loss_fn(shard_batch(batch, mesh), None, train=False), mesh)
+        mine = shard_batch(batch, mesh)
+        if not mesh.pipelined:
+            return gather_rows(loss_fn(mine, None, train=False), mesh)
+        rows = mine["targets"].shape[0]
+        pipe, _, losses = pipelined_loss(model, cfg, mesh, cfg.pipe_micro or 2 * mesh.n_pipe,
+                                         mine, None, None, train=False, reduction="none")
+        losses = broadcast_from_last(losses, (rows,), torch.float32, pipe.device, mesh)
+        return gather_rows(losses, mesh)
 
     return eval_step

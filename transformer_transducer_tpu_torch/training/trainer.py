@@ -64,9 +64,27 @@ replicated activations.  Checkpoints hold the whole model and moments
 (gathered by every rank), so a tensor-parallel run continues in one process
 and the other way round.  The evaluation's loss runs sharded; its greedy
 decoding runs on a gathered copy of the weights, made once an evaluation
-(JAX decodes sharded; the CER is the same function).  The JAX package's
-pipeline and sequence parallelism come in later slices and raise
-``NotImplementedError`` here.
+(JAX decodes sharded; the CER is the same function).
+
+Pipeline parallelism (``n_pipe``, ``pipe_micro``, or the config's
+``parallel.n_pipe`` / ``parallel.pipe_micro``; the argument wins; JAX's
+``pipe`` axis): the world is a ``(data, pipe)`` grid, the encoder's layers
+split over the stages (``parallel/sharding.py::pipe_model``) and each step
+runs JAX's GPipe schedule over ``pipe_micro`` microbatches (default ``2 *
+n_pipe``; ``training/train_step.py``).  JAX's checks: ``n_pipe`` with
+``n_model`` raises ``NotImplementedError``, encoder blocks that do not
+divide over the stages or a batch that does not divide into the
+microbatches raise ``ValueError``; ``n_data`` defaults to the largest
+divisor of the batch and of its microbatch at most the world over
+``n_pipe``.  ``--remat`` does not apply inside the stages (JAX's stage
+layers keep flash and the compute dtype, not ``nn.remat``).  The stages'
+dropout draws from a generator seeded by the data index (and the stage,
+inside the schedule).  Checkpoints hold the whole model and moments in the
+per-layer layout (gathered over the pipe group), so a pipelined run
+continues in one process and the other way round.  The evaluation runs
+the encoder through the pipeline; every stage gets its states and decodes
+its data rank's rows.  The JAX package's sequence parallelism comes in a
+later slice and raises ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -87,11 +105,13 @@ from transformer_transducer_tpu_torch.models.espnet_variant import EspnetTransdu
 from transformer_transducer_tpu_torch.models.factory import build_family
 from transformer_transducer_tpu_torch.parallel import mesh as mesh_lib
 from transformer_transducer_tpu_torch.parallel.sharding import (
-    gather_model, gathered_state_dict, narrow_state_dict, shard_model, tp_plan,
-    zero_param_shardings)
+    gather_model, gathered_state_dict, narrow_state_dict, pipe_model, pipe_plan,
+    shard_model, tp_plan, zero_param_shardings)
+from transformer_transducer_tpu_torch.parallel.pipeline import (
+    encode_for_decoding as encode_pipelined_for_decoding, encoder_layers)
 from transformer_transducer_tpu_torch.training import optim as optim_lib
 from transformer_transducer_tpu_torch.training.train_step import (
-    TrainStepConfig, batch_to_device, featurize, make_eval_loss_step,
+    TrainStepConfig, batch_to_device, featurize, frame_lengths, make_eval_loss_step,
     make_train_step)
 from transformer_transducer_tpu_torch.utils import checkpoint as ckpt_lib
 from transformer_transducer_tpu_torch.utils.config import (
@@ -108,25 +128,45 @@ class Trainer:
                  flash: bool = False, banded: bool = False, device=None,
                  compute_dtype: torch.dtype = torch.float32, remat: bool = False,
                  n_data: Optional[int] = None, zero: Optional[bool] = None,
-                 n_model: int = 1):
+                 n_model: int = 1, n_pipe: Optional[int] = None,
+                 pipe_micro: Optional[int] = None):
         self.device = resolve_device(mesh_lib.local_device(device))
         pcfg = config.parallel or Config()
-        if (pcfg.n_pipe or 1) > 1 or (pcfg.n_seq or 1) > 1:
-            raise mesh_lib.later("pipeline and sequence parallelism (parallel.n_pipe, "
-                                 "parallel.n_seq)")
+        if (pcfg.n_seq or 1) > 1:
+            raise mesh_lib.later("sequence parallelism (parallel.n_seq)")
         # parallel.zero (the argument wins): ZeRO-1, the optimizer's moments
         # split over the data ranks
         self.zero = bool(zero if zero is not None else pcfg.zero)
+        # parallel.n_pipe / parallel.pipe_micro (the arguments win): the
+        # encoder's layers in stages, pipe_micro microbatches a step
+        self.n_pipe = int(n_pipe if n_pipe is not None else (pcfg.n_pipe or 1))
+        self.pipe_micro = int(pipe_micro if pipe_micro is not None
+                              else (pcfg.pipe_micro or 0)) or 2 * self.n_pipe
         batch = config.data.batch_size or 1
         n_model = int(n_model or 1)
+        if self.n_pipe > 1:
+            # JAX's checks (training/trainer.py:100-110); an espnet-schema
+            # config (model.mask) counts its encoder blocks in num_blocks
+            blocks = (config.model.enc.num_blocks if config.model.mask is not None
+                      else config.model.enc.n_layer)
+            if n_model > 1:
+                raise NotImplementedError("n_pipe composes with the data axis only; "
+                                          "set n_model=1")
+            if blocks % self.n_pipe:
+                raise ValueError(f"encoder blocks={blocks} must divide over "
+                                 f"{self.n_pipe} pipeline stages")
+            if batch % self.pipe_micro:
+                raise ValueError(f"batch_size={batch} must divide into "
+                                 f"{self.pipe_micro} microbatches (parallel.pipe_micro)")
         if n_data is None:
-            # the largest data axis that divides the batch (JAX's default)
-            avail = max(mesh_lib.world_size() // n_model, 1)
-            n_data = max(d for d in range(1, avail + 1) if batch % d == 0)
-        self.mesh = mesh_lib.make_mesh(n_data=n_data, n_model=n_model)
+            n_data = mesh_lib.default_n_data(batch, n_model, self.n_pipe, self.pipe_micro)
+        self.mesh = mesh_lib.make_mesh(n_data=n_data, n_model=n_model, n_pipe=self.n_pipe)
         if batch % self.mesh.n_data:
             raise ValueError(f"data.batch_size={batch} must divide over "
                              f"{self.mesh.n_data} data ranks")
+        if self.n_pipe > 1 and (batch // self.pipe_micro) % self.mesh.n_data:
+            raise ValueError(f"microbatch size {batch // self.pipe_micro} must divide "
+                             f"over the {self.mesh.n_data}-way data axis")
         self.is_main = self.mesh.is_main
         self.config = config
         self.mode = mode
@@ -155,15 +195,22 @@ class Trainer:
                                   compute_dtype=compute_dtype).train()
         self._spread_dropout(seed)
         self.is_espnet = isinstance(self.model, EspnetTransducer)
+        # the stages' dropout: seeded by the data index (the stage enters in
+        # the schedule)
+        self.pipe_gen = torch.Generator().manual_seed(self._pipe_seed(seed, 0))
         if self.is_espnet and (flash or banded):
             self.logger.info("--flash/--banded select the native family's "
                              "attention kernels; the espnet family ignores them")
         if self.is_espnet and remat:
             self.logger.info("--remat recomputes the native family's encoder "
                              "layers; the espnet family ignores it")
+        if self.n_pipe > 1 and remat and not self.is_espnet:
+            self.logger.info("--remat does not apply inside pipeline stages (JAX's "
+                             "stage layers keep flash and the compute dtype, not remat)")
         self.logger.info("compute dtype %s over float32 parameters; encoder "
                          "remat %s", str(compute_dtype).replace("torch.", ""),
-                         "on" if remat and not self.is_espnet else "off")
+                         "on" if remat and not self.is_espnet and self.n_pipe == 1
+                         else "off")
         n_total = sum(p.numel() for p in self.model.parameters())
         n_enc = sum(p.numel() for p in self.model.encoder.parameters())
         n_dec = sum(p.numel() for p in self.model.decoder.parameters())
@@ -172,8 +219,17 @@ class Trainer:
         if self.mesh.active:
             # the whole weights built alike on every rank (one seed), then
             # this model rank's slices (none with one model rank); a
-            # checkpoint is read whole and narrowed
+            # checkpoint is read whole and narrowed; a pipe stage keeps its
+            # own encoder layers
             shard_model(self.model, self.mesh)
+            pipe_model(self.model, self.mesh)
+        if self.n_pipe > 1:
+            self.logger.info("Pipeline: %d stages of %d encoder layers, %d microbatches a "
+                             "step (bubble %.4f); %d parameters on this stage",
+                             self.n_pipe, len(encoder_layers(self.model)) // self.n_pipe,
+                             self.pipe_micro,
+                             (self.n_pipe - 1) / (self.pipe_micro + self.n_pipe - 1),
+                             sum(p.numel() for p in self.model.parameters()))
 
         # training.grad_accum_steps: the mean of K batches' gradients per
         # update (optax MultiSteps).  global_step (and --save-steps and the
@@ -186,7 +242,7 @@ class Trainer:
         self.optimizer = optim_lib.build_optimizer(
             config.optim, list(self.model.parameters()),
             max_grad_norm=config.training.max_grad_norm, grad_accum_steps=ga,
-            zero=zero_plan, tp=tp_plan(self.model))
+            zero=zero_plan, tp=tp_plan(self.model), pipe=pipe_plan(self.model))
         if ga > 1:
             self.logger.info("Gradient accumulation: %d batches per update", ga)
         self.lr_ctl = optim_lib.LRController(
@@ -200,10 +256,12 @@ class Trainer:
         self._maybe_load()
         if self.mesh.parallel and self.mesh.active:
             # the replicas start from data index 0's weights (its rank in
-            # this model index's data group: world rank model_rank)
+            # this model and pipe index's data group)
             with torch.no_grad():
                 for p in self.model.parameters():
-                    dist.broadcast(p, src=self.mesh.model_rank, group=self.mesh.data_group)
+                    if p.numel():
+                        dist.broadcast(p, src=self.mesh.data_root,
+                                       group=self.mesh.data_group)
 
         tcfg = config.training
         # data.on_device_features: the loaders ship raw padded waves and the
@@ -225,12 +283,12 @@ class Trainer:
             else None,
             loss_simple_scale=0.25 if tcfg.loss_simple_scale is None
             else float(tcfg.loss_simple_scale),
-            nan_guard=bool(tcfg.nan_guard))
+            nan_guard=bool(tcfg.nan_guard), pipe_micro=self.pipe_micro)
         self.max_skipped_steps = int(tcfg.max_skipped_steps or 25)
         self._consecutive_skips = 0
         self.total_skips = 0
         self.train_step = make_train_step(self.model, self.optimizer, self.step_cfg,
-                                          mesh=self.mesh)
+                                          mesh=self.mesh, generator=self.pipe_gen)
         # training.steps_per_call = K: K single steps between the step
         # checkpoint checks (the JAX package scans K updates in one program)
         self.steps_per_call = int(tcfg.steps_per_call or 1)
@@ -238,6 +296,11 @@ class Trainer:
                                                   mesh=self.mesh)
 
     # ------------------------------------------------------------------
+    def _pipe_seed(self, seed: int, step: int) -> int:
+        """The stages' dropout generator's seed: the data index's, moving on
+        with the step (on a resume)."""
+        return 1_000_003 * seed + step * self.mesh.n_data + self.mesh.data_rank
+
     def _rng_state(self):
         state = {"specaug": self.gen.get_state(), "torch": torch.get_rng_state()}
         if self.device.type == "cuda":
@@ -263,6 +326,8 @@ class Trainer:
         # seed that moves on with the step (seed + step * n_data + data rank)
         self._spread_dropout((self.config.training.seed or 1)
                              + self.global_step * self.mesh.n_data)
+        self.pipe_gen.manual_seed(self._pipe_seed(self.config.training.seed or 1,
+                                                  self.global_step))
 
     def _load_component(self, comp: str, state) -> None:
         """A whole component's ``state``, narrowed to a sharded model."""
@@ -435,11 +500,13 @@ class Trainer:
         total_loss, loss_utts = 0.0, 0
         dump_path = os.path.join(self.exp_dir, f"decode_{epoch}.txt")
         max_tokens = self.config.data.max_target_length + 1
-        parallel = self.mesh.parallel
+        # padded to data.batch_size over data ranks or microbatches
+        parallel = self.mesh.parallel or self.mesh.pipelined
         # greedy decoding on whole weights: a gathered copy under tensor
         # parallelism (every rank gathers), the model itself otherwise
         decoder = (gather_model(copy.deepcopy(self.model)).eval()
                    if self.model.tp is not None else self.model)
+        pipelined = self.mesh.pipelined
         with open(dump_path if self.is_main else os.devnull, "w", encoding="utf-8") as dump:
             for bi, batch in enumerate(loader):
                 if max_batches is not None and bi >= max_batches:
@@ -455,8 +522,13 @@ class Trainer:
                 decoder.eval()
                 mine = mesh_lib.shard_batch(dev_batch, self.mesh)
                 with torch.no_grad():
-                    inputs, t_len = featurize(mine, self.frontend)
-                    enc, t_len = decoder.encode_for_decoding(inputs, t_len)
+                    if pipelined:
+                        # the encoder through the stages; every stage gets
+                        # its states
+                        enc, t_len = self._encode_pipelined(mine)
+                    else:
+                        inputs, t_len = featurize(mine, self.frontend)
+                        enc, t_len = decoder.encode_for_decoding(inputs, t_len)
                 tokens, counts = greedy_decode(decoder, enc, t_len,
                                                max_tokens=max_tokens)
                 tokens, counts = (mesh_lib.gather_rows(x, self.mesh)[:valid]
@@ -483,10 +555,25 @@ class Trainer:
                 self.metrics.add_scalar("eval_loss", avg_loss, epoch)
         return cer
 
+    def _encode_pipelined(self, batch):
+        """``(enc, t_len)`` of this data rank's rows through the pipeline,
+        on every stage (stage 0 featurizes, the others take the lengths)."""
+        rows = batch["targets"].shape[0]
+        if self.mesh.first_stage:
+            inputs, t_len = featurize(batch, self.frontend)
+            t_in = inputs.shape[1]
+        else:
+            inputs = None
+            t_in, t_len = frame_lengths(batch, self.frontend)
+        return encode_pipelined_for_decoding(self.model, inputs, t_len, self.mesh,
+                                             self.pipe_micro, rows=rows, t_in=t_in)
+
     def _whole_model(self):
-        """The model, or under tensor parallelism its whole state dict (a
-        collective: every rank gathers)."""
-        return gathered_state_dict(self.model) if self.model.tp is not None else self.model
+        """The model, or under tensor or pipeline parallelism its whole
+        state dict (a collective: every rank gathers)."""
+        if self.model.tp is not None or getattr(self.model, "pipe", None) is not None:
+            return gathered_state_dict(self.model)
+        return self.model
 
     def save(self, epoch: int):
         path = os.path.join(self.exp_dir, f"epoch_{epoch}")
