@@ -318,13 +318,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 17. tensor parallelism at flagship width (``--n_model 2``: 18 layers,
    d_model 512, 8 heads, so 4 a rank), phase 8's B 4 batch, dropout 0,
    SGD 0.9, clip 200, SpecAugment and dropout seeded as in phase 6:
-   (a) two ranks on the one card through gloo (``tp_rank``), 3 steps each
-   of ``--flash`` (kernels 8/9), ``--banded`` (6/7), ``--flash
-   --pruned-range 5`` (3-5 too), ``--bf16 --flash`` (8b/9b) and (c) the
-   espnet family (``configs/espnet_aishell.yaml``), each held to one
-   process on the same weights and batch (losses within 1e-4, step 1's
-   gradient norm within 1e-3, relative; under bf16 step 1 alone, as in
-   phase 14, steps 2-3 printed), each rank's launches a step
+   (a) two ranks on the one card through gloo (``tp_rank``), step 1 of
+   the full-loss runs ``--flash`` (kernels 8/9), ``--banded`` (6/7),
+   ``--bf16 --flash`` (8b/9b) and (c) the espnet family
+   (``configs/espnet_aishell.yaml``), and 3 steps of ``--flash
+   --pruned-range 5`` (3-5 too), each held to one process on the same
+   weights and batch (losses within 1e-4, step 1's gradient norm within
+   1e-3, relative; under bf16 step 1 alone, as in phase 14; a full-loss
+   tp2 step takes some 5 s through gloo, so those runs take one step to
+   keep the script inside its time), each rank's launches a step
    equal to one process's; each step's ms a rank, the share of it that the
    logits' sums over the model group take (timed between
    synchronisations), the parameter and SGD-trace bytes a rank against one
@@ -335,7 +337,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    environment): 4 steps, one evaluation line, an ``epoch_0`` that holds
    the whole model, which one-process ``apps/predict.py --full-context``
    serves (its text is ``recognize``'s with those weights);
-   (b) dp2 x tp2 on four ranks with ``--zero``: 3 flash steps on their
+   (b) dp2 x tp2 on four ranks with ``--zero``: flash step 1 on their
    halves of the batch within the training bars of one process, each
    rank's launches one process's, moment bytes (at most 30 % of one
    process's trace) and peak memory a rank.  A JSON line before the
@@ -368,6 +370,30 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (9 x 2 a kernel), every hop equal to the bit, moment bytes (at most
    35 % of one process's trace) and peak memory a rank.  A JSON line
    before the kernels' line (``phase18_launches``).
+19. sequence parallelism at flagship width and depth (``--banded --n_seq
+   2``: 18 layers, T 410 in two shards of 205 frames, band (10, 2),
+   windows pinned at 256 rows), phase 8's B 4 batch, dropout 0, SGD 0.9,
+   clip 200, SpecAugment and dropout seeded as in phase 6, two gloo ranks
+   on the one card (``sp_rank``): (b) first, the sp2 encode against the
+   one-process oracle (``encode_banded_sp_oracle``) on the card, within
+   ``ENC_TOL`` after 18 layers; (a) 3 steps each of banded, banded with
+   ``--pruned-range 5``, ``--bf16`` banded and the espnet family, the native
+   runs held to one process whose encoder is the 2-shard oracle at the same
+   window with autograd through it (``oracle_steps``), the espnet run to
+   phase 17's one-process dense banded steps (its sp encoder is exact):
+   losses within 1e-4 and step 1's norm within 1e-3 (bf16: step 1 alone),
+   each shard's launches the yardstick's (kernels 1-2 a step, 3-5 under
+   pruned; the windows run the masked einsum, as JAX's, so no attention
+   kernel), both shards' losses and norms equal; printed: each step's ms,
+   the halos', the gather's and the seq-group gradient sum's ms and bytes
+   (``sp_timers``, between synchronisations), the peak a rank; (d) then,
+   the group left, ``apps/train.py --banded --n_seq 2`` for one epoch of
+   phase 7's corpus, its ``epoch_0`` served by one-process ``predict``;
+   (c) dp2 x sp2 with ``--zero`` and tp2 x sp2 on four ranks, started
+   with the two and stepping once the two's steps are done (beside (d)'s
+   epoch, so their times are not alone): step 1 within the training bars
+   of the yardstick.  A JSON line before the kernels' line
+   (``phase19_launches``).
 
 Each phase logs the seconds since the run began.
 
@@ -4725,7 +4751,7 @@ def tp_rank(job_path) -> dict:
     for name, run in job["runs"].items():
         batch = shard_batch({k: v.to(device) for k, v in job["batches"][run["batch"]].items()},
                             mesh)
-        out["runs"][name] = tp_steps(run, mesh, device, batch, sums)
+        out["runs"][name] = tp_steps(run, mesh, device, batch, sums, run.get("steps", 3))
         out["rows"] = int(batch["inputs"].shape[0])
     tensor_lib._sum_over = sums.fn
     dist.barrier()
@@ -4858,10 +4884,12 @@ def check_tensor_parallel(cfg, state, batch, device, smi):
     esp_state = from_jax_params(random_jax_params(esp.model, seed=0))
     esp_batch, _ = training_batch(esp, device, seed=1)
     bf16 = torch.bfloat16
-    runs = {"flash": dict(mode="flash"), "banded": dict(mode="banded"),
+    # the full-loss runs take one step (a tp2 step is some 5 s through gloo)
+    runs = {"flash": dict(mode="flash", steps=1), "banded": dict(mode="banded", steps=1),
             f"flash, pruned {S_RANGE}": dict(mode="flash", pruned=S_RANGE),
-            "bf16 flash": dict(mode="flash", compute_dtype=bf16),
-            "espnet": dict(mode=None, model=esp_cfg, state=esp_state, batch="espnet")}
+            "bf16 flash": dict(mode="flash", compute_dtype=bf16, steps=1),
+            "espnet": dict(mode=None, model=esp_cfg, state=esp_state, batch="espnet",
+                           steps=1)}
     for run in runs.values():
         run.setdefault("model", model_cfg)
         run.setdefault("state", state)
@@ -5323,6 +5351,378 @@ def check_pipeline(cfg, state, batch, device, smi, one_process):
         "above the baseline " + ", ".join(f"{g:.4f}" for g in summary["dp2pp2_peak_gib"])
         + f" GiB; step ms " + "; ".join(", ".join(f"{s[3]:.2f}" for s in st)
                                        for st in summary["dp2pp2_steps"]) + f" ({smi})")
+    return dict(launches), summary
+
+
+SP_WINDOW = 256          # the flagship's pinned window at 2 shards (205 + 10 + 2, rounded up)
+
+
+class _TimedCalls:
+    """A module function of the sequence-parallel path timed between device
+    synchronisations (phase 19): milliseconds, bytes (``size`` of its
+    arguments) and calls since the last reset."""
+
+    def __init__(self, fn, device, size):
+        self.fn, self.device, self.size = fn, device, size
+        self.reset()
+
+    def reset(self):
+        self.ms, self.bytes, self.count = 0.0, 0, 0
+
+    def __call__(self, *args):
+        sync(self.device)
+        start = time.perf_counter()
+        out = self.fn(*args)
+        sync(self.device)
+        self.ms += 1e3 * (time.perf_counter() - start)
+        self.bytes += self.size(*args)
+        self.count += 1
+        return out
+
+
+def sp_timers(device):
+    """Phase 19's timers, installed in place of ``parallel/sequence.py``'s
+    halo transfer (``_link``) and gather (``_gather``) and of the train
+    step's seq-group gradient sum (``sum_over_seq_``)."""
+    from transformer_transducer_tpu_torch.parallel import sequence as sequence_lib
+    from transformer_transducer_tpu_torch.training import train_step as train_step_lib
+    nbytes = lambda t: t.numel() * t.element_size()
+    timers = {"halo": _TimedCalls(sequence_lib._link, device, lambda t, *_: nbytes(t)),
+              "gather": _TimedCalls(sequence_lib._gather, device,
+                                    lambda x, mesh: nbytes(x) * mesh.n_seq),
+              "seq_sum": _TimedCalls(train_step_lib.sum_over_seq_, device,
+                                     lambda ts, mesh: sum(4 * t.numel() for t in ts))}
+    sequence_lib._link, sequence_lib._gather = timers["halo"], timers["gather"]
+    train_step_lib.sum_over_seq_ = timers["seq_sum"]
+    return timers
+
+
+def sp_timers_off(timers):
+    from transformer_transducer_tpu_torch.parallel import sequence as sequence_lib
+    from transformer_transducer_tpu_torch.training import train_step as train_step_lib
+    sequence_lib._link, sequence_lib._gather = timers["halo"].fn, timers["gather"].fn
+    train_step_lib.sum_over_seq_ = timers["seq_sum"].fn
+
+
+def sp_steps(run, mesh, device, batch, timers, steps=3):
+    """``steps`` steps of one phase 19 run on this rank of ``mesh`` (``run``:
+    model config and state, attention mode, pruned band, compute dtype,
+    ZeRO-1), SpecAugment and dropout seeded as ``train_three_steps`` seeds
+    them: per step (loss, norm, launch counts, step ms, then ms, bytes and
+    calls of the halos, the gather and the seq-group sum), and the rank's
+    peak bytes above its baseline."""
+    import torch
+    base = reset_peak(device)
+    model, opt, step = make_trainee(run["model"], run["optim"], run["state"], run["mode"],
+                                    device, run.get("pruned"),
+                                    compute_dtype=run.get("compute_dtype"), mesh=mesh,
+                                    zero=run.get("zero", False))
+    gen = torch.Generator().manual_seed(0)
+    torch.manual_seed(0)
+    out = []
+    for _ in range(steps):
+        reset_counts()
+        for t in timers.values():
+            t.reset()
+        sync(device)
+        start = time.perf_counter()
+        m = step(batch, gen)
+        sync(device)
+        ms = 1e3 * (time.perf_counter() - start)
+        out.append((float(m["loss"]), float(m["grad_norm"]), read_counts(), ms,
+                    {k: (t.ms, t.bytes, t.count) for k, t in timers.items()}))
+    result = {"steps": out, "moment_bytes": opt.moment_bytes(),
+              "peak_gib": peak_gib(device, base)}
+    del model, opt, step
+    return result
+
+
+def sp_halo_check(job, mesh, device) -> dict:
+    """Phase 19 (b): the flagship's banded encoder on phase 8's features in
+    2 time shards against the one-process oracle, both on the card, no
+    gradients; the largest |difference| and the launches."""
+    import torch
+    from transformer_transducer_tpu_torch.models.transducer import build_transducer
+    from transformer_transducer_tpu_torch.parallel.sequence import (
+        encode_banded_sp, encode_banded_sp_oracle)
+    model = build_transducer(job["model"], banded=True, device=device)
+    model.load_state_dict(job["state"])
+    x = job["x"].to(device)
+    with torch.no_grad():
+        reset_counts()
+        got = encode_banded_sp(model, x, mesh, *model.band, SP_WINDOW)
+        sync(device)
+        counts = read_counts()
+        want = encode_banded_sp_oracle(model, x, 2, *model.band, SP_WINDOW)
+    err = float((got - want).abs().max())
+    del model
+    return {"max_abs_err": err, "counts": counts}
+
+
+def sp_rank(job_path) -> dict:
+    """Phase 19, one of the ranks that ``check_sequence`` launches (all on
+    the one card, gloo): once the job's ``go`` file exists, for each of the
+    job's ``grids`` ``(n_data, n_model, runs)`` the grid of
+    ``make_mesh(n_data, n_model, n_seq=2)``, with ``halo`` (on the first)
+    the sp2 encode against the oracle (:func:`sp_halo_check`), then each of
+    its runs (:func:`sp_steps`), the halos, the gather and the seq-group sum
+    timed; then, with a ``cli_config``, the group left, ``apps/train.py
+    --banded --n_seq 2`` for one epoch of phase 7's corpus (a group of its
+    own from the environment, at the job's second port); a ``done`` path
+    gets a file a rank when its runs are over."""
+    import torch
+    import torch.distributed as dist
+    from transformer_transducer_tpu_torch.apps import train as train_app
+    from transformer_transducer_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    job = torch.load(job_path, weights_only=False)     # this run's own file
+    device = job["device"]
+    dist.init_process_group("gloo", init_method="env://")
+    timers = sp_timers(device)
+    waited = time.perf_counter()
+    while not os.path.exists(job["go"]):
+        require(time.perf_counter() - waited < 600, "phase 19: the references did not end")
+        time.sleep(0.2)
+    out = {"rank": dist.get_rank(), "runs": {}}
+    for n_data, n_model, runs in job["grids"]:
+        mesh = make_mesh(n_data=n_data, n_model=n_model, n_seq=2)
+        out["seq_rank"] = mesh.seq_rank
+        if job.get("halo") and "halo" not in out:
+            out["halo"] = sp_halo_check(job, mesh, device)
+        for name, run in runs.items():
+            batch = shard_batch({k: v.to(device)
+                                 for k, v in job["batches"][run["batch"]].items()}, mesh)
+            out["runs"][name] = sp_steps(run, mesh, device, batch, timers, run.get("steps", 3))
+    sp_timers_off(timers)
+    if job.get("done"):
+        with open(f"{job['done']}.{out['rank']}", "w") as fh:
+            fh.write("done")
+    dist.barrier()
+    dist.destroy_process_group()
+    if job.get("cli_config"):
+        os.environ["MASTER_PORT"] = str(job["cli_port"])
+        os.chdir(job["cli_dir"])
+        reset_counts()
+        start = time.perf_counter()
+        trainer = train_app.main(["-config", job["cli_config"], "--banded", "--n_seq", "2",
+                                  "--epochs", "1", "--device", device])
+        sync(device)
+        out["cli"] = {"s": time.perf_counter() - start, "counts": read_counts(),
+                      "backend": dist.get_backend() if dist.is_initialized() else None,
+                      "n_data": trainer.mesh.n_data, "n_seq": trainer.mesh.n_seq,
+                      "global_step": trainer.global_step, "exp_dir": trainer.exp_dir}
+        dist.barrier()
+        dist.destroy_process_group()
+    return out
+
+
+def oracle_steps(run, batch, device, steps=3):
+    """Phase 19's yardstick: ``steps`` one-process steps of a native run
+    whose encoder is the 2-shard oracle at the pinned window (the function
+    sp2 trains), with autograd through it; SpecAugment and dropout seeded
+    as ``train_three_steps`` seeds them; per step (loss, norm, launches)."""
+    import torch
+    from transformer_transducer_tpu_torch.ops.specaug import spec_augment
+    from transformer_transducer_tpu_torch.parallel.sequence import encode_banded_sp_oracle
+    from transformer_transducer_tpu_torch.training.optim import global_norm
+    from transformer_transducer_tpu_torch.training.train_step import (
+        TrainStepConfig, states_loss)
+    model, opt, _ = make_trainee(run["model"], run["optim"], run["state"], "banded", device,
+                                 run.get("pruned"), compute_dtype=run.get("compute_dtype"))
+    cfg = TrainStepConfig(loss_pruned_range=run.get("pruned"))
+    gen = torch.Generator().manual_seed(0)
+    torch.manual_seed(0)
+    out = []
+    for _ in range(steps):
+        reset_counts()
+        for p in opt.params:
+            p.grad = None
+        inputs = spec_augment(gen, batch["inputs"], cfg.max_mask_time, cfg.max_mask_frequency,
+                              cfg.mask_num)
+        enc = encode_banded_sp_oracle(model, inputs, 2, *model.band, SP_WINDOW)
+        dec = model.encode_labels(batch["targets"], batch["targets_length"])
+        loss = states_loss(model, cfg, enc, dec, batch, batch["inputs_length"])
+        loss.backward()
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in opt.params]
+        norm = global_norm(grads)
+        opt.step(grads)
+        sync(device)
+        out.append((float(loss.detach()), float(norm), read_counts()))
+    del model, opt
+    return out
+
+
+def check_sequence(cfg, state, batch, device, smi, one_process):
+    """Phase 19: sequence parallelism at flagship width and depth (see the
+    module's docstring).  ``batch`` is phase 8's B 4 batch, ``one_process``
+    phase 17's one-process runs (its espnet run is the espnet yardstick).
+    Returns the main paths' launches and a summary."""
+    import copy
+    import torch
+    from transformer_transducer_tpu_torch.utils.config import Config
+    from transformer_transducer_tpu_torch.utils.convert import (
+        from_jax_params, random_jax_params)
+    launches = collections.Counter()
+    summary = {"device": smi}
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([HERE, os.environ.get("PYTHONPATH", "")]))
+    model_cfg = load_flagship().model
+    model_cfg.override("dropout", 0.0)
+    optim_cfg = Config({"type": "sgd", "lr": cfg.optim.lr, "momentum": 0.9})
+    esp = load_config("configs", "espnet_aishell.yaml")
+    esp_cfg = copy.deepcopy(esp.model)
+    for blk in ("enc", "dec"):
+        for key in ("dropout_rate", "positional_dropout_rate", "attention_dropout_rate"):
+            esp_cfg[blk][key] = 0.0
+    esp_state = from_jax_params(random_jax_params(esp.model, seed=0))
+    esp_batch, _ = training_batch(esp, device, seed=1)
+    bf16 = torch.bfloat16
+    runs = {"banded": dict(mode="banded"),
+            f"banded, pruned {S_RANGE}": dict(mode="banded", pruned=S_RANGE),
+            "bf16 banded": dict(mode="banded", compute_dtype=bf16),
+            "espnet": dict(mode=None, model=esp_cfg, state=esp_state, batch="espnet")}
+    for run in runs.values():
+        run.setdefault("model", model_cfg)
+        run.setdefault("state", state)
+        run.setdefault("batch", "native")
+        run["optim"] = optim_cfg
+    batches = {"native": {k: v.cpu() for k, v in batch.items()},
+               "espnet": {k: v.cpu() for k, v in esp_batch.items()}}
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_dir = os.path.join(tmp, "cli")
+        os.makedirs(cli_dir)
+        go = os.path.join(tmp, "go")
+        # (c)'s four ranks start with these two and take their step once the
+        # two have taken theirs (so they overlap the CLI's epoch): dp2 x sp2
+        # with ZeRO-1, then tp2 x sp2
+        grids = [(2, 1, {"dp2 x sp2 zero": dict(runs["banded"], zero=True, steps=1)}),
+                 (1, 2, {"tp2 x sp2": dict(runs["banded"], steps=1)})]
+        done, go4 = os.path.join(tmp, "done"), os.path.join(tmp, "go4")
+        job = {"device": str(device), "grids": [(1, 1, runs)], "done": done,
+               "batches": batches, "go": go, "cli_dir": cli_dir,
+               "cli_config": write_corpus(cli_dir, cfg), "halo": True, "model": model_cfg,
+               "state": state, "x": batch["inputs"].cpu()}
+        procs = launch_ranks(2, job, tmp, env, "sp2", "sp_rank")
+        job4 = {"device": str(device), "go": go4, "batches": batches, "grids": grids}
+        procs4 = launch_ranks(4, job4, tmp, env, "sp4", "sp_rank")
+        try:
+            # the yardstick while the ranks start: one process whose encoder
+            # is the 2-shard oracle, autograd through it
+            yard = {name: oracle_steps(run, batch, device)
+                    for name, run in runs.items() if run["batch"] == "native"}
+            yard["espnet"] = one_process["espnet"]
+            with open(go, "w") as fh:
+                fh.write("go")
+            waited = time.perf_counter()
+            while not all(os.path.exists(f"{done}.{r}") for r in range(2)):
+                if any(p.poll() is not None for p in procs):
+                    break            # a rank ended early: its error shows below
+                require(time.perf_counter() - waited < 600, "phase 19: sp2's runs did not end")
+                time.sleep(0.2)
+            with open(go4, "w") as fh:
+                fh.write("go")
+            ranks = join_ranks(procs, 900)
+        except BaseException:
+            for p in procs4:
+                p.kill()
+            raise
+        finally:
+            for p in procs:
+                p.kill()
+        summary["sp2_s"] = time.perf_counter() - start
+        ranks = sorted(ranks, key=lambda r: r["seq_rank"])
+        # (b) the halo, exactly: sp2's encode against the oracle on the card
+        errs = [r["halo"]["max_abs_err"] for r in ranks]
+        summary["halo_max_abs_err"] = errs
+        log(f"sp2 encode (18 layers, window {SP_WINDOW}, B 4, T 410) against the one-process "
+            f"oracle on the card: max |err| " + ", ".join(f"{e:.3e}" for e in errs)
+            + f" (tolerance {ENC_TOL}); launches {ranks[0]['halo']['counts']}")
+        require(all(e <= ENC_TOL for e in errs), f"sp2 encode against the oracle: {errs}")
+        # (a) sp2 against one process
+        for name, run in runs.items():
+            for r in ranks:
+                res = r["runs"][name]
+                for i, (got, want) in enumerate(zip(res["steps"], yard[name])):
+                    loss, norm, counts, ms, parts = got
+                    rel = abs(loss - want[0]) / abs(want[0])
+                    rel_n = abs(norm - want[1]) / want[1]
+                    log(f"  sp2 shard {r['seq_rank']} {name} step {i + 1}: loss {loss!r} / one "
+                        f"process {want[0]!r} (rel {rel:.2e}), grad norm {norm:.6f} / "
+                        f"{want[1]:.6f} (rel {rel_n:.2e}); {ms:.2f} ms; halos "
+                        f"{parts['halo'][0]:.2f} ms ({parts['halo'][2]} of "
+                        f"{parts['halo'][1]} bytes in all), gather {parts['gather'][0]:.2f} ms "
+                        f"({parts['gather'][1]} bytes), seq sum {parts['seq_sum'][0]:.2f} ms "
+                        f"({parts['seq_sum'][1]} bytes); launches {counts}")
+                    require(counts == want[2], f"sp2 shard {r['seq_rank']} {name} step {i + 1} "
+                            f"launched {counts}, one process {want[2]}")
+                    require(rel <= LOSS_RTOL or (run.get("compute_dtype") and i),
+                            f"sp2 {name} step {i + 1}: losses differ by {rel:.2e}")
+                    if i == 0:
+                        require(rel_n <= NORM_RTOL, f"sp2 {name} step 1: gradient norms "
+                                f"differ by {rel_n:.2e}")
+                    launches.update(counts)
+            a, b = (r["runs"][name]["steps"] for r in ranks)
+            require(all(x[0] == y[0] and x[1] == y[1] for x, y in zip(a, b)),
+                    f"sp2 {name}: the shards' losses or norms differ")
+        step_ms = {n: [[s[3] for s in r["runs"][n]["steps"]] for r in ranks] for n in runs}
+        parts = {n: [[s[4] for s in r["runs"][n]["steps"]] for r in ranks] for n in runs}
+        summary.update(
+            yardstick={n: [(l, g) for l, g, _ in yard[n]] for n in runs},
+            sp2={n: [r["runs"][n]["steps"] for r in ranks] for n in runs},
+            sp2_peak_gib={n: [r["runs"][n]["peak_gib"] for r in ranks] for n in runs},
+            step_ms=step_ms)
+        for name in runs:
+            log(f"  sp2 {name}: step ms by shard " + "; ".join(
+                ", ".join(f"{ms:.2f}" for ms in per) for per in step_ms[name])
+                + "; halos ms " + "; ".join(", ".join(f"{p['halo'][0]:.2f}" for p in per)
+                                           for per in parts[name])
+                + "; seq sum ms " + "; ".join(", ".join(f"{p['seq_sum'][0]:.2f}" for p in per)
+                                             for per in parts[name])
+                + "; peak above the baseline " + ", ".join(
+                    f"{r['runs'][name]['peak_gib']:.4f}" for r in ranks) + " GiB")
+
+        # (d) the 2-rank CLI's checkpoint: whole, served by one-process predict
+        for r in ranks:
+            cli = r["cli"]
+            launches.update(cli["counts"])
+            require(cli["backend"] == "gloo" and cli["n_seq"] == 2 and cli["n_data"] == 1
+                    and cli["global_step"] == 4 and cli["counts"]["alpha"] > 0
+                    and cli["counts"]["beta"] > 0,
+                    f"shard {r['seq_rank']}: the training entry point ran {cli}")
+        counts, text, cer_line = serve_cli_checkpoint(cfg, job, ranks, device, "sp2")
+        launches.update(counts)
+        log(f"apps/train.py --banded --n_seq 2 over the two ranks (its own "
+            f"{ranks[0]['cli']['backend']} group): 4 steps in "
+            + ", ".join(f"{r['cli']['s']:.1f} s" for r in ranks) + f", {cer_line}; its "
+            f"epoch_0 holds the whole model and moments; one-process apps/predict.py "
+            f"--full-context on it: {len(text)} characters, the text of recognize with its "
+            f"weights; launches {counts}")
+        reset_peak(device)
+
+        # (c) dp2 x sp2 with ZeRO-1, and tp2 x sp2, on four ranks: step 1
+        ranks4 = join_ranks(procs4, 600)
+        summary["grids_s"] = time.perf_counter() - start
+        want = yard["banded"][0]
+        for _, _, named in grids:
+            name = next(iter(named))
+            for r in ranks4:
+                loss, norm, counts, ms, part = r["runs"][name]["steps"][0]
+                rel = abs(loss - want[0]) / abs(want[0])
+                rel_n = abs(norm - want[1]) / want[1]
+                require(counts == want[2], f"{name} rank {r['rank']} launched {counts}")
+                require(rel <= LOSS_RTOL and rel_n <= NORM_RTOL,
+                        f"{name} step 1: loss {rel:.2e}, norm {rel_n:.2e} from one process")
+                launches.update(counts)
+            summary[name] = [r["runs"][name]["steps"][0] for r in ranks4]
+            summary[name + " peak_gib"] = [r["runs"][name]["peak_gib"] for r in ranks4]
+            summary[name + " moment_bytes"] = [r["runs"][name]["moment_bytes"] for r in ranks4]
+            log(f"{name}, four gloo ranks on the one card: step 1's loss and norm within the "
+                f"training bars of one process, launches one process's; step ms "
+                + ", ".join(f"{s[3]:.2f}" for s in summary[name]) + "; seq sum ms "
+                + ", ".join(f"{s[4]['seq_sum'][0]:.2f}" for s in summary[name])
+                + "; moment bytes " + ", ".join(str(b) for b in summary[name + " moment_bytes"])
+                + "; peak above the baseline "
+                + ", ".join(f"{g:.4f}" for g in summary[name + " peak_gib"]) + f" GiB ({smi})")
+        log(f"the four ranks' two grids: ended {summary['grids_s']:.1f} s into the phase")
     return dict(launches), summary
 
 
@@ -6424,6 +6824,29 @@ def main() -> int:
         rec["launches"] += own
     log(f"  phase 18: {pipeline['phase_s']:.1f} s")
     log(json.dumps({"pipeline": pipeline, "phase18_launches": pp_launches}))
+
+    log(f"[{time.perf_counter() - run_start:.1f} s] phase 19")
+    # ---- 19. sequence parallelism (--n_seq 2), alone and on dp2 x sp2, tp2 x sp2
+    start = time.perf_counter()
+    torch.cuda.empty_cache()
+    sp_launches, sequence = check_sequence(cfg, state, batch, device, smi,
+                                           tensor_parallel["one_process"])
+    sequence["phase_s"] = time.perf_counter() - start
+    for rec in records:
+        key = {"banded_attention_fwd": "banded_fwd", "flash_rel_attention_fwd": "flash_fwd",
+               "banded_attention_bwd": "banded_bwd", "flash_rel_attention_bwd": "flash_bwd",
+               "rnnt_alpha": "alpha", "rnnt_beta": "beta", "additive_logz": "logz",
+               "band_alpha": "band_alpha", "band_beta": "band_beta",
+               "flash_rel_attention_fwd_bf16": "flash_fwd_bf16",
+               "flash_rel_attention_bwd_bf16": "flash_bwd_bf16"}[rec["name"]]
+        # the float32 flash rows count their own form's launches (the bf16
+        # forms, also on flash_fwd and flash_bwd, have rows of their own)
+        own = sp_launches.get(key, 0) - (sp_launches.get(f"{key}_bf16", 0)
+                                         if not key.endswith("_bf16") else 0)
+        rec["phase19_launches"] = own
+        rec["launches"] += own
+    log(f"  phase 19: {sequence['phase_s']:.1f} s")
+    log(json.dumps({"sequence": sequence, "phase19_launches": sp_launches}))
 
     log(f"[{time.perf_counter() - run_start:.1f} s] all phases passed")
     log(json.dumps({"kernels": records}))

@@ -405,9 +405,10 @@ def test_dp_gradients_equal_the_one_process_split_mean(native, world2):
 def test_make_mesh_defaults_and_shrinks(world2, caplog):
     """The data axis defaults to the world size; an oversized request
     shrinks to it with JAX's warning (one process here, two in the gloo
-    run); the sequence axis raises (tensor and pipeline parallelism train:
-    tests/test_torch_port_tensor_parallel.py, tests/test_torch_port_pipeline.py),
-    and a pipe axis wider than the world raises JAX's error."""
+    run); a seq or pipe axis wider than the world raises JAX's error
+    (tensor, pipeline and sequence parallelism train:
+    tests/test_torch_port_tensor_parallel.py, tests/test_torch_port_pipeline.py,
+    tests/test_torch_port_sequence.py)."""
     for r in world2:
         assert r[0]["default"] == 2 and r[0]["shrunk"] == 2
         assert any("shrinking the data axis to 2" in w for w in r[0]["warnings"])
@@ -415,7 +416,7 @@ def test_make_mesh_defaults_and_shrinks(world2, caplog):
         assert make_mesh().n_data == 1
         assert make_mesh(n_data=4).n_data == 1
     assert "shrinking the data axis to 1" in caplog.text
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(ValueError, match="model x pipe x seq axes need 2 devices, have 1"):
         make_mesh(n_seq=2)
     with pytest.raises(ValueError, match="model x pipe x seq axes need 2 devices, have 1"):
         make_mesh(n_pipe=2)

@@ -513,7 +513,7 @@ def test_errors_as_jax(what, tmp_path):
     """JAX's checks and messages: layers that do not divide over the
     stages, rows that do not divide into microbatches or microbatches over
     the data axis, ``n_pipe`` with ``n_model`` (composes with the data axis
-    only), ``n_pipe`` with ``n_seq`` (a later slice), an int8 model, train
+    only), ``n_pipe`` with ``n_seq`` (JAX's "pick one"), an int8 model, train
     mode without a dropout generator; the trainer's and the CLI's alike.
     Each raises before any hop."""
     x = torch.from_numpy(_x())
@@ -531,7 +531,7 @@ def test_errors_as_jax(what, tmp_path):
         with pytest.raises(NotImplementedError, match="composes with the data axis only"):
             make_mesh(n_model=2, n_pipe=2)
     elif what == "seq axis":
-        with pytest.raises(NotImplementedError, match="later slice"):
+        with pytest.raises(ValueError, match="pick one"):
             make_mesh(n_pipe=2, n_seq=2)
     elif what == "int8":
         from transformer_transducer_tpu_torch.ops.quant import quantize_modules
@@ -555,5 +555,5 @@ def test_errors_as_jax(what, tmp_path):
         with pytest.raises(err, match=match):
             Trainer(cfg, exp_root=str(tmp_path / "egs"), device="cpu", **kw)
     else:
-        with pytest.raises(NotImplementedError, match="later slice"):
+        with pytest.raises(ValueError, match="pick one"):
             train_app.main(["--device", "cpu", "--n_pipe", "2", "--n_seq", "2"])

@@ -201,24 +201,29 @@ def test_load_model_and_components(corpus, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    # --bf16, --remat and --bf16 --flash train now
-    # (tests/test_torch_port_bf16_training.py), --profile profiles
-    # (tests/test_torch_port_profile.py), and --n_data and --zero train
-    # (tests/test_torch_port_parallel.py), and so do --n_model
-    # (tests/test_torch_port_tensor_parallel.py) and --n_pipe / --pipe-micro
-    # (tests/test_torch_port_pipeline.py): beside them --n_seq still raises
+    # every flag of the JAX entry point trains now: --bf16, --remat and
+    # --bf16 --flash (tests/test_torch_port_bf16_training.py), --profile
+    # (tests/test_torch_port_profile.py), --n_data and --zero
+    # (tests/test_torch_port_parallel.py), --n_model
+    # (tests/test_torch_port_tensor_parallel.py), --n_pipe / --pipe-micro
+    # (tests/test_torch_port_pipeline.py) and --banded --n_seq, over ranks
+    # (tests/test_torch_port_sequence.py).  What stands is JAX's refusals:
+    # --n_seq with --n_pipe (pick one), and without --banded
     ["--n_data", "2", "--n_seq", "2"], ["--n_pipe", "2", "--n_seq", "2"],
     ["--pipe-micro", "2", "--n_seq", "2"], ["--n_seq", "2"]])
 def test_flags_of_later_slices_raise(flag):
-    with pytest.raises(NotImplementedError, match="later slice"):
+    match = "pick one" if "--n_pipe" in flag else "needs banded training"
+    with pytest.raises(ValueError, match=match):
         train_app.main(["--device", "cpu", *flag])
 
 
 @pytest.mark.parametrize("key,value", [("parallel.n_pipe", 2), ("parallel.n_seq", 2)])
 def test_trainer_raises_for_later_slices(corpus, tmp_path, key, value):
-    # parallel.n_pipe trains (tests/test_torch_port_pipeline.py); beside it
-    # and alone, parallel.n_seq still raises
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # parallel.n_seq trains banded (tests/test_torch_port_sequence.py); beside
+    # parallel.n_pipe it raises JAX's "pick one", alone without --banded its
+    # "banded" error
+    match = "pick one" if key == "parallel.n_pipe" else "needs banded training"
+    with pytest.raises(ValueError, match=match):
         Trainer(_cfg(corpus, **{key: value, "parallel.n_seq": 2}), exp_root=str(tmp_path),
                 device="cpu")
 

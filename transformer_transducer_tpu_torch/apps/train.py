@@ -5,12 +5,15 @@
         -config configs/joint_streaming.yaml -log train.log \\
         -mode retrain|continue [--flash | --banded] [--pruned-range N]
         [--bf16] [--remat] [--augment] [--profile DIR] [--device cpu]
-        [--n_data N] [--n_model M | --n_pipe P [--pipe-micro K]] [--zero]
+        [--n_data N] [--n_model M] [--n_pipe P [--pipe-micro K] | --n_seq S]
+        [--zero]
 
     torchrun --nproc_per_node N*M -m transformer_transducer_tpu_torch.apps.train \
         -config ... --n_data N --n_model M [--zero]
     torchrun --nproc_per_node N*P -m transformer_transducer_tpu_torch.apps.train \
         -config ... --n_data N --n_pipe P [--pipe-micro K] [--zero]
+    torchrun --nproc_per_node N*M*S -m transformer_transducer_tpu_torch.apps.train \
+        -config ... --banded --n_data N [--n_model M] --n_seq S [--zero]
 
 ``--flash`` trains the unmasked encoder through the flash rel-attention
 kernels (forward and backward), ``--banded`` under the streaming band
@@ -59,17 +62,21 @@ each step JAX's GPipe schedule over ``--pipe-micro K`` microbatches
 it composes with ``--zero``, ``--flash``, ``--banded``, ``--pruned-range``,
 ``--bf16`` and both families, not with ``--n_model``; ``--remat`` does not
 apply inside the stages, and its checkpoints hold the whole model.
-``--n_seq`` comes in a later slice and raises.
+``--n_seq S`` splits the encoder's time axis into S shards (sequence
+parallelism, JAX's ``seq`` axis; ``parallel/sequence.py``), on a ``(data,
+model, seq)`` grid with ``seq`` minor: each layer exchanges ``left`` and
+``right`` frames with the neighbouring shards.  The native family trains
+the pinned-window banded encoder (``--banded`` is required; ``--set
+parallel.sp_window=W`` pins the window, default the shard plus halos
+rounded up to 64), the espnet family its exact banded encoder; ``--set
+parallel.n_seq=S`` does the same.  It composes with ``--n_model``,
+``--zero``, ``--pruned-range`` and ``--bf16``, not with ``--n_pipe`` (JAX's
+"pick one"); ``--remat`` does not apply inside the shards.
 """
 
 from __future__ import annotations
 
 import argparse
-
-# flags of the JAX entry point whose paths come in later slices of the port
-_LATER = {
-    "n_seq": "sequence parallelism (--n_seq)",
-}
 
 
 def parse_args(argv=None):
@@ -121,7 +128,10 @@ def parse_args(argv=None):
     ap.add_argument("--pipe-micro", type=int, default=None,
                     help="microbatches a pipelined step (default 2 * n_pipe; same as "
                     "--set parallel.pipe_micro=K)")
-    ap.add_argument("--n_seq", type=int, default=None)
+    ap.add_argument("--n_seq", type=int, default=None,
+                    help="sequence-parallel shards of the encoder's time axis for "
+                    "--banded training, with halo exchange a layer (JAX's seq axis; "
+                    "same as --set parallel.n_seq=S)")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="profile the first epoch (torch.profiler) and write "
                     "TensorBoard's *.pt.trace.json to DIR")
@@ -130,10 +140,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    for name, what in _LATER.items():
-        if getattr(args, name) is not None:
-            raise NotImplementedError(f"{what} is ported in a later slice of "
-                                      "the PyTorch port")
     if args.flash and args.banded:
         raise ValueError("pass --flash or --banded, not both")
 
@@ -161,7 +167,7 @@ def main(argv=None):
                       compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
                       remat=args.remat, n_data=args.n_data, zero=args.zero,
                       n_model=args.n_model, n_pipe=args.n_pipe,
-                      pipe_micro=args.pipe_micro)
+                      pipe_micro=args.pipe_micro, n_seq=args.n_seq)
     trainer.logger.info("device: %s", trainer.device)
     trainer.fit(epochs=args.epochs, augment=args.augment, profile_dir=args.profile)
     return trainer

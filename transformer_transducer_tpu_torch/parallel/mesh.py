@@ -1,4 +1,4 @@
-"""The data, model and pipe axes on ``torch.distributed`` (port of
+"""The data, model, pipe and seq axes on ``torch.distributed`` (port of
 ``parallel/mesh.py``).
 
 The JAX package runs one process over an N-device mesh and lets XLA emit
@@ -6,22 +6,27 @@ the collectives.  The port runs N processes, as ``torchrun`` launches them
 (one a card, or several on one card through gloo), and names the
 collectives itself: the gradients' mean (``training/train_step.py``), the
 ZeRO-1 gather (``training/optim.py``), the evaluation's rows, the
-tensor-parallel sums (``parallel/tensor.py``) and the pipeline's hops
-(``parallel/pipeline.py``).  With no process group the world size is 1 and
+tensor-parallel sums (``parallel/tensor.py``), the pipeline's hops
+(``parallel/pipeline.py``) and the sequence shards' halos and gather
+(``parallel/sequence.py``).  With no process group the world size is 1 and
 no collective is called.
 
-The ranks form JAX's ``(data, model, pipe)`` grid: ``np.asarray(devices)
-.reshape(n_data, n_model, n_pipe)`` puts ``pipe`` minor, then ``model``, so
-world rank ``r`` sits at data index ``r // (n_model * n_pipe)``, model
-index ``r // n_pipe % n_model`` and pipe index ``r % n_pipe``.  The pipe
-axis composes with the data axis only (``n_model`` 1 when ``n_pipe`` > 1,
-as in JAX).  The ranks of one data index form a model group (they hold the
-shards of one replica) or a pipe group (the stages of one replica's
-encoder); either takes the same rows.  The ranks of one model and pipe
-index form a data group: they hold the same shards or stage and average
-their gradients.  Adjacent stages of a pipe group share a two-rank link
-group, over which a hop is a broadcast.  The ``seq`` axis (sequence
-parallelism) comes in a later slice and raises here.
+The ranks form JAX's ``(data, model, pipe, seq)`` grid: ``np.asarray(
+devices).reshape(n_data, n_model, n_pipe, n_seq)`` puts ``seq`` minor,
+then ``pipe``, then ``model``, so world rank ``r`` sits at data index
+``r // (n_model * n_pipe * n_seq)``, model index ``r // (n_pipe * n_seq)
+% n_model``, pipe index ``r // n_seq % n_pipe`` and seq index ``r %
+n_seq``.  The pipe axis composes with the data axis only (``n_model`` 1
+when ``n_pipe`` > 1, as in JAX), and the pipe and seq axes both split the
+encoder, so one of them is 1 ("pick one", JAX's ``make_loss_fn``).  The
+ranks of one data index take the same rows and form model groups (the
+shards of one replica, one a pipe and seq index), a pipe group (the stages
+of one replica's encoder) or seq groups (the time shards of one replica's
+encoder, one a model index).  The ranks of one model, pipe and seq index
+form a data group: they hold the same shards, stage or time shard and
+average their gradients.  Adjacent stages of a pipe group, and adjacent
+shards of a seq group, share a two-rank link group, over which a hop or a
+halo is a broadcast.
 """
 
 from __future__ import annotations
@@ -38,13 +43,9 @@ import torch.distributed as dist
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 PIPE_AXIS = "pipe"
+SEQ_AXIS = "seq"
 
 _log = logging.getLogger("transformer_transducer_tpu")
-
-
-def later(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is ported in a later slice of the "
-                               "PyTorch port")
 
 
 def world_size() -> int:
@@ -90,14 +91,15 @@ def local_device(device=None) -> Optional[str]:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This process's place on the ``(data, model, pipe)`` grid: its
+    """This process's place on the ``(data, model, pipe, seq)`` grid: its
     indices on the axes and its groups (None: the default group, when one
     axis spans the whole world, or no group at all).  ``pipe_ranks`` are
     the world ranks of this rank's pipe group in stage order, and
     ``prev_link`` / ``next_link`` the two-rank groups it shares with the
-    stage before and after it (None at the ends).  A rank past the grid
-    (``data_rank >= n_data``) is left unused, as JAX leaves a pool's
-    remainder devices."""
+    stage before and after it (None at the ends); ``seq_ranks``,
+    ``prev_seq_link`` and ``next_seq_link`` are the same for its seq group.
+    A rank past the grid (``data_rank >= n_data``) is left unused, as JAX
+    leaves a pool's remainder devices."""
 
     n_data: int = 1
     data_rank: int = 0
@@ -111,6 +113,12 @@ class Mesh:
     pipe_ranks: Tuple[int, ...] = (0,)
     prev_link: Any = None
     next_link: Any = None
+    n_seq: int = 1
+    seq_rank: int = 0
+    seq_group: Any = None
+    seq_ranks: Tuple[int, ...] = (0,)
+    prev_seq_link: Any = None
+    next_seq_link: Any = None
 
     def __deepcopy__(self, memo):
         return self          # immutable; a copied model shares the groups
@@ -120,6 +128,8 @@ class Mesh:
         shape = {DATA_AXIS: self.n_data, MODEL_AXIS: self.n_model}
         if self.n_pipe > 1:
             shape[PIPE_AXIS] = self.n_pipe
+        if self.n_seq > 1:
+            shape[SEQ_AXIS] = self.n_seq
         return shape
 
     @property
@@ -129,7 +139,7 @@ class Mesh:
     @property
     def is_main(self) -> bool:
         """The grid's first rank, which writes logs and checkpoints."""
-        return self.data_rank == 0 and self.model_rank == 0 and self.pipe_rank == 0
+        return not (self.data_rank or self.model_rank or self.pipe_rank or self.seq_rank)
 
     @property
     def parallel(self) -> bool:
@@ -149,6 +159,12 @@ class Mesh:
         return self.n_pipe > 1
 
     @property
+    def sequence_parallel(self) -> bool:
+        """Whether the encoder's time axis runs in shards over a seq
+        group."""
+        return self.n_seq > 1
+
+    @property
     def first_stage(self) -> bool:
         return self.pipe_rank == 0
 
@@ -159,30 +175,39 @@ class Mesh:
     @property
     def data_root(self) -> int:
         """The world rank of data index 0 in this rank's data group."""
-        return self.model_rank * self.n_pipe + self.pipe_rank
+        return (self.model_rank * self.n_pipe + self.pipe_rank) * self.n_seq + self.seq_rank
+
+
+def _chain(ranks, group):
+    """The two-rank link groups between adjacent ``ranks`` (a collective:
+    every rank calls it); with two ranks, ``group`` (theirs) is the link."""
+    if len(ranks) == 2:
+        return [group]
+    return [dist.new_group(ranks[i:i + 2]) for i in range(len(ranks) - 1)]
 
 
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1, *,
               n_pipe: int = 1, n_seq: int = 1) -> Mesh:
-    """The ``(data, model, pipe)`` grid over the default group's ranks.
+    """The ``(data, model, pipe, seq)`` grid over the default group's ranks.
 
-    ``n_model`` and ``n_pipe`` are never shrunk (they set the parameters'
-    layout): a world smaller than their product raises JAX's
-    ``ValueError``.  ``n_data`` defaults to the world over them; an
-    oversized request shrinks to the largest fit with JAX's warning (the
-    remainder ranks unused).  ``n_pipe`` with ``n_model`` raises, as in
-    JAX; ``n_seq`` above 1 raises: its path comes in a later slice.  Every
-    rank makes every group, in the same order (``new_group`` is
-    collective): one model group a data index, one pipe group a data
-    index, the links between adjacent stages, then one data group a model
-    and pipe index."""
-    if (n_seq or 1) > 1:
-        raise later("sequence parallelism (n_seq)")
-    n_model, n_pipe = int(n_model or 1), int(n_pipe or 1)
+    ``n_model``, ``n_pipe`` and ``n_seq`` are never shrunk (they set the
+    parameters' or the activations' layout): a world smaller than their
+    product raises JAX's ``ValueError``.  ``n_data`` defaults to the world
+    over them; an oversized request shrinks to the largest fit with JAX's
+    warning (the remainder ranks unused).  ``n_pipe`` with ``n_model``
+    raises, as in JAX; ``n_pipe`` with ``n_seq`` raises JAX's "pick one"
+    (both split the encoder).  Every rank makes every group, in the same
+    order (``new_group`` is collective): one model group a data, pipe and
+    seq index, one pipe group a data index and the links between adjacent
+    stages, one seq group a data and model index and the links between
+    adjacent shards, then one data group a model, pipe and seq index."""
+    n_model, n_pipe, n_seq = int(n_model or 1), int(n_pipe or 1), int(n_seq or 1)
+    if n_pipe > 1 and n_seq > 1:
+        raise ValueError("n_pipe and n_seq both split the encoder; pick one")
     if n_pipe > 1 and n_model > 1:
         raise NotImplementedError("pipeline parallelism composes with the data "
                                   "axis only; set n_model=1 when n_pipe>1")
-    fixed = n_model * n_pipe
+    fixed = n_model * n_pipe * n_seq
     world = world_size()
     if world < fixed:
         raise ValueError(f"model x pipe x seq axes need {fixed} devices, "
@@ -199,47 +224,61 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1, *,
     n_data = int(n_data)
     rank = world_rank()
     data_rank, rest = divmod(rank, fixed)
-    model_rank, pipe_rank = divmod(rest, n_pipe)
-    grid = np.arange(n_data * fixed).reshape(n_data, n_model, n_pipe)
-    model_group = data_group = pipe_group = prev_link = next_link = None
+    model_rank, rest = divmod(rest, n_pipe * n_seq)
+    pipe_rank, seq_rank = divmod(rest, n_seq)
+    grid = np.arange(n_data * fixed).reshape(n_data, n_model, n_pipe, n_seq)
+    model_group = data_group = pipe_group = seq_group = None
+    prev_link = next_link = prev_seq_link = next_seq_link = None
     if n_model > 1:
         for d in range(n_data):
-            group = dist.new_group(grid[d, :, 0].tolist())
-            if d == data_rank:
-                model_group = group
-    pipe_ranks = (rank,)
+            for s in range(n_seq):
+                group = dist.new_group(grid[d, :, 0, s].tolist())
+                if (d, s) == (data_rank, seq_rank):
+                    model_group = group
+    pipe_ranks = seq_ranks = (rank,)
     if n_pipe > 1:
         for d in range(n_data):
-            ranks = grid[d, 0].tolist()
+            ranks = grid[d, 0, :, 0].tolist()
             group = dist.new_group(ranks)
-            # two stages: the pipe group is the one link
-            links = ([group] if n_pipe == 2 else
-                     [dist.new_group(ranks[s:s + 2]) for s in range(n_pipe - 1)])
+            links = _chain(ranks, group)
             if d == data_rank:
                 pipe_group, pipe_ranks = group, tuple(ranks)
                 prev_link = links[pipe_rank - 1] if pipe_rank > 0 else None
                 next_link = links[pipe_rank] if pipe_rank < n_pipe - 1 else None
+    if n_seq > 1:
+        for d in range(n_data):
+            for m in range(n_model):
+                ranks = grid[d, m, 0].tolist()
+                group = dist.new_group(ranks)
+                links = _chain(ranks, group)
+                if (d, m) == (data_rank, model_rank):
+                    seq_group, seq_ranks = group, tuple(ranks)
+                    prev_seq_link = links[seq_rank - 1] if seq_rank > 0 else None
+                    next_seq_link = links[seq_rank] if seq_rank < n_seq - 1 else None
     # the data axis spans the default group only with no other axis and no
     # rank left over
     if n_data > 1 and (fixed > 1 or n_data < world):
         for m in range(n_model):
             for p in range(n_pipe):
-                group = dist.new_group(grid[:, m, p].tolist())
-                if (m, p) == (model_rank, pipe_rank) and data_rank < n_data:
-                    data_group = group
+                for s in range(n_seq):
+                    group = dist.new_group(grid[:, m, p, s].tolist())
+                    if (m, p, s) == (model_rank, pipe_rank, seq_rank) and data_rank < n_data:
+                        data_group = group
     return Mesh(n_data=n_data, data_rank=data_rank, data_group=data_group,
                 n_model=n_model, model_rank=model_rank, model_group=model_group,
                 n_pipe=n_pipe, pipe_rank=pipe_rank, pipe_group=pipe_group,
-                pipe_ranks=pipe_ranks, prev_link=prev_link, next_link=next_link)
+                pipe_ranks=pipe_ranks, prev_link=prev_link, next_link=next_link,
+                n_seq=n_seq, seq_rank=seq_rank, seq_group=seq_group, seq_ranks=seq_ranks,
+                prev_seq_link=prev_seq_link, next_seq_link=next_seq_link)
 
 
 def default_n_data(batch: int, n_model: int = 1, n_pipe: int = 1, pipe_micro: int = 0,
-                   world: Optional[int] = None) -> int:
+                   world: Optional[int] = None, n_seq: int = 1) -> int:
     """JAX's default data axis (``training/trainer.py:146-151``): the
     largest that divides the batch, and with a pipe axis its microbatch
     (``batch / pipe_micro``), at most the world over the other axes."""
     world = world_size() if world is None else world
-    avail = max(world // (n_model * n_pipe), 1)
+    avail = max(world // (n_model * n_pipe * n_seq), 1)
     per_micro = batch // (pipe_micro or 2 * n_pipe) if n_pipe > 1 else batch
     return max(d for d in range(1, avail + 1) if batch % d == 0 and per_micro % d == 0)
 
@@ -247,8 +286,8 @@ def default_n_data(batch: int, n_model: int = 1, n_pipe: int = 1, pipe_micro: in
 def shard_batch(batch: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
     """This rank's rows of a global batch (numpy arrays or tensors with a
     leading batch axis): data index r keeps ``r*B/n : (r+1)*B/n``, the rows
-    that ``P('data')`` gives JAX's devices of data index r; the ranks of a
-    model group take the same rows."""
+    that ``P('data')`` gives JAX's devices of data index r; the ranks of
+    one data index (its model, pipe and seq groups) take the same rows."""
     if not mesh.parallel:
         return batch
     out = {}
@@ -290,6 +329,14 @@ def sum_over_pipe_(tensors: Sequence[torch.Tensor], mesh: Mesh) -> None:
     if not mesh.pipelined or not tensors:
         return
     _all_reduce_(tensors, mesh.pipe_group)
+
+
+def sum_over_seq_(tensors: Sequence[torch.Tensor], mesh: Mesh) -> None:
+    """Sum ``tensors`` over the seq group in place, in one all-reduce of
+    their concatenation."""
+    if not mesh.sequence_parallel or not tensors:
+        return
+    _all_reduce_(tensors, mesh.seq_group)
 
 
 def gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:

@@ -45,6 +45,20 @@ guard, whose decision is the pipe group's.  JAX's microbatches are
 contiguous rows of the global batch split over the data axis, so its data
 ranks take other rows than the port's; only the rounding of the mean can
 tell the two apart.
+
+Sequence parallelism (a mesh with a seq axis, JAX's ``:125-172``): every
+seq rank of a data index takes the same rows and SpecAugment stripes;
+the audio encoder runs time-sharded with halo exchange
+(``parallel/sequence.py``: the native family's pinned-window banded
+encoder of ``sp_window`` rows, the espnet family's exact banded encoder),
+and :func:`~parallel.sequence.gather_seq` gives every seq rank the whole
+encoding, on which it runs the label encoder, the joint and the loss.  The
+gradients of the leaves whose forward on a rank saw only its rows (the
+encoder's layers, and the espnet input layer, whose output each rank
+slices) are summed over the seq group in one all-reduce; the others (the
+label encoder, the joint, espnet's ``after_norm``) are already whole on
+every seq rank.  Then come the data mean, the whole model's norm and the
+update, as above; the loss is every seq rank's alike.
 """
 
 from __future__ import annotations
@@ -61,9 +75,11 @@ from transformer_transducer_tpu_torch.ops.rnnt_loss import rnnt_loss_fused
 from transformer_transducer_tpu_torch.ops.rnnt_loss_pruned import rnnt_loss_pruned
 from transformer_transducer_tpu_torch.ops.specaug import spec_augment
 from transformer_transducer_tpu_torch.parallel.mesh import (
-    Mesh, all_reduce_mean_, gather_rows, shard_batch, sum_over_pipe_)
+    Mesh, all_reduce_mean_, gather_rows, shard_batch, sum_over_pipe_, sum_over_seq_)
 from transformer_transducer_tpu_torch.parallel.pipeline import (
     Pipeline, broadcast_from_last, is_espnet)
+from transformer_transducer_tpu_torch.parallel.sequence import (
+    encode_banded_sp, encode_banded_sp_espnet)
 from transformer_transducer_tpu_torch.parallel.tensor import tensor_parallel
 from transformer_transducer_tpu_torch.training.optim import Optimizer, global_norm
 
@@ -97,6 +113,9 @@ class TrainStepConfig:
     # microbatches of the pipeline schedule on a mesh with a pipe axis
     # (0: 2 * n_pipe); the bubble is (n_pipe - 1) / (pipe_micro + n_pipe - 1)
     pipe_micro: int = 0
+    # the pinned window of the native family's sequence-parallel encoder on
+    # a mesh with a seq axis (0: parallel/sequence.py::pinned_window_len)
+    sp_window: int = 0
 
 
 def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -172,6 +191,45 @@ def make_loss_fn(model, cfg: TrainStepConfig, reduction: str = "mean") -> Callab
     return loss_fn
 
 
+def make_seq_loss_fn(model, cfg: TrainStepConfig, mesh: Mesh,
+                     generator: Optional[torch.Generator] = None,
+                     reduction: str = "mean") -> Callable:
+    """:func:`make_loss_fn`'s ``loss_fn`` with the audio encoder sharded
+    over the mesh's seq group (``parallel/sequence.py``; ``generator``:
+    the encoder layers' dropout seeds, required in train mode).  The
+    native family must train banded (JAX's check)."""
+    espnet = is_espnet(model)
+    if not espnet and model.band is None:
+        raise ValueError("sequence parallelism needs banded training "
+                         "(--banded / model.enc.left_context+right_context)")
+    window = cfg.sp_window or None
+
+    def loss_fn(batch: Dict[str, torch.Tensor], gen: Optional[torch.Generator],
+                train: bool = True) -> torch.Tensor:
+        inputs, t_len = featurize(batch, cfg.frontend)
+        if train and cfg.specaug:
+            inputs = spec_augment(gen, inputs, cfg.max_mask_time,
+                                  cfg.max_mask_frequency, cfg.mask_num)
+        dropout = generator if train else None
+        if espnet:
+            enc, _ = encode_banded_sp_espnet(model, inputs, t_len, mesh, window, dropout)
+            t_len = model.encoded_lengths(t_len, inputs.shape[1])
+        else:
+            enc = encode_banded_sp(model, inputs, mesh, *model.band, window, dropout)
+        dec = model.encode_labels(batch["targets"], batch["targets_length"])
+        return states_loss(model, cfg, enc, dec, batch, t_len, reduction)
+    return loss_fn
+
+
+def seq_summed(model, params) -> list:
+    """For each of ``params``, whether its gradient is summed over the seq
+    group: the audio encoder's leaves, but espnet's ``after_norm``."""
+    keep = {id(p) for p in model.encoder.parameters()}
+    if is_espnet(model):
+        keep -= {id(p) for p in model.encoder.after_norm.parameters()}
+    return [id(p) in keep for p in params]
+
+
 def pipelined_loss(model, cfg: TrainStepConfig, mesh: Mesh, n_micro: int,
                    batch: Dict[str, torch.Tensor], gen: Optional[torch.Generator],
                    dropout: Optional[torch.Generator], train: bool,
@@ -212,12 +270,22 @@ def make_train_step(model, optimizer: Optimizer,
     ``batch`` is this rank's shard (``parallel/mesh.py::shard_batch``) and
     the gradients and the loss are the data ranks' means.  A mesh with a
     pipe axis trains through :func:`make_pipelined_train_step`
-    (``generator``: its dropout generator)."""
+    (``generator``: its dropout generator); a mesh with a seq axis through
+    :func:`make_seq_loss_fn` (``generator``: the encoder layers' dropout
+    seeds; default, one seeded by the data index) and the seq group's sum of
+    the encoder's gradients."""
     cfg = cfg or TrainStepConfig()
     if mesh is not None and mesh.pipelined:
         return make_pipelined_train_step(model, optimizer, cfg, mesh,
                                          cfg.pipe_micro or 2 * mesh.n_pipe, generator)
-    loss_fn = make_loss_fn(model, cfg)
+    summed = None
+    if mesh is not None and mesh.sequence_parallel:
+        if generator is None:
+            generator = torch.Generator().manual_seed(mesh.data_rank)
+        loss_fn = make_seq_loss_fn(model, cfg, mesh, generator)
+        summed = seq_summed(model, optimizer.params)
+    else:
+        loss_fn = make_loss_fn(model, cfg)
     parallel = mesh is not None and mesh.parallel
 
     def step(batch: Dict[str, torch.Tensor], gen: Optional[torch.Generator]):
@@ -228,6 +296,9 @@ def make_train_step(model, optimizer: Optimizer,
         loss.backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in optimizer.params]
+        if summed is not None:
+            # the leaves whose forward saw only this rank's frames
+            sum_over_seq_([g for g, s in zip(grads, summed) if s], mesh)
         if parallel:
             loss = loss.detach().clone()
             all_reduce_mean_([*grads, loss], mesh)
@@ -310,7 +381,10 @@ def make_eval_loss_step(model, cfg: Optional[TrainStepConfig] = None,
     pipe axis the encoder runs through the stages and the last stage's
     losses go to every stage."""
     cfg = dataclasses.replace(cfg or TrainStepConfig(), loss_pruned_range=None)
-    loss_fn = make_loss_fn(model, cfg, reduction="none")
+    if mesh is not None and mesh.sequence_parallel:
+        loss_fn = make_seq_loss_fn(model, cfg, mesh, reduction="none")
+    else:
+        loss_fn = make_loss_fn(model, cfg, reduction="none")
 
     @torch.no_grad()
     def eval_step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:

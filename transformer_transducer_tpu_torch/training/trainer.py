@@ -83,8 +83,25 @@ inside the schedule).  Checkpoints hold the whole model and moments in the
 per-layer layout (gathered over the pipe group), so a pipelined run
 continues in one process and the other way round.  The evaluation runs
 the encoder through the pipeline; every stage gets its states and decodes
-its data rank's rows.  The JAX package's sequence parallelism comes in a
-later slice and raises ``NotImplementedError`` here.
+its data rank's rows.
+
+Sequence parallelism (``n_seq``, or the config's ``parallel.n_seq`` /
+``parallel.sp_window``; the argument wins; JAX's ``seq`` axis): the world
+is a ``(data, model, seq)`` grid and each step runs the audio encoder in
+``n_seq`` time shards with halo exchange (``parallel/sequence.py``,
+``training/train_step.py``): the native family's pinned-window banded
+encoder (``sp_window`` rows, default the shard plus halos rounded up to
+64), the espnet family's exact banded one.  JAX's checks: ``n_pipe`` with
+``n_seq`` raises "pick one"; the native family must train ``--banded``, the
+espnet family needs a finite band; the model-rate ``max_input_length``
+(after an espnet conv input layer) must divide over the shards, and a shard
+must cover the band's halo.  ``n_data`` defaults to the largest divisor of
+the batch at most the world over ``n_model * n_seq``.  The window layers
+are not recomputed (JAX builds them without remat); their dropout draws
+from the data index's generator, the shard and the layer in the seed.  The
+parameters are whole on every seq rank, so checkpoints need no gather for
+the axis, and the evaluation decodes the data rank's rows through the
+one-process encoder, as JAX's does; its loss runs sharded.
 """
 
 from __future__ import annotations
@@ -101,7 +118,8 @@ import torch.distributed as dist
 from transformer_transducer_tpu_torch.data.dataset import AudioDataset
 from transformer_transducer_tpu_torch.data.loader import DataLoader
 from transformer_transducer_tpu_torch.decoding.greedy import greedy_decode, tokens_to_lists
-from transformer_transducer_tpu_torch.models.espnet_variant import EspnetTransducer
+from transformer_transducer_tpu_torch.models.espnet_variant import (
+    _CONV_STACKS, EspnetTransducer)
 from transformer_transducer_tpu_torch.models.factory import build_family
 from transformer_transducer_tpu_torch.parallel import mesh as mesh_lib
 from transformer_transducer_tpu_torch.parallel.sharding import (
@@ -109,6 +127,7 @@ from transformer_transducer_tpu_torch.parallel.sharding import (
     shard_model, tp_plan, zero_param_shardings)
 from transformer_transducer_tpu_torch.parallel.pipeline import (
     encode_for_decoding as encode_pipelined_for_decoding, encoder_layers)
+from transformer_transducer_tpu_torch.parallel.sequence import pinned_window_len
 from transformer_transducer_tpu_torch.training import optim as optim_lib
 from transformer_transducer_tpu_torch.training.train_step import (
     TrainStepConfig, batch_to_device, featurize, frame_lengths, make_eval_loss_step,
@@ -129,11 +148,9 @@ class Trainer:
                  compute_dtype: torch.dtype = torch.float32, remat: bool = False,
                  n_data: Optional[int] = None, zero: Optional[bool] = None,
                  n_model: int = 1, n_pipe: Optional[int] = None,
-                 pipe_micro: Optional[int] = None):
+                 pipe_micro: Optional[int] = None, n_seq: Optional[int] = None):
         self.device = resolve_device(mesh_lib.local_device(device))
         pcfg = config.parallel or Config()
-        if (pcfg.n_seq or 1) > 1:
-            raise mesh_lib.later("sequence parallelism (parallel.n_seq)")
         # parallel.zero (the argument wins): ZeRO-1, the optimizer's moments
         # split over the data ranks
         self.zero = bool(zero if zero is not None else pcfg.zero)
@@ -142,8 +159,16 @@ class Trainer:
         self.n_pipe = int(n_pipe if n_pipe is not None else (pcfg.n_pipe or 1))
         self.pipe_micro = int(pipe_micro if pipe_micro is not None
                               else (pcfg.pipe_micro or 0)) or 2 * self.n_pipe
+        # parallel.n_seq / parallel.sp_window (the argument wins): the
+        # encoder's time axis in shards, windows of sp_window rows
+        self.n_seq = int(n_seq if n_seq is not None else (pcfg.n_seq or 1))
+        self.sp_window = int(pcfg.sp_window or 0)
         batch = config.data.batch_size or 1
         n_model = int(n_model or 1)
+        if self.n_pipe > 1 and self.n_seq > 1:
+            raise ValueError("n_pipe and n_seq both split the encoder; pick one")
+        if self.n_seq > 1:
+            t_seq, band = self._check_seq(config, banded)
         if self.n_pipe > 1:
             # JAX's checks (training/trainer.py:100-110); an espnet-schema
             # config (model.mask) counts its encoder blocks in num_blocks
@@ -159,8 +184,10 @@ class Trainer:
                 raise ValueError(f"batch_size={batch} must divide into "
                                  f"{self.pipe_micro} microbatches (parallel.pipe_micro)")
         if n_data is None:
-            n_data = mesh_lib.default_n_data(batch, n_model, self.n_pipe, self.pipe_micro)
-        self.mesh = mesh_lib.make_mesh(n_data=n_data, n_model=n_model, n_pipe=self.n_pipe)
+            n_data = mesh_lib.default_n_data(batch, n_model, self.n_pipe, self.pipe_micro,
+                                             n_seq=self.n_seq)
+        self.mesh = mesh_lib.make_mesh(n_data=n_data, n_model=n_model, n_pipe=self.n_pipe,
+                                       n_seq=self.n_seq)
         if batch % self.mesh.n_data:
             raise ValueError(f"data.batch_size={batch} must divide over "
                              f"{self.mesh.n_data} data ranks")
@@ -195,8 +222,8 @@ class Trainer:
                                   compute_dtype=compute_dtype).train()
         self._spread_dropout(seed)
         self.is_espnet = isinstance(self.model, EspnetTransducer)
-        # the stages' dropout: seeded by the data index (the stage enters in
-        # the schedule)
+        # the stages' or the sequence shards' dropout: seeded by the data
+        # index (the stage, or the shard and the layer, enter in the seed)
         self.pipe_gen = torch.Generator().manual_seed(self._pipe_seed(seed, 0))
         if self.is_espnet and (flash or banded):
             self.logger.info("--flash/--banded select the native family's "
@@ -207,10 +234,13 @@ class Trainer:
         if self.n_pipe > 1 and remat and not self.is_espnet:
             self.logger.info("--remat does not apply inside pipeline stages (JAX's "
                              "stage layers keep flash and the compute dtype, not remat)")
+        if self.n_seq > 1 and remat and not self.is_espnet:
+            self.logger.info("--remat does not apply inside sequence shards (JAX builds "
+                             "its window layers without remat)")
         self.logger.info("compute dtype %s over float32 parameters; encoder "
                          "remat %s", str(compute_dtype).replace("torch.", ""),
                          "on" if remat and not self.is_espnet and self.n_pipe == 1
-                         else "off")
+                         and self.n_seq == 1 else "off")
         n_total = sum(p.numel() for p in self.model.parameters())
         n_enc = sum(p.numel() for p in self.model.encoder.parameters())
         n_dec = sum(p.numel() for p in self.model.decoder.parameters())
@@ -230,6 +260,12 @@ class Trainer:
                              self.pipe_micro,
                              (self.n_pipe - 1) / (self.pipe_micro + self.n_pipe - 1),
                              sum(p.numel() for p in self.model.parameters()))
+
+        if self.n_seq > 1:
+            shard = t_seq // self.n_seq
+            self.logger.info("Sequence: %d shards of %d frames, band %s, windows of %d rows",
+                             self.n_seq, shard, band,
+                             self.sp_window or pinned_window_len(band[0], shard, band[1]))
 
         # training.grad_accum_steps: the mean of K batches' gradients per
         # update (optax MultiSteps).  global_step (and --save-steps and the
@@ -283,7 +319,8 @@ class Trainer:
             else None,
             loss_simple_scale=0.25 if tcfg.loss_simple_scale is None
             else float(tcfg.loss_simple_scale),
-            nan_guard=bool(tcfg.nan_guard), pipe_micro=self.pipe_micro)
+            nan_guard=bool(tcfg.nan_guard), pipe_micro=self.pipe_micro,
+            sp_window=self.sp_window)
         self.max_skipped_steps = int(tcfg.max_skipped_steps or 25)
         self._consecutive_skips = 0
         self.total_skips = 0
@@ -296,9 +333,40 @@ class Trainer:
                                                   mesh=self.mesh)
 
     # ------------------------------------------------------------------
+    def _check_seq(self, config: Config, banded: bool):
+        """JAX's checks of a sequence-parallel run (``training/trainer.py:
+        111-141``), on the config; returns ``(model-rate t_max, band)``."""
+        mcfg = config.model
+        if mcfg.mask is not None:
+            # the espnet band comes from the mask block; the shards split the
+            # model-rate time axis (after a conv input layer's subsampling)
+            band = (mcfg.mask.encoder_left_mask, mcfg.mask.encoder_right_mask)
+            if min(band) < 0:
+                raise ValueError("parallel.n_seq needs a finite espnet band "
+                                 "(model.mask.encoder_*_mask >= 0)")
+            t_max = config.data.max_input_length or 0
+            for k, s in _CONV_STACKS.get(mcfg.enc.input_layer, ()):
+                t_max = (t_max - k) // s + 1
+        elif not banded:
+            raise ValueError("parallel.n_seq needs banded training "
+                             "(--banded, or the espnet mask block)")
+        else:
+            band = (mcfg.enc.left_context, mcfg.enc.right_context)
+            if None in band:
+                raise ValueError("banded training needs model.enc.left_context "
+                                 "and right_context")
+            t_max = config.data.max_input_length or 0
+        if t_max % self.n_seq:
+            raise ValueError(f"model-rate max length {t_max} must divide over "
+                             f"{self.n_seq} sequence shards (adjust data.max_input_length)")
+        if t_max // self.n_seq < max(band):
+            raise ValueError(f"sequence shard {t_max // self.n_seq} must cover the "
+                             f"band halo {band}")
+        return t_max, band
+
     def _pipe_seed(self, seed: int, step: int) -> int:
-        """The stages' dropout generator's seed: the data index's, moving on
-        with the step (on a resume)."""
+        """The stages' (or the sequence shards') dropout generator's seed:
+        the data index's, moving on with the step (on a resume)."""
         return 1_000_003 * seed + step * self.mesh.n_data + self.mesh.data_rank
 
     def _rng_state(self):
